@@ -5,10 +5,13 @@ Counterpart of the JAX package's `__graft_entry__._flagship_cfg` and
 relations, the AST encoder, 5 token heads over 5002 words, a max pool over
 the final nodes, bf16 compute (reference defaults of scripts/ogb_tok.sh).
 The port runs it on the direction-merged wavefront with the CUDA row
-kernels (segment_impl="fused").
+kernels, or with a pair plan on the pair-scheduled wavefront with the CUDA
+pair kernels (segment_impl="fused").
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 from dagnn_tpu_torch.dag.batch import PadConfig
 from dagnn_tpu_torch.nn.dagnn import DAGNNConfig
@@ -34,10 +37,17 @@ def flagship_cfg(emb: int = 300, hidden: int = 300, vocab: int = VOCAB,
 
 
 def pad_for(graphs, chunk: int = 256, edge_budget: int = 512,
-            stagger: int = 2) -> PadConfig:
+            stagger: int = 2, pair: int = 0) -> PadConfig:
     """Bucket config: exact batch statistics at a fixed scan-row chunk
     width, stagger (critical-path) packing on, edge-heavy levels split
-    into extra rows of about edge_budget edges. (The JAX package's
+    into extra rows of about edge_budget edges. pair > 0 adds a pair plan
+    (PadConfig.pair; 2 is the JAX bench's default, the pair-affine row
+    packer) and rounds max_levels up to even, as a pair plan needs (the
+    JAX bench does the same, bench.py:146-152). (The JAX package's
     n_shards headroom waits for the port's data-parallel path.)"""
-    return PadConfig.for_graphs(graphs, chunk_size=chunk,
-                                edge_budget=edge_budget, stagger=stagger)
+    pad = PadConfig.for_graphs(graphs, chunk_size=chunk,
+                               edge_budget=edge_budget, stagger=stagger)
+    if pair:
+        pad = dataclasses.replace(pad, pair=pair,
+                                  max_levels=pad.max_levels + pad.max_levels % 2)
+    return pad

@@ -1,11 +1,15 @@
-"""Canonical DAGNN on the direction-merged wavefront.
+"""Canonical DAGNN on the direction-merged and the pair-scheduled wavefront.
 
 Counterpart of dagnn_tpu/nn/dagnn.py for the slice the port runs today:
 the bidirectional, additive-attention (`attn_*`), GRU-stack configuration
 with the slot-space readout — the flagship TOK model. Both direction
 passes run in one wavefront whose rows are the concat [fwd block | rev
-block]; each row is one call of the row kernels (ops/row_step.py, K1
-forward, K2 backward), driven by a torch.autograd.Function.
+block]. A batch collated without a pair plan runs the merged wavefront:
+each row is one call of the row kernels (ops/row_step.py, K1 forward, K2
+backward). A batch with a pair plan (dag/pair.py) runs the pair-scheduled
+wavefront, as the JAX package does: each pair of rows is one call of the
+pair kernels (ops/pair_step.py, K3 forward, K4 backward). Both are driven
+by one torch.autograd.Function and write the same state-buffer layout.
 
 Any other configuration raises NotImplementedError naming its ROADMAP
 item; nothing falls back to another path.
@@ -27,7 +31,7 @@ from dagnn_tpu_torch.convert import flatten_tree
 from dagnn_tpu_torch.dag.batch import DAGBatch
 from dagnn_tpu_torch.nn.aggregators import AggregatorSpec, aggregator_init
 from dagnn_tpu_torch.nn.encoders import EncoderSpec, encoder_init, encode
-from dagnn_tpu_torch.ops import row_step
+from dagnn_tpu_torch.ops import pair_step, row_step
 from dagnn_tpu_torch.ops.gru import gru_init
 from dagnn_tpu_torch.ops.linear import linear, linear_init
 
@@ -203,10 +207,6 @@ def _require_slice(cfg: DAGNNConfig, batch: DAGBatch):
         raise NotImplementedError(
             "out_pool_all (node-space readout) is not ported yet: ROADMAP "
             "queue 1, the rest of the DAGNN config surface")
-    if getattr(batch, "pair", None) is not None:
-        raise NotImplementedError(
-            "pair-scheduled wavefront (K3/K4, dag/pair.py) is not ported "
-            "yet: ROADMAP queue 2, slice 2 — collate with pair=0")
     if batch.fwd.edge_nsrc is not None or batch.rev.edge_nsrc is not None:
         raise NotImplementedError(
             "near/far layouts (K7) are not ported yet: ROADMAP queue 2")
@@ -276,15 +276,17 @@ def _build_streams_merged(cfg: DAGNNConfig, x, edge_attr, sf, sr, dev):
     return fxs, ixs, (L, 2 * kn)
 
 
-class RowImpl(NamedTuple):
-    """The pair of row functions a wavefront runs: the wrappers (default)
+class StepImpl(NamedTuple):
+    """The pair of step functions a wavefront runs: the wrappers (default)
     or the plain versions (for comparison runs on the card)."""
     forward: object
     backward: object
 
 
-KERNELS = RowImpl(row_step.row_forward, row_step.row_backward)
-PLAIN = RowImpl(row_step.row_forward_plain, row_step.row_backward_plain)
+KERNELS = StepImpl(row_step.row_forward, row_step.row_backward)
+PLAIN = StepImpl(row_step.row_forward_plain, row_step.row_backward_plain)
+PAIR_KERNELS = StepImpl(pair_step.pair_forward, pair_step.pair_backward)
+PAIR_PLAIN = StepImpl(pair_step.pair_forward_plain, pair_step.pair_backward_plain)
 
 
 def _param_keys(cfg: DAGNNConfig, has_ea: bool):
@@ -300,21 +302,32 @@ def _param_keys(cfg: DAGNNConfig, has_ea: bool):
     return keys
 
 
-class _Merged:
-    """Static plan of one direction-merged wavefront over a batch."""
+class _Plan:
+    """Static plan of one wavefront over a batch: n steps (merged rows, or
+    pairs of rows) of `unit` node slots each, both directions in every
+    step. Step s gathers its edges' predecessor states h[eslot[s]] from the
+    write-once state buffer, runs the step function (`impl`; `tail` and
+    `kw` are its trailing arguments: the pair's block spec, or ndirs=2 for
+    a row) and writes its outputs to rows s*unit.. of the buffer. The
+    backward runs the steps in reverse: value grads go through the edge-grad
+    buffer and come back to their source step through the transpose
+    schedule (teslot, tdst, tmask); weight grads add into one f32 buffer."""
 
-    def __init__(self, cfg, fxs, ixs, L, kn2, impl):
-        self.cfg, self.ixs, self.L, self.kn2, self.impl = cfg, ixs, L, kn2, impl
+    def __init__(self, cfg, fxs, ixs, impl, tail=(), kw=None):
+        self.cfg, self.ixs, self.impl = cfg, ixs, impl
+        self.tail, self.kw = tail, kw or {}
         self.ea = fxs.get("ea")
         self.has_ea = self.ea is not None and cfg.aggregator_spec(0).wea
         self.static = (self.has_ea, cfg.hidden_dim, cfg.num_layers)
         self.lh = cfg.num_layers * cfg.hidden_dim
-        self.ke2 = ixs["eslot"].shape[1]
         self.dt = _DTYPES[cfg.compute_dtype]
         self.keys = _param_keys(cfg, self.has_ea)
+        self.n, self.unit = tuple(fxs["x"].shape[:2])
+        self.nv = ixs["eslot"].shape[1]      # value rows gathered per step
+        self.ne = ixs["edst"].shape[1]       # edges per step
 
     def weights(self, wparams):
-        """Stacked [2, ...] row-kernel weights in the compute dtype."""
+        """Stacked [2, ...] kernel weights in the compute dtype."""
         cfg, nl = self.cfg, self.cfg.num_layers
         p = {k: v.to(self.dt) for k, v in zip(self.keys, wparams)}
         qdims = [cfg.aggregator_spec(l).query_dim for l in range(nl)]
@@ -335,71 +348,70 @@ class _Merged:
                                                      self.has_ea))
         return row_step.stack_row_weights(flat)
 
-    def _row_args(self, l):
+    def _args(self, s):
         ix = self.ixs
-        return (self.ea[l] if self.has_ea else None, ix["edst"][l],
-                ix["emask"][l], ix["nmask"][l])
+        args = (self.ea[s] if self.has_ea else None, ix["edst"][s],
+                ix["emask"][s], ix["nmask"][s])
+        return args + ((ix["nsrc"][s],) if "nsrc" in ix else ())
 
     def forward(self, xs, weights, emit_res):
-        """L rows of K1. Returns the write-once state buffer
-        [L*2Kn + 1, nl*H] (garbage row last, left zero) and, with
-        emit_res, the residual streams alpha32 [L, 2Ke, nl] and
-        nres [L, 2Kn, 4*nl*H]."""
-        L, kn2 = self.L, self.kn2
-        h = torch.zeros((L * kn2 + 1, self.lh), dtype=self.dt, device=xs.device)
+        """n forward steps (K1 or K3). Returns the state buffer
+        [n*unit + 1, nl*H] (garbage row last, left zero) and, with
+        emit_res, the residual streams alpha32 [n, ne, nl] and
+        nres [n, unit, 4*nl*H]."""
+        n, unit = self.n, self.unit
+        h = torch.zeros((n * unit + 1, self.lh), dtype=self.dt, device=xs.device)
         a32 = nres = None
         if emit_res:
-            a32 = torch.empty((L, self.ke2, self.cfg.num_layers),
+            a32 = torch.empty((n, self.ne, self.cfg.num_layers),
                               dtype=torch.float32, device=xs.device)
-            nres = torch.empty((L, kn2, 4 * self.lh), dtype=self.dt,
+            nres = torch.empty((n, unit, 4 * self.lh), dtype=self.dt,
                                device=xs.device)
-        for l in range(L):
-            vals = h[self.ixs["eslot"][l]]
-            out = self.impl.forward(self.static, xs[l], vals, *self._row_args(l),
-                                    weights, emit_res=emit_res, ndirs=2)
+        for s in range(n):
+            vals = h[self.ixs["eslot"][s]]
+            out = self.impl.forward(self.static, xs[s], vals, *self._args(s),
+                                    weights, *self.tail, emit_res=emit_res,
+                                    **self.kw)
             if emit_res:
-                out, a32[l], nres[l] = out
-            h[l * kn2:(l + 1) * kn2] = out
+                out, a32[s], nres[s] = out
+            h[s * unit:(s + 1) * unit] = out
         return h, a32, nres
 
     def backward(self, xs, h, weights, res, g):
-        """L rows of K2 in reverse. Predecessor states are re-gathered
-        from the final (write-once) state buffer instead of being kept as
-        a vals stream; edge grads go through the contiguous edge-grad
-        buffer [L*2Ke + 1, nl*H] (garbage row last, left zero) and come
-        back per row through the transpose schedule."""
-        L, kn2, ke2 = self.L, self.kn2, self.ke2
+        """n backward steps (K2 or K4) in reverse. Predecessor states are
+        re-gathered from the final (write-once) state buffer instead of
+        being kept as a vals stream; the edge-grad buffer is
+        [n*nv + 1, nl*H] (garbage row last, left zero)."""
+        n, unit, nv = self.n, self.unit, self.nv
         a32, nres = res
-        acc = torch.zeros((L * ke2 + 1, self.lh), dtype=self.dt, device=h.device)
-        dw = {n: torch.zeros(weights[n].shape, dtype=torch.float32,
-                             device=h.device)
-              for n in row_step._names(self.cfg.num_layers, self.has_ea)}
+        acc = torch.zeros((n * nv + 1, self.lh), dtype=self.dt, device=h.device)
+        dw = row_step._new_dw(weights, self.cfg.num_layers, self.has_ea, h.device)
         dxs = torch.empty_like(xs)
-        g_stream = g[: L * kn2].to(self.dt).reshape(L, kn2, self.lh)
+        g_stream = g[: n * unit].to(self.dt).reshape(n, unit, self.lh)
         ix = self.ixs
-        for l in range(L - 1, -1, -1):
-            tg = acc[ix["teslot"][l]]
-            vals = h[ix["eslot"][l]]
+        for s in range(n - 1, -1, -1):
+            tg = acc[ix["teslot"][s]]
+            vals = h[ix["eslot"][s]]
             dx, dvals, _dea, _ = self.impl.backward(
-                self.static, xs[l], vals, *self._row_args(l), weights,
-                g_stream[l].contiguous(), tg, ix["tdst"][l], ix["tmask"][l],
-                (a32[l], nres[l]), ndirs=2, dw_acc=dw)
-            acc[l * ke2:(l + 1) * ke2] = dvals
-            dxs[l] = dx
+                self.static, xs[s], vals, *self._args(s), weights,
+                g_stream[s].contiguous(), tg, ix["tdst"][s], ix["tmask"][s],
+                (a32[s], nres[s]), *self.tail, dw_acc=dw, **self.kw)
+            acc[s * nv:(s + 1) * nv] = dvals
+            dxs[s] = dx
         grads = {}
         for d in range(2):
             tree = row_step.unflatten_row_weight_grads(
                 {k: v[d] for k, v in dw.items()}, self.cfg.num_layers,
                 self.has_ea)
-            for k, v in flatten_tree({"aggr": {d: tree["aggr"]},
-                                      "cells": {d: tree["cells"]}}).items():
-                grads[k] = v
+            grads.update(flatten_tree({"aggr": {d: tree["aggr"]},
+                                       "cells": {d: tree["cells"]}}))
         return dxs, [grads[k] for k in self.keys]
 
 
-class _MergedWavefront(torch.autograd.Function):
-    """Both direction passes, forward K1 row by row and backward K2 row by
-    row in reverse; the residual streams of the forward feed the backward."""
+class _Wavefront(torch.autograd.Function):
+    """Both direction passes over a plan (merged: K1 row by row, K2 row by
+    row in reverse; pair: K3 pair by pair, K4 in reverse); the residual
+    streams of the forward feed the backward."""
 
     @staticmethod
     def forward(ctx, plan, xs, *wparams):
@@ -418,25 +430,75 @@ class _MergedWavefront(torch.autograd.Function):
         return (None, dxs, *dws)
 
 
+def _run(plan, xs, params):
+    """The plan's state buffer: through _Wavefront when a gradient is
+    wanted, else a forward without residual streams."""
+    wparams = [params[k] for k in plan.keys]
+    if torch.is_grad_enabled() and (xs.requires_grad
+                                    or any(p.requires_grad for p in wparams)):
+        return _Wavefront.apply(plan, xs, *wparams)
+    with torch.no_grad():
+        return plan.forward(xs, plan.weights(wparams), emit_res=False)[0]
+
+
 def merged_pass(params, cfg: DAGNNConfig, x, edge_attr, batch: DAGBatch,
-                impl: RowImpl = KERNELS):
+                impl: StepImpl = KERNELS):
     """Both direction passes in one wavefront. Returns (h_flat
     [L*2Kn, nl*H], x_flat [L*2Kn, emb]) in the merged level-sorted layout:
     row r holds the fwd block at rows r*2Kn..r*2Kn+Kn and the rev block
     after it."""
-    dev = x.device
     fxs, ixs, (L, kn2) = _build_streams_merged(cfg, x, edge_attr, batch.fwd,
-                                               batch.rev, dev)
-    plan = _Merged(cfg, fxs, ixs, L, kn2, impl)
-    wparams = [params[k] for k in plan.keys]
+                                               batch.rev, x.device)
     xs = fxs["x"]
-    if torch.is_grad_enabled() and (xs.requires_grad
-                                    or any(p.requires_grad for p in wparams)):
-        h = _MergedWavefront.apply(plan, xs, *wparams)
-    else:
-        with torch.no_grad():
-            h, _, _ = plan.forward(xs, plan.weights(wparams), emit_res=False)
+    h = _run(_Plan(cfg, fxs, ixs, impl, kw={"ndirs": 2}), xs, params)
     return h[: L * kn2], xs.reshape(L * kn2, -1)
+
+
+# ------------------------------------- pair-scheduled wavefront (two rows)
+#
+# Half the serial steps of the merged wavefront: one K3/K4 call runs rows
+# 2p and 2p+1, with the intra-pair edges routed inside the call (dag/pair.py,
+# ops/pair_step.py). The per-step glue (state gather, state write,
+# transpose-grad gather, edge-grad write) is issued once per pair. The
+# state buffer's layout is the merged path's, so the readout is unchanged.
+
+def pair_applicable(cfg: DAGNNConfig, batch: DAGBatch) -> bool:
+    return (getattr(batch, "pair", None) is not None
+            and cfg.bidirectional and _fused_applicable(cfg)
+            and tuple(batch.fwd.node_ids.shape) == tuple(batch.rev.node_ids.shape))
+
+
+def _build_streams_pair(cfg: DAGNNConfig, x, edge_attr, plan, dev):
+    """Pair streams of dag/pair.py's plan, converted once per batch: x in
+    the compute dtype [P, 4Kn, emb], ea [P, W, R], and the index / mask
+    streams in the kernels' types. eslot (the plan's eslot_v) gathers the
+    U value rows of a pair, garbage the state buffer's last row (L*2Kn);
+    teslot's garbage is the edge-grad buffer's last row (P*U). The block
+    widths are host ints from the plan's shapes (plan.blocks), so a step
+    never reads a device tensor back."""
+    dt = _DTYPES[cfg.compute_dtype]
+    fxs = {"x": x.to(dt)[_t(plan.node_ids, dev).long()]}
+    if cfg.w_edge_attr and edge_attr is not None and cfg.num_rels > 1:
+        fxs["ea"] = _t(edge_attr, dev)[_t(plan.eid, dev).long()].to(dt)
+    ixs = {"eslot": _t(plan.eslot_v, dev).long(),
+           "teslot": _t(plan.teslot, dev).long()}
+    for k in ("edst", "nsrc", "tdst"):
+        ixs[k] = _t(getattr(plan, k), dev).to(torch.int32)
+    ixs["nmask"] = _t(plan.node_mask, dev).to(torch.float32)
+    for k in ("emask", "tmask"):
+        ixs[k] = _t(getattr(plan, k), dev).to(torch.float32)
+    return fxs, ixs
+
+
+def pair_pass(params, cfg: DAGNNConfig, x, edge_attr, batch: DAGBatch,
+              impl: StepImpl = PAIR_KERNELS):
+    """Both directions, two wavefront rows per step. Same return layout as
+    merged_pass (the state buffer's rows are untouched by pairing)."""
+    fxs, ixs = _build_streams_pair(cfg, x, edge_attr, batch.pair, x.device)
+    plan = _Plan(cfg, fxs, ixs, impl, tail=(batch.pair.blocks,))
+    xs = fxs["x"]
+    h = _run(plan, xs, params)
+    return h[: plan.n * plan.unit], xs.reshape(plan.n * plan.unit, -1)
 
 
 # ----------------------------------------------------------------- readout
@@ -475,11 +537,20 @@ def _apply_head(params, cfg: DAGNNConfig, out, rng, train):
 
 def dagnn_forward(params, cfg: DAGNNConfig, batch: DAGBatch,
                   rng: Optional[torch.Generator] = None, train: bool = False,
-                  impl: RowImpl = KERNELS):
+                  impl: Optional[StepImpl] = None):
     """Full forward pass: per-position token logits [G, S, V] (class
     logits [G, C] / regression [G, 1] per config). Runs on the device of
-    the parameters. `impl` picks the row functions (KERNELS or PLAIN)."""
+    the parameters. A batch with a pair plan runs pair_pass, any other
+    merged_pass. `impl` picks their step functions: None for the kernels,
+    or KERNELS / PLAIN on the merged path and PAIR_KERNELS / PAIR_PLAIN on
+    the pair path (another choice raises ValueError)."""
     _require_slice(cfg, batch)
+    pair = pair_applicable(cfg, batch)
+    allowed = (PAIR_KERNELS, PAIR_PLAIN) if pair else (KERNELS, PLAIN)
+    impl = allowed[0] if impl is None else impl
+    if impl not in allowed:
+        raise ValueError(f"impl must be one of {allowed} for a "
+                         f"{'pair' if pair else 'merged'} batch")
     dev = params["head.w"].device
     enc = {k[len("encoder."):]: v for k, v in params.items()
            if k.startswith("encoder.")}
@@ -489,7 +560,8 @@ def dagnn_forward(params, cfg: DAGNNConfig, batch: DAGBatch,
                if "node_depth" in batch.extras else None)
     # keep the garbage row exactly zero so pad gathers are inert
     x = torch.where(node_mask[:, None], x, 0.0)
-    h2, x2 = merged_pass(params, cfg, x, batch.edge_attr, batch, impl)
+    run = pair_pass if pair else merged_pass
+    h2, x2 = run(params, cfg, x, batch.edge_attr, batch, impl)
     parts = []
     for di in range(2):
         sched = batch.fwd if di == 0 else batch.rev

@@ -24,16 +24,24 @@ Each kernel has two implementations with one signature:
     the JAX kernels in interpret mode.
   * row_forward / row_backward: the wrappers. For CPU tensors they call
     the plain version; for CUDA tensors they launch the hand-written
-    kernels of csrc/row_step.cu (built on first use, see ops/build.py) or
+    kernels of csrc/wavefront.cu (built on first use, see ops/build.py) or
     raise. Each counts its launches in `launch_counts`.
 
 K2 is the slice's backward only: it consumes the forward's residual
 streams (use_res) and merges the transpose edge-grads in (merge_tg).
 Weight grads are float32 and are ADDED into `dw_acc` when one is given,
 so a wavefront sums its rows in one buffer without an extra pass.
+
+The per-block plain math (_block_forward, _block_backward) and the CUDA
+launch drivers (cuda_forward, cuda_backward, which take block tables) are
+shared with the pair kernels K3/K4 of ops/pair_step.py: a merged row is the
+uniform case of a pair's ragged blocks.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -204,6 +212,48 @@ def _wsel(weights, ndirs, d):
     return (lambda nm: weights[nm][d]) if ndirs > 1 else (lambda nm: weights[nm])
 
 
+def _block_forward(static, w, xin, vals, ea, seg, nm):
+    """One direction block through every layer. w(name) reads the block's
+    direction's weight; vals [Ke, L*H] are its edges' value rows. Returns
+    per layer the output [Kn, H] in the compute dtype and the residuals
+    (alpha32, agg, r, z, n)."""
+    has_ea, hdim, nlayers = static
+    cur = xin
+    outs, ress = [], []
+    for l in range(nlayers):
+        aggp = {k: w(f"a{l}_{k}") for k in agg_keys(has_ea)}
+        cellp = {k: w(f"c{l}_{k}") for k in CELL_FWD_KEYS}
+        o, res = _layer_fwd(aggp, cellp, cur, cur,
+                            vals[:, l * hdim:(l + 1) * hdim], ea, seg, nm, hdim)
+        cur = o.to(xin.dtype)
+        outs.append(cur)
+        ress.append(res)
+    return outs, ress
+
+
+def _store_forward(out, a32, nres, ns, es, outs, ress, hdim):
+    """Write one block's layer outputs (and residual streams) into the
+    call's layer-packed outputs."""
+    for l, (o, (alpha32, *gates)) in enumerate(zip(outs, ress)):
+        out[ns, l * hdim:(l + 1) * hdim] = o
+        if a32 is not None:
+            a32[es, l] = alpha32[:, 0]
+            for i, t in enumerate(gates):
+                c = (4 * l + i) * hdim
+                nres[ns, c:c + hdim] = t
+
+
+def _forward_outputs(xin, ke, nlayers, hdim, emit_res):
+    """The forward's outputs: outs [Kn_all, L*H] and, with emit_res,
+    alpha32 [Ke_all, L] (zero on pad edges) and nres [Kn_all, 4*L*H]."""
+    kn, dt, dev = xin.shape[0], xin.dtype, xin.device
+    out = torch.empty((kn, nlayers * hdim), dtype=dt, device=dev)
+    if not emit_res:
+        return out, None, None
+    return (out, torch.zeros((ke, nlayers), dtype=_F32, device=dev),
+            torch.empty((kn, 4 * nlayers * hdim), dtype=dt, device=dev))
+
+
 def row_forward_plain(static, xin, vals, ea, edst, emask, nmask, weights,
                       emit_res: bool = False, ndirs: int = 1):
     """Whole-row forward (K1), plain PyTorch. vals [ndirs*Ke, L*H];
@@ -213,33 +263,14 @@ def row_forward_plain(static, xin, vals, ea, edst, emask, nmask, weights,
     has_ea, hdim, nlayers = static
     kn = xin.shape[0] // ndirs
     ke = edst.shape[0] // ndirs
-    dt = xin.dtype
-    out = torch.empty((ndirs * kn, nlayers * hdim), dtype=dt, device=xin.device)
-    if emit_res:
-        a32 = torch.zeros((ndirs * ke, nlayers), dtype=_F32, device=xin.device)
-        nres = torch.empty((ndirs * kn, 4 * nlayers * hdim), dtype=dt,
-                           device=xin.device)
+    out, a32, nres = _forward_outputs(xin, edst.shape[0], nlayers, hdim, emit_res)
     for d in range(ndirs):
-        w = _wsel(weights, ndirs, d)
         ns, es = slice(d * kn, (d + 1) * kn), slice(d * ke, (d + 1) * ke)
-        seg = _Segments(edst[es], emask[es], kn)
-        nm = _f(nmask[ns])[:, None]
-        ea_d = ea[es] if has_ea else None
-        cur = xin[ns]
-        for l in range(nlayers):
-            aggp = {k: w(f"a{l}_{k}") for k in agg_keys(has_ea)}
-            cellp = {k: w(f"c{l}_{k}") for k in CELL_FWD_KEYS}
-            o, (alpha32, agg, r, z, n) = _layer_fwd(
-                aggp, cellp, cur, cur, vals[es, l * hdim:(l + 1) * hdim],
-                ea_d, seg, nm, hdim)
-            o = o.to(dt)
-            out[ns, l * hdim:(l + 1) * hdim] = o
-            if emit_res:
-                a32[es, l] = alpha32[:, 0]
-                for i, t in enumerate((agg, r, z, n)):
-                    c = (4 * l + i) * hdim
-                    nres[ns, c:c + hdim] = t
-            cur = o
+        outs, ress = _block_forward(
+            static, _wsel(weights, ndirs, d), xin[ns], vals[es],
+            ea[es] if has_ea else None, _Segments(edst[es], emask[es], kn),
+            _f(nmask[ns])[:, None])
+        _store_forward(out, a32, nres, ns, es, outs, ress, hdim)
     return (out, a32, nres) if emit_res else out
 
 
@@ -291,6 +322,68 @@ def _new_dw(weights, nlayers, has_ea, device):
             for n in _names(nlayers, has_ea)}
 
 
+def _rebuild_outputs(nres, nm, hdim, nlayers):
+    """A block's layer outputs rebuilt from its residual streams: bitwise
+    the forward's (z and n were rounded before the combine)."""
+    outs = []
+    for l in range(nlayers):
+        agg, z, n = (nres[:, (4 * l + i) * hdim:(4 * l + i + 1) * hdim]
+                     for i in (0, 2, 3))
+        outs.append((((1.0 - _f(z)) * _f(n) + _f(z) * _f(agg)) * nm).to(nres.dtype))
+    return outs
+
+
+def _block_backward(static, w, xin, vals, ea, seg, nm, a32, nres, g, gadd,
+                    dw_add):
+    """One direction block's VJP. The cotangent of layer l's output is
+    g[:, l] + gadd[:, l] (gadd f32: the transpose-edge grads, and in a pair
+    the intra-pair value grads). k and h_n are rebuilt from vals and agg,
+    each layer's input from the residuals. Weight grads (f32) go to
+    dw_add(name, grad). Returns (dx f32 [Kn, In], per layer dval [Ke, H]
+    in the compute dtype, dea f32 [Ke, R] or None)."""
+    has_ea, hdim, nlayers = static
+    dt = vals.dtype
+    curs = [xin] + _rebuild_outputs(nres, nm, hdim, nlayers)[:-1]
+    resids, aggps, cellps = [], [], []
+    for l in range(nlayers):
+        aggp = {k: w(f"a{l}_{k}") for k in agg_keys(has_ea, rows=True)}
+        cellp = {k: w(f"c{l}_{k}") for k in CELL_KEYS + ("w_hn", "b_hn")}
+        aggps.append(aggp)
+        cellps.append(cellp)
+        k_l = _encode_k(vals[:, l * hdim:(l + 1) * hdim], ea, aggp)
+        alpha32 = a32[:, l:l + 1]
+        agg, r, z, n = (nres[:, (4 * l + i) * hdim:(4 * l + i + 1) * hdim]
+                        for i in range(4))
+        h_n = (_f(agg) @ _f(cellp["w_hn"]).T + _f(cellp["b_hn"])).to(dt)
+        resids.append((k_l, alpha32.to(dt), alpha32, agg, r, z, n, h_n))
+    dea = (torch.zeros((vals.shape[0], ea.shape[1]), dtype=_F32,
+                       device=vals.device) if has_ea else None)
+    dvals = [None] * nlayers
+    g_next = None
+    for l in range(nlayers - 1, -1, -1):
+        g_l = _f(g[:, l * hdim:(l + 1) * hdim]) + gadd[:, l * hdim:(l + 1) * hdim]
+        if g_next is not None:
+            g_l = g_l + g_next
+        g_l = g_l * nm
+        dcur, dq, dval, dea_l, daggp, dcell = _layer_bwd(
+            aggps[l], cellps[l], curs[l], curs[l],
+            vals[:, l * hdim:(l + 1) * hdim], ea, seg, resids[l], g_l, hdim)
+        dvals[l] = dval
+        for pre, grads in (("a", daggp), ("c", dcell)):
+            for key, v in grads.items():
+                dw_add(f"{pre}{l}_{key}", v)
+        if dea_l is not None:
+            dea = dea + _f(dea_l)
+        g_next = dcur + dq
+    return g_next, dvals, dea
+
+
+def _dw_adder(dw, stacked, d):
+    if stacked:
+        return lambda name, v: dw[name][d].add_(v)
+    return lambda name, v: dw[name].add_(v)
+
+
 def row_backward_plain(static, xin, vals, ea, edst, emask, nmask, weights,
                        g, tg, tdst, tmask, res, ndirs: int = 1, dw_acc=None):
     """The row's VJP (K2), plain PyTorch.
@@ -308,81 +401,95 @@ def row_backward_plain(static, xin, vals, ea, edst, emask, nmask, weights,
     kn = xin.shape[0] // ndirs
     ke = edst.shape[0] // ndirs
     kt = tdst.shape[0] // ndirs
-    dt = vals.dtype
-    dev = xin.device
     dx = torch.empty_like(xin)
     dvals = torch.empty_like(vals)
     dea = torch.empty_like(ea) if has_ea else None
-    dw = dw_acc if dw_acc is not None else _new_dw(weights, nlayers, has_ea, dev)
+    dw = dw_acc if dw_acc is not None else _new_dw(weights, nlayers, has_ea,
+                                                   xin.device)
     for d in range(ndirs):
-        w = _wsel(weights, ndirs, d)
         ns, es = slice(d * kn, (d + 1) * kn), slice(d * ke, (d + 1) * ke)
         ts = slice(d * kt, (d + 1) * kt)
-        seg = _Segments(edst[es], emask[es], kn)
-        tseg = _Segments(tdst[ts], tmask[ts], kn)
-        nm = _f(nmask[ns])[:, None]
-        ea_d = ea[es] if has_ea else None
-        tg_all = tseg.sum(_f(tg[ts]))                          # [Kn, L*H]
-        cur = xin[ns]
-        curs, resids, aggps, cellps = [], [], [], []
-        for l in range(nlayers):
-            aggp = {k: w(f"a{l}_{k}") for k in agg_keys(has_ea, rows=True)}
-            cellp = {k: w(f"c{l}_{k}") for k in CELL_KEYS + ("w_hn", "b_hn")}
-            aggps.append(aggp)
-            cellps.append(cellp)
-            curs.append(cur)
-            k_l = _encode_k(vals[es, l * hdim:(l + 1) * hdim], ea_d, aggp)
-            alpha32 = a32_all[es, l:l + 1]
-            agg, r, z, n = (nres_all[ns, (4 * l + i) * hdim:(4 * l + i + 1) * hdim]
-                            for i in range(4))
-            h_n = (_f(agg) @ _f(cellp["w_hn"]).T + _f(cellp["b_hn"])).to(dt)
-            resids.append((k_l, alpha32.to(dt), alpha32, agg, r, z, n, h_n))
-            cur = (((1.0 - _f(z)) * _f(n) + _f(z) * _f(agg)) * nm).to(dt)
-        dea_acc = (torch.zeros((ke, ea.shape[1]), dtype=_F32, device=dev)
-                   if has_ea else None)
-        g_next = None
-        for l in range(nlayers - 1, -1, -1):
-            g_l = _f(g[ns, l * hdim:(l + 1) * hdim]) + tg_all[:, l * hdim:(l + 1) * hdim]
-            if g_next is not None:
-                g_l = g_l + g_next
-            g_l = g_l * nm
-            dcur, dq, dval, dea_l, daggp, dcell = _layer_bwd(
-                aggps[l], cellps[l], curs[l], curs[l],
-                vals[es, l * hdim:(l + 1) * hdim], ea_d, seg, resids[l], g_l,
-                hdim)
-            dvals[es, l * hdim:(l + 1) * hdim] = dval
-            for pre, grads in (("a", daggp), ("c", dcell)):
-                for key, v in grads.items():
-                    t = dw[f"{pre}{l}_{key}"]
-                    (t[d] if ndirs > 1 else t).add_(v)
-            if dea_l is not None:
-                dea_acc = dea_acc + _f(dea_l)
-            g_next = dcur + dq
-        dx[ns] = g_next.to(dx.dtype)
+        tg_all = _Segments(tdst[ts], tmask[ts], kn).sum(_f(tg[ts]))
+        dx_d, dvl, dea_d = _block_backward(
+            static, _wsel(weights, ndirs, d), xin[ns], vals[es],
+            ea[es] if has_ea else None, _Segments(edst[es], emask[es], kn),
+            _f(nmask[ns])[:, None], a32_all[es], nres_all[ns], g[ns], tg_all,
+            _dw_adder(dw, ndirs > 1, d))
+        for l, dv in enumerate(dvl):
+            dvals[es, l * hdim:(l + 1) * hdim] = dv
+        dx[ns] = dx_d.to(dx.dtype)
         if has_ea:
-            dea[es] = dea_acc.to(dea.dtype)
+            dea[es] = dea_d.to(dea.dtype)
     return dx, dvals, dea, dw
 
 
 # ---------------------------------------------------------- CUDA wrappers
 
 _SIGS = {
-    "row_attn_fwd": "iiiiiii" "pi" "pi" "ppp" "ppppp" "pi" "pi" "p",
-    "row_gru_fwd": "iiiii" "pi" "pi" "ppppp" "p" "pi" "ppp" "i" "p",
-    "row_tg_merge": "iiiii" "ppppp" "p",
-    "row_rebuild": "iiii" "ppp" "i" "ppppp" "p",
-    "row_gru_bwd_elem": "iiii" "pi" "pppppp" "i" "pppp" "p",
-    "row_gemm_nn": "iiiii" "pp" "i" "pp" "p",
-    "row_attn_bwd": "iiiiiiiii" "p" "pi" "pi" "ppp" "pi" "pppp" "ppp" "i" "ppp" "p",
-    "row_wgrad": "iiiii" "pp" "pi" "pi" "pp" "p",
-    "row_small_reduce": "iiiiii" "ppppppppppp",
+    "wf_attn_fwd": "ipi" "iiii" "pi" "pi" "p" "pi" "ppp" "ppppp" "pi" "pi" "p",
+    "wf_gru_fwd": "iii" "iii" "pi" "pi" "ppppp" "p" "pi" "ppp" "i" "p",
+    "wf_seg_merge": "ipi" "ii" "ppppp" "p",
+    "wf_rebuild": "ipi" "ii" "ppp" "i" "ppppp" "i" "p",
+    "wf_gru_bwd_elem": "iii" "ii" "pi" "pppppp" "i" "pppp" "p",
+    "wf_gemm_nn": "iii" "iii" "pp" "i" "pp" "p",
+    "wf_attn_bwd": "ipi" "iiiiii" "p" "pi" "pi" "p" "pi" "ppp" "pi" "pppp" "pp"
+                   "pi" "pi" "ppp" "p",
+    "wf_wgrad": "iii" "iii" "pp" "pi" "pi" "pp" "p",
+    "wf_small_reduce": "iii" "iiii" "ppp" "ppppppp" "p",
 }
 _DT_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _lib():
     from dagnn_tpu_torch.ops import build
-    return build.load("row_step", _SIGS)
+    return build.load("wavefront", _SIGS)
+
+
+@functools.lru_cache(maxsize=1024)
+def _host_table(rows):
+    flat = [v for r in rows for v in r]
+    return (ctypes.c_int * len(flat))(*flat)
+
+
+def _tab(rows):
+    """(host int array, count) of a block table: rows of (dir, node block,
+    edge offset, edge width, value offset, value width, transpose offset,
+    transpose width, intra-pair source block or -1), the kernels' Blk. The
+    C entry copies it into its launch; the array is cached so that a
+    wavefront does not rebuild it for every call."""
+    return _host_table(rows), len(rows)
+
+
+def _check_widths(fn, groups, edge_streams, tdst=None):
+    """The edge streams (edst, emask, ea, nsrc; None skipped) and the
+    transpose stream must span the block tables' widths: the kernels index
+    them by the tables' offsets."""
+    rows = [r for g in groups for r in g]
+    W, T = sum(r[3] for r in rows), sum(r[7] for r in rows)
+    for t in edge_streams:
+        if t is not None and t.shape[0] != W:
+            raise ValueError(f"{fn}: an edge stream of {t.shape[0]} entries, "
+                             f"blocks span {W}")
+    if tdst is not None and tdst.shape[0] != T:
+        raise ValueError(f"{fn}: transpose streams of {tdst.shape[0]} entries, "
+                         f"blocks span {T}")
+
+
+def _gemm_blocks(rows):
+    """nb0 of a block group whose block z is direction z at node block
+    nb0 + z: the form the kernels without edge ranges take (GEMM_BLOCKS in
+    csrc/wavefront.cu), [d0|d1] of one row."""
+    nb0 = rows[0][1]
+    if any(r[0] != z or r[1] != nb0 + z for z, r in enumerate(rows)):
+        raise ValueError(f"block group {rows} is not the directions of one row")
+    return nb0
+
+
+def uniform_blocks(ndirs, ke, kt):
+    """The block table of a merged row: direction d's edges, values and
+    transpose edges at d*Ke / d*Kt, no intra-pair edges."""
+    return tuple((d, d, d * ke, ke, d * ke, ke, d * kt, kt, -1)
+                 for d in range(ndirs))
 
 
 def _check(rc, fn):
@@ -412,183 +519,218 @@ def _on_card(fn, tensors, dt):
                         f"(float32 or bfloat16)")
 
 
-def _row_weight_views(weights, ndirs, dt, names):
-    """The named weights, checked for dtype and direction stacking."""
+def _weight_views(fn, weights, nw, dt, names):
+    """The named weights, checked for dtype and direction stacking (nw
+    directions stacked along axis 0; nw = 1: one direction, unstacked)."""
     w = {}
     for n in names:
         t = weights[n]
         if t.dtype != dt:
-            raise TypeError(f"weight {n} is {t.dtype}, row is {dt}")
-        if ndirs > 1 and t.shape[0] != ndirs:
-            raise ValueError(f"weight {n} not stacked over {ndirs} directions")
+            raise TypeError(f"{fn}: weight {n} is {t.dtype}, compute dtype is {dt}")
+        if nw > 1 and t.shape[0] != nw:
+            raise ValueError(f"{fn}: weight {n} not stacked over {nw} directions")
         w[n] = t.contiguous()
     return w
 
 
-def _cuda_row_forward(static, xin, vals, ea, edst, emask, nmask, weights,
-                      emit_res, ndirs):
+def _expect(fn, operands):
+    for t, shape, tdt in operands:
+        if t.dtype != tdt or tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{fn}: operand {tuple(t.shape)} {t.dtype}, "
+                             f"expected {tuple(shape)} {tdt}")
+
+
+def _indices(*ts):
+    return [None if t is None else t.to(torch.int32).contiguous() for t in ts]
+
+
+def _masks(*ts):
+    return [t.to(_F32).contiguous() for t in ts]
+
+
+def cuda_forward(fn, static, xin, vals, ea, edst, emask, nmask, weights,
+                 emit_res, groups, nw, nsrc=None):
+    """Launch K1/K3's kernels over block groups run in order (within a
+    layer a later group may read an earlier one's outputs through nsrc).
+    Returns outs (+ alpha32, nres with emit_res), as the plain versions."""
     has_ea, H, nl = static
     dt = xin.dtype
-    kn = xin.shape[0] // ndirs
-    ke = edst.shape[0] // ndirs
+    nblk = sum(len(g) for g in groups)
+    kn = xin.shape[0] // nblk
     emb = xin.shape[1]
     LH = nl * H
-    if vals.dtype != dt or vals.shape != (ndirs * ke, LH):
-        raise ValueError(f"row_forward: vals {tuple(vals.shape)} {vals.dtype}")
-    edst = edst.to(torch.int32).contiguous()
-    emask = emask.to(_F32).contiguous()
-    nmask = nmask.to(_F32).contiguous()
+    U = sum(r[5] for g in groups for r in g)
+    _expect(fn, [(vals, (U, LH), dt)])
+    _check_widths(fn, groups, (edst, emask, ea, nsrc))
+    edst, nsrc = _indices(edst, nsrc)
+    emask, nmask = _masks(emask, nmask)
     ea = ea.contiguous() if has_ea else None
-    _on_card("row_forward", [xin, vals, ea, edst, emask, nmask], dt)
+    _on_card(fn, [xin, vals, ea, edst, emask, nmask, nsrc], dt)
     R = ea.shape[1] if has_ea else 0
     names = [f"a{l}_{k}" for l in range(nl) for k in agg_keys(has_ea)]
     names += [f"c{l}_{k}" for l in range(nl)
               for k in ("w_ih", "w_hh", "b_rz", "b_in", "b_hn")]
-    w = _row_weight_views(weights, ndirs, dt, names)
+    w = _weight_views(fn, weights, nw, dt, names)
     lib = _lib()
     code = _DT_CODE[dt]
     stream = torch.cuda.current_stream(xin.device).cuda_stream
-    out = torch.empty((ndirs * kn, LH), dtype=dt, device=xin.device)
-    if emit_res:
-        a32 = torch.empty((ndirs * ke, nl), dtype=_F32, device=xin.device)
-        nres = torch.empty((ndirs * kn, 4 * LH), dtype=dt, device=xin.device)
-    else:
-        aggbuf = torch.empty((ndirs * kn, H), dtype=dt, device=xin.device)
+    out, a32, nres = _forward_outputs(xin, edst.shape[0], nl, H, emit_res)
+    if not emit_res:
+        aggbuf = torch.empty((nblk * kn, H), dtype=dt, device=xin.device)
+    tabs = [(*_tab(g), _gemm_blocks(g)) for g in groups]
     for l in range(nl):
         din = emb if l == 0 else H
         cur, ldc = (_ptr(xin), emb) if l == 0 else (_ptr(out, (l - 1) * H), LH)
         if emit_res:
             agg, ldg = _ptr(nres, 4 * l * H), 4 * LH
             a32p = _ptr(a32, l)
+            res_p = (_ptr(nres, (4 * l + 1) * H), _ptr(nres, (4 * l + 2) * H),
+                     _ptr(nres, (4 * l + 3) * H))
         else:
             agg, ldg = _ptr(aggbuf), H
-            a32p = 0
-        _check(lib.row_attn_fwd(
-            code, ndirs, kn, ke, H, din, R, cur, ldc, _ptr(vals, l * H), LH,
-            _ptr(ea), _ptr(edst), _ptr(emask),
-            _ptr(w[f"a{l}_wq"]), _ptr(w[f"a{l}_wk"]), _ptr(w[f"a{l}_b"]),
-            _ptr(w.get(f"a{l}_we")), _ptr(w.get(f"a{l}_be")),
-            a32p, nl, agg, ldg, stream), "row_attn_fwd")
-        res_p = ((_ptr(nres, (4 * l + 1) * H), _ptr(nres, (4 * l + 2) * H),
-                  _ptr(nres, (4 * l + 3) * H)) if emit_res else (0, 0, 0))
-        _check(lib.row_gru_fwd(
-            code, ndirs, kn, H, din, cur, ldc, agg, ldg,
-            _ptr(w[f"c{l}_w_ih"]), _ptr(w[f"c{l}_w_hh"]), _ptr(w[f"c{l}_b_rz"]),
-            _ptr(w[f"c{l}_b_in"]), _ptr(w[f"c{l}_b_hn"]), _ptr(nmask),
-            _ptr(out, l * H), LH, *res_p, 4 * LH, stream), "row_gru_fwd")
+            a32p, res_p = 0, (0, 0, 0)
+        for tab, nb, nb0 in tabs:
+            _check(lib.wf_attn_fwd(
+                code, tab, nb, kn, H, din, R, cur, ldc, _ptr(vals, l * H), LH,
+                _ptr(nsrc), _ptr(out, l * H), LH, _ptr(ea), _ptr(edst),
+                _ptr(emask), _ptr(w[f"a{l}_wq"]), _ptr(w[f"a{l}_wk"]),
+                _ptr(w[f"a{l}_b"]), _ptr(w.get(f"a{l}_we")),
+                _ptr(w.get(f"a{l}_be")), a32p, nl, agg, ldg, stream),
+                "wf_attn_fwd")
+            _check(lib.wf_gru_fwd(
+                code, nb0, nb, kn, H, din, cur, ldc, agg, ldg,
+                _ptr(w[f"c{l}_w_ih"]), _ptr(w[f"c{l}_w_hh"]),
+                _ptr(w[f"c{l}_b_rz"]), _ptr(w[f"c{l}_b_in"]),
+                _ptr(w[f"c{l}_b_hn"]), _ptr(nmask), _ptr(out, l * H), LH,
+                *res_p, 4 * LH, stream), "wf_gru_fwd")
     return (out, a32, nres) if emit_res else out
 
 
-def _cuda_row_backward(static, xin, vals, ea, edst, emask, nmask, weights,
-                       g, tg, tdst, tmask, res, ndirs, dw_acc):
+def cuda_backward(fn, static, xin, vals, ea, edst, emask, nmask, weights,
+                  g, tg, tdst, tmask, res, dw_acc, plan, nw, nsrc=None):
+    """Launch K2/K4's kernels. plan: (group, merge) in run order; `merge`
+    (or None) is a table whose lists [to, to+kt) over nsrc sum the intra-
+    pair value grads of the groups run so far into this group's
+    cotangent. A group is the directions of one row, in order (weight
+    grads add into one f32 buffer per direction without atomics).
+    Returns (dx, dvals, dea or None, dw) as the plain versions."""
     has_ea, H, nl = static
     dt = xin.dtype
     dev = xin.device
-    kn = xin.shape[0] // ndirs
-    ke = edst.shape[0] // ndirs
-    kt = tdst.shape[0] // ndirs
+    nblk = sum(len(grp) for grp, _ in plan)
+    kn = xin.shape[0] // nblk
+    W, T = edst.shape[0], tdst.shape[0]
     emb = xin.shape[1]
     LH = nl * H
+    U = sum(r[5] for grp, _ in plan for r in grp)
     a32, nres = res
-    for t, shape, tdt in ((vals, (ndirs * ke, LH), dt), (g, (ndirs * kn, LH), dt),
-                          (tg, (ndirs * kt, LH), dt), (a32, (ndirs * ke, nl), _F32),
-                          (nres, (ndirs * kn, 4 * LH), dt)):
-        if t.dtype != tdt or tuple(t.shape) != shape:
-            raise ValueError(f"row_backward: operand {tuple(t.shape)} {t.dtype},"
-                             f" expected {shape} {tdt}")
-    edst = edst.to(torch.int32).contiguous()
-    tdst = tdst.to(torch.int32).contiguous()
-    emask = emask.to(_F32).contiguous()
-    tmask = tmask.to(_F32).contiguous()
-    nmask = nmask.to(_F32).contiguous()
+    _expect(fn, [(vals, (U, LH), dt), (g, (nblk * kn, LH), dt),
+                 (tg, (T, LH), dt), (a32, (W, nl), _F32),
+                 (nres, (nblk * kn, 4 * LH), dt)])
+    _check_widths(fn, [grp for grp, _ in plan], (edst, emask, ea, nsrc), tdst)
+    edst, tdst, nsrc = _indices(edst, tdst, nsrc)
+    emask, tmask, nmask = _masks(emask, tmask, nmask)
     ea = ea.contiguous() if has_ea else None
-    _on_card("row_backward", [xin, vals, ea, edst, emask, nmask, g, tg, tdst,
-                              tmask, a32, nres], dt)
+    _on_card(fn, [xin, vals, ea, edst, emask, nmask, g, tg, tdst, tmask, a32,
+                  nres, nsrc], dt)
     R = ea.shape[1] if has_ea else 0
     names = [f"a{l}_{k}" for l in range(nl)
              for k in ("wqr", "wkr") + (("we", "be") if has_ea else ())]
     names += [f"c{l}_{k}" for l in range(nl) for k in ("w_ih", "w_hh", "b_hh")]
-    w = _row_weight_views(weights, ndirs, dt, names)
+    w = _weight_views(fn, weights, nw, dt, names)
     dw = dw_acc if dw_acc is not None else _new_dw(weights, nl, has_ea, dev)
     for n in _names(nl, has_ea):
         if dw[n].dtype != _F32 or not dw[n].is_contiguous() or dw[n].device != dev:
-            raise ValueError(f"row_backward: dw[{n}] must be contiguous f32 on {dev}")
+            raise ValueError(f"{fn}: dw[{n}] must be contiguous f32 on {dev}")
     lib = _lib()
     code = _DT_CODE[dt]
     stream = torch.cuda.current_stream(dev).cuda_stream
     e = lambda *s, t=dt: torch.empty(s, dtype=t, device=dev)
-    dx = e(ndirs * kn, emb)
-    dvals = e(ndirs * ke, LH)
-    dea = e(ndirs * ke, R) if has_ea else None
-    dea_acc = e(ndirs * ke, R, t=_F32) if has_ea else None
-    gtot = e(ndirs * kn, LH, t=_F32)
-    hn = [e(ndirs * kn, H) for _ in range(nl)]
-    curs = [None] + [e(ndirs * kn, H) for _ in range(nl - 1)]
-    dgi, dgh = e(ndirs * kn, 3 * H), e(ndirs * kn, 3 * H)
-    gz = e(ndirs * kn, H, t=_F32)
-    dagg = e(ndirs * kn, H)
-    gbuf = [e(ndirs * kn, emb if l == 0 else H, t=_F32) for l in range(nl)]
-    qmax = max(emb, H)
-    part = e(ndirs * kn, qmax + H + 1 + H * R + H, t=_F32)
+    rows = nblk * kn
+    dx = e(rows, emb)
+    dvals = e(U, LH)
+    dnear = e(W, LH) if nsrc is not None else None
+    dea = e(W, R) if has_ea else None
+    dea_acc = e(W, R, t=_F32) if has_ea else None
+    gtot = e(rows, LH, t=_F32)
+    hn = [e(rows, H) for _ in range(nl)]
+    outs = e(rows, LH)                 # layer outputs rebuilt from nres
+    dgi, dgh = e(rows, 3 * H), e(rows, 3 * H)
+    gz = e(rows, H, t=_F32)
+    dagg = e(rows, H)
+    gbuf = [e(rows, emb if l == 0 else H, t=_F32) for l in range(nl)]
+    part = e(rows, max(emb, H) + H + 1 + H * R + H, t=_F32)
 
-    _check(lib.row_tg_merge(code, ndirs, kn, kt, LH, _ptr(g), _ptr(tg),
+    all_tab, all_n = _tab(tuple(r for grp, _ in plan for r in grp))
+    _check(lib.wf_seg_merge(code, all_tab, all_n, kn, LH, _ptr(g), _ptr(tg),
                             _ptr(tdst), _ptr(tmask), _ptr(gtot), stream),
-           "row_tg_merge")
+           "wf_seg_merge")
     for l in range(nl):
         c = 4 * l * H
-        _check(lib.row_rebuild(
-            code, ndirs, kn, H, _ptr(nres, c), _ptr(nres, c + 2 * H),
+        _check(lib.wf_rebuild(
+            code, all_tab, all_n, kn, H, _ptr(nres, c), _ptr(nres, c + 2 * H),
             _ptr(nres, c + 3 * H), 4 * LH, _ptr(w[f"c{l}_w_hh"]),
-            _ptr(w[f"c{l}_b_hh"]), _ptr(nmask), _ptr(hn[l]),
-            _ptr(curs[l + 1]) if l + 1 < nl else 0, stream), "row_rebuild")
-    for l in range(nl - 1, -1, -1):
-        din = emb if l == 0 else H
-        c = 4 * l * H
-        cur, ldc = (_ptr(xin), emb) if l == 0 else (_ptr(curs[l]), H)
-        gnext = _ptr(gbuf[l + 1]) if l + 1 < nl else 0
-        _check(lib.row_gru_bwd_elem(
-            code, ndirs, kn, H, _ptr(gtot, l * H), LH, gnext, _ptr(nmask),
-            _ptr(nres, c), _ptr(nres, c + H), _ptr(nres, c + 2 * H),
-            _ptr(nres, c + 3 * H), 4 * LH, _ptr(hn[l]), _ptr(dgi), _ptr(dgh),
-            _ptr(gz), stream), "row_gru_bwd_elem")
-        _check(lib.row_gemm_nn(code, ndirs, kn, H, 3 * H, _ptr(dgh),
-                               _ptr(w[f"c{l}_w_hh"]), 1, _ptr(dagg), _ptr(gz),
-                               stream), "row_gemm_nn")
-        _check(lib.row_gemm_nn(code, ndirs, kn, din, 3 * H, _ptr(dgi),
-                               _ptr(w[f"c{l}_w_ih"]), 0, _ptr(gbuf[l]), 0,
-                               stream), "row_gemm_nn")
-        _check(lib.row_attn_bwd(
-            code, ndirs, kn, ke, H, din, R, int(l == nl - 1), int(l == 0),
-            _ptr(dagg), cur, ldc, _ptr(vals, l * H), LH, _ptr(ea), _ptr(edst),
-            _ptr(emask), _ptr(a32, l), nl, _ptr(w[f"a{l}_wqr"]),
-            _ptr(w[f"a{l}_wkr"]), _ptr(w.get(f"a{l}_we")),
-            _ptr(w.get(f"a{l}_be")), _ptr(gbuf[l]), _ptr(dx),
-            _ptr(dvals, l * H), LH, _ptr(dea_acc), _ptr(dea), _ptr(part),
-            stream), "row_attn_bwd")
-        _check(lib.row_wgrad(code, ndirs, kn, H, din, _ptr(dgi), _ptr(dgh),
-                             cur, ldc, _ptr(nres, c), 4 * LH,
-                             _ptr(dw[f"c{l}_w_ih"]), _ptr(dw[f"c{l}_w_hh"]),
-                             stream), "row_wgrad")
-        _check(lib.row_small_reduce(
-            code, ndirs, kn, H, din, R, _ptr(part), _ptr(dgi), _ptr(dgh),
-            _ptr(dw[f"a{l}_wq"]), _ptr(dw[f"a{l}_wk"]), _ptr(dw[f"a{l}_b"]),
-            _ptr(dw.get(f"a{l}_we")), _ptr(dw.get(f"a{l}_be")),
-            _ptr(dw[f"c{l}_b_ih"]), _ptr(dw[f"c{l}_b_hh"]), stream),
-            "row_small_reduce")
+            _ptr(w[f"c{l}_b_hh"]), _ptr(nmask), _ptr(hn[l]), _ptr(outs, l * H),
+            LH, stream), "wf_rebuild")
+    for grp, merge in plan:
+        if merge:
+            mt, mn = _tab(merge)
+            _check(lib.wf_seg_merge(code, mt, mn, kn, LH, 0, _ptr(dnear),
+                                    _ptr(nsrc), _ptr(emask), _ptr(gtot), stream),
+                   "wf_seg_merge")
+        tab, nb = _tab(grp)
+        nb0 = _gemm_blocks(grp)
+        for l in range(nl - 1, -1, -1):
+            din = emb if l == 0 else H
+            c = 4 * l * H
+            cur, ldc = (_ptr(xin), emb) if l == 0 else (_ptr(outs, (l - 1) * H), LH)
+            gnext = _ptr(gbuf[l + 1]) if l + 1 < nl else 0
+            _check(lib.wf_gru_bwd_elem(
+                code, nb0, nb, kn, H, _ptr(gtot, l * H), LH, gnext, _ptr(nmask),
+                _ptr(nres, c), _ptr(nres, c + H), _ptr(nres, c + 2 * H),
+                _ptr(nres, c + 3 * H), 4 * LH, _ptr(hn[l]), _ptr(dgi), _ptr(dgh),
+                _ptr(gz), stream), "wf_gru_bwd_elem")
+            _check(lib.wf_gemm_nn(code, nb0, nb, kn, H, 3 * H, _ptr(dgh),
+                                  _ptr(w[f"c{l}_w_hh"]), 1, _ptr(dagg), _ptr(gz),
+                                  stream), "wf_gemm_nn")
+            _check(lib.wf_gemm_nn(code, nb0, nb, kn, din, 3 * H, _ptr(dgi),
+                                  _ptr(w[f"c{l}_w_ih"]), 0, _ptr(gbuf[l]), 0,
+                                  stream), "wf_gemm_nn")
+            _check(lib.wf_attn_bwd(
+                code, tab, nb, kn, H, din, R, int(l == nl - 1), int(l == 0),
+                _ptr(dagg), cur, ldc, _ptr(vals, l * H), LH, _ptr(nsrc),
+                _ptr(outs, l * H), LH, _ptr(ea), _ptr(edst), _ptr(emask),
+                _ptr(a32, l), nl, _ptr(w[f"a{l}_wqr"]), _ptr(w[f"a{l}_wkr"]),
+                _ptr(w.get(f"a{l}_we")), _ptr(w.get(f"a{l}_be")),
+                _ptr(gbuf[l]), _ptr(dx), _ptr(dvals, l * H), LH,
+                _ptr(dnear, l * H), LH, _ptr(dea_acc), _ptr(dea), _ptr(part),
+                stream), "wf_attn_bwd")
+            _check(lib.wf_wgrad(code, nb0, nb, kn, H, din, _ptr(dgi), _ptr(dgh),
+                                cur, ldc, _ptr(nres, c), 4 * LH,
+                                _ptr(dw[f"c{l}_w_ih"]), _ptr(dw[f"c{l}_w_hh"]),
+                                stream), "wf_wgrad")
+            _check(lib.wf_small_reduce(
+                code, nb0, nb, kn, H, din, R, _ptr(part), _ptr(dgi), _ptr(dgh),
+                _ptr(dw[f"a{l}_wq"]), _ptr(dw[f"a{l}_wk"]), _ptr(dw[f"a{l}_b"]),
+                _ptr(dw.get(f"a{l}_we")), _ptr(dw.get(f"a{l}_be")),
+                _ptr(dw[f"c{l}_b_ih"]), _ptr(dw[f"c{l}_b_hh"]), stream),
+                "wf_small_reduce")
     return dx, dvals, dea, dw
 
 
 def row_forward(static, xin, vals, ea, edst, emask, nmask, weights,
                 emit_res: bool = False, ndirs: int = 1):
     """K1. CPU tensors: row_forward_plain. CUDA tensors: the kernels of
-    csrc/row_step.cu (an attention and a GRU launch per layer)."""
+    csrc/wavefront.cu (an attention and a GRU launch per layer)."""
     if xin.device.type == "cpu":
         return row_forward_plain(static, xin, vals, ea, edst, emask, nmask,
                                  weights, emit_res=emit_res, ndirs=ndirs)
     if xin.device.type != "cuda":
         raise ValueError(f"row_forward: unsupported device {xin.device}")
-    out = _cuda_row_forward(static, xin, vals, ea, edst, emask, nmask,
-                            weights, emit_res, ndirs)
+    ke = edst.shape[0] // ndirs
+    out = cuda_forward("row_forward", static, xin, vals, ea, edst, emask,
+                       nmask, weights, emit_res, [uniform_blocks(ndirs, ke, 0)],
+                       ndirs)
     launch_counts["row_forward"] += 1
     return out
 
@@ -596,7 +738,7 @@ def row_forward(static, xin, vals, ea, edst, emask, nmask, weights,
 def row_backward(static, xin, vals, ea, edst, emask, nmask, weights,
                  g, tg, tdst, tmask, res, ndirs: int = 1, dw_acc=None):
     """K2. CPU tensors: row_backward_plain. CUDA tensors: the kernels of
-    csrc/row_step.cu (a transpose-grad merge, a rebuild per layer, and six
+    csrc/wavefront.cu (a transpose-grad merge, a rebuild per layer, and six
     launches per layer)."""
     if xin.device.type == "cpu":
         return row_backward_plain(static, xin, vals, ea, edst, emask, nmask,
@@ -604,7 +746,10 @@ def row_backward(static, xin, vals, ea, edst, emask, nmask, weights,
                                   ndirs=ndirs, dw_acc=dw_acc)
     if xin.device.type != "cuda":
         raise ValueError(f"row_backward: unsupported device {xin.device}")
-    out = _cuda_row_backward(static, xin, vals, ea, edst, emask, nmask,
-                             weights, g, tg, tdst, tmask, res, ndirs, dw_acc)
+    blocks = uniform_blocks(ndirs, edst.shape[0] // ndirs,
+                            tdst.shape[0] // ndirs)
+    out = cuda_backward("row_backward", static, xin, vals, ea, edst, emask,
+                        nmask, weights, g, tg, tdst, tmask, res, dw_acc,
+                        [(blocks, None)], ndirs)
     launch_counts["row_backward"] += 1
     return out

@@ -1,7 +1,9 @@
-"""The CUDA row kernels against their plain versions on the card, at small
-odd shapes the flagship run does not reach: one direction (ndirs=1) and
-two, with and without edge attributes, widths that are not multiples of
-the kernels' 32-wide tiles, float32 and bfloat16.
+"""The CUDA kernels against their plain versions on the card, at small odd
+shapes the flagship run does not reach: the row kernels K1/K2 at one
+direction (ndirs=1) and two, and the pair kernels K3/K4 on a synthetic
+pair step with ragged blocks and intra-pair edges; with and without edge
+attributes, widths that are not multiples of the kernels' 32-wide tiles,
+float32 and bfloat16.
 
 These tests need a CUDA device and skip without one. On a machine with a
 card (the JAX package absent), run them with
@@ -35,9 +37,8 @@ def dev():
     return torch.device("cuda")
 
 
-def _row(dt, dev, nd, has_ea, kn=40, ke=70, kt=50, H=45, emb=37, nl=2, R=3):
+def _weights(g, dt, dev, nd, has_ea, H, emb, nl, R):
     from dagnn_tpu_torch.ops import row_step as rs
-    g = torch.Generator().manual_seed(nd * 10 + has_ea)
     u = lambda *s: (torch.rand(s, generator=g) * 2 - 1) * 0.3
     qd = [emb] + [H] * (nl - 1)
     dirs = []
@@ -51,7 +52,22 @@ def _row(dt, dev, nd, has_ea, kn=40, ke=70, kt=50, H=45, emb=37, nl=2, R=3):
         dirs.append(rs.flatten_row_weights([cast(a) for a in aggr],
                                            [cast(c) for c in cells], qd, has_ea))
     w = rs.stack_row_weights(dirs) if nd > 1 else dirs[0]
-    w = {k: v.to(dev) for k, v in w.items()}
+    return {k: v.to(dev) for k, v in w.items()}
+
+
+def _operands(g, dt, dev, has_ea, d):
+    """Move a dict of CPU operands to the card, the float ones in dt."""
+    d = {k: (v.to(dt) if k in ("xin", "vals", "ea", "g", "tg") else v).to(dev)
+         for k, v in d.items()}
+    if not has_ea:
+        d["ea"] = None
+    return d
+
+
+def _row(dt, dev, nd, has_ea, kn=40, ke=70, kt=50, H=45, emb=37, nl=2, R=3):
+    g = torch.Generator().manual_seed(nd * 10 + has_ea)
+    u = lambda *s: (torch.rand(s, generator=g) * 2 - 1) * 0.3
+    w = _weights(g, dt, dev, nd, has_ea, H, emb, nl, R)
     edst = torch.cat([torch.sort(torch.randint(0, kn, (ke,), generator=g))[0]
                       for _ in range(nd)])
     emask = torch.rand(nd * ke, generator=g) > 0.2
@@ -66,15 +82,67 @@ def _row(dt, dev, nd, has_ea, kn=40, ke=70, kt=50, H=45, emb=37, nl=2, R=3):
              g=torch.randn(nd * kn, nl * H, generator=g),
              tg=torch.randn(nd * kt, nl * H, generator=g), tdst=tdst.int(),
              tmask=(torch.rand(nd * kt, generator=g) > 0.3).float())
-    d = {k: (v.to(dt) if k in ("xin", "vals", "ea", "g", "tg") else v).to(dev)
-         for k, v in d.items()}
-    if not has_ea:
-        d["ea"] = None
-    return (has_ea, H, nl), d, w
+    return (has_ea, H, nl), _operands(g, dt, dev, has_ea, d), w
+
+
+def _pair(dt, dev, has_ea, kn=40, H=45, emb=37, nl=2, R=3):
+    """A synthetic pair step [A0|A1|B0|B1] with ragged odd widths: A blocks
+    all gathered, B blocks a far region then intra-pair edges whose source
+    slot nsrc lies in the same direction's A block (pad entries: edst and
+    nsrc = Kn, mask 0)."""
+    g = torch.Generator().manual_seed(100 + has_ea)
+    u = lambda *s: (torch.rand(s, generator=g) * 2 - 1) * 0.3
+    w = _weights(g, dt, dev, 2, has_ea, H, emb, nl, R)
+    blocks = (("p", 0, 70, 70, 33), ("p", 1, 53, 53, 21),
+              ("q", 0, 61, 25, 29), ("q", 1, 47, 9, 17))
+    edst, emask, nsrc = [], [], []
+    for mode, _d, ke, kv, _kt in blocks:
+        e = torch.sort(torch.randint(0, kn, (ke,), generator=g))[0]
+        m = torch.rand(ke, generator=g) > 0.2
+        e[~m] = kn
+        ns = torch.full((ke,), kn)
+        if mode == "q":
+            ns[kv:] = torch.randint(0, kn, (ke - kv,), generator=g)
+            ns[kv:][~m[kv:]] = kn
+        edst.append(e)
+        emask.append(m)
+        nsrc.append(ns)
+    W, U, T = (sum(b[2] for b in blocks), sum(b[3] for b in blocks),
+               sum(b[4] for b in blocks))
+    tdst = torch.randint(0, kn + 1, (T,), generator=g)
+    ea = torch.zeros(W, R)
+    ea[torch.arange(W), torch.randint(0, R, (W,), generator=g)] = 1
+    d = dict(xin=torch.randn(4 * kn, emb, generator=g), vals=u(U, nl * H) * 3,
+             ea=ea, edst=torch.cat(edst).int(), emask=torch.cat(emask).float(),
+             nsrc=torch.cat(nsrc).int(),
+             nmask=(torch.rand(4 * kn, generator=g) > 0.1).float(),
+             g=torch.randn(4 * kn, nl * H, generator=g),
+             tg=torch.randn(T, nl * H, generator=g), tdst=tdst.int(),
+             tmask=(torch.rand(T, generator=g) > 0.3).float())
+    return (has_ea, H, nl), _operands(g, dt, dev, has_ea, d), w, blocks
 
 
 def _err(a, b):
     return checks.rel_err(a, b)[0]
+
+
+def _check_backward(kb, pb, truth, again, dt, has_ea):
+    """K2/K4 outputs against the plain version's; weight grads on their
+    own scale with the exact-zero elements (truth) held to a noise bound;
+    a second launch bitwise the first (no atomics in the sums)."""
+    for a, b in zip(kb[:2], pb[:2]):
+        assert _err(a, b) <= TOL[dt]
+    assert (kb[2] is None) == (not has_ea)
+    if has_ea:
+        assert _err(kb[2], pb[2]) <= TOL[dt]
+    tmax = checks.tree_max(truth)
+    for name in pb[3]:
+        rel, _, _, noise = checks.grad_err(kb[3][name], pb[3][name],
+                                           truth[name], tmax)
+        assert rel <= TOL[dt] and noise <= NOISE_TOL, (name, rel, noise)
+    for name in kb[3]:
+        assert torch.equal(again[3][name], kb[3][name]), name
+    assert torch.equal(again[1], kb[1])
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -93,23 +161,32 @@ def test_kernels_match_plain(dev, nd, has_ea, dt):
     kb = rs.row_backward(*ba, ndirs=nd)
     pb = rs.row_backward_plain(*ba, ndirs=nd)
     torch.cuda.synchronize()
-    for a, b in zip(kb[:2], pb[:2]):
-        assert _err(a, b) <= TOL[dt]
-    assert (kb[2] is None) == (not has_ea)
-    if has_ea:
-        assert _err(kb[2], pb[2]) <= TOL[dt]
     # the float32 plain backward on the same inputs marks the weight-grad
     # elements that are zero in exact arithmetic
     f = checks.to_f32(fa)
     f32res = rs.row_forward_plain(*f, emit_res=True, ndirs=nd)[1:]
     truth = rs.row_backward_plain(*f, *checks.to_f32(ba[8:12]), f32res, ndirs=nd)[3]
-    tmax = checks.tree_max(truth)
-    for name in pb[3]:
-        rel, _, _, noise = checks.grad_err(kb[3][name], pb[3][name],
-                                           truth[name], tmax)
-        assert rel <= TOL[dt] and noise <= NOISE_TOL, (name, rel, noise)
-    # determinism: no atomics in the sums
-    again = rs.row_backward(*ba, ndirs=nd)
-    for name in kb[3]:
-        assert torch.equal(again[3][name], kb[3][name]), name
-    assert torch.equal(again[1], kb[1])
+    _check_backward(kb, pb, truth, rs.row_backward(*ba, ndirs=nd), dt, has_ea)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("has_ea", [True, False], ids=["ea", "noea"])
+def test_pair_kernels_match_plain(dev, has_ea, dt):
+    from dagnn_tpu_torch.ops import pair_step as ps
+    st, d, w, blocks = _pair(dt, dev, has_ea)
+    fa = (st, d["xin"], d["vals"], d["ea"], d["edst"], d["emask"], d["nmask"],
+          d["nsrc"], w)
+    for emit in (False, True):
+        k = ps.pair_forward(*fa, blocks, emit_res=emit)
+        p = ps.pair_forward_plain(*fa, blocks, emit_res=emit)
+        for a, b in zip(k if emit else (k,), p if emit else (p,)):
+            assert _err(a, b) <= TOL[dt]
+    ba = fa + (d["g"], d["tg"], d["tdst"], d["tmask"], (p[1], p[2]), blocks)
+    kb = ps.pair_backward(*ba)
+    pb = ps.pair_backward_plain(*ba)
+    torch.cuda.synchronize()
+    f = checks.to_f32(fa)
+    f32res = ps.pair_forward_plain(*f, blocks, emit_res=True)[1:]
+    truth = ps.pair_backward_plain(*f, *checks.to_f32(ba[9:13]), f32res,
+                                   blocks)[3]
+    _check_backward(kb, pb, truth, ps.pair_backward(*ba), dt, has_ea)

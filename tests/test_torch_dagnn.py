@@ -2,7 +2,8 @@
 (carried over by convert.py), on the flagship TOK config shrunk to emb 12 /
 hidden 16 / vocab 20 / seq 3: AST encoder, bidirectional attn_h with edge
 attributes, max pool over out_slots, 4 synthetic ASTs collated with stagger
-packing and edge-budget row splitting (several wavefront rows).
+packing and edge-budget row splitting (several wavefront rows) on the
+merged path, and 6 collated with a pair plan (pair=1/2/3) on the pair path.
 
 The JAX side runs its fused Pallas row kernels in interpret mode
 (segment_impl="fused", as tests/test_compute_modes.py does) and, for the
@@ -47,13 +48,18 @@ EMB, HID, VOCAB, SEQ = 12, 16, 20, 3
 BF16_TOL, BF16_GRAD_TOL, NOISE_TOL = 3e-2, 1e-1, 8.0
 
 
-def small_setup(dtype="float32", seed=0, n_graphs=4):
+def small_setup(dtype="float32", seed=0, n_graphs=4, pair=0):
     """(jax cfg, port cfg, jax params, port params, jax batch, port batch)
-    of the shrunk flagship; both batches collated from the same graphs."""
+    of the shrunk flagship; both batches collated from the same graphs,
+    with a pair plan when pair > 0 (the JAX bench's rounding of max_levels
+    to even, bench.py:151-152)."""
     kw = dict(mean_nodes=14, vocab=VOCAB, seq_len=SEQ)
     jg, tg = jsynth(seed, n_graphs, **kw), tsynth(seed, n_graphs, **kw)
     jpad = ge._pad_for(jg, chunk=8, edge_budget=16)
-    tpad = flagship.pad_for(tg, chunk=8, edge_budget=16)
+    if pair:
+        jpad = dataclasses.replace(
+            jpad, pair=pair, max_levels=jpad.max_levels + jpad.max_levels % 2)
+    tpad = flagship.pad_for(tg, chunk=8, edge_budget=16, pair=pair)
     tcfg = flagship.flagship_cfg(emb=EMB, hidden=HID, vocab=VOCAB, seq=SEQ,
                                  compute_dtype=dtype)
     jcfg = dataclasses.replace(ge._flagship_cfg(emb=EMB, hidden=HID),
@@ -159,13 +165,62 @@ def test_forward_and_grads_match_jax_dense():
         close(tg[k], jg[k], "float32", grad=True, name=k)
 
 
+# 6 graphs: the smallest seed-0 batch whose pair=1, 2 and 3 plans differ
+PAIR_GRAPHS = 6
+
+
+@pytest.mark.parametrize("dtype,pair", [("float32", 1), ("float32", 2),
+                                        ("float32", 3), ("bfloat16", 2)])
+def test_pair_forward_and_grads_match_jax(dtype, pair):
+    """A batch with a pair plan: the port's pair wavefront against the JAX
+    package's pair_pass (fused pair kernels in interpret mode), as
+    tests/test_pair.py:96-112 runs pair=1/2/3 against the merged path."""
+    jcfg, tcfg, jparams, tparams, jb, tb = small_setup(
+        dtype, seed=0, n_graphs=PAIR_GRAPHS, pair=pair)
+    assert tb.pair is not None and tdagnn.pair_applicable(tcfg, tb)
+    assert jdagnn.pair_applicable(jcfg, jb)
+    want, jl, jg = jax_run(jcfg, jparams, jb)
+    with torch.no_grad():
+        got = tdagnn.dagnn_forward(tparams, tcfg, tb).float().numpy()
+    close(got, want, dtype, name="logits")
+    tl, tg = port_loss_and_grads(tcfg, tparams, tb)
+    close(tl, jl, dtype, name="loss")
+    assert set(jg) == set(tg)
+    if dtype == "bfloat16":
+        close_bf16_grads(tg, jg, tcfg, tparams, tb)
+        return
+    for k in jg:
+        close(tg[k], jg[k], dtype, grad=True, name=k)
+
+
+def test_pair_matches_merged():
+    """The port's pair path at pair=1 (pair plan on the merged packing)
+    against its merged path on the same graphs, f32: pairing only changes
+    the execution layout."""
+    _, tcfg, _, tparams, _, tb1 = small_setup("float32", seed=1,
+                                              n_graphs=PAIR_GRAPHS, pair=1)
+    tb0 = tb1._replace(pair=None)
+    with torch.no_grad():
+        o1 = tdagnn.dagnn_forward(tparams, tcfg, tb1).numpy()
+        o0 = tdagnn.dagnn_forward(tparams, tcfg, tb0).numpy()
+    close(o1, o0, "float32", name="logits")
+    l1, g1 = port_loss_and_grads(tcfg, tparams, tb1)
+    l0, g0 = port_loss_and_grads(tcfg, tparams, tb0)
+    close(l1, l0, "float32", name="loss")
+    for k in g0:
+        close(g1[k], g0[k], "float32", grad=True, name=k)
+    with pytest.raises(ValueError, match="impl"):
+        tdagnn.dagnn_forward(tparams, tcfg, tb1, impl=tdagnn.PLAIN)
+
+
 def test_other_paths_raise():
-    """No silent fallback: pair plans and unported configs raise."""
+    """No silent fallback: near/far layouts and unported configs raise."""
     _, tcfg, _, tparams, _, tb = small_setup("float32", seed=2)
     for cfg in (dataclasses.replace(tcfg, segment_impl="dense"),
                 dataclasses.replace(tcfg, bidirectional=False),
                 dataclasses.replace(tcfg, out_pool_all=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tdagnn.dagnn_forward(tparams, cfg, tb)
-    with pytest.raises(NotImplementedError, match="pair"):
-        tdagnn.dagnn_forward(tparams, tcfg, tb._replace(pair=object()))
+    nearfar = tb._replace(fwd=tb.fwd._replace(edge_nsrc=tb.fwd.edge_dst))
+    with pytest.raises(NotImplementedError, match="near/far"):
+        tdagnn.dagnn_forward(tparams, tcfg, nearfar)

@@ -1,7 +1,8 @@
 """The port's TOK train step against the JAX driver's make_step_fns:
 two steps from the same weights on the same batch (shrunk flagship, f32,
-the JAX side on its fused Pallas path in interpret mode), the nonfinite
-guard, and the optax form of the global-norm clip.
+the JAX side on its fused Pallas path in interpret mode), one step on a
+batch with a pair plan (both packages on their pair wavefront), the
+nonfinite guard, and the optax form of the global-norm clip.
 
 Tolerances: losses f32 rtol 5e-4 / atol 5e-5 (the grads tolerance). The
 parameters after each step: all but one entry in 10^4 within rtol 5e-4 /
@@ -23,7 +24,7 @@ from dagnn_tpu.train.optim import make_optimizer as jmake_optimizer
 from dagnn_tpu_torch import convert
 from dagnn_tpu_torch.cli.ogb_driver import make_step_fns as tmake_step_fns
 from dagnn_tpu_torch.train.optim import clip_by_global_norm, make_optimizer
-from test_torch_dagnn import small_setup
+from test_torch_dagnn import PAIR_GRAPHS, small_setup
 
 torch.set_num_threads(1)
 
@@ -32,13 +33,15 @@ def _np(tree):
     return convert.flatten_tree(jax.tree.map(np.asarray, tree))
 
 
-def test_two_train_steps_match_jax():
-    jcfg, tcfg, jparams, tparams, jb, tb = small_setup("float32", seed=3)
+def _steps_match_jax(setup, steps):
+    """`steps` train steps of both packages from the same weights on the
+    same batch: losses, parameters after each step, predictions."""
+    jcfg, tcfg, jparams, tparams, jb, tb = setup
     jopt, topt = jmake_optimizer(1e-3, 0.25), make_optimizer(1e-3, 0.25)
     jstep, jpredict = jmake_step_fns(jcfg, jopt, "tok")
     tstep, tpredict = tmake_step_fns(tcfg, topt, "tok")
     jstate, tstate = jopt.init(jparams), topt.init(tparams)
-    for step in range(2):
+    for step in range(steps):
         jparams, jstate, jloss, jfin = jstep(jparams, jstate, jb,
                                              jax.random.PRNGKey(0))
         tparams, tstate, tloss, tfin = tstep(tparams, tstate, tb)
@@ -54,9 +57,21 @@ def test_two_train_steps_match_jax():
             n_off += int((np.abs(got - v) > 5e-5 + 5e-4 * np.abs(v)).sum())
             n_all += v.size
         assert n_off <= n_all * 1e-4, (step, n_off, n_all)
-    assert int(tstate["count"]) == 2
+    assert int(tstate["count"]) == steps
     np.testing.assert_array_equal(tpredict(tparams, tb).numpy(),
                                   np.asarray(jpredict(jparams, jb)))
+
+
+def test_two_train_steps_match_jax():
+    _steps_match_jax(small_setup("float32", seed=3), 2)
+
+
+def test_pair_train_step_matches_jax():
+    """A batch with a pair plan (pair=2, the JAX bench's default): both
+    packages run their pair wavefront."""
+    setup = small_setup("float32", seed=3, n_graphs=PAIR_GRAPHS, pair=2)
+    assert setup[5].pair is not None
+    _steps_match_jax(setup, 1)
 
 
 def test_nonfinite_step_is_skipped():

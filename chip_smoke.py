@@ -2,17 +2,28 @@
 
 Drives dagnn_tpu_torch (never the JAX package) through the entry points a
 user calls, at the flagship's full width (emb/hidden 300, 160 synthetic
-ASTs, bf16), on both wavefronts the port runs, with the hand-written
-kernels of dagnn_tpu_torch/csrc/wavefront.cu: the direction-merged
-wavefront (row kernels K1 forward, K2 backward) and the pair-scheduled
-wavefront (pair kernels K3 forward, K4 backward; pair=2, the JAX bench's
-default):
+ASTs, bf16), on every wavefront the port runs, with the hand-written
+kernels of dagnn_tpu_torch/csrc/: wavefront.cu (the row kernels K1
+forward / K2 backward, the pair kernels K3 / K4, the transpose-grad
+accumulate K5) and segment_attn.cu (the edge-softmax aggregate K6, forward
+and backward). The paths: the direction-merged wavefront (K1/K2), the
+pair-scheduled wavefront (K3/K4; pair=2, the JAX bench's default), the
+per-direction wavefront's generic branch (segment_impl="pallas": K6, K5)
+and its fused branch (bidirectional=False: K1/K2 at one direction, and
+K5 + K2 in the split form):
 
   1.  the card's name and power limit (nvidia-smi)
-  2.  build the kernels from the checkout's sources (nvcc, sm_90a)
+  2.  build the kernels from the checkout's sources (nvcc, sm_90a, one
+      process per source, all started together)
   3.  K1 and K2 against their plain PyTorch versions on one merged row at
-      the flagship shapes, bf16 and f32, with timings and bounds
+      the flagship shapes, bf16 and f32, with bounds and two timings: on
+      the device (50 calls replayed from one CUDA graph) and per eager call
   3b. K3 and K4 the same way on one pair step of the flagship pair batch
+  3c. K6 forward and backward the same way on one level of the flagship
+      batch (Ke 512, 257 slots, H 300)
+  3d. K5 the same way (Kn 256, Kt 512, L*H 600), with index_add_ on the
+      same data as the one-PyTorch-call time; and one row at one direction,
+      K2 (merge_tg=True) against K5 + K2 (merge_tg=False)
   4.  the merged workload (synthetic batch, flagship.pad_for, no pair plan)
   4b. the pair workload (the same graphs, flagship.pad_for(pair=2))
   the merged path (launch counts set to 0 before, read after):
@@ -21,11 +32,23 @@ default):
   6.  a warm-up step, then 5 timed train steps on the same batch: finite,
       decreasing losses; edges/s fwd+bwd
   7.  one predict
-  8.  launch counts: K1/K2 L per pass, K3/K4 none
+  8.  launch counts: K1/K2 L per pass, every other kernel none
   5c. f32, the pair path at pair=1 against the merged path on the same
       packing, kernels on both sides
   the pair path (counts set to 0 before, read after): 5b, 6b, 7b as 5-7,
-  8b. launch counts: K3/K4 P per pass, K1/K2 none
+  8b. launch counts: K3/K4 P per pass, every other kernel none
+  the per-direction pallas path (the merged workload's batch;
+  segment_impl="pallas"): 9a-9c as 5-7,
+  9d. launch counts: per train pass, K6 forward 2 x (layers x L x 2
+      directions) (the forward and its replay in the backward), K6
+      backward and K5 once that; every other kernel none
+  the unidirectional fused path (the same batch, bidirectional=False):
+  10a-10c as 5-7, 10d. launch counts: K1/K2 L per pass
+  10e. the split form (K5 + K2 merge_tg=False): f32 against the merged-tg
+      kernels, bf16 kernels against plain (counts read after)
+  11. f32, the bidirectional fused model per direction (two
+      _direction_pass calls, K1 and K5 + K2 at one direction) against the
+      merged path on the same batch
 
 The second-to-last line is the kernel table as JSON, the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero.
@@ -63,13 +86,15 @@ NOISE_TOL = 8.0
 #     direction 0, a nearly cancelling sum (2.7e-6 against leaves of 1e-3
 #     and more); the plain version's index_add_ sums in no fixed order
 STEP_TOL = {"loss": 1e-5, "leaf": 6e-2}
-# phase 5c, f32 pair=1 against merged (the JAX package's own layout test,
-# tests/test_pair.py:105-112): loss and norm 1e-5 relative; every grad leaf
-# within rtol / atol
-PAIR1_TOL = {"loss": 1e-5, "rtol": 5e-4, "atol": 5e-5}
+# phases 5c, 10e and 11, f32 steps of two routes or forms that compute the
+# same function (the JAX package's own layout test, tests/test_pair.py:
+# 105-112): loss and norm 1e-5 relative; every grad leaf within rtol / atol
+CROSS_TOL = {"loss": 1e-5, "rtol": 5e-4, "atol": 5e-5}
 PEAK_BYTES = 3.35e12                     # H100 SXM HBM3, bytes/s
 PEAK_OPS = {torch.bfloat16: 989e12,      # dense tensor-core bf16
             torch.float32: 67e12}        # float32 outside the tensor cores
+# K5 and K6 do their arithmetic in float32 on the CUDA cores whatever the
+# operands' type, so their operations are bounded at the float32 rate
 FLAGSHIP = dict(kn=256, ke=512, kt=512, H=300, emb=300, nl=2, R=2, nd=2)
 WIDTH = dict(H=300, emb=300, nl=2, R=2)
 
@@ -103,6 +128,31 @@ def time_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
+def timings(fn, reps=50):
+    """A call's time two ways, each the median of three windows of `reps`
+    calls: `ms` on the device alone (the calls captured in one CUDA graph,
+    the graph replayed, so the host's issue time between launches drops
+    out) and `call_ms` per eager call (host issue included: what a caller
+    that launches one call after another waits). The windows beside."""
+    call = [time_ms(fn, reps) for _ in range(3)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                  # warm-up on a side stream
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    dev = [time_ms(graph.replay, 1) / reps for _ in range(3)]
+    return dict(ms=sorted(dev)[1], windows=dev, call_ms=sorted(call)[1],
+                call_windows=call)
+
+
+def fmt_windows(w):
+    return " / ".join(f"{v:.4f}" for v in w)
+
+
 def short(dt):
     return str(dt)[6:]
 
@@ -126,7 +176,8 @@ def ptxas_summary(log):
 # ------------------------------------------------- kernels alone, one step
 
 def rand_weights(g, dt, dev, H, emb, nl, R, nd):
-    """Stacked [nd, ...] kernel weights at torch's default init scale."""
+    """Kernel weights at torch's default init scale: stacked [nd, ...], or
+    one direction's unstacked for nd = 1."""
     from dagnn_tpu_torch.ops import row_step
     u = lambda *s, b=1.0: ((torch.rand(s, generator=g) * 2 - 1) * b)
     qd = [emb] + [H] * (nl - 1)
@@ -145,7 +196,8 @@ def rand_weights(g, dt, dev, H, emb, nl, R, nd):
                           for k, v in t.items()}
         dirs.append(row_step.flatten_row_weights(
             [cast(a) for a in aggr], [cast(c) for c in cells], qd, True))
-    return {k: v.to(dev) for k, v in row_step.stack_row_weights(dirs).items()}
+    w = row_step.stack_row_weights(dirs) if nd > 1 else dirs[0]
+    return {k: v.to(dev) for k, v in w.items()}
 
 
 def _to_dev(d, dt, dev):
@@ -258,6 +310,24 @@ def kernel_costs(static, d, weights, dt):
     return f_bytes, f_ops, b_bytes, b_ops
 
 
+def segment_costs(ke, ne, S, H, es):
+    """(forward bytes, forward ops, backward bytes, backward ops) of one K6
+    call at es bytes an element: scores, values, dst and mask read once,
+    the output (forward) or the cotangent in and both grads out (backward);
+    operations on this call's ne valid edges (the weighted sum, and the
+    dot, the value grads and the score grad)."""
+    in_b = ke * es + ke * H * es + ke * 8
+    return (in_b + S * H * es, ne * (2 * H + 5),
+            in_b + S * H * es + ke * es + ke * H * es, ne * (3 * H + 8))
+
+
+def tg_costs(kn, kt, nt, c, es):
+    """(bytes, ops) of one K5 call: g and the output [Kn, C], tg [Kt, C],
+    tdst and tmask once each; an add per element of g and of each of the
+    nt valid transpose rows."""
+    return 2 * kn * c * es + kt * c * es + kt * 8, (nt + kn) * c
+
+
 def bound_ms(nbytes, ops, dt):
     tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_OPS[dt] * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
@@ -269,8 +339,9 @@ def phase_kernels(spec):
     Forward outputs on their own max|plain|; backward outputs and weight
     grads on their own max|plain| with the elements that are zero in exact
     arithmetic (the float32 plain run on the same inputs tells them apart)
-    held to the noise bound. Times: the median of three windows of 50
-    launches, the plain version's mean of 5."""
+    held to the noise bound. Times (`timings`): on the device and per eager
+    call, each the median of three windows of 50 launches; the plain
+    version's mean of 5 eager calls."""
     from dagnn_tpu_torch import checks
     kf_name, kb_name = spec["names"]
     results = {}
@@ -315,22 +386,24 @@ def phase_kernels(spec):
         bad = [k for k, (rel, ab, scale) in errs.items() if not rel <= tol]
         bad += [k for k, v in noise.items() if not v <= NOISE_TOL]
         check(not bad, f"{dt}: kernel disagrees with plain on {bad}")
-        f_win = [time_ms(lambda: fwd(spec["fwd"], d, w, True), 50) for _ in range(3)]
+        ft = timings(lambda: fwd(spec["fwd"], d, w, True))
         pf_ms = time_ms(lambda: fwd(spec["fwd_plain"], d, w, True), 5)
-        b_win = [time_ms(lambda: bwd(spec["bwd"], d, w, res), 50) for _ in range(3)]
+        bt = timings(lambda: bwd(spec["bwd"], d, w, res))
         pb_ms = time_ms(lambda: bwd(spec["bwd_plain"], d, w, res), 5)
-        print(f"  {short(dt)} windows (ms): {kf_name} "
-              f"{' '.join(f'{v:.4f}' for v in f_win)}; {kb_name} "
-              f"{' '.join(f'{v:.4f}' for v in b_win)}")
+        print(f"  {short(dt)} device windows (ms): {kf_name} {fmt_windows(ft['windows'])}; "
+              f"{kb_name} {fmt_windows(bt['windows'])}; per eager call: {kf_name} "
+              f"{fmt_windows(ft['call_windows'])}; {kb_name} "
+              f"{fmt_windows(bt['call_windows'])}")
         b1, o1, b2, o2 = kernel_costs(st, d, w, dt)
         results[dt] = {
-            kf_name: dict(ms=sorted(f_win)[1], plain_ms=pf_ms, err=worst[kf_name][1],
+            kf_name: dict(ft, plain_ms=pf_ms, err=worst[kf_name][1],
                           bound=bound_ms(b1, o1, dt), bytes=b1, ops=o1),
-            kb_name: dict(ms=sorted(b_win)[1], plain_ms=pb_ms, err=worst[kb_name][1],
+            kb_name: dict(bt, plain_ms=pb_ms, err=worst[kb_name][1],
                           bound=bound_ms(b2, o2, dt), bytes=b2, ops=o2)}
         for kern in (kf_name, kb_name):
             r = results[dt][kern]
-            print(f"  {kern} {short(dt)}: kernel {r['ms']:.4f} ms, plain "
+            print(f"  {kern} {short(dt)}: kernel {r['ms']:.4f} ms on the device, "
+                  f"{r['call_ms']:.4f} ms per eager call, plain "
                   f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.5f} ms by "
                   f"{r['bound'][1]} ({r['bytes'] / 1e6:.2f} MB, "
                   f"{r['ops'] / 1e9:.3f} GFLOP)")
@@ -364,6 +437,178 @@ def pair_spec(dev, plan, kn, p):
                                      d["tg"], d["tdst"], d["tmask"], res, blocks))
 
 
+def busiest_level(host, key):
+    """(direction schedule, row) of the flagship batch whose `key` mask
+    has the most entries set, over both directions."""
+    return max(((s, int(getattr(s, key).sum(1).argmax())) for s in (host.fwd, host.rev)),
+               key=lambda sr: int(getattr(sr[0], key)[sr[1]].sum()))
+
+
+def report(name, dt, r):
+    print(f"  {name} {short(dt)}: kernel {r['ms']:.4f} ms on the device (windows "
+          f"{fmt_windows(r['windows'])}), {r['call_ms']:.4f} ms per eager call "
+          f"(windows {fmt_windows(r['call_windows'])}), plain {r['plain_ms']:.4f} ms"
+          + (f", one PyTorch call {r['library_ms']:.4f} ms on the device, "
+             f"{r['library_call_ms']:.4f} ms per eager call"
+             if r.get("library_ms") is not None else "")
+          + f", bound {r['bound'][0]:.5f} ms by {r['bound'][1]} "
+          f"({r['bytes'] / 1e6:.3f} MB, {r['ops'] / 1e6:.3f} MFLOP); max_abs_err "
+          f"{r['err']:.3e} of max|plain| {r['scale']:.3e} (tolerance {TOL[dt]:g})")
+
+
+def phase_segment_attn(dev, host, H=300):
+    """Phase 3c: K6 forward and backward against their plain versions on
+    one level of the flagship batch (its slots and masks; random scores,
+    values and cotangent from a seed), bf16 and f32; timed as phase 3."""
+    from dagnn_tpu_torch import checks
+    from dagnn_tpu_torch.ops import segment_attn as sa
+    sched, row = busiest_level(host, "edge_mask")
+    kn = sched.node_ids.shape[1]
+    S = kn + 1
+    dst = torch.as_tensor(sched.edge_dst[row]).int().to(dev)
+    mask = torch.as_tensor(sched.edge_mask[row]).float().to(dev)
+    ke = dst.shape[0]
+    ne = int((mask > 0).sum())
+    deg = torch.bincount(dst[mask > 0].long(), minlength=S)
+    print(f"  level {row} of the {'fwd' if sched is host.fwd else 'rev'} schedule: "
+          f"{ne} of {ke} edges valid, {int((deg > 0).sum())} of {S} slots "
+          f"non-empty, at most {int(deg.max())} edges a slot")
+    results = {}
+    for dt in (torch.bfloat16, torch.float32):
+        g = torch.Generator().manual_seed(2)
+        sc = torch.randn(ke, generator=g).to(dt).to(dev)
+        v = torch.randn(ke, H, generator=g).to(dt).to(dev)
+        gout = (0.1 * torch.randn(S, H, generator=g)).to(dt).to(dev)
+        es = sc.element_size()
+        kf = sa.segment_attn_forward(sc, v, dst, mask, S)
+        pf = sa.segment_attn_forward_plain(sc, v, dst, mask, S)
+        kb = sa.segment_attn_backward(sc, v, dst, mask, gout, S)
+        pb = sa.segment_attn_backward_plain(sc, v, dst, mask, gout, S)
+        torch.cuda.synchronize()
+        errs = {"K6f": [checks.rel_err(kf, pf)],
+                "K6b": [checks.rel_err(kb[0], pb[0]), checks.rel_err(kb[1], pb[1])]}
+        fb, fo, bb, bo = segment_costs(ke, ne, S, H, es)
+        cost = {"K6f": (fb, fo), "K6b": (bb, bo)}
+        runs = {"K6f": (lambda: sa.segment_attn_forward(sc, v, dst, mask, S),
+                        lambda: sa.segment_attn_forward_plain(sc, v, dst, mask, S)),
+                "K6b": (lambda: sa.segment_attn_backward(sc, v, dst, mask, gout, S),
+                        lambda: sa.segment_attn_backward_plain(sc, v, dst, mask, gout, S))}
+        results[dt] = {}
+        for kern in ("K6f", "K6b"):
+            rel, ab, scale = max(errs[kern])
+            nb, ops = cost[kern]
+            r = dict(timings(runs[kern][0]), plain_ms=time_ms(runs[kern][1], 5),
+                     err=ab, scale=scale, rel=rel, bytes=nb, ops=ops, library_ms=None,
+                     bound=bound_ms(nb, ops, torch.float32))
+            report(kern, dt, r)
+            check(rel <= TOL[dt], f"{kern} {dt}: kernel disagrees with plain ({rel:.3e})")
+            results[dt][kern] = r
+    return results
+
+
+def phase_tg_accumulate(dev, host, LH=600):
+    """Phase 3d: K5 against its plain version on the transpose schedule of
+    one level of the flagship batch (random g and tg from a seed), bf16
+    and f32, timed as phase 3, with index_add_ of the masked rows into g
+    padded with a scratch row (the same function in one PyTorch call)."""
+    from dagnn_tpu_torch import checks
+    from dagnn_tpu_torch.ops import row_step as rs
+    sched, row = busiest_level(host, "tgrad_mask")
+    kn = sched.node_ids.shape[1]
+    tdst = torch.as_tensor(sched.tgrad_dst[row]).int().to(dev)
+    tmask = torch.as_tensor(sched.tgrad_mask[row]).float().to(dev)
+    kt = tdst.shape[0]
+    nt = int((tmask > 0).sum())
+    print(f"  level {row}: {nt} of {kt} transpose edges valid, Kn {kn}, L*H {LH}")
+    results = {}
+    for dt in (torch.bfloat16, torch.float32):
+        g = torch.Generator().manual_seed(3)
+        gg = (0.1 * torch.randn(kn, LH, generator=g)).to(dt).to(dev)
+        tg = (0.1 * torch.randn(kt, LH, generator=g)).to(dt).to(dev)
+        k = rs.tg_accumulate(gg, tg, tdst, tmask)
+        p = rs.tg_accumulate_plain(gg, tg, tdst, tmask)
+        gpad = torch.cat([gg, torch.zeros(1, LH, dtype=dt, device=dev)])
+        idx = tdst.long()
+        tgm = torch.where(tmask[:, None] > 0, tg, torch.zeros((), dtype=dt, device=dev))
+        lib = gpad.index_add(0, idx, tgm)[:kn]
+        torch.cuda.synchronize()
+        rel, ab, scale = checks.rel_err(k, p)
+        lib_rel = checks.rel_err(lib, p)[0]
+        nb, ops = tg_costs(kn, kt, nt, LH, gg.element_size())
+        lib_t = timings(lambda: gpad.index_add(0, idx, tgm))
+        r = dict(timings(lambda: rs.tg_accumulate(gg, tg, tdst, tmask)), err=ab,
+                 scale=scale, rel=rel, bytes=nb, ops=ops,
+                 plain_ms=time_ms(lambda: rs.tg_accumulate_plain(gg, tg, tdst, tmask), 5),
+                 library_ms=lib_t["ms"], library_call_ms=lib_t["call_ms"],
+                 bound=bound_ms(nb, ops, torch.float32))
+        report("K5", dt, r)
+        print(f"    index_add_ against plain: {lib_rel:.3e} of max|plain|")
+        check(rel <= TOL[dt], f"K5 {dt}: kernel disagrees with plain ({rel:.3e})")
+        results[dt] = {"K5": r}
+    return results
+
+
+def phase_split_row(dev):
+    """Phase 3d, second half: one row at one direction (Kn 256, Ke 512,
+    Kt 512, flagship width): K2 merging the transpose grads itself against
+    K5 + K2 with merge_tg=False, on the same inputs, each output and
+    weight grad on its own max|merged|. f32: the same arithmetic (K5's f32
+    sum is the one K2 takes inside): held to TOL. bf16: K5 rounds the
+    merged cotangent to bf16 once more, a difference of the algorithm (the
+    JAX package's two forms differ so too), not of a kernel; the readings
+    are printed (weight-grad elements that are zero in exact arithmetic,
+    told apart by the f32 plain backward, as noise). The split kernels are
+    held against their plain versions in phases 3d (K5) and 10e (the
+    step)."""
+    from dagnn_tpu_torch import checks
+    from dagnn_tpu_torch.ops import row_step as rs
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        st, d, w = row_inputs(dt, dev, nd=1, **{k: v for k, v in FLAGSHIP.items()
+                                                if k != "nd"})
+        fa = (st, d["xin"], d["vals"], d["ea"], d["edst"], d["emask"], d["nmask"], w)
+        _, a32, nres = rs.row_forward(*fa, emit_res=True)
+        ba = fa + (d["g"], d["tg"], d["tdst"], d["tmask"], (a32, nres))
+        m = rs.row_backward(*ba)
+        sp = rs.row_backward(*ba, merge_tg=False)
+        torch.cuda.synchronize()
+        f = checks.to_f32(ba)
+        truth = rs.row_backward_plain(*f[:-1], rs.row_forward_plain(
+            *f[:8], emit_res=True)[1:])[3]
+        tmax = checks.tree_max(truth)
+        errs = [(checks.rel_err(a, b)[0], n, 0.0)
+                for n, a, b in zip(("dx", "dvals", "dea"), sp[:3], m[:3])]
+        for k in m[3]:
+            rel, _, _, noise = checks.grad_err(sp[3][k], m[3][k], truth[k], tmax)
+            errs.append((rel, f"dw[{k}]", noise))
+        worst = max(errs)
+        noise = max(errs, key=lambda e: e[2])
+        mt = timings(lambda: rs.row_backward(*ba))
+        spt = timings(lambda: rs.row_backward(*ba, merge_tg=False))
+        k1t = timings(lambda: rs.row_forward(*fa, emit_res=True))
+        p1_ms = time_ms(lambda: rs.row_forward_plain(*fa, emit_res=True), 5)
+        p2_ms = time_ms(lambda: rs.row_backward_plain(*ba), 5)
+        b1, o1, b2, o2 = kernel_costs(st, d, w, dt)
+        bd1, bd2 = bound_ms(b1, o1, dt), bound_ms(b2, o2, dt)
+        print(f"  ndirs=1 {short(dt)}, ms on the device (per eager call): K1 "
+              f"{k1t['ms']:.4f} ({k1t['call_ms']:.4f}; plain {p1_ms:.4f}, bound "
+              f"{bd1[0]:.5f} by {bd1[1]}); K2 {mt['ms']:.4f} ({mt['call_ms']:.4f}; "
+              f"device windows {fmt_windows(mt['windows'])}; plain {p2_ms:.4f}, bound "
+              f"{bd2[0]:.5f} by {bd2[1]}); K5 + K2 split {spt['ms']:.4f} "
+              f"({spt['call_ms']:.4f}; device windows {fmt_windows(spt['windows'])}); "
+              f"split vs merged: worst {worst[1]} {worst[0]:.3e} of its max"
+              + (f" (tolerance {TOL[dt]:g})" if dt == torch.float32 else "") + ", "
+              f"exact-zero elements' noise worst {noise[1]} {noise[2]:.3g} x merged's")
+        if dt == torch.float32:
+            check(worst[0] <= TOL[dt], "f32: split K2 disagrees with merged K2")
+        out[dt] = dict(k1_ms=k1t["ms"], k2_ms=mt["ms"], split_ms=spt["ms"],
+                       k1_call_ms=k1t["call_ms"], k2_call_ms=mt["call_ms"],
+                       split_call_ms=spt["call_ms"], k1_plain_ms=p1_ms,
+                       k2_plain_ms=p2_ms, k1_bound=bd1, k2_bound=bd2,
+                       worst=worst[:2], noise=noise[1:])
+    return out
+
+
 # -------------------------------------------------------- the main path
 
 def loss_and_grads(params, cfg, batch, impl):
@@ -378,17 +623,20 @@ def loss_and_grads(params, cfg, batch, impl):
     return float(loss.detach()), dict(zip(p, gs)), float(norm)
 
 
-def phase_step(label, params, cfg, batch, kernels, plain):
-    """Phases 5 / 5b: the kernel step's parameter grads against the plain
-    step's, leaf by leaf on each leaf's own scale. The plain step in
-    float32 with the same bf16-rounded weights marks the elements that
-    are zero in exact arithmetic."""
+def phase_step(label, params, cfg, batch, kernels, plain, group=None):
+    """Phases 5 / 5b / 9a / 10a / 10e: the kernel step's parameter grads
+    against the plain step's, leaf by leaf on each leaf's own scale (after
+    `group`, if given). The plain step in float32 with the same
+    bf16-rounded weights marks the elements that are zero in exact
+    arithmetic."""
     from dagnn_tpu_torch import checks
     kl, kg, kn = loss_and_grads(params, cfg, batch, kernels)
     pl, pg, pn = loss_and_grads(params, cfg, batch, plain)
     _, truth, _ = loss_and_grads(
         {k: v.to(torch.bfloat16).float() for k, v in params.items()},
         dataclasses.replace(cfg, compute_dtype="float32"), batch, plain)
+    if group is not None:
+        kg, pg, truth = group(kg), group(pg), group(truth)
     tmax = checks.tree_max(truth)
     e_loss, e_norm = abs(kl - pl) / abs(pl), abs(kn - pn) / pn
     print(f"{label} one step, kernels vs plain: loss {kl:.6f} vs {pl:.6f} (rel "
@@ -412,26 +660,26 @@ def phase_step(label, params, cfg, batch, kernels, plain):
           f"kernel step disagrees with plain step on {bad or 'the loss or norm'}")
 
 
-def phase_pair1_vs_merged(params, cfg, batch1):
-    """Phase 5c: in f32, the pair path at pair=1 against the merged path on
-    the same packing (the same batch without its pair plan), kernels on
-    both sides: pairing only changes the execution layout."""
-    from dagnn_tpu_torch.nn.dagnn import KERNELS, PAIR_KERNELS
+def phase_cross(label, what, params, cfg, run_a, run_b):
+    """Phases 5c, 10e and 11: in f32, one train step's loss and grads by two
+    routes or forms that compute the same function (run_a, run_b: (batch,
+    impl)), kernels on both sides."""
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
-    lp, gp, np_ = loss_and_grads(params, cfg32, batch1, PAIR_KERNELS)
-    lm, gm, nm = loss_and_grads(params, cfg32, batch1._replace(pair=None), KERNELS)
-    e_loss, e_norm = abs(lp - lm) / abs(lm), abs(np_ - nm) / nm
-    t = PAIR1_TOL
-    # the worst leaf's |pair - merged| over (atol + rtol |merged|): <= 1 passes
-    ratio = {k: float(((gp[k] - gm[k]).abs()
-                       / (t["atol"] + t["rtol"] * gm[k].abs())).max()) for k in gm}
+    la, ga, na = loss_and_grads(params, cfg32, *run_a)
+    lb, gb, nb = loss_and_grads(params, cfg32, *run_b)
+    e_loss, e_norm = abs(la - lb) / abs(lb), abs(na - nb) / nb
+    t = CROSS_TOL
+    # the worst leaf's |a - b| over (atol + rtol |b|): <= 1 passes
+    ratio = {k: float(((ga[k] - gb[k]).abs()
+                       / (t["atol"] + t["rtol"] * gb[k].abs())).max()) for k in gb}
     worst = max(ratio, key=ratio.get)
-    print(f"[5c] f32 pair=1 vs merged, kernels: loss {lp:.7f} vs {lm:.7f} (rel "
+    print(f"{label} f32 {what}, kernels: loss {la:.7f} vs {lb:.7f} (rel "
           f"{e_loss:.2e}), grad norm rel {e_norm:.2e} (tolerance {t['loss']:g}); "
           f"worst leaf {worst} at {ratio[worst]:.3g} of rtol {t['rtol']:g} / "
           f"atol {t['atol']:g}")
     check(e_loss <= t["loss"] and e_norm <= t["loss"] and ratio[worst] <= 1.0,
-          "f32 pair=1 step disagrees with the merged step")
+          f"f32 {what}: the two steps disagree")
+    return dict(loss_rel=e_loss, norm_rel=e_norm, worst=(worst, ratio[worst]))
 
 
 def timed_steps(label, make_step_fns, make_optimizer, cfg, params, batch, card,
@@ -518,30 +766,43 @@ def profile_step(tag, train_step, params, state, batch, card, out_dir):
         print(f"    {us / 1e3:9.3f} ms {100 * us / busy:5.1f}%  {name}")
 
 
+def _counted_modules():
+    from dagnn_tpu_torch.ops import pair_step, row_step, segment_attn
+    return (row_step, pair_step, segment_attn)
+
+
 def reset_counts():
-    from dagnn_tpu_torch.ops import pair_step, row_step
-    row_step.reset_launch_counts()
-    pair_step.reset_launch_counts()
+    for m in _counted_modules():
+        m.reset_launch_counts()
 
 
 def read_counts():
-    from dagnn_tpu_torch.ops import pair_step, row_step
-    return {**row_step.launch_counts, **pair_step.launch_counts}
+    return {k: v for m in _counted_modules() for k, v in m.launch_counts.items()}
 
 
-def drive_path(tag, labels, cfg, params, batch, per_pass, kernels, plain, card,
-               argv):
+def check_counts(label, tag, expect):
+    """The launch counts read now against `expect` (every wrapper not named
+    there launched nothing)."""
+    lc = read_counts()
+    want = {k: 0 for k in lc}
+    want.update(expect)
+    print(f"{label} {tag} launch counts {lc}, expected {want}")
+    check(lc == want, f"{tag}: launch counts differ from the passes")
+    return lc
+
+
+def drive_path(tag, labels, cfg, params, batch, expect, kernels, plain, card,
+               argv, group=None):
     """One path through its entry points, launch counts set to 0 before and
     read after: the step check, the timed steps, a predict (and with
-    --profile one profiled step). per_pass: (forward wrapper, backward
-    wrapper, calls per pass). Fails unless the counts are exactly calls per
-    pass times the passes, and every other wrapper launched nothing."""
+    --profile one profiled step). expect(train passes, forward passes) gives
+    the launches each wrapper of the path must have made; every other
+    wrapper must have launched nothing."""
     from dagnn_tpu_torch.cli.ogb_driver import make_step_fns
     from dagnn_tpu_torch.train.optim import make_optimizer
-    fwd_name, bwd_name, per = per_pass
     train_passes = fwd_passes = 0
     reset_counts()
-    phase_step(labels[0], params, cfg, batch, kernels, plain)
+    phase_step(labels[0], params, cfg, batch, kernels, plain, group)
     train_passes += 1
     eps, ms, losses, p, state, train_step, predict = timed_steps(
         labels[1], make_step_fns, make_optimizer, cfg, params, batch, card)
@@ -551,12 +812,7 @@ def drive_path(tag, labels, cfg, params, batch, per_pass, kernels, plain, card,
     if "--profile" in argv:
         profile_step(tag, train_step, p, state, batch, card, trace_dir(argv))
         train_passes += 1
-    lc = read_counts()
-    want = {k: 0 for k in lc}
-    want[fwd_name] = per * (train_passes + fwd_passes)
-    want[bwd_name] = per * train_passes
-    print(f"{labels[3]} {tag} path launch counts {lc}, expected {want}")
-    check(lc == want, f"{tag} path launch counts differ from the passes")
+    lc = check_counts(labels[3], f"{tag} path", expect(train_passes, fwd_passes))
     return dict(edges_per_s=eps, step_ms=ms, losses=losses, launches=lc)
 
 
@@ -564,12 +820,13 @@ def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    from dagnn_tpu_torch import convert, flagship
+    from dagnn_tpu_torch import checks, convert, flagship
     from dagnn_tpu_torch.dag.batch import collate
     from dagnn_tpu_torch.data.synthetic import synthetic_ast_batch
     from dagnn_tpu_torch.nn.dagnn import (KERNELS, PAIR_KERNELS, PAIR_PLAIN,
-                                          PLAIN, dagnn_init)
-    from dagnn_tpu_torch.ops import build, row_step
+                                          PLAIN, SEG_KERNELS, SEG_PLAIN,
+                                          SPLIT_KERNELS, SPLIT_PLAIN, dagnn_init)
+    from dagnn_tpu_torch.ops import build, row_step, segment_attn
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -580,13 +837,17 @@ def main(argv):
           f"python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    build.build("wavefront")
+    sources = {"wavefront": "K1-K5", "segment_attn": "K6"}
+    build.build_all(list(sources))
     row_step._lib()
-    secs, log = build.build_log.get("wavefront", (0.0, "(cached)"))
-    print(f"[2] built wavefront.cu (K1-K4) in {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {secs:.1f} s)")
-    for line in ptxas_summary(log):
-        print("    " + line)
+    segment_attn._lib()
+    print(f"[2] built {len(sources)} sources in parallel in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for name, kerns in sources.items():
+        secs, log = build.build_log.get(name, (0.0, "(cached)"))
+        print(f"    {name}.cu ({kerns}): nvcc {secs:.1f} s")
+        for line in ptxas_summary(log):
+            print("      " + line)
 
     # host collation of both workloads (set-up, outside every step)
     graphs = synthetic_ast_batch(0, 160, mean_nodes=125)
@@ -607,6 +868,13 @@ def main(argv):
           f"flagship pair=2 batch, blocks {host2.pair.blocks}, width "
           + json.dumps(WIDTH))
     pairs = phase_kernels(pair_spec(dev, host2.pair, kn, p))
+    print("[3c] K6 forward (K6f) and backward (K6b) against their plain "
+          "versions, one level of the flagship batch, H 300")
+    segs = phase_segment_attn(dev, host0)
+    print("[3d] K5 against its plain version, one level's transpose schedule "
+          "of the flagship batch")
+    tgs = phase_tg_accumulate(dev, host0)
+    split_row = phase_split_row(dev)
 
     batch = convert.batch_to_torch(host0, dev)
     L = batch.fwd.node_ids.shape[0]
@@ -630,35 +898,82 @@ def main(argv):
     cfg = flagship.flagship_cfg()
     params = dagnn_init(0, cfg, device=dev)
     print(f"    {sum(v.numel() for v in params.values())} parameters")
+    rows_per = lambda n: (lambda t, f: {"row_forward": n * (t + f),
+                                        "row_backward": n * t})
 
     torch.cuda.reset_peak_memory_stats()
     merged = drive_path("merged", ("[5]", "[6]", "[7]", "[8]"), cfg, params,
-                        batch, ("row_forward", "row_backward", L), KERNELS,
-                        PLAIN, card, argv)
-    phase_pair1_vs_merged(params, cfg, convert.batch_to_torch(host1, dev))
+                        batch, rows_per(L), KERNELS, PLAIN, card, argv)
+    phase_cross("[5c]", "pair=1 vs merged", params, cfg,
+                (convert.batch_to_torch(host1, dev), PAIR_KERNELS),
+                (convert.batch_to_torch(host1, dev)._replace(pair=None), KERNELS))
     torch.cuda.reset_peak_memory_stats()
     paired = drive_path("pair", ("[5b]", "[6b]", "[7b]", "[8b]"), cfg, params,
-                        pbatch, ("pair_forward", "pair_backward", P),
+                        pbatch, lambda t, f: {"pair_forward": P * (t + f),
+                                              "pair_backward": P * t},
                         PAIR_KERNELS, PAIR_PLAIN, card, argv)
-    print(f"    edges/s fwd+bwd per GPU on {card}: merged "
-          f"{merged['edges_per_s']:.1f}, pair {paired['edges_per_s']:.1f} "
-          f"({paired['edges_per_s'] / merged['edges_per_s']:.3f}x)")
+
+    # the per-direction wavefront, generic branch: K6 per level, layer and
+    # direction, replayed in the backward; K5 merges the transpose grads
+    cfg_p = flagship.flagship_cfg(segment_impl="pallas")
+    n6 = cfg_p.num_layers * L * len(cfg_p.dirs)
+    torch.cuda.reset_peak_memory_stats()
+    pallas = drive_path(
+        "pallas", ("[9a]", "[9b]", "[9c]", "[9d]"), cfg_p, params, batch,
+        lambda t, f: {"segment_attn_forward": n6 * (2 * t + f),
+                      "segment_attn_backward": n6 * t, "tg_accumulate": n6 * t},
+        SEG_KERNELS, SEG_PLAIN, card, argv, group=checks.score_linears)
+
+    # the per-direction wavefront, fused branch at one direction
+    cfg_u = flagship.flagship_cfg(bidirectional=False)
+    params_u = dagnn_init(0, cfg_u, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    uni = drive_path("unidirectional", ("[10a]", "[10b]", "[10c]", "[10d]"), cfg_u,
+                     params_u, batch, rows_per(L), KERNELS, PLAIN, card, argv)
+    reset_counts()
+    phase_cross("[10e]", "split (K5 + K2) vs merged-tg K2, unidirectional",
+                params_u, cfg_u, (batch, SPLIT_KERNELS), (batch, KERNELS))
+    phase_step("[10e]", params_u, cfg_u, batch, SPLIT_KERNELS, SPLIT_PLAIN)
+    split = check_counts("[10e]", "split checks", {
+        "row_forward": 3 * L, "row_backward": 3 * L, "tg_accumulate": 2 * L})
+    reset_counts()
+    cross = phase_cross("[11]", "bidirectional fused per direction vs merged",
+                        params, cfg, (batch, SPLIT_KERNELS), (batch, KERNELS))
+    # per direction 2L calls each (K1, K5, K2), merged L (K1, K2)
+    check_counts("[11]", "cross-route check", {
+        "row_forward": 3 * L, "row_backward": 3 * L, "tg_accumulate": 2 * L})
+    runs = {"merged": merged, "pair": paired, "pallas": pallas,
+            "unidirectional": uni}
+    eps = {k: v["edges_per_s"] for k, v in runs.items()}
+    print(f"    edges/s fwd+bwd per GPU on {card}: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in eps.items())
+          + f"; pair/merged {eps['pair'] / eps['merged']:.3f}x")
 
     kernels = []
-    for kern, name, line, res, run in (
-            ("K1", "row_forward", "dagnn_tpu/ops/pallas/row_step.py:616", rows, merged),
-            ("K2", "row_backward", "dagnn_tpu/ops/pallas/row_step.py:701", rows, merged),
-            ("K3", "pair_forward", "dagnn_tpu/ops/pallas/pair_step.py:254", pairs, paired),
-            ("K4", "pair_backward", "dagnn_tpu/ops/pallas/pair_step.py:291", pairs, paired)):
+    wf = "dagnn_tpu_torch/csrc/wavefront.cu"
+    for kern, name, src, line, res, main_path in (
+            ("K1", "row_forward", wf, "dagnn_tpu/ops/pallas/row_step.py:616", rows, "merged"),
+            ("K2", "row_backward", wf, "dagnn_tpu/ops/pallas/row_step.py:701", rows, "merged"),
+            ("K3", "pair_forward", wf, "dagnn_tpu/ops/pallas/pair_step.py:254", pairs, "pair"),
+            ("K4", "pair_backward", wf, "dagnn_tpu/ops/pallas/pair_step.py:291", pairs, "pair"),
+            ("K5", "tg_accumulate", wf, "dagnn_tpu/ops/pallas/row_step.py:674", tgs, "pallas"),
+            ("K6f", "segment_attn_forward", "dagnn_tpu_torch/csrc/segment_attn.cu",
+             "dagnn_tpu/ops/pallas/segment_attn.py:61", segs, "pallas"),
+            ("K6b", "segment_attn_backward", "dagnn_tpu_torch/csrc/segment_attn.cu",
+             "dagnn_tpu/ops/pallas/segment_attn.py:94", segs, "pallas")):
         r = res[torch.bfloat16][kern]
-        kernels.append({"name": f"{name} ({kern})", "route": "cuda",
-                        "source": "dagnn_tpu_torch/csrc/wavefront.cu",
-                        "replaces": line, "launches": run["launches"][name],
-                        "max_abs_err": r["err"], "ms": r["ms"],
+        kernels.append({"name": f"{name} ({kern})", "route": "cuda", "source": src,
+                        "replaces": line, "launches": runs[main_path]["launches"][name],
+                        "max_abs_err": r["err"], "ms": r["ms"], "call_ms": r["call_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-                        "bound_by": r["bound"][1], "library_ms": None})
-    print(json.dumps({"merged": merged, "pair": paired, "gpu": card,
-                      "f32_kernels": {**rows[torch.float32], **pairs[torch.float32]}}))
+                        "bound_by": r["bound"][1], "library_ms": r.get("library_ms"),
+                        "launches_by_path": {k: v["launches"][name] for k, v in runs.items()
+                                             if v["launches"][name]}})
+    print(json.dumps({**runs, "split_checks": split, "cross_route": cross,
+                      "split_row": {short(k): v for k, v in split_row.items()},
+                      "gpu": card,
+                      "f32_kernels": {**rows[torch.float32], **pairs[torch.float32],
+                                      **segs[torch.float32], **tgs[torch.float32]}}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -77,3 +77,20 @@ def grad_err(a, b, truth, tmax):
     if not np.isfinite(a).all():
         noise = float("inf")
     return rel, err, scale, noise
+
+
+def score_linears(grads):
+    """A gradient dict with each attention score's weight and bias
+    ("...attn_lin.w", "...attn_lin.b") as one numpy leaf, for grad_err's
+    noise bound. The query part of the weight and the bias are both
+    softmax-invariant, zero in exact arithmetic, and hold the same rounding
+    noise; the bias alone is a single cancelling sum per level, whose noise
+    is one draw that may land on exactly 0 in either implementation."""
+    out = {}
+    for k, v in grads.items():
+        if k.endswith("attn_lin.b"):
+            continue
+        if k.endswith("attn_lin.w"):
+            v = np.concatenate([_np(v).ravel(), _np(grads[k[:-1] + "b"]).ravel()])
+        out[k] = v
+    return out

@@ -6,7 +6,10 @@ relations, the AST encoder, 5 token heads over 5002 words, a max pool over
 the final nodes, bf16 compute (reference defaults of scripts/ogb_tok.sh).
 The port runs it on the direction-merged wavefront with the CUDA row
 kernels, or with a pair plan on the pair-scheduled wavefront with the CUDA
-pair kernels (segment_impl="fused").
+pair kernels (segment_impl="fused"). Two variants of the same model run
+per direction: bidirectional=False (scripts/ogb_tok.sh's BIDIR=0) on the
+row kernels at one direction, and segment_impl="pallas" on the generic
+branch with the edge-softmax aggregate K6.
 """
 
 from __future__ import annotations
@@ -23,16 +26,18 @@ SEQ = 5
 
 def flagship_cfg(emb: int = 300, hidden: int = 300, vocab: int = VOCAB,
                  seq: int = SEQ, compute_dtype: str = "bfloat16",
-                 num_attrs: int = 10030) -> DAGNNConfig:
+                 num_attrs: int = 10030, segment_impl: str = "fused",
+                 bidirectional: bool = True) -> DAGNNConfig:
     return DAGNNConfig(
         num_vocab=vocab, max_seq_len=seq,
         emb_dim=emb, hidden_dim=hidden,
-        num_rels=2, w_edge_attr=True, num_layers=2, bidirectional=True,
+        num_rels=2, w_edge_attr=True, num_layers=2,
+        bidirectional=bidirectional,
         agg="attn_h", out_wx=False, out_pool_all=False, out_pool="max",
         encoder=EncoderSpec("ast", emb_dim=emb, num_nodetypes=98,
                             num_nodeattributes=num_attrs, max_depth=20),
         compute_dtype=compute_dtype,
-        segment_impl="fused",
+        segment_impl=segment_impl,
     )
 
 

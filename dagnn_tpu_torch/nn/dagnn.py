@@ -1,15 +1,30 @@
-"""Canonical DAGNN on the direction-merged and the pair-scheduled wavefront.
+"""Canonical DAGNN on the wavefront: direction-merged, pair-scheduled and
+per direction.
 
 Counterpart of dagnn_tpu/nn/dagnn.py for the slice the port runs today:
-the bidirectional, additive-attention (`attn_*`), GRU-stack configuration
-with the slot-space readout — the flagship TOK model. Both direction
-passes run in one wavefront whose rows are the concat [fwd block | rev
-block]. A batch collated without a pair plan runs the merged wavefront:
-each row is one call of the row kernels (ops/row_step.py, K1 forward, K2
-backward). A batch with a pair plan (dag/pair.py) runs the pair-scheduled
-wavefront, as the JAX package does: each pair of rows is one call of the
-pair kernels (ops/pair_step.py, K3 forward, K4 backward). Both are driven
-by one torch.autograd.Function and write the same state-buffer layout.
+the additive-attention (`attn_h`), GRU-stack configurations with the
+slot-space readout, the flagship TOK model among them. dagnn_forward
+routes a batch as the JAX package does:
+  * fused (segment_impl="fused"), bidirectional, both directions' padded
+    shapes equal (merged_applicable): both direction passes run in one
+    wavefront whose rows are the concat [fwd block | rev block]. Without a
+    pair plan that is the merged wavefront, each row one call of the row
+    kernels (ops/row_step.py, K1 forward, K2 backward); with a pair plan
+    (dag/pair.py) the pair-scheduled wavefront, each pair of rows one call
+    of the pair kernels (ops/pair_step.py, K3, K4). One
+    torch.autograd.Function (_Wavefront over a _Plan) drives both.
+  * any other fused batch (unidirectional, or shapes that differ): the
+    per-direction wavefront, one _direction_pass per direction over the
+    same _Plan with the row kernels at ndirs=1. Its backward merges the
+    transpose edge grads inside K2 (KERNELS), or with SPLIT_KERNELS in K5
+    first (row_step.tg_accumulate) and K2 after, the JAX package's
+    two-call form.
+  * segment_impl="pallas": the per-direction wavefront's generic branch.
+    Each level runs _step_outs (the attention score, the edge-softmax
+    aggregate K6 of ops/segment_attn.py, a GRU cell in torch.matmul) into a
+    write-once state buffer [nl, L*Kn+1, H]; its autograd Function
+    (_GenericWavefront) replays the levels in reverse, each level's VJP by
+    torch.autograd.grad, with the transpose edge grads merged by K5.
 
 Any other configuration raises NotImplementedError naming its ROADMAP
 item; nothing falls back to another path.
@@ -22,17 +37,19 @@ see convert.py).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from dagnn_tpu_torch import resolve_device
-from dagnn_tpu_torch.convert import flatten_tree
+from dagnn_tpu_torch.convert import flatten_tree, unflatten_tree
 from dagnn_tpu_torch.dag.batch import DAGBatch
-from dagnn_tpu_torch.nn.aggregators import AggregatorSpec, aggregator_init
+from dagnn_tpu_torch.nn.aggregators import (AggregatorSpec, aggregate_level,
+                                            aggregator_init, encode_edges)
 from dagnn_tpu_torch.nn.encoders import EncoderSpec, encoder_init, encode
-from dagnn_tpu_torch.ops import pair_step, row_step
-from dagnn_tpu_torch.ops.gru import gru_init
+from dagnn_tpu_torch.ops import pair_step, row_step, segment_attn
+from dagnn_tpu_torch.ops.gru import gru_cell, gru_init
 from dagnn_tpu_torch.ops.linear import linear, linear_init
 
 # aggregator names (reference src/constants.py:12-19)
@@ -202,20 +219,32 @@ def merged_applicable(cfg: DAGNNConfig, batch: DAGBatch) -> bool:
     return tuple(f.edge_src_slot.shape) == tuple(r.edge_src_slot.shape)
 
 
+def _generic_applicable(cfg: DAGNNConfig) -> bool:
+    """Configs the generic branch covers in the port: the fused configs'
+    model on segment_impl="pallas" (attn aggregators over K6)."""
+    return (cfg.segment_impl == "pallas" and not cfg.agg_x
+            and cfg.vid_dim == 0 and cfg.recurr
+            and cfg.agg_attn and not cfg.agg_attn_x
+            and all(cfg.aggregator_spec(l).kind == "attn"
+                    for l in range(cfg.num_layers)))
+
+
 def _require_slice(cfg: DAGNNConfig, batch: DAGBatch):
     if cfg.out_pool_all:
         raise NotImplementedError(
             "out_pool_all (node-space readout) is not ported yet: ROADMAP "
-            "queue 1, the rest of the DAGNN config surface")
-    if batch.fwd.edge_nsrc is not None or batch.rev.edge_nsrc is not None:
+            "queue 1, item 5 (the rest of the DAGNN config surface)")
+    fused = _fused_applicable(cfg)
+    if not (fused or _generic_applicable(cfg)):
+        raise NotImplementedError(
+            f"agg={cfg.agg!r}, segment_impl={cfg.segment_impl!r} is not "
+            "ported yet: only attn aggregators with a GRU stack on "
+            "segment_impl 'fused' or 'pallas' are. ROADMAP queue 1, item 5 "
+            "(the rest of the DAGNN config surface)")
+    if fused and (batch.fwd.edge_nsrc is not None
+                  or batch.rev.edge_nsrc is not None):
         raise NotImplementedError(
             "near/far layouts (K7) are not ported yet: ROADMAP queue 2")
-    if not merged_applicable(cfg, batch):
-        raise NotImplementedError(
-            "only the direction-merged fused path (bidirectional attn_h + "
-            "GRU, segment_impl='fused') is ported: ROADMAP queue 1 (the "
-            "rest of the DAGNN config surface) and queue 2 (K1/K2 at "
-            "ndirs=1)")
 
 
 # ------------------------------------------------- direction-merged streams
@@ -277,22 +306,40 @@ def _build_streams_merged(cfg: DAGNNConfig, x, edge_attr, sf, sr, dev):
 
 
 class StepImpl(NamedTuple):
-    """The pair of step functions a wavefront runs: the wrappers (default)
-    or the plain versions (for comparison runs on the card)."""
+    """The pair of step functions a fused wavefront runs: the wrappers
+    (default) or the plain versions (for comparison runs on the card)."""
     forward: object
     backward: object
+
+
+class AggImpl(NamedTuple):
+    """The functions the generic branch runs: the edge-softmax aggregate
+    (K6's contract, forward and backward) and the transpose-grad merge
+    (K5), as wrappers (default) or plain versions."""
+    aggregate: object
+    merge: object
 
 
 KERNELS = StepImpl(row_step.row_forward, row_step.row_backward)
 PLAIN = StepImpl(row_step.row_forward_plain, row_step.row_backward_plain)
 PAIR_KERNELS = StepImpl(pair_step.pair_forward, pair_step.pair_backward)
 PAIR_PLAIN = StepImpl(pair_step.pair_forward_plain, pair_step.pair_backward_plain)
+# per direction only (ndirs=1): K5 merges the transpose edge grads, then K2
+SPLIT_KERNELS = StepImpl(row_step.row_forward,
+                         functools.partial(row_step.row_backward, merge_tg=False))
+SPLIT_PLAIN = StepImpl(row_step.row_forward_plain,
+                       functools.partial(row_step.row_backward_plain,
+                                         merge_tg=False))
+SEG_KERNELS = AggImpl(segment_attn.pallas_edge_softmax_aggregate,
+                      row_step.tg_accumulate)
+SEG_PLAIN = AggImpl(segment_attn.plain_edge_softmax_aggregate,
+                    row_step.tg_accumulate_plain)
 
 
-def _param_keys(cfg: DAGNNConfig, has_ea: bool):
+def _param_keys(cfg: DAGNNConfig, has_ea: bool, dirs=(0, 1)):
     """Dotted keys of the wavefront's parameters, direction-major."""
     keys = []
-    for d in range(2):
+    for d in dirs:
         for l in range(cfg.num_layers):
             a = f"aggr.{d}.{l}."
             keys += [a + "attn_lin.w", a + "attn_lin.b"]
@@ -303,36 +350,39 @@ def _param_keys(cfg: DAGNNConfig, has_ea: bool):
 
 
 class _Plan:
-    """Static plan of one wavefront over a batch: n steps (merged rows, or
-    pairs of rows) of `unit` node slots each, both directions in every
-    step. Step s gathers its edges' predecessor states h[eslot[s]] from the
-    write-once state buffer, runs the step function (`impl`; `tail` and
-    `kw` are its trailing arguments: the pair's block spec, or ndirs=2 for
-    a row) and writes its outputs to rows s*unit.. of the buffer. The
-    backward runs the steps in reverse: value grads go through the edge-grad
-    buffer and come back to their source step through the transpose
-    schedule (teslot, tdst, tmask); weight grads add into one f32 buffer."""
+    """Static plan of one fused wavefront over a batch: n steps (merged
+    rows, pairs of rows, or one direction's rows) of `unit` node slots
+    each, every direction of `dirs` in every step. Step s gathers its
+    edges' predecessor states h[eslot[s]] from the write-once state buffer,
+    runs the step function (`impl`; `tail` and `kw` are its trailing
+    arguments: the pair's block spec, or ndirs for a row) and writes its
+    outputs to rows s*unit.. of the buffer. The backward runs the steps in
+    reverse: value grads go through the edge-grad buffer and come back to
+    their source step through the transpose schedule (teslot, tdst, tmask);
+    weight grads add into one f32 buffer. Weights are stacked [2, ...]
+    over both directions, or unstacked for one."""
 
-    def __init__(self, cfg, fxs, ixs, impl, tail=(), kw=None):
+    def __init__(self, cfg, fxs, ixs, impl, tail=(), kw=None, dirs=(0, 1)):
         self.cfg, self.ixs, self.impl = cfg, ixs, impl
-        self.tail, self.kw = tail, kw or {}
+        self.tail, self.kw, self.dirs = tail, kw or {}, tuple(dirs)
         self.ea = fxs.get("ea")
         self.has_ea = self.ea is not None and cfg.aggregator_spec(0).wea
         self.static = (self.has_ea, cfg.hidden_dim, cfg.num_layers)
         self.lh = cfg.num_layers * cfg.hidden_dim
         self.dt = _DTYPES[cfg.compute_dtype]
-        self.keys = _param_keys(cfg, self.has_ea)
+        self.keys = _param_keys(cfg, self.has_ea, self.dirs)
         self.n, self.unit = tuple(fxs["x"].shape[:2])
         self.nv = ixs["eslot"].shape[1]      # value rows gathered per step
         self.ne = ixs["edst"].shape[1]       # edges per step
 
     def weights(self, wparams):
-        """Stacked [2, ...] kernel weights in the compute dtype."""
+        """Kernel weights in the compute dtype: stacked [ndirs, ...] over
+        the plan's directions, unstacked for one."""
         cfg, nl = self.cfg, self.cfg.num_layers
         p = {k: v.to(self.dt) for k, v in zip(self.keys, wparams)}
         qdims = [cfg.aggregator_spec(l).query_dim for l in range(nl)]
         flat = []
-        for d in range(2):
+        for d in self.dirs:
             aggr, cells = [], []
             for l in range(nl):
                 a = f"aggr.{d}.{l}."
@@ -346,7 +396,11 @@ class _Plan:
                               for k in row_step.CELL_KEYS})
             flat.append(row_step.flatten_row_weights(aggr, cells, qdims,
                                                      self.has_ea))
-        return row_step.stack_row_weights(flat)
+        return row_step.stack_row_weights(flat) if len(flat) > 1 else flat[0]
+
+    def infer(self, xs, wparams):
+        """The state buffer of a forward without residual streams."""
+        return self.forward(xs, self.weights(wparams), emit_res=False)[0]
 
     def _args(self, s):
         ix = self.ixs
@@ -383,6 +437,10 @@ class _Plan:
         being kept as a vals stream; the edge-grad buffer is
         [n*nv + 1, nl*H] (garbage row last, left zero)."""
         n, unit, nv = self.n, self.unit, self.nv
+        if "teslot" not in self.ixs:
+            raise NotImplementedError(
+                "the fused wavefront's backward needs a transpose schedule "
+                "(tgrad_eslot), as in the JAX package")
         a32, nres = res
         acc = torch.zeros((n * nv + 1, self.lh), dtype=self.dt, device=h.device)
         dw = row_step._new_dw(weights, self.cfg.num_layers, self.has_ea, h.device)
@@ -399,10 +457,10 @@ class _Plan:
             acc[s * nv:(s + 1) * nv] = dvals
             dxs[s] = dx
         grads = {}
-        for d in range(2):
+        for i, d in enumerate(self.dirs):
             tree = row_step.unflatten_row_weight_grads(
-                {k: v[d] for k, v in dw.items()}, self.cfg.num_layers,
-                self.has_ea)
+                {k: v[i] for k, v in dw.items()} if len(self.dirs) > 1 else dw,
+                self.cfg.num_layers, self.has_ea)
             grads.update(flatten_tree({"aggr": {d: tree["aggr"]},
                                        "cells": {d: tree["cells"]}}))
         return dxs, [grads[k] for k in self.keys]
@@ -430,15 +488,15 @@ class _Wavefront(torch.autograd.Function):
         return (None, dxs, *dws)
 
 
-def _run(plan, xs, params):
-    """The plan's state buffer: through _Wavefront when a gradient is
-    wanted, else a forward without residual streams."""
+def _run(plan, xs, params, function=None):
+    """The plan's state buffer: through its autograd Function (`function`,
+    _Wavefront by default) when a gradient is wanted, else plan.infer."""
     wparams = [params[k] for k in plan.keys]
     if torch.is_grad_enabled() and (xs.requires_grad
                                     or any(p.requires_grad for p in wparams)):
-        return _Wavefront.apply(plan, xs, *wparams)
+        return (function or _Wavefront).apply(plan, xs, *wparams)
     with torch.no_grad():
-        return plan.forward(xs, plan.weights(wparams), emit_res=False)[0]
+        return plan.infer(xs, wparams)
 
 
 def merged_pass(params, cfg: DAGNNConfig, x, edge_attr, batch: DAGBatch,
@@ -501,6 +559,200 @@ def pair_pass(params, cfg: DAGNNConfig, x, edge_attr, batch: DAGBatch,
     return h[: plan.n * plan.unit], xs.reshape(plan.n * plan.unit, -1)
 
 
+# ------------------------------------------------- per-direction wavefront
+#
+# One direction's schedule at a time (dagnn_tpu/nn/dagnn.py _direction_pass):
+# the fused branch runs the row kernels at ndirs=1 over the _Plan above;
+# the generic branch (segment_impl="pallas") runs _step_outs level by level.
+
+def _build_streams(cfg: DAGNNConfig, x, edge_attr, sched, dev):
+    """One direction's streams in the level-sorted layout, converted once
+    per batch: x in the compute dtype [L, Kn, emb], ea [L, Ke, R], and the
+    index / mask streams in the kernels' types (eslot into the state
+    buffer [L*Kn + 1], garbage L*Kn; teslot into the edge-grad buffer
+    [L*Ke + 1], garbage L*Ke; edst and tdst block-local, pad Kn). The level
+    index of JAX's `lvl` stream is the loop index here. The transpose keys
+    are left out when the schedule has none, or when a near/far schedule's
+    transpose (far edges only) meets the generic branch: its backward then
+    scatter-adds, as the JAX package's does."""
+    dt = _DTYPES[cfg.compute_dtype]
+    fxs = {"x": x.to(dt)[_t(sched.node_ids, dev).long()]}
+    if cfg.w_edge_attr and edge_attr is not None and cfg.num_rels > 1:
+        fxs["ea"] = _t(edge_attr, dev)[_t(sched.edge_id, dev).long()].to(dt)
+    ixs = {"eslot": _t(sched.edge_src_slot, dev).long(),
+           "edst": _t(sched.edge_dst, dev).to(torch.int32),
+           "nmask": _t(sched.node_mask, dev).to(torch.float32),
+           "emask": _t(sched.edge_mask, dev).to(torch.float32)}
+    use_t = sched.tgrad_eslot is not None and (
+        sched.edge_nsrc is None or _fused_applicable(cfg))
+    if use_t:
+        ixs["teslot"] = _t(sched.tgrad_eslot, dev).long()
+        ixs["tdst"] = _t(sched.tgrad_dst, dev).to(torch.int32)
+        ixs["tmask"] = _t(sched.tgrad_mask, dev).to(torch.float32)
+    return fxs, ixs
+
+
+def _gather_vals(h, eslot):
+    """[nl, Ke, H] predecessor states of one level's edges (agg_x, whose
+    aggregate reads x instead, is not ported)."""
+    return h[:, eslot, :]
+
+
+def _step_outs(cfg: DAGNNConfig, params_dir, specs, vals, fxs, ixs,
+               aggregate):
+    """One level's per-layer outputs [nl, Kn, H] from pre-gathered inputs
+    (dagnn_tpu/nn/dagnn.py _step_outs for attn_h with a GRU stack): layer
+    i aggregates its predecessors' states vals[i] (keys: the states plus
+    the encoded edge attributes; query: the layer's input) through
+    `aggregate` (K6's contract), runs a GRU cell and zeroes pad slots."""
+    inp_x = fxs["x"]
+    kn = inp_x.shape[0]
+    ea = fxs.get("ea")
+    keep = ixs["nmask"][:, None] > 0
+    cur, outs = inp_x, []
+    for i in range(cfg.num_layers):
+        ap = params_dir["aggr"][i]
+        ps_h = aggregate_level(
+            ap, specs[i], vals[i], ixs["edst"], ixs["emask"], kn + 1,
+            key_src=vals[i], query=cur,
+            edge_emb=encode_edges(ap, specs[i], ea), impl=cfg.segment_impl,
+            softmax_aggregate=aggregate)[:kn]
+        cur = torch.where(keep, gru_cell(params_dir["cells"][i], cur, ps_h), 0.0)
+        outs.append(cur)
+    return torch.stack(outs)
+
+
+def _dir_keys(params, d):
+    """Dotted keys of direction d's aggregator and cell parameters."""
+    return [k for k in params
+            if k.split(".")[0] in ("aggr", "cells") and k.split(".")[1] == str(d)]
+
+
+class _GenericPlan:
+    """The generic branch over one direction: L levels of Kn slots. The
+    forward scans the levels into the write-once state buffer
+    [nl, L*Kn + 1, H] (garbage row last, left zero). The backward replays
+    them in reverse (JAX's _wavefront_bwd): at each level the output
+    cotangent is g's rows plus, through the transpose schedule, the edge
+    grads of later levels merged by `impl.merge` (K5, a launch per layer),
+    and torch.autograd.grad of the recomputed _step_outs gives the weight,
+    value and x grads. Value grads go to the edge-grad buffer
+    [nl, L*Ke + 1, H] at rows lvl*Ke (or, without a transpose schedule, are
+    scatter-added into the state cotangent). Weights are cast to the
+    compute dtype inside, so their grads come back in float32 and the
+    levels' grads are summed in float32."""
+
+    def __init__(self, cfg, fxs, ixs, impl: AggImpl, keys):
+        self.cfg, self.ixs, self.impl, self.keys = cfg, ixs, impl, keys
+        self.ea = fxs.get("ea")
+        self.dt = _DTYPES[cfg.compute_dtype]
+        self.specs = [cfg.aggregator_spec(l) for l in range(cfg.num_layers)]
+        self.L, self.kn = tuple(fxs["x"].shape[:2])
+        self.ke = ixs["eslot"].shape[1]
+
+    def params_dir(self, wparams):
+        """{"aggr": [...], "cells": [...]} in the compute dtype."""
+        return unflatten_tree({
+            ".".join(k.split(".")[:1] + k.split(".")[2:]): v.to(self.dt)
+            for k, v in zip(self.keys, wparams)})
+
+    def _level(self, s, x, vals, pdir):
+        fx = {"x": x} if self.ea is None else {"x": x, "ea": self.ea[s]}
+        ix = {k: self.ixs[k][s] for k in ("nmask", "edst", "emask")}
+        return _step_outs(self.cfg, pdir, self.specs, vals, fx, ix,
+                          self.impl.aggregate)
+
+    def infer(self, xs, wparams):
+        return self.forward(xs, wparams)
+
+    def forward(self, xs, wparams):
+        cfg, L, kn = self.cfg, self.L, self.kn
+        pdir = self.params_dir(wparams)
+        h = torch.zeros((cfg.num_layers, L * kn + 1, cfg.hidden_dim),
+                        dtype=self.dt, device=xs.device)
+        for s in range(L):
+            vals = _gather_vals(h, self.ixs["eslot"][s])
+            h[:, s * kn:(s + 1) * kn] = self._level(s, xs[s], vals, pdir)
+        return h
+
+    def backward(self, xs, h, wparams, g):
+        nl, L, kn, ke = self.cfg.num_layers, self.L, self.kn, self.ke
+        ix = self.ixs
+        use_t = "teslot" in ix
+        acc = (torch.zeros((nl, L * ke + 1, self.cfg.hidden_dim), dtype=g.dtype,
+                           device=g.device) if use_t else g.clone())
+        dws = [torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+               for w in wparams]
+        dxs = torch.empty_like(xs)
+        for s in range(L - 1, -1, -1):
+            vals = _gather_vals(h, ix["eslot"][s])
+            if use_t:
+                tg = acc[:, ix["teslot"][s]]                  # [nl, Kt, H]
+                g_out = torch.stack([
+                    self.impl.merge(g[l, s * kn:(s + 1) * kn], tg[l],
+                                    ix["tdst"][s], ix["tmask"][s])
+                    for l in range(nl)])
+            else:
+                g_out = acc[:, s * kn:(s + 1) * kn]
+            with torch.enable_grad():
+                wl = [w.detach().requires_grad_(True) for w in wparams]
+                v = vals.detach().requires_grad_(True)
+                x = xs[s].detach().requires_grad_(True)
+                outs = self._level(s, x, v, self.params_dir(wl))
+                grads = torch.autograd.grad(outs, wl + [v, x], g_out,
+                                            allow_unused=True)
+            for dw, gw in zip(dws, grads[:-2]):
+                if gw is not None:
+                    dw.add_(gw)
+            dv, dxs[s] = grads[-2], grads[-1]
+            if use_t:
+                acc[:, s * ke:(s + 1) * ke] = dv
+            else:
+                acc.index_add_(1, ix["eslot"][s], dv)
+        return dxs, [dw.to(w.dtype) for dw, w in zip(dws, wparams)]
+
+
+class _GenericWavefront(torch.autograd.Function):
+    """One direction's generic wavefront: the levels forward, the replayed
+    levels in reverse (see _GenericPlan)."""
+
+    @staticmethod
+    def forward(ctx, plan, xs, *wparams):
+        h = plan.forward(xs, wparams)
+        ctx.plan = plan
+        ctx.save_for_backward(xs, h, *wparams)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        xs, h, *wparams = ctx.saved_tensors
+        dxs, dws = ctx.plan.backward(xs, h, wparams, g.contiguous())
+        return (None, dxs, *dws)
+
+
+def _direction_pass(params, cfg: DAGNNConfig, x, edge_attr, sched, d,
+                    impl):
+    """The wavefront pass of direction d in slot space (JAX's
+    _direction_pass with slot_space=True). Returns (h_flat [L*Kn, nl*H],
+    layer l in columns l*H:(l+1)*H, and x_slot [L*Kn, emb]) in the
+    direction's level-sorted layout. `impl`: a StepImpl (fused branch, the
+    row kernels at ndirs=1) or an AggImpl (generic branch). The node-space
+    half (slot_space=False) waits for out_pool_all."""
+    fxs, ixs = _build_streams(cfg, x, edge_attr, sched, x.device)
+    xs = fxs["x"]
+    L, kn = tuple(xs.shape[:2])
+    if isinstance(impl, StepImpl):
+        h = _run(_Plan(cfg, fxs, ixs, impl, kw={"ndirs": 1}, dirs=(d,)), xs,
+                 params)
+        h = h[: L * kn]
+    else:
+        h = _run(_GenericPlan(cfg, fxs, ixs, impl, _dir_keys(params, d)), xs,
+                 params, _GenericWavefront)
+        # [nl, L*Kn+1, H] -> [L*Kn, nl*H], the per-layer concat
+        h = torch.cat([h[l, : L * kn] for l in range(cfg.num_layers)], dim=-1)
+    return h, xs.reshape(L * kn, -1)
+
+
 # ----------------------------------------------------------------- readout
 
 def _pool_gathered(hsel, mask, kind):
@@ -535,22 +787,43 @@ def _apply_head(params, cfg: DAGNNConfig, out, rng, train):
     return torch.einsum("gd,svd->gsv", out, params["head.w"]) + params["head.b"][None]
 
 
-def dagnn_forward(params, cfg: DAGNNConfig, batch: DAGBatch,
-                  rng: Optional[torch.Generator] = None, train: bool = False,
-                  impl: Optional[StepImpl] = None):
-    """Full forward pass: per-position token logits [G, S, V] (class
-    logits [G, C] / regression [G, 1] per config). Runs on the device of
-    the parameters. A batch with a pair plan runs pair_pass, any other
-    merged_pass. `impl` picks their step functions: None for the kernels,
-    or KERNELS / PLAIN on the merged path and PAIR_KERNELS / PAIR_PLAIN on
-    the pair path (another choice raises ValueError)."""
+def _route(cfg: DAGNNConfig, batch: DAGBatch, impl):
+    """(route, impl) of a batch, as the JAX package routes it: "pair",
+    "merged" or "direction" (fused), or "generic" (segment_impl="pallas").
+    SPLIT_KERNELS / SPLIT_PLAIN run one direction at a time, so they take
+    any fused batch per direction."""
     _require_slice(cfg, batch)
-    pair = pair_applicable(cfg, batch)
-    allowed = (PAIR_KERNELS, PAIR_PLAIN) if pair else (KERNELS, PLAIN)
+    if not _fused_applicable(cfg):
+        route, allowed = "generic", (SEG_KERNELS, SEG_PLAIN)
+    else:
+        merged = merged_applicable(cfg, batch)
+        if impl in (SPLIT_KERNELS, SPLIT_PLAIN) or not merged:
+            route = "direction"
+            allowed = (KERNELS, PLAIN, SPLIT_KERNELS, SPLIT_PLAIN)
+        elif pair_applicable(cfg, batch):
+            route, allowed = "pair", (PAIR_KERNELS, PAIR_PLAIN)
+        else:
+            route, allowed = "merged", (KERNELS, PLAIN)
     impl = allowed[0] if impl is None else impl
     if impl not in allowed:
-        raise ValueError(f"impl must be one of {allowed} for a "
-                         f"{'pair' if pair else 'merged'} batch")
+        raise ValueError(f"impl must be one of {allowed} on the {route} path")
+    return route, impl
+
+
+def dagnn_forward(params, cfg: DAGNNConfig, batch: DAGBatch,
+                  rng: Optional[torch.Generator] = None, train: bool = False,
+                  impl=None):
+    """Full forward pass: per-position token logits [G, S, V] (class
+    logits [G, C] / regression [G, 1] per config). Runs on the device of
+    the parameters. A fused bidirectional batch runs pair_pass (with a pair
+    plan) or merged_pass when both directions' shapes agree; any other
+    fused batch, and every segment_impl="pallas" batch, runs
+    _direction_pass per direction. `impl` picks the functions: None for
+    the kernels; KERNELS / PLAIN on the merged and per-direction paths,
+    PAIR_KERNELS / PAIR_PLAIN on the pair path, SPLIT_KERNELS / SPLIT_PLAIN
+    (per direction, on any fused batch), SEG_KERNELS / SEG_PLAIN on the
+    generic branch (another choice raises ValueError)."""
+    route, impl = _route(cfg, batch, impl)
     dev = params["head.w"].device
     enc = {k[len("encoder."):]: v for k, v in params.items()
            if k.startswith("encoder.")}
@@ -560,23 +833,32 @@ def dagnn_forward(params, cfg: DAGNNConfig, batch: DAGBatch,
                if "node_depth" in batch.extras else None)
     # keep the garbage row exactly zero so pad gathers are inert
     x = torch.where(node_mask[:, None], x, 0.0)
-    run = pair_pass if pair else merged_pass
-    h2, x2 = run(params, cfg, x, batch.edge_attr, batch, impl)
+    if route in ("pair", "merged"):
+        run = pair_pass if route == "pair" else merged_pass
+        h2, x2 = run(params, cfg, x, batch.edge_attr, batch, impl)
     parts = []
-    for di in range(2):
-        sched = batch.fwd if di == 0 else batch.rev
+    for d in cfg.dirs:
+        sched = batch.fwd if d == 0 else batch.rev
         L, kn = tuple(sched.node_ids.shape)
-        oslots = batch.out_slots_fwd if di == 0 else batch.out_slots_rev
+        oslots = batch.out_slots_fwd if d == 0 else batch.out_slots_rev
         if oslots is None:
             raise NotImplementedError(
                 "segment-pool readout without out_slots is not ported yet: "
-                "ROADMAP queue 1, the rest of the DAGNN config surface "
-                "(nn/readout.py)")
-        ms = _remap_slot(_t(oslots, dev).long(), kn, L, di)
-        hcat = h2[ms]
+                "ROADMAP queue 1, item 5 (the rest of the DAGNN config "
+                "surface, nn/readout.py)")
+        if route in ("pair", "merged"):
+            # this direction's output rows straight from the merged buffer
+            ms = _remap_slot(_t(oslots, dev).long(), kn, L, d)
+            hcat, xsel = h2[ms], x2[ms]
+        else:
+            # pad entries point at slot 0 and are killed by the mask
+            hd, xd = _direction_pass(params, cfg, x, batch.edge_attr, sched, d,
+                                     impl)
+            ms = _t(oslots, dev).long()
+            hcat, xsel = hd[ms], xd[ms]
         if cfg.out_wx:
-            hcat = torch.cat([x2[ms], hcat], dim=-1)
-        omask = batch.out_slots_mask_fwd if di == 0 else batch.out_slots_mask_rev
+            hcat = torch.cat([xsel, hcat], dim=-1)
+        omask = batch.out_slots_mask_fwd if d == 0 else batch.out_slots_mask_rev
         parts.append(_pool_gathered(hcat, _t(omask, dev).bool(), cfg.out_pool))
     out = torch.cat(parts, dim=-1)
     return _apply_head(params, cfg, out, rng, train)

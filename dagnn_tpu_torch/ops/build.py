@@ -5,14 +5,16 @@ each kernel inside the XLA program, here `nvcc` compiles
 dagnn_tpu_torch/csrc/*.cu for sm_90a into a shared library with a plain C
 interface at first use, and ctypes loads it. The library lands in the
 package's build directory (dagnn_tpu_torch/_build/, not committed), named
-by a hash of its source, so a changed source is rebuilt and concurrent
-processes never load a half-written file.
+by a hash of its source and the shared headers (csrc/*.cuh), so a changed
+source is rebuilt and concurrent processes never load a half-written file.
+build_all compiles several sources at once, one nvcc process each.
 """
 
 from __future__ import annotations
 
 import ctypes
 import fcntl
+import glob
 import hashlib
 import os
 import shutil
@@ -42,11 +44,12 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()
-                              ).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in [os.path.join(CSRC, name + ".cu")] + sorted(
+            glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def build(name: str) -> str:
@@ -71,6 +74,14 @@ def build(name: str) -> str:
             build_log[name] = (time.perf_counter() - t0,
                                proc.stdout + proc.stderr)
     return out
+
+
+def build_all(names):
+    """Compile several sources concurrently (one nvcc each); returns their
+    library paths in order. A failed build raises."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return list(pool.map(build, names))
 
 
 def load(name: str, signatures) -> ctypes.CDLL:

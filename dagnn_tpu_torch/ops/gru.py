@@ -7,6 +7,10 @@ Counterpart of dagnn_tpu/ops/gru.py:
     h' = (1 - z) * n + z * h
 with stacked w_ih = [W_ir; W_iz; W_in] ([3H, In]) and w_hh ([3H, H]).
 
+`gru_cell` is that math in plain torch.matmul, in the operands' dtype, as
+the JAX function computes it: the per-direction wavefront's generic branch
+runs it (in JAX these products lie outside every Pallas kernel).
+
 `gru_gates` is that math over the row kernels' weight views (fused r/z
 weight w_rz = [w_ih[:2H] | w_hh[:2H]], n-gate parts w_in / w_hn, combined
 biases), with float32 accumulation whatever the operand type: it is the
@@ -32,6 +36,19 @@ def gru_init(gen: torch.Generator, in_dim: int, hidden_dim: int,
         "b_ih": _uniform(gen, (3 * hidden_dim,), bound, dtype),
         "b_hh": _uniform(gen, (3 * hidden_dim,), bound, dtype),
     }
+
+
+def gru_cell(params, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """One GRU step. x: [..., In], h: [..., H] -> [..., H]."""
+    gi = x @ params["w_ih"].T + params["b_ih"]
+    gh = h @ params["w_hh"].T + params["b_hh"]
+    H = h.shape[-1]
+    i_r, i_z, i_n = gi[..., :H], gi[..., H:2 * H], gi[..., 2 * H:]
+    h_r, h_z, h_n = gh[..., :H], gh[..., H:2 * H], gh[..., 2 * H:]
+    r = torch.sigmoid(i_r + h_r)
+    z = torch.sigmoid(i_z + h_z)
+    n = torch.tanh(i_n + r * h_n)
+    return (1.0 - z) * n + z * h
 
 
 def gru_gates(cellp, cur: torch.Tensor, agg: torch.Tensor, hdim: int):

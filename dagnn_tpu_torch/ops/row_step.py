@@ -27,10 +27,15 @@ Each kernel has two implementations with one signature:
     kernels of csrc/wavefront.cu (built on first use, see ops/build.py) or
     raise. Each counts its launches in `launch_counts`.
 
-K2 is the slice's backward only: it consumes the forward's residual
-streams (use_res) and merges the transpose edge-grads in (merge_tg).
-Weight grads are float32 and are ADDED into `dw_acc` when one is given,
-so a wavefront sums its rows in one buffer without an extra pass.
+K2 consumes the forward's residual streams (use_res). By default it
+merges the transpose edge-grads in itself (merge_tg=True); with
+merge_tg=False (one direction only) K5, `tg_accumulate`, first adds them
+onto the cotangent and K2 takes the pre-merged cotangent with no transpose
+list: the JAX package's two-call form (row_step.py _tg_accumulate). K5
+rounds that cotangent to the compute dtype, so in bf16 the two forms agree
+only to that rounding. Weight grads are float32 and are ADDED into
+`dw_acc` when one is given, so a wavefront sums its rows in one buffer
+without an extra pass.
 
 The per-block plain math (_block_forward, _block_backward) and the CUDA
 launch drivers (cuda_forward, cuda_backward, which take block tables) are
@@ -51,7 +56,7 @@ _EPS = 1e-16
 _F32 = torch.float32
 
 # launches of each wrapper's CUDA kernels (one per wrapper call on a card)
-launch_counts = {"row_forward": 0, "row_backward": 0}
+launch_counts = {"row_forward": 0, "row_backward": 0, "tg_accumulate": 0}
 
 
 def reset_launch_counts():
@@ -384,19 +389,44 @@ def _dw_adder(dw, stacked, d):
     return lambda name, v: dw[name].add_(v)
 
 
+def tg_accumulate_plain(g, tg, tdst, tmask):
+    """K5, plain PyTorch: g [Kn, C] + the sum of the transpose edge grads
+    tg [Kt, C] onto their local source slots tdst where tmask is set (pad
+    slot Kn dropped), in float32, rounded to g's dtype."""
+    seg = _Segments(tdst, tmask, g.shape[0])
+    return (_f(g) + seg.sum(_f(tg))).to(g.dtype)
+
+
+def _split_tg(merge_tg, ndirs, g, tg, tdst, tmask, accumulate):
+    """The cotangent and transpose streams K2 takes: as given, or with
+    merge_tg=False the cotangent pre-merged by K5 (`accumulate`) and empty
+    transpose streams."""
+    if merge_tg:
+        return g, tg, tdst, tmask
+    if ndirs != 1:
+        raise ValueError("merge_tg=False (the split transpose-grad merge, K5) "
+                         "is single-direction only")
+    g = accumulate(g, tg, tdst, tmask)
+    return g, tg[:0], tdst[:0], tmask[:0]
+
+
 def row_backward_plain(static, xin, vals, ea, edst, emask, nmask, weights,
-                       g, tg, tdst, tmask, res, ndirs: int = 1, dw_acc=None):
+                       g, tg, tdst, tmask, res, ndirs: int = 1, dw_acc=None,
+                       merge_tg: bool = True):
     """The row's VJP (K2), plain PyTorch.
 
     g [ndirs*Kn, L*H] cotangent of the row's outputs; tg [ndirs*Kt, L*H]
     edge grads flowing into this row (gathered by the caller), summed onto
     their local source slots tdst where tmask is set; res = (alpha32,
     nres) from the forward. k and h_n are rebuilt from vals and agg, and
-    each layer's output from the (rounded) residuals.
+    each layer's output from the (rounded) residuals. merge_tg=False
+    (ndirs=1): tg is first added onto g by tg_accumulate_plain (K5).
     Returns (dx [ndirs*Kn, In], dvals [ndirs*Ke, L*H], dea or None,
     dw): dw holds float32 weight grads in _names order, added into dw_acc
     when given."""
     has_ea, hdim, nlayers = static
+    g, tg, tdst, tmask = _split_tg(merge_tg, ndirs, g, tg, tdst, tmask,
+                                   tg_accumulate_plain)
     a32_all, nres_all = res
     kn = xin.shape[0] // ndirs
     ke = edst.shape[0] // ndirs
@@ -436,6 +466,7 @@ _SIGS = {
                    "pi" "pi" "ppp" "p",
     "wf_wgrad": "iii" "iii" "pp" "pi" "pi" "pp" "p",
     "wf_small_reduce": "iii" "iiii" "ppp" "ppppppp" "p",
+    "wf_tg_accumulate": "iiii" "pppp" "p" "p",
 }
 _DT_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -735,17 +766,44 @@ def row_forward(static, xin, vals, ea, edst, emask, nmask, weights,
     return out
 
 
+def tg_accumulate(g, tg, tdst, tmask):
+    """K5. CPU tensors: tg_accumulate_plain. CUDA tensors: one launch of
+    csrc/wavefront.cu's seg_merge kernel that stores g + the merged sum
+    rounded to g's dtype (g [Kn, C], tg [Kt, C] in one compute dtype)."""
+    if g.device.type == "cpu":
+        return tg_accumulate_plain(g, tg, tdst, tmask)
+    if g.device.type != "cuda":
+        raise ValueError(f"tg_accumulate: unsupported device {g.device}")
+    kn, c = g.shape
+    kt = tdst.shape[0]
+    _expect("tg_accumulate", [(tg, (kt, c), g.dtype)])
+    (tdst,), (tmask,) = _indices(tdst), _masks(tmask)
+    _on_card("tg_accumulate", [g, tg, tdst, tmask], g.dtype)
+    out = torch.empty_like(g)
+    _check(_lib().wf_tg_accumulate(
+        _DT_CODE[g.dtype], kn, c, kt, _ptr(g), _ptr(tg), _ptr(tdst),
+        _ptr(tmask), _ptr(out), torch.cuda.current_stream(g.device).cuda_stream),
+        "wf_tg_accumulate")
+    launch_counts["tg_accumulate"] += 1
+    return out
+
+
 def row_backward(static, xin, vals, ea, edst, emask, nmask, weights,
-                 g, tg, tdst, tmask, res, ndirs: int = 1, dw_acc=None):
+                 g, tg, tdst, tmask, res, ndirs: int = 1, dw_acc=None,
+                 merge_tg: bool = True):
     """K2. CPU tensors: row_backward_plain. CUDA tensors: the kernels of
     csrc/wavefront.cu (a transpose-grad merge, a rebuild per layer, and six
-    launches per layer)."""
+    launches per layer). merge_tg=False (ndirs=1): K5 (tg_accumulate) adds
+    tg onto g first, and K2's merge then sums no transpose list (it only
+    widens the cotangent to float32)."""
     if xin.device.type == "cpu":
         return row_backward_plain(static, xin, vals, ea, edst, emask, nmask,
                                   weights, g, tg, tdst, tmask, res,
-                                  ndirs=ndirs, dw_acc=dw_acc)
+                                  ndirs=ndirs, dw_acc=dw_acc, merge_tg=merge_tg)
     if xin.device.type != "cuda":
         raise ValueError(f"row_backward: unsupported device {xin.device}")
+    g, tg, tdst, tmask = _split_tg(merge_tg, ndirs, g, tg, tdst, tmask,
+                                   tg_accumulate)
     blocks = uniform_blocks(ndirs, edst.shape[0] // ndirs,
                             tdst.shape[0] // ndirs)
     out = cuda_backward("row_backward", static, xin, vals, ea, edst, emask,

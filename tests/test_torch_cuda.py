@@ -1,9 +1,11 @@
 """The CUDA kernels against their plain versions on the card, at small odd
 shapes the flagship run does not reach: the row kernels K1/K2 at one
-direction (ndirs=1) and two, and the pair kernels K3/K4 on a synthetic
-pair step with ragged blocks and intra-pair edges; with and without edge
-attributes, widths that are not multiples of the kernels' 32-wide tiles,
-float32 and bfloat16.
+direction (ndirs=1) and two, K2's split form after K5 (merge_tg=False),
+the pair kernels K3/K4 on a synthetic pair step with ragged blocks and
+intra-pair edges, the edge-softmax aggregate K6 (forward and backward,
+with empty, fully masked and out-of-range slots) and the transpose-grad
+accumulate K5; with and without edge attributes, widths that are not
+multiples of the kernels' 32-wide tiles, float32 and bfloat16.
 
 These tests need a CUDA device and skip without one. On a machine with a
 card (the JAX package absent), run them with
@@ -190,3 +192,92 @@ def test_pair_kernels_match_plain(dev, has_ea, dt):
     truth = ps.pair_backward_plain(*f, *checks.to_f32(ba[9:13]), f32res,
                                    blocks)[3]
     _check_backward(kb, pb, truth, ps.pair_backward(*ba), dt, has_ea)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_split_backward_matches_plain(dev, dt):
+    """K5 + K2 with merge_tg=False at one direction against the plain split
+    form."""
+    from dagnn_tpu_torch.ops import row_step as rs
+    st, d, w = _row(dt, dev, 1, True, kn=33, ke=61, kt=47)
+    fa = (st, d["xin"], d["vals"], d["ea"], d["edst"], d["emask"], d["nmask"], w)
+    p = rs.row_forward_plain(*fa, emit_res=True)
+    ba = fa + (d["g"], d["tg"], d["tdst"], d["tmask"], (p[1], p[2]))
+    n0 = dict(rs.launch_counts)
+    kb = rs.row_backward(*ba, merge_tg=False)
+    assert rs.launch_counts["tg_accumulate"] == n0["tg_accumulate"] + 1
+    assert rs.launch_counts["row_backward"] == n0["row_backward"] + 1
+    pb = rs.row_backward_plain(*ba, merge_tg=False)
+    torch.cuda.synchronize()
+    f = checks.to_f32(fa)
+    f32res = rs.row_forward_plain(*f, emit_res=True)[1:]
+    truth = rs.row_backward_plain(*f, *checks.to_f32(ba[8:12]), f32res)[3]
+    _check_backward(kb, pb, truth, rs.row_backward(*ba, merge_tg=False), dt, True)
+
+
+def _segments(dt, dev, ke=77, s=13, h=45, seed=0):
+    """K6 operands at odd widths: sorted slots with slot 3 empty, slot 6's
+    edges all masked, ~25% masked edges, the last two edges out of range
+    (slot s, mask set); a cotangent per slot."""
+    g = torch.Generator().manual_seed(seed)
+    dst = torch.sort(torch.randint(0, s, (ke,), generator=g))[0]
+    dst[dst == 3] = 4
+    mask = torch.rand(ke, generator=g) > 0.25
+    mask[dst == 6] = False
+    dst[-2:] = s
+    mask[-2:] = True
+    return (torch.randn(ke, generator=g).to(dt).to(dev),
+            torch.randn(ke, h, generator=g).to(dt).to(dev),
+            dst.int().to(dev), mask.float().to(dev),
+            torch.randn(s, h, generator=g).to(dt).to(dev))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_segment_attn_kernels_match_plain(dev, dt):
+    """K6 forward and backward against their plain versions; empty, fully
+    masked and out-of-range edges give zeros; a second launch is bitwise
+    the first (no atomics)."""
+    from dagnn_tpu_torch.ops import segment_attn as sa
+    S = 13
+    sc, v, dst, mask, g = _segments(dt, dev, s=S)
+    k = sa.segment_attn_forward(sc, v, dst, mask, S)
+    kb = sa.segment_attn_backward(sc, v, dst, mask, g, S)
+    torch.cuda.synchronize()
+    assert k.dtype == dt and kb[0].dtype == dt and kb[1].dtype == dt
+    assert _err(k, sa.segment_attn_forward_plain(sc, v, dst, mask, S)) <= TOL[dt]
+    for a, b in zip(kb, sa.segment_attn_backward_plain(sc, v, dst, mask, g, S)):
+        assert _err(a, b) <= TOL[dt]
+    assert not k[3].any() and not k[6].any()
+    dead = (mask == 0) | (dst >= S)
+    assert not kb[0][dead].any() and not kb[1][dead].any()
+    assert torch.equal(sa.segment_attn_forward(sc, v, dst, mask, S), k)
+    again = sa.segment_attn_backward(sc, v, dst, mask, g, S)
+    assert torch.equal(again[0], kb[0]) and torch.equal(again[1], kb[1])
+    # through the autograd Function: one launch each way
+    n0 = dict(sa.launch_counts)
+    scr, vr = sc.clone().requires_grad_(True), v.clone().requires_grad_(True)
+    out = sa.pallas_edge_softmax_aggregate(scr, vr, dst, mask, S)
+    grads = torch.autograd.grad(out, (scr, vr), g)
+    assert torch.equal(out, k) and torch.equal(grads[0], kb[0])
+    assert sa.launch_counts == {"segment_attn_forward": n0["segment_attn_forward"] + 1,
+                                "segment_attn_backward": n0["segment_attn_backward"] + 1}
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_tg_accumulate_kernel_matches_plain(dev, dt):
+    """K5 at odd widths with masked and pad (slot Kn) transpose edges;
+    bitwise repeatable."""
+    from dagnn_tpu_torch.ops import row_step as rs
+    gen = torch.Generator().manual_seed(3)
+    kn, kt, c = 37, 53, 90
+    g = torch.randn(kn, c, generator=gen).to(dt).to(dev)
+    tg = torch.randn(kt, c, generator=gen).to(dt).to(dev)
+    tdst = torch.randint(0, kn + 1, (kt,), generator=gen).int().to(dev)
+    tmask = (torch.rand(kt, generator=gen) > 0.3).float().to(dev)
+    k = rs.tg_accumulate(g, tg, tdst, tmask)
+    torch.cuda.synchronize()
+    assert k.dtype == dt
+    assert _err(k, rs.tg_accumulate_plain(g, tg, tdst, tmask)) <= TOL[dt]
+    assert torch.equal(rs.tg_accumulate(g, tg, tdst, tmask), k)
+    # no transpose edges: g itself
+    assert torch.equal(rs.tg_accumulate(g, tg[:0], tdst[:0], tmask[:0]), g)

@@ -83,9 +83,9 @@ def jax_run(jcfg, jparams, jb):
             convert.flatten_tree(jax.tree.map(np.asarray, g)))
 
 
-def port_loss_and_grads(tcfg, tparams, tb):
+def port_loss_and_grads(tcfg, tparams, tb, impl=None):
     p = {k: v.detach().clone().requires_grad_(True) for k, v in tparams.items()}
-    loss = ttok_loss(tdagnn.dagnn_forward(p, tcfg, tb),
+    loss = ttok_loss(tdagnn.dagnn_forward(p, tcfg, tb, impl=impl),
                      torch.as_tensor(tb.y["y_arr"]),
                      torch.as_tensor(tb.graph_mask))
     gs = torch.autograd.grad(loss, list(p.values()))
@@ -105,13 +105,16 @@ def close(a, b, dtype, grad=False, name=""):
         np.testing.assert_allclose(a, b, rtol=2e-5, atol=2e-5, err_msg=name)
 
 
-def close_bf16_grads(got, want, tcfg, tparams, tb):
+def close_bf16_grads(got, want, tcfg, tparams, tb, impl=None,
+                     group=lambda grads: grads):
     """bf16 grads leaf by leaf on their own scale; the port's float32
     gradient with the same bf16-rounded weights marks the elements that
-    are zero in exact arithmetic."""
+    are zero in exact arithmetic. `group` maps each of the three gradient
+    dicts to the leaves that are checked."""
     p32 = {k: v.to(torch.bfloat16).float() for k, v in tparams.items()}
     _, truth = port_loss_and_grads(
-        dataclasses.replace(tcfg, compute_dtype="float32"), p32, tb)
+        dataclasses.replace(tcfg, compute_dtype="float32"), p32, tb, impl)
+    got, want, truth = group(got), group(want), group(truth)
     tmax = checks.tree_max(truth)
     for k in want:
         rel, err, scale, noise = checks.grad_err(got[k], want[k], truth[k], tmax)
@@ -214,10 +217,14 @@ def test_pair_matches_merged():
 
 
 def test_other_paths_raise():
-    """No silent fallback: near/far layouts and unported configs raise."""
+    """No silent fallback: near/far layouts on the fused kernels and
+    unported configs raise (segment_impl dense / scatter, the self_attn and
+    mattn aggregators, the node-space readout)."""
     _, tcfg, _, tparams, _, tb = small_setup("float32", seed=2)
     for cfg in (dataclasses.replace(tcfg, segment_impl="dense"),
-                dataclasses.replace(tcfg, bidirectional=False),
+                dataclasses.replace(tcfg, segment_impl="scatter"),
+                dataclasses.replace(tcfg, agg="self_attn_h"),
+                dataclasses.replace(tcfg, agg="mattn_h", segment_impl="pallas"),
                 dataclasses.replace(tcfg, out_pool_all=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tdagnn.dagnn_forward(tparams, cfg, tb)

@@ -4,13 +4,16 @@ Drives dagnn_tpu_torch (never the JAX package) through the entry points a
 user calls, at the flagship's full width (emb/hidden 300, 160 synthetic
 ASTs, bf16), on every wavefront the port runs, with the hand-written
 kernels of dagnn_tpu_torch/csrc/: wavefront.cu (the row kernels K1
-forward / K2 backward, the pair kernels K3 / K4, the transpose-grad
-accumulate K5) and segment_attn.cu (the edge-softmax aggregate K6, forward
-and backward). The paths: the direction-merged wavefront (K1/K2), the
-pair-scheduled wavefront (K3/K4; pair=2, the JAX bench's default), the
-per-direction wavefront's generic branch (segment_impl="pallas": K6, K5)
-and its fused branch (bidirectional=False: K1/K2 at one direction, and
-K5 + K2 in the split form):
+forward / K2 backward, their near/far modes K7 and K2 without residual
+streams K2r, the pair kernels K3 / K4, the transpose-grad accumulate K5)
+and segment_attn.cu (the edge-softmax aggregate K6, forward and backward).
+The paths: the direction-merged wavefront (K1/K2), the pair-scheduled
+wavefront (K3/K4; pair=2, the JAX bench's default), the per-direction
+wavefront's generic branch (segment_impl="pallas": K6, K5) and its fused
+branch (bidirectional=False: K1/K2 at one direction, and K5 + K2 in the
+split form), the merged and unidirectional wavefronts on near/far batches
+(PadConfig.nearfar: K7) and the merged one without residual streams
+(DAGNN_NO_RES_STREAM: K1, K2r):
 
   1.  the card's name and power limit (nvidia-smi)
   2.  build the kernels from the checkout's sources (nvcc, sm_90a, one
@@ -24,8 +27,14 @@ K5 + K2 in the split form):
   3d. K5 the same way (Kn 256, Kt 512, L*H 600), with index_add_ on the
       same data as the one-PyTorch-call time; and one row at one direction,
       K2 (merge_tg=True) against K5 + K2 (merge_tg=False)
+  3e. K7 (K1/K2 with nf) the same way on the merged row with the most near
+      edges of the flagship near/far ("regions", "tgonly") batch
+  3f. K2r on one merged row at the flagship shapes: bitwise K2 fed by K1,
+      and against its plain version; timed beside K2 and K1
   4.  the merged workload (synthetic batch, flagship.pad_for, no pair plan)
   4b. the pair workload (the same graphs, flagship.pad_for(pair=2))
+  4c. the near/far workloads (the same graphs, pad_for with nearfar
+      ("regions", "tgonly") and "regions")
   the merged path (launch counts set to 0 before, read after):
   5.  one train step's loss, gradient norm and every parameter's gradient,
       kernels against the plain versions, from the same weights
@@ -49,6 +58,16 @@ K5 + K2 in the split form):
   11. f32, the bidirectional fused model per direction (two
       _direction_pass calls, K1 and K5 + K2 at one direction) against the
       merged path on the same batch
+  the near/far paths, each as 5-8 with K7 L per pass: 12a-12d merged on
+  ("regions", "tgonly"), 13a-13d merged on "regions", 14a-14d
+  unidirectional on "regions"; 16a-16d the merged path without residual
+  streams (K1 L per pass, K2r L per train pass)
+  15. f32: each near/far batch against the plain layout of the same
+      graphs (merged, and unidirectional), and the merged step without
+      residual streams (K2r) against the one with them
+  17. step times in turns (a, b, b, a), 5 steps each: merged against each
+      near/far merged path and against K2r, unidirectional against its
+      near/far path
 
 The second-to-last line is the kernel table as JSON, the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero.
@@ -58,6 +77,7 @@ The second-to-last line is the kernel table as JSON, the last line
                                        # (traces in traces/, or --trace-dir DIR)
 """
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -284,7 +304,9 @@ def kernel_costs(static, d, weights, dt):
     bwd_w = [k for k in weights if k.split("_", 1)[1] in
              ("wqr", "wkr", "we", "be", "w_ih", "w_hh", "b_hh")]
     idx = sum(nb(d[k]) for k in ("edst", "emask", "nmask", "nsrc") if k in d)
-    row_in = nb(d["xin"]) + nb(d["vals"]) + nb(d["ea"]) + idx
+    # K7: the previous row's outputs (read by the near edges)
+    row_in = nb(d["xin"]) + nb(d["vals"]) + nb(d["ea"]) + idx \
+        + (nb(d["prev_out"]) if "prev_out" in d else 0)
     out1 = kn2 * nl * H * es + ke2 * nl * 4 + kn2 * 4 * nl * H * es
     f_bytes = row_in + wsum(fwd_w) + out1
     gemm = 0
@@ -295,19 +317,37 @@ def kernel_costs(static, d, weights, dt):
         attn += kn2 * din * 2 + ne * H * (2 * R + 2 + 2 + 2)   # q/k scores, agg
     f_ops = gemm + attn
     res = ke2 * nl * 4 + kn2 * 4 * nl * H * es
+    # K7: the next row's near grads in, this row's out (near_g_out)
+    near = 2 * nb(d["near_g"]) if "near_g" in d else 0
     b_in = row_in + wsum(bwd_w) + nb(d["g"]) + nb(d["tg"]) + nb(d["tdst"]) \
         + nb(d["tmask"]) + res
     dw = sum(weights[k].numel() * 4 for k in weights
              if k.split("_", 1)[1] in ("wq", "wk", "b", "we", "be", "w_ih",
                                        "w_hh", "b_ih", "b_hh"))
     b_out = nb(d["xin"]) + nb(d["vals"]) + nb(d["ea"]) + dw
-    b_bytes = b_in + b_out
+    b_bytes = b_in + b_out + near
     b_ops = nt * nl * H
+    if "near_g" in d:       # K7's near-grad sums (a merged row: Kn = kn2 / 2)
+        b_ops += int((d["nsrc"] < kn2 // 2).sum()) * nl * H
     for l in range(nl):
         din = emb if l == 0 else H
         b_ops += 2 * kn2 * 3 * H * (2 * din + 2 * H) + 2 * kn2 * H * H
         b_ops += ne * H * (4 * R + 12) + kn2 * din * 4
     return f_bytes, f_ops, b_bytes, b_ops
+
+
+def recompute_costs(static, d, weights, dt):
+    """(bytes, ops) of one K2r call: K2's inputs and outputs without the
+    residual streams, plus the forward weights K2 does not read; K1's and
+    K2's operations."""
+    has_ea, H, nl = static
+    f_bytes, f_ops, b_bytes, b_ops = kernel_costs(static, d, weights, dt)
+    es = torch.tensor([], dtype=dt).element_size()
+    kn2, ke2 = d["xin"].shape[0], d["edst"].shape[0]
+    res = ke2 * nl * 4 + kn2 * 4 * nl * H * es
+    fwd_only = sum(weights[k].numel() * weights[k].element_size() for k in weights
+                   if k.split("_", 1)[1] in ("wq", "wk", "b", "b_ih"))
+    return b_bytes - res + fwd_only, f_ops + b_ops
 
 
 def segment_costs(ke, ne, S, H, es):
@@ -344,12 +384,15 @@ def phase_kernels(spec):
     version's mean of 5 eager calls."""
     from dagnn_tpu_torch import checks
     kf_name, kb_name = spec["names"]
+    # keyword arguments of the forward and the backward, from the inputs
+    fkw = spec.get("fkw", lambda d: spec["kw"])
+    bkw = spec.get("bkw", lambda d: spec["kw"])
     results = {}
     for dt in (torch.bfloat16, torch.float32):
         st, d, w = spec["inputs"](dt)
         fwd = lambda fn, d, w, emit: fn(*spec["fargs"](st, d, w), emit_res=emit,
-                                        **spec["kw"])
-        bwd = lambda fn, d, w, res: fn(*spec["bargs"](st, d, w, res), **spec["kw"])
+                                        **fkw(d))
+        bwd = lambda fn, d, w, res: fn(*spec["bargs"](st, d, w, res), **bkw(d))
         kf = fwd(spec["fwd"], d, w, True)
         pf = fwd(spec["fwd_plain"], d, w, True)
         torch.cuda.synchronize()
@@ -364,8 +407,11 @@ def phase_kernels(spec):
         fd, fw = checks.to_f32(d), checks.to_f32(w)
         truth = bwd(spec["bwd_plain"], fd, fw,
                     fwd(spec["fwd_plain"], fd, fw, True)[1:])
-        leaves = [(n, a, b, t, checks.tree_max({n: t})) for n, a, b, t in
-                  zip(("dx", "dvals", "dea"), kb[:3], pb[:3], truth[:3])]
+        # outputs: dx, dvals, dea and (K7) near_g_out; kb[3] the weight grads
+        outs = [(n, i) for n, i in (("dx", 0), ("dvals", 1), ("dea", 2),
+                                    ("near_g_out", 4)) if i < len(pb)]
+        leaves = [(n, kb[i], pb[i], truth[i], checks.tree_max({n: truth[i]}))
+                  for n, i in outs]
         tmax = checks.tree_max(truth[3])
         leaves += [(f"dw[{k}]", kb[3][k], pb[3][k], truth[3][k], tmax) for k in pb[3]]
         for n, a, b, t, m in leaves:
@@ -435,6 +481,117 @@ def pair_spec(dev, plan, kn, p):
         bargs=lambda st, d, w, res: (st, d["xin"], d["vals"], d["ea"], d["edst"],
                                      d["emask"], d["nmask"], d["nsrc"], w, d["g"],
                                      d["tg"], d["tdst"], d["tmask"], res, blocks))
+
+
+def nf_layout(host):
+    """nf of a near/far batch's merged rows: per direction (mode, Ke, Kf),
+    as nn/dagnn.py derives it."""
+    from dagnn_tpu_torch.nn.dagnn import _nf_layout
+    return tuple(_nf_layout(s, s.node_ids.shape[1], "cpu")[0]
+                 for s in (host.fwd, host.rev))
+
+
+def nearfar_row(host, kn):
+    """The merged row of a near/far batch with the most near edges."""
+    import numpy as np
+    nsrc = np.concatenate([host.fwd.edge_nsrc, host.rev.edge_nsrc], axis=1)
+    return int((nsrc < kn).sum(1).argmax())
+
+
+def nf_inputs(dt, dev, host, row, seed=4, H=300, emb=300, nl=2, R=2):
+    """One merged row of a near/far host batch at the flagship width: its
+    own slots, masks, nsrc and transpose lists (each direction's padded to
+    the wider Kt, as nn/dagnn.py does), random xin / vals (the gathered
+    rows) / prev_out / near_g / g / tg and one-hot edge types."""
+    import numpy as np
+    g = torch.Generator().manual_seed(seed)
+    u = lambda *s: (torch.rand(s, generator=g) * 2 - 1)
+    n = lambda *s: torch.randn(s, generator=g)
+    weights = rand_weights(g, dt, dev, H, emb, nl, R, 2)
+    f, r = host.fwd, host.rev
+    kn = f.node_ids.shape[1]
+    kt = max(f.tgrad_dst.shape[1], r.tgrad_dst.shape[1])
+    cat = lambda k, fill=None: torch.as_tensor(np.concatenate([
+        np.pad(getattr(s, k)[row], (0, kt - getattr(s, k).shape[1]),
+               constant_values=fill) if fill is not None else getattr(s, k)[row]
+        for s in (f, r)]))
+    U = sum(kf if m == "r" else ke for m, ke, kf in nf_layout(host))
+    W = f.edge_src_slot.shape[1] + r.edge_src_slot.shape[1]
+    d = dict(xin=n(2 * kn, emb), vals=u(U, nl * H), ea=_one_hot(g, W, R),
+             edst=cat("edge_dst").int(), emask=cat("edge_mask").float(),
+             nmask=cat("node_mask").float(), nsrc=cat("edge_nsrc").int(),
+             prev_out=u(2 * kn, nl * H), near_g=0.1 * n(2 * kn, nl * H),
+             g=0.1 * n(2 * kn, nl * H), tg=0.1 * n(2 * kt, nl * H),
+             tdst=cat("tgrad_dst", kn).int(), tmask=cat("tgrad_mask", False).float())
+    return (True, H, nl), _to_dev(d, dt, dev), weights
+
+
+def nf_spec(dev, host, row):
+    """K7: K1/K2 with nf on one merged row of a near/far batch."""
+    from dagnn_tpu_torch.ops import row_step as rs
+    nf = nf_layout(host)
+    fkw = lambda d: dict(ndirs=2, nf=nf, nsrc=d["nsrc"], prev_out=d["prev_out"])
+    return dict(
+        names=("K7f", "K7b"), fwd=rs.row_forward, fwd_plain=rs.row_forward_plain,
+        bwd=rs.row_backward, bwd_plain=rs.row_backward_plain, fkw=fkw,
+        bkw=lambda d: dict(fkw(d), near_g=d["near_g"]),
+        inputs=lambda dt: nf_inputs(dt, dev, host, row, **WIDTH),
+        fargs=row_spec(dev)["fargs"], bargs=row_spec(dev)["bargs"])
+
+
+def phase_recompute(dev):
+    """Phase 3f: K2r (row_backward with res=None: K1's kernels recompute
+    the residual streams, then K2's launches) on one merged row at the
+    flagship shapes, bf16 and f32: bitwise K2 fed by K1 on the same inputs
+    (max_abs_err 0 over dx, dvals, dea and every weight grad), and against
+    its plain version (row_backward_plain(res=None)) as phase 3 holds K2.
+    Timed as phase 3, beside K2 in the same call."""
+    from dagnn_tpu_torch import checks
+    from dagnn_tpu_torch.ops import row_step as rs
+    results = {}
+    for dt in (torch.bfloat16, torch.float32):
+        st, d, w = row_inputs(dt, dev, **FLAGSHIP)
+        fa = (st, d["xin"], d["vals"], d["ea"], d["edst"], d["emask"], d["nmask"], w)
+        ba = fa + (d["g"], d["tg"], d["tdst"], d["tmask"])
+        res = rs.row_forward(*fa, emit_res=True, ndirs=2)[1:]
+        k2 = rs.row_backward(*ba, res, ndirs=2)
+        k2r = rs.row_backward(*ba, None, ndirs=2)
+        p2r = rs.row_backward_plain(*ba, None, ndirs=2)
+        torch.cuda.synchronize()
+        bit = max([float((a.float() - b.float()).abs().max()) for a, b in
+                   zip(k2r[:3], k2[:3])]
+                  + [float((k2r[3][k] - k2[3][k]).abs().max()) for k in k2[3]])
+        truth = rs.row_backward_plain(*checks.to_f32(ba), None, ndirs=2)
+        tmax = checks.tree_max(truth[3])
+        errs = [checks.rel_err(a, b) + (0.0, n) for n, a, b in
+                zip(("dx", "dvals", "dea"), k2r[:3], p2r[:3])]
+        for k in p2r[3]:
+            rel, ab, scale, nz = checks.grad_err(k2r[3][k], p2r[3][k], truth[3][k], tmax)
+            errs.append((rel, ab, scale, nz, f"dw[{k}]"))
+        worst = max(errs)
+        noise = max(errs, key=lambda e: e[3])
+        t2r = timings(lambda: rs.row_backward(*ba, None, ndirs=2))
+        t2 = timings(lambda: rs.row_backward(*ba, res, ndirs=2))
+        t1 = timings(lambda: rs.row_forward(*fa, emit_res=True, ndirs=2))
+        p_ms = time_ms(lambda: rs.row_backward_plain(*ba, None, ndirs=2), 5)
+        nb, ops = recompute_costs(st, d, w, dt)
+        r = dict(t2r, plain_ms=p_ms, err=worst[1], scale=worst[2], rel=worst[0],
+                 bytes=nb, ops=ops, bound=bound_ms(nb, ops, dt), library_ms=None,
+                 bitwise_err=bit, k2_ms=t2["ms"], k1_ms=t1["ms"])
+        print(f"  K2r {short(dt)}: against K2 fed by K1, max_abs_err {bit:.3e} "
+              f"(must be 0); against plain: worst {worst[4]} {worst[1]:.3e} of "
+              f"{worst[2]:.3e}, rel {worst[0]:.3e} (tolerance {TOL[dt]:g}), "
+              f"exact-zero elements' noise worst {noise[4]} {noise[3]:.3g}")
+        print(f"    device ms: K2r {t2r['ms']:.4f} (windows {fmt_windows(t2r['windows'])}), "
+              f"K2 {t2['ms']:.4f}, K1 {t1['ms']:.4f}: K2r - K2 {t2r['ms'] - t2['ms']:.4f}; "
+              f"per eager call K2r {t2r['call_ms']:.4f}, K2 {t2['call_ms']:.4f}; plain "
+              f"K2r {p_ms:.4f}; bound {r['bound'][0]:.5f} ms by {r['bound'][1]} "
+              f"({nb / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP)")
+        check(bit == 0.0, f"K2r {dt}: not bitwise K2 ({bit:.3e})")
+        check(worst[0] <= TOL[dt] and noise[3] <= NOISE_TOL,
+              f"K2r {dt}: kernel disagrees with plain on {worst[4]} / {noise[4]}")
+        results[dt] = {"K2r": r}
+    return results
 
 
 def busiest_level(host, key):
@@ -660,13 +817,31 @@ def phase_step(label, params, cfg, batch, kernels, plain, group=None):
           f"kernel step disagrees with plain step on {bad or 'the loss or norm'}")
 
 
+@contextlib.contextmanager
+def no_res_stream(on):
+    """The merged wavefront with (on) or without residual streams: the
+    port's _NO_RES_STREAM flag, which DAGNN_NO_RES_STREAM sets at import."""
+    from dagnn_tpu_torch.nn import dagnn
+    old, dagnn._NO_RES_STREAM = dagnn._NO_RES_STREAM, on
+    try:
+        yield
+    finally:
+        dagnn._NO_RES_STREAM = old
+
+
 def phase_cross(label, what, params, cfg, run_a, run_b):
-    """Phases 5c, 10e and 11: in f32, one train step's loss and grads by two
-    routes or forms that compute the same function (run_a, run_b: (batch,
-    impl)), kernels on both sides."""
+    """Phases 5c, 10e, 11 and 15: in f32, one train step's loss and grads
+    by two routes or forms that compute the same function (run_a, run_b:
+    (batch, impl) or (batch, impl, True) for the merged path without
+    residual streams), kernels on both sides."""
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
-    la, ga, na = loss_and_grads(params, cfg32, *run_a)
-    lb, gb, nb = loss_and_grads(params, cfg32, *run_b)
+
+    def run(r):
+        with no_res_stream(len(r) > 2 and r[2]):
+            return loss_and_grads(params, cfg32, r[0], r[1])
+
+    la, ga, na = run(run_a)
+    lb, gb, nb = run(run_b)
     e_loss, e_norm = abs(la - lb) / abs(lb), abs(na - nb) / nb
     t = CROSS_TOL
     # the worst leaf's |a - b| over (atol + rtol |b|): <= 1 passes
@@ -791,13 +966,39 @@ def check_counts(label, tag, expect):
     return lc
 
 
+def phase_ab(label, a, b, steppers, n_steps=5):
+    """Phase 17: the train steps of paths a and b in turns (a, b, b, a),
+    n_steps each from the same warm weights and optimizer state, timed with
+    CUDA events: the two compared in one call on one card, so that the
+    host's speed, which drifts during a call, weighs on both alike."""
+    times = {a: [], b: []}
+    for tag in (a, b, b, a):
+        train_step, p, state, batch, no_res = steppers[tag]
+        with no_res_stream(no_res):
+            torch.cuda.synchronize()
+            ev0, ev1 = (torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
+            ev0.record()
+            for _ in range(n_steps):
+                train_step(p, state, batch)
+            ev1.record()
+            torch.cuda.synchronize()
+        times[tag].append(ev0.elapsed_time(ev1) / n_steps)
+    ma, mb = (sum(times[t]) / 2 for t in (a, b))
+    print(f"{label} {a} {' / '.join(f'{v:.2f}' for v in times[a])} ms, {b} "
+          f"{' / '.join(f'{v:.2f}' for v in times[b])} ms a step (order a b b a): "
+          f"{b}/{a} edges/s {ma / mb:.3f}x")
+    return {a: times[a], b: times[b], "ratio": ma / mb}
+
+
 def drive_path(tag, labels, cfg, params, batch, expect, kernels, plain, card,
-               argv, group=None):
+               argv, group=None, steppers=None):
     """One path through its entry points, launch counts set to 0 before and
     read after: the step check, the timed steps, a predict (and with
     --profile one profiled step). expect(train passes, forward passes) gives
     the launches each wrapper of the path must have made; every other
-    wrapper must have launched nothing."""
+    wrapper must have launched nothing. `steppers` (a dict) keeps the
+    path's warm train step, weights, state and batch for phase 17."""
     from dagnn_tpu_torch.cli.ogb_driver import make_step_fns
     from dagnn_tpu_torch.train.optim import make_optimizer
     train_passes = fwd_passes = 0
@@ -813,6 +1014,9 @@ def drive_path(tag, labels, cfg, params, batch, expect, kernels, plain, card,
         profile_step(tag, train_step, p, state, batch, card, trace_dir(argv))
         train_passes += 1
     lc = check_counts(labels[3], f"{tag} path", expect(train_passes, fwd_passes))
+    if steppers is not None:
+        from dagnn_tpu_torch.nn import dagnn
+        steppers[tag] = (train_step, p, state, batch, dagnn._NO_RES_STREAM)
     return dict(edges_per_s=eps, step_ms=ms, losses=losses, launches=lc)
 
 
@@ -837,7 +1041,7 @@ def main(argv):
           f"python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    sources = {"wavefront": "K1-K5", "segment_attn": "K6"}
+    sources = {"wavefront": "K1-K5, K7, K2r", "segment_attn": "K6"}
     build.build_all(list(sources))
     row_step._lib()
     segment_attn._lib()
@@ -858,6 +1062,12 @@ def main(argv):
     host2 = collate(graphs, flagship.pad_for(graphs, pair=2))
     t_pair = time.perf_counter() - t0
     host1 = collate(graphs, flagship.pad_for(graphs, pair=1))
+    nf_hosts = {}           # the near/far layouts (K7) of the same graphs
+    for tag, mode in (("rt", ("regions", "tgonly")), ("r", "regions")):
+        t0 = time.perf_counter()
+        nf_hosts[tag] = collate(graphs, dataclasses.replace(
+            flagship.pad_for(graphs), nearfar=mode))
+        print(f"    near/far {mode}: collation {time.perf_counter() - t0:.2f} s")
 
     print("[3] K1/K2 against their plain versions, one row at the flagship "
           "shapes " + json.dumps(FLAGSHIP))
@@ -875,6 +1085,14 @@ def main(argv):
           "of the flagship batch")
     tgs = phase_tg_accumulate(dev, host0)
     split_row = phase_split_row(dev)
+    nf_row = nearfar_row(nf_hosts["rt"], kn)
+    print(f"[3e] K7 (K1/K2 with nf) against their plain versions, row {nf_row} "
+          f"of the flagship near/far (regions, tgonly) batch, nf "
+          f"{nf_layout(nf_hosts['rt'])}, width " + json.dumps(WIDTH))
+    nfk = phase_kernels(nf_spec(dev, nf_hosts["rt"], nf_row))
+    print("[3f] K2r (K2 without residual streams) against K2 and its plain "
+          "version, one merged row at the flagship shapes " + json.dumps(FLAGSHIP))
+    k2r_row = phase_recompute(dev)
 
     batch = convert.batch_to_torch(host0, dev)
     L = batch.fwd.node_ids.shape[0]
@@ -902,8 +1120,10 @@ def main(argv):
                                         "row_backward": n * t})
 
     torch.cuda.reset_peak_memory_stats()
+    steppers = {}
     merged = drive_path("merged", ("[5]", "[6]", "[7]", "[8]"), cfg, params,
-                        batch, rows_per(L), KERNELS, PLAIN, card, argv)
+                        batch, rows_per(L), KERNELS, PLAIN, card, argv,
+                        steppers=steppers)
     phase_cross("[5c]", "pair=1 vs merged", params, cfg,
                 (convert.batch_to_torch(host1, dev), PAIR_KERNELS),
                 (convert.batch_to_torch(host1, dev)._replace(pair=None), KERNELS))
@@ -929,7 +1149,8 @@ def main(argv):
     params_u = dagnn_init(0, cfg_u, device=dev)
     torch.cuda.reset_peak_memory_stats()
     uni = drive_path("unidirectional", ("[10a]", "[10b]", "[10c]", "[10d]"), cfg_u,
-                     params_u, batch, rows_per(L), KERNELS, PLAIN, card, argv)
+                     params_u, batch, rows_per(L), KERNELS, PLAIN, card, argv,
+                     steppers=steppers)
     reset_counts()
     phase_cross("[10e]", "split (K5 + K2) vs merged-tg K2, unidirectional",
                 params_u, cfg_u, (batch, SPLIT_KERNELS), (batch, KERNELS))
@@ -942,12 +1163,69 @@ def main(argv):
     # per direction 2L calls each (K1, K5, K2), merged L (K1, K2)
     check_counts("[11]", "cross-route check", {
         "row_forward": 3 * L, "row_backward": 3 * L, "tg_accumulate": 2 * L})
+
+    # the near/far layouts (K7): the merged path on both layouts, the
+    # unidirectional one on "regions"; each row one K7 forward and backward
+    nfb = {t: convert.batch_to_torch(h, dev) for t, h in nf_hosts.items()}
+    for t, b in nfb.items():
+        print(f"[4c] near/far workload {t}: nf {nf_layout(nf_hosts[t])} (mode, Ke, "
+              f"Kf per direction), Kt {b.fwd.tgrad_eslot.shape[1]} / "
+              f"{b.rev.tgrad_eslot.shape[1]}, L={b.fwd.node_ids.shape[0]} rows; "
+              f"near edges {int((b.fwd.edge_nsrc < kn).sum())} fwd, "
+              f"{int((b.rev.edge_nsrc < kn).sum())} rev")
+        check(b.fwd.node_ids.shape[0] == L, "the near/far batch has other rows")
+    nf_rows = lambda t, f: {"row_forward_nf": L * (t + f), "row_backward_nf": L * t}
+    torch.cuda.reset_peak_memory_stats()
+    nf_rt = drive_path("nearfar_rt", ("[12a]", "[12b]", "[12c]", "[12d]"), cfg,
+                       params, nfb["rt"], nf_rows, KERNELS, PLAIN, card, argv,
+                       steppers=steppers)
+    torch.cuda.reset_peak_memory_stats()
+    nf_r = drive_path("nearfar_r", ("[13a]", "[13b]", "[13c]", "[13d]"), cfg,
+                      params, nfb["r"], nf_rows, KERNELS, PLAIN, card, argv,
+                      steppers=steppers)
+    torch.cuda.reset_peak_memory_stats()
+    nf_u = drive_path("nearfar_unidirectional", ("[14a]", "[14b]", "[14c]", "[14d]"),
+                      cfg_u, params_u, nfb["r"], nf_rows, KERNELS, PLAIN, card, argv,
+                      steppers=steppers)
+    # the merged path without residual streams (DAGNN_NO_RES_STREAM): K2r
+    torch.cuda.reset_peak_memory_stats()
+    with no_res_stream(True):
+        k2r = drive_path("merged_k2r", ("[16a]", "[16b]", "[16c]", "[16d]"), cfg,
+                         params, batch, lambda t, f: {
+                             "row_forward": L * (t + f),
+                             "row_backward_recompute": L * t},
+                         KERNELS, PLAIN, card, argv, steppers=steppers)
+    reset_counts()
+    nf_cross = {
+        "merged_rt": phase_cross("[15a]", "near/far (regions, tgonly) vs plain "
+                                 "layout, merged", params, cfg,
+                                 (nfb["rt"], KERNELS), (batch, KERNELS)),
+        "merged_r": phase_cross("[15b]", "near/far (regions) vs plain layout, "
+                                "merged", params, cfg, (nfb["r"], KERNELS),
+                                (batch, KERNELS)),
+        "unidirectional_r": phase_cross(
+            "[15c]", "near/far (regions) vs plain layout, unidirectional",
+            params_u, cfg_u, (nfb["r"], KERNELS), (batch, KERNELS)),
+        "k2r": phase_cross("[15d]", "K2r vs residual streams, merged", params, cfg,
+                           (batch, KERNELS, True), (batch, KERNELS))}
+    # a train pass each: K7 on the three near/far sides; K1 and K2 on the
+    # four others; K1 and K2r on the side without residual streams
+    check_counts("[15]", "near/far and K2r cross-route checks", {
+        "row_forward_nf": 3 * L, "row_backward_nf": 3 * L, "row_forward": 5 * L,
+        "row_backward": 4 * L, "row_backward_recompute": L})
+    ab = {f"{a}/{b}": phase_ab("[17]", a, b, steppers) for a, b in (
+        ("merged", "nearfar_rt"), ("merged", "nearfar_r"),
+        ("unidirectional", "nearfar_unidirectional"), ("merged", "merged_k2r"))}
     runs = {"merged": merged, "pair": paired, "pallas": pallas,
-            "unidirectional": uni}
+            "unidirectional": uni, "nearfar_rt": nf_rt, "nearfar_r": nf_r,
+            "nearfar_unidirectional": nf_u, "merged_k2r": k2r}
     eps = {k: v["edges_per_s"] for k, v in runs.items()}
     print(f"    edges/s fwd+bwd per GPU on {card}: "
           + ", ".join(f"{k} {v:.1f}" for k, v in eps.items())
-          + f"; pair/merged {eps['pair'] / eps['merged']:.3f}x")
+          + f"; pair/merged {eps['pair'] / eps['merged']:.3f}x, near/far "
+          f"(regions, tgonly)/merged {eps['nearfar_rt'] / eps['merged']:.3f}x, "
+          f"(regions)/merged {eps['nearfar_r'] / eps['merged']:.3f}x, "
+          f"K2r/merged {eps['merged_k2r'] / eps['merged']:.3f}x")
 
     kernels = []
     wf = "dagnn_tpu_torch/csrc/wavefront.cu"
@@ -960,7 +1238,13 @@ def main(argv):
             ("K6f", "segment_attn_forward", "dagnn_tpu_torch/csrc/segment_attn.cu",
              "dagnn_tpu/ops/pallas/segment_attn.py:61", segs, "pallas"),
             ("K6b", "segment_attn_backward", "dagnn_tpu_torch/csrc/segment_attn.cu",
-             "dagnn_tpu/ops/pallas/segment_attn.py:94", segs, "pallas")):
+             "dagnn_tpu/ops/pallas/segment_attn.py:94", segs, "pallas"),
+            ("K7f", "row_forward_nf", wf, "dagnn_tpu/ops/pallas/row_step.py:356", nfk,
+             "nearfar_rt"),
+            ("K7b", "row_backward_nf", wf, "dagnn_tpu/ops/pallas/row_step.py:555", nfk,
+             "nearfar_rt"),
+            ("K2r", "row_backward_recompute", wf, "dagnn_tpu/ops/pallas/row_step.py:536",
+             k2r_row, "merged_k2r")):
         r = res[torch.bfloat16][kern]
         kernels.append({"name": f"{name} ({kern})", "route": "cuda", "source": src,
                         "replaces": line, "launches": runs[main_path]["launches"][name],
@@ -970,10 +1254,12 @@ def main(argv):
                         "launches_by_path": {k: v["launches"][name] for k, v in runs.items()
                                              if v["launches"][name]}})
     print(json.dumps({**runs, "split_checks": split, "cross_route": cross,
+                      "nearfar_cross_route": nf_cross, "ab_steps": ab,
                       "split_row": {short(k): v for k, v in split_row.items()},
                       "gpu": card,
                       "f32_kernels": {**rows[torch.float32], **pairs[torch.float32],
-                                      **segs[torch.float32], **tgs[torch.float32]}}))
+                                      **segs[torch.float32], **tgs[torch.float32],
+                                      **nfk[torch.float32], **k2r_row[torch.float32]}}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

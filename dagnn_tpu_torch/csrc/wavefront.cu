@@ -16,6 +16,18 @@
 //    an H100 (chip_smoke.py phase 3d, device time from a CUDA graph):
 //    9.7 us, against 5.6 us for index_add_ on the same data: warp 0's
 //    ballot scan of all Kt entries per slot is the serial part.
+// K7 (the near/far layouts, nf) replaces the nf branches of
+//    fused_row_forward / fused_row_backward (row_step.py _nf_blocks,
+//    _nf_rebuild_vals, the near-grad carry): one row's blocks with ragged
+//    per-direction widths; an "r" block's near edges read the previous
+//    row's outputs (prev_out) through nsrc, as a pair's B block reads A's;
+//    K2 adds the next row's near grads to its cotangent sum in seg_merge,
+//    and one more seg_merge (zero base, stored in T) sums the near edges'
+//    value grads over nsrc into near_g_out. The same bytes as K1/K2 less
+//    the near rows of the value gather: memory bound on paper.
+// K2r (fused_row_backward with res=None, the in-kernel recompute): K1's
+//    kernels recompute the residual streams into scratch from full-width
+//    values, then K2's launches run on them (bitwise K2 fed by K1).
 // K3 (pair forward) replaces dagnn_tpu/ops/pallas/pair_step.py
 //    fused_pair_forward (_pair_fwd_kernel, _nf_rebuild_vals).
 // K4 (pair backward) replaces pair_step.py fused_pair_backward
@@ -88,7 +100,8 @@ struct Blk {
   int kv;
   int to;    // transpose (or merge-list) range [to, to+kt)
   int kt;
-  int src;   // node block whose outputs feed edges e >= kv (-1: none)
+  int src;   // node block of the routed source (this call's outputs, K3/K4,
+             // or prev_out, K7) that feeds edges e >= kv (-1: none)
 };
 
 struct Tab {
@@ -120,7 +133,7 @@ template <typename T>
 struct Vals {
   const T* val;      // gathered rows: val[(vo + e) * ldv]
   int ldv;
-  const int* nsrc;   // intra-pair edges: source slot in node block src,
+  const int* nsrc;   // routed edges: source slot in node block src,
   const T* src;      // at src[(src * Kn + nsrc[eo + e]) * lds]
   int lds;
 };
@@ -338,17 +351,22 @@ __global__ void __launch_bounds__(NT) gru_fwd_kernel(
   }
 }
 
-// --------------------------------------------------- K2/K4/K5: seg merge
-// grid (Kn, nblk), block 128: base + the sum of src rows over the list
-// entries [to, to+kt) whose idx is slot n (mask set), in f32. base is g
-// (K2/K4's transpose-grad merge and K5: src tg, idx tdst) or, with g null,
-// gtot itself (K4's intra-pair merge: src the B blocks' intra-pair value
-// grads, idx nsrc, list = B_d's intra-pair range, node block A_d). The sum
-// goes to the f32 gtot, or with gout set (K5) to gout rounded to T.
+// ------------------------------------------------ K2/K4/K5/K7: seg merge
+// grid (Kn, nblk), block 128: base + (the sum of src rows over the list
+// entries [to, to+kt) whose idx is slot n (mask set), plus gadd's row if
+// given), in f32. The list's src rows start at row `to`, or with
+// src_at_vo at row `vo` (K7's near-grad merge, whose grads and indices lie
+// at different offsets). base is g (K2/K4's transpose-grad merge, K7's
+// adding the next row's near grads as gadd, and K5: src tg, idx tdst),
+// gtot itself with g null (K4's intra-pair merge: src the B blocks'
+// intra-pair value grads, idx nsrc, list = B_d's intra-pair range, node
+// block A_d), or 0 with both null (K7's near-grad merge: src the near
+// edges' value grads, idx nsrc). The sum goes to the f32 gtot, or with
+// gout set (K5, K7) to gout rounded to T.
 template <typename T>
-__global__ void seg_merge_kernel(Tab tb, int Kn, int LH, const T* g, const T* src,
-                                 const int* idx, const float* mask, float* gtot,
-                                 T* gout) {
+__global__ void seg_merge_kernel(Tab tb, int Kn, int LH, int src_at_vo, const T* g,
+                                 const T* src, const int* idx, const float* mask,
+                                 const T* gadd, float* gtot, T* gout) {
   extern __shared__ __align__(16) unsigned char smem[];
   int* lst = reinterpret_cast<int*>(smem);
   __shared__ int s_cnt;
@@ -361,10 +379,12 @@ __global__ void seg_merge_kernel(Tab tb, int Kn, int LH, const T* g, const T* sr
   __syncthreads();
   const int m = s_cnt;
   const size_t row = (size_t)b.nb * Kn + n;
+  const size_t so = src_at_vo ? b.vo : b.to;
   for (int c = threadIdx.x; c < LH; c += blockDim.x) {
     float s = 0.f;
-    for (int j = 0; j < m; ++j) s += ldf(src + ((size_t)b.to + lst[j]) * LH + c);
-    const float base = g ? ldf(g + row * LH + c) : gtot[row * LH + c];
+    for (int j = 0; j < m; ++j) s += ldf(src + (so + lst[j]) * LH + c);
+    if (gadd) s += ldf(gadd + row * LH + c);
+    const float base = g ? ldf(g + row * LH + c) : gtot ? gtot[row * LH + c] : 0.f;
     if (gout) gout[row * LH + c] = cvt<T>(base + s);
     else gtot[row * LH + c] = base + s;
   }
@@ -780,23 +800,26 @@ extern "C" int wf_gru_fwd(int dtype, int nb0, int nblk, int Kn, int H, int Din,
   return (int)cudaGetLastError();
 }
 
-extern "C" int wf_seg_merge(int dtype, const int* tab, int nblk, int Kn, int LH, const void* g,
-                            const void* src, const int* idx, const float* mask, float* gtot,
-                            void* stream) {
+extern "C" int wf_seg_merge(int dtype, const int* tab, int nblk, int Kn, int LH, int src_at_vo,
+                            const void* g, const void* src, const int* idx, const float* mask,
+                            const void* gadd, float* gtot, void* gout, void* stream) {
   Tab tb;
   int kemax, ktmax;
   if (!read_tab(tab, nblk, &tb, &kemax, &ktmax)) return (int)cudaErrorInvalidValue;
+  if (!gtot && !gout) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   dim3 grid(Kn, nblk);
   const size_t smem = (size_t)ktmax * sizeof(int);
   if (dtype == 0) {
     smem_opt_in(seg_merge_kernel<float>, smem);
-    seg_merge_kernel<float><<<grid, 128, smem, st>>>(tb, Kn, LH, P(float, g), P(float, src),
-                                                     idx, mask, gtot, nullptr);
+    seg_merge_kernel<float><<<grid, 128, smem, st>>>(tb, Kn, LH, src_at_vo, P(float, g),
+                                                     P(float, src), idx, mask, P(float, gadd),
+                                                     gtot, PM(float, gout));
   } else {
     smem_opt_in(seg_merge_kernel<bf16>, smem);
-    seg_merge_kernel<bf16><<<grid, 128, smem, st>>>(tb, Kn, LH, P(bf16, g), P(bf16, src),
-                                                    idx, mask, gtot, nullptr);
+    seg_merge_kernel<bf16><<<grid, 128, smem, st>>>(tb, Kn, LH, src_at_vo, P(bf16, g),
+                                                    P(bf16, src), idx, mask, P(bf16, gadd),
+                                                    gtot, PM(bf16, gout));
   }
   return (int)cudaGetLastError();
 }
@@ -814,11 +837,13 @@ extern "C" int wf_tg_accumulate(int dtype, int Kn, int LH, int Kt, const void* g
   if (dtype == 0) {
     smem_opt_in(seg_merge_kernel<float>, smem);
     seg_merge_kernel<float><<<dim3(Kn, 1), 128, smem, st>>>(
-        tb, Kn, LH, P(float, g), P(float, tg), tdst, tmask, nullptr, PM(float, out));
+        tb, Kn, LH, 0, P(float, g), P(float, tg), tdst, tmask, nullptr, nullptr,
+        PM(float, out));
   } else {
     smem_opt_in(seg_merge_kernel<bf16>, smem);
     seg_merge_kernel<bf16><<<dim3(Kn, 1), 128, smem, st>>>(
-        tb, Kn, LH, P(bf16, g), P(bf16, tg), tdst, tmask, nullptr, PM(bf16, out));
+        tb, Kn, LH, 0, P(bf16, g), P(bf16, tg), tdst, tmask, nullptr, nullptr,
+        PM(bf16, out));
   }
   return (int)cudaGetLastError();
 }

@@ -19,6 +19,15 @@ routes a batch as the JAX package does:
     transpose edge grads inside K2 (KERNELS), or with SPLIT_KERNELS in K5
     first (row_step.tg_accumulate) and K2 after, the JAX package's
     two-call form.
+  * near/far batches (PadConfig.nearfar: the schedules carry edge_nsrc)
+    take the same two fused wavefronts with the row kernels in their nf
+    modes (K7): "regions" directions gather only far predecessor rows and
+    read near ones from the previous row's outputs; the backward carries
+    the near edges' grads from each row to the one before it (near_g).
+  * with DAGNN_NO_RES_STREAM=1 (read at import into _NO_RES_STREAM, the
+    JAX package's knob) the merged wavefront keeps no residual streams:
+    its backward re-gathers full-width values and the row backward
+    recomputes the forward (K2r); the pair path is then off, as in JAX.
   * segment_impl="pallas": the per-direction wavefront's generic branch.
     Each level runs _step_outs (the attention score, the edge-softmax
     aggregate K6 of ops/segment_attn.py, a GRU cell in torch.matmul) into a
@@ -38,6 +47,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -61,6 +71,13 @@ NA_ATTN_H = "attn_h"
 P_MEAN, P_ADD, P_SUM, P_MAX, P_ATTN = "mean", "add", "sum", "max", "attn"
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# 1: the merged wavefront's backward re-gathers full-width predecessor
+# states and recomputes each row's forward in the row backward (K2r)
+# instead of keeping the forward's residual streams; the pair path is off.
+# The same variable as the JAX package's knob, so one setting picks the
+# same path in both packages.
+_NO_RES_STREAM = bool(int(os.environ.get("DAGNN_NO_RES_STREAM", "0")))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -229,22 +246,23 @@ def _generic_applicable(cfg: DAGNNConfig) -> bool:
                     for l in range(cfg.num_layers)))
 
 
-def _require_slice(cfg: DAGNNConfig, batch: DAGBatch):
+def _require_slice(cfg: DAGNNConfig):
     if cfg.out_pool_all:
         raise NotImplementedError(
             "out_pool_all (node-space readout) is not ported yet: ROADMAP "
             "queue 1, item 5 (the rest of the DAGNN config surface)")
-    fused = _fused_applicable(cfg)
-    if not (fused or _generic_applicable(cfg)):
+    if not (_fused_applicable(cfg) or _generic_applicable(cfg)):
         raise NotImplementedError(
             f"agg={cfg.agg!r}, segment_impl={cfg.segment_impl!r} is not "
             "ported yet: only attn aggregators with a GRU stack on "
             "segment_impl 'fused' or 'pallas' are. ROADMAP queue 1, item 5 "
             "(the rest of the DAGNN config surface)")
-    if fused and (batch.fwd.edge_nsrc is not None
-                  or batch.rev.edge_nsrc is not None):
-        raise NotImplementedError(
-            "near/far layouts (K7) are not ported yet: ROADMAP queue 2")
+
+
+def _nearfar(cfg: DAGNNConfig, batch: DAGBatch) -> bool:
+    """Whether a schedule the config runs has a near/far layout."""
+    return any((batch.fwd if d == 0 else batch.rev).edge_nsrc is not None
+               for d in cfg.dirs)
 
 
 # ------------------------------------------------- direction-merged streams
@@ -262,12 +280,46 @@ def _remap_slot(slot, unit, L, d):
     return torch.where(slot == g, 2 * g, row * (2 * unit) + d * unit + col)
 
 
+def _remap_slot_nf(slot, unit, units_total, offset, L):
+    """_remap_slot for unequal direction blocks: a per-direction buffer
+    [L*unit + 1] interleaves into [L*units_total + 1] at offset `offset`
+    within each row (the earlier directions' units)."""
+    g = L * unit
+    row, col = slot // unit, slot % unit
+    return torch.where(slot == g, L * units_total,
+                       row * units_total + offset + col)
+
+
+def _nf_layout(s, kn, dev):
+    """One direction's near/far layout: (its nf entry, nsrc [L, Ke_d]
+    int32, its forward gather list [L, kv_d]). "r" ("regions") gathers the
+    Kf_d far rows only, "t" ("tgonly") full rows, "p" a plain schedule
+    (nsrc all pad)."""
+    eslot = _t(s.edge_src_slot, dev).long()
+    L, ke = tuple(eslot.shape)
+    if s.edge_nsrc is None:
+        return (("p", ke, ke), torch.full((L, ke), kn, dtype=torch.int32,
+                                          device=dev), eslot)
+    nsrc = _t(s.edge_nsrc, dev).to(torch.int32)
+    kf = s.far_w
+    if kf is None:
+        return ("t", ke, ke), nsrc, eslot
+    return ("r", ke, kf), nsrc, eslot[:, :kf].contiguous()
+
+
 def _build_streams_merged(cfg: DAGNNConfig, x, edge_attr, sf, sr, dev):
     """Merged-direction streams: the per-row concat of both schedules'
     blocks. eslot / teslot are remapped into the merged state / edge-grad
     buffers; edst and tdst stay block-local. x is cast to the compute
     dtype here; the weights are cast inside the wavefront (so their grads
-    come back in float32, as through the JAX package's cast)."""
+    come back in float32, as through the JAX package's cast).
+
+    Near/far schedules (K7) add nf (one _nf_layout entry per direction;
+    the two directions' widths may differ), nsrc and eslot_v (the forward's
+    gather list, far rows only for "r"); their transpose slots index a
+    per-direction edge-grad buffer of unit Kf_d ("r") or Ke_d, interleaved
+    into the merged buffer of unit sum(kv_d). Returns (fxs, ixs, (L, 2Kn),
+    nf or None)."""
     L, kn = tuple(sf.node_ids.shape)
     dt = _DTYPES[cfg.compute_dtype]
     cat = lambda a, b: torch.cat([_t(a, dev), _t(b, dev)], dim=1)
@@ -284,6 +336,15 @@ def _build_streams_merged(cfg: DAGNNConfig, x, edge_attr, sf, sr, dev):
         "emask": cat(sf.edge_mask, sr.edge_mask),
     }
     ke = tuple(sf.edge_src_slot.shape)[1]
+    units = (ke, ke)
+    nf = None
+    if sf.edge_nsrc is not None or sr.edge_nsrc is not None:
+        lay = [_nf_layout(s, kn, dev) for s in (sf, sr)]
+        nf = tuple(e for e, _n, _v in lay)
+        ixs["nsrc"] = torch.cat([n for _e, n, _v in lay], dim=1)
+        ixs["eslot_v"] = torch.cat([_remap_slot(v, kn, L, d)
+                                    for d, (_e, _n, v) in enumerate(lay)], 1)
+        units = tuple(kf if m == "r" else kd for m, kd, kf in nf)
     kt = max(tuple(sf.tgrad_eslot.shape)[1], tuple(sr.tgrad_eslot.shape)[1])
 
     def padt(a, fill):
@@ -292,8 +353,9 @@ def _build_streams_merged(cfg: DAGNNConfig, x, edge_attr, sf, sr, dev):
         return a if w == 0 else torch.nn.functional.pad(a, (0, w), value=fill)
 
     ixs["teslot"] = torch.cat(
-        [_remap_slot(padt(sf.tgrad_eslot, L * ke).long(), ke, L, 0),
-         _remap_slot(padt(sr.tgrad_eslot, L * ke).long(), ke, L, 1)], dim=1)
+        [_remap_slot_nf(padt(s.tgrad_eslot, L * u).long(), u, sum(units),
+                        sum(units[:d]), L)
+         for d, (s, u) in enumerate(zip((sf, sr), units))], dim=1)
     ixs["tdst"] = torch.cat([padt(sf.tgrad_dst, kn), padt(sr.tgrad_dst, kn)], 1)
     ixs["tmask"] = torch.cat([padt(sf.tgrad_mask, False),
                               padt(sr.tgrad_mask, False)], 1)
@@ -302,7 +364,7 @@ def _build_streams_merged(cfg: DAGNNConfig, x, edge_attr, sf, sr, dev):
     ixs["tdst"] = ixs["tdst"].to(torch.int32)
     for k in ("nmask", "emask", "tmask"):
         ixs[k] = ixs[k].to(torch.float32)
-    return fxs, ixs, (L, 2 * kn)
+    return fxs, ixs, (L, 2 * kn), nf
 
 
 class StepImpl(NamedTuple):
@@ -360,11 +422,21 @@ class _Plan:
     reverse: value grads go through the edge-grad buffer and come back to
     their source step through the transpose schedule (teslot, tdst, tmask);
     weight grads add into one f32 buffer. Weights are stacked [2, ...]
-    over both directions, or unstacked for one."""
+    over both directions, or unstacked for one.
 
-    def __init__(self, cfg, fxs, ixs, impl, tail=(), kw=None, dirs=(0, 1)):
+    nf (near/far rows, K7): the forward gathers eslot_v (far rows only
+    under "r") and hands each row the previous row's outputs (prev_out,
+    h's rows of step s-1; step 0 has no near edges); the backward carries
+    near_g from each row to the one before it (zeros at the last row), and
+    its edge-grad buffer has the width of eslot_v. res_stream=False (K2r):
+    the forward keeps no residual streams and the backward re-gathers
+    full-width rows (eslot) and lets the row backward recompute."""
+
+    def __init__(self, cfg, fxs, ixs, impl, tail=(), kw=None, dirs=(0, 1),
+                 nf=None, res_stream=True):
         self.cfg, self.ixs, self.impl = cfg, ixs, impl
         self.tail, self.kw, self.dirs = tail, kw or {}, tuple(dirs)
+        self.nf, self.res_stream = nf, res_stream
         self.ea = fxs.get("ea")
         self.has_ea = self.ea is not None and cfg.aggregator_spec(0).wea
         self.static = (self.has_ea, cfg.hidden_dim, cfg.num_layers)
@@ -372,7 +444,8 @@ class _Plan:
         self.dt = _DTYPES[cfg.compute_dtype]
         self.keys = _param_keys(cfg, self.has_ea, self.dirs)
         self.n, self.unit = tuple(fxs["x"].shape[:2])
-        self.nv = ixs["eslot"].shape[1]      # value rows gathered per step
+        self.vkey = "eslot" if nf is None else "eslot_v"
+        self.nv = ixs[self.vkey].shape[1]    # value rows gathered per step
         self.ne = ixs["edst"].shape[1]       # edges per step
 
     def weights(self, wparams):
@@ -406,10 +479,24 @@ class _Plan:
         ix = self.ixs
         args = (self.ea[s] if self.has_ea else None, ix["edst"][s],
                 ix["emask"][s], ix["nmask"][s])
-        return args + ((ix["nsrc"][s],) if "nsrc" in ix else ())
+        # a pair step takes nsrc positionally, a near/far row (K7) by name
+        return args + ((ix["nsrc"][s],) if "nsrc" in ix and self.nf is None
+                       else ())
+
+    def _nf_kw(self, s, h, prev=True):
+        """K7's keywords of step s: the layout, nsrc and (prev) the previous
+        step's outputs, rows (s-1)*unit.. of h (step 0, which has no near
+        edges, reads its own rows)."""
+        if self.nf is None:
+            return {}
+        kw = dict(nf=self.nf, nsrc=self.ixs["nsrc"][s])
+        if prev:
+            lo = max(s - 1, 0) * self.unit
+            kw["prev_out"] = h[lo:lo + self.unit]
+        return kw
 
     def forward(self, xs, weights, emit_res):
-        """n forward steps (K1 or K3). Returns the state buffer
+        """n forward steps (K1, K7 or K3). Returns the state buffer
         [n*unit + 1, nl*H] (garbage row last, left zero) and, with
         emit_res, the residual streams alpha32 [n, ne, nl] and
         nres [n, unit, 4*nl*H]."""
@@ -422,38 +509,48 @@ class _Plan:
             nres = torch.empty((n, unit, 4 * self.lh), dtype=self.dt,
                                device=xs.device)
         for s in range(n):
-            vals = h[self.ixs["eslot"][s]]
+            vals = h[self.ixs[self.vkey][s]]
             out = self.impl.forward(self.static, xs[s], vals, *self._args(s),
                                     weights, *self.tail, emit_res=emit_res,
-                                    **self.kw)
+                                    **self.kw, **self._nf_kw(s, h))
             if emit_res:
                 out, a32[s], nres[s] = out
             h[s * unit:(s + 1) * unit] = out
         return h, a32, nres
 
     def backward(self, xs, h, weights, res, g):
-        """n backward steps (K2 or K4) in reverse. Predecessor states are
-        re-gathered from the final (write-once) state buffer instead of
-        being kept as a vals stream; the edge-grad buffer is
-        [n*nv + 1, nl*H] (garbage row last, left zero)."""
+        """n backward steps (K2, K7, K2r or K4) in reverse. Predecessor
+        states are re-gathered from the final (write-once) state buffer
+        instead of being kept as a vals stream; the edge-grad buffer is
+        [n*nv + 1, nl*H] (garbage row last, left zero). res is (alpha32,
+        nres), or None without residual streams."""
         n, unit, nv = self.n, self.unit, self.nv
         if "teslot" not in self.ixs:
             raise NotImplementedError(
                 "the fused wavefront's backward needs a transpose schedule "
                 "(tgrad_eslot), as in the JAX package")
-        a32, nres = res
         acc = torch.zeros((n * nv + 1, self.lh), dtype=self.dt, device=h.device)
         dw = row_step._new_dw(weights, self.cfg.num_layers, self.has_ea, h.device)
         dxs = torch.empty_like(xs)
         g_stream = g[: n * unit].to(self.dt).reshape(n, unit, self.lh)
+        near_g = (torch.zeros((unit, self.lh), dtype=self.dt, device=h.device)
+                  if self.nf is not None else None)
         ix = self.ixs
         for s in range(n - 1, -1, -1):
             tg = acc[ix["teslot"][s]]
-            vals = h[ix["eslot"][s]]
-            dx, dvals, _dea, _ = self.impl.backward(
-                self.static, xs[s], vals, *self._args(s), weights,
-                g_stream[s].contiguous(), tg, ix["tdst"][s], ix["tmask"][s],
-                (a32[s], nres[s]), *self.tail, dw_acc=dw, **self.kw)
+            kw = self._nf_kw(s, h, prev=res is not None)
+            if near_g is not None:
+                kw["near_g"] = near_g
+            out = self.impl.backward(
+                self.static, xs[s],
+                h[ix[self.vkey if res is not None else "eslot"][s]],
+                *self._args(s), weights, g_stream[s].contiguous(), tg,
+                ix["tdst"][s], ix["tmask"][s],
+                (res[0][s], res[1][s]) if res is not None else None,
+                *self.tail, dw_acc=dw, **self.kw, **kw)
+            dx, dvals = out[:2]
+            if near_g is not None:
+                near_g = out[4]
             acc[s * nv:(s + 1) * nv] = dvals
             dxs[s] = dx
         grads = {}
@@ -469,13 +566,15 @@ class _Plan:
 class _Wavefront(torch.autograd.Function):
     """Both direction passes over a plan (merged: K1 row by row, K2 row by
     row in reverse; pair: K3 pair by pair, K4 in reverse); the residual
-    streams of the forward feed the backward."""
+    streams of the forward feed the backward (unless plan.res_stream is
+    off: K2r)."""
 
     @staticmethod
     def forward(ctx, plan, xs, *wparams):
         weights = plan.weights(wparams)
-        h, a32, nres = plan.forward(xs, weights, emit_res=True)
-        ctx.plan, ctx.weights, ctx.res = plan, weights, (a32, nres)
+        h, a32, nres = plan.forward(xs, weights, emit_res=plan.res_stream)
+        ctx.plan, ctx.weights = plan, weights
+        ctx.res = (a32, nres) if plan.res_stream else None
         ctx.wdtypes = [p.dtype for p in wparams]
         ctx.save_for_backward(xs, h)
         return h
@@ -504,11 +603,13 @@ def merged_pass(params, cfg: DAGNNConfig, x, edge_attr, batch: DAGBatch,
     """Both direction passes in one wavefront. Returns (h_flat
     [L*2Kn, nl*H], x_flat [L*2Kn, emb]) in the merged level-sorted layout:
     row r holds the fwd block at rows r*2Kn..r*2Kn+Kn and the rev block
-    after it."""
-    fxs, ixs, (L, kn2) = _build_streams_merged(cfg, x, edge_attr, batch.fwd,
-                                               batch.rev, x.device)
+    after it. Near/far batches run the row kernels' nf modes (K7); with
+    _NO_RES_STREAM the backward recomputes each row's forward (K2r)."""
+    fxs, ixs, (L, kn2), nf = _build_streams_merged(cfg, x, edge_attr, batch.fwd,
+                                                   batch.rev, x.device)
     xs = fxs["x"]
-    h = _run(_Plan(cfg, fxs, ixs, impl, kw={"ndirs": 2}), xs, params)
+    h = _run(_Plan(cfg, fxs, ixs, impl, kw={"ndirs": 2}, nf=nf,
+                   res_stream=not _NO_RES_STREAM), xs, params)
     return h[: L * kn2], xs.reshape(L * kn2, -1)
 
 
@@ -522,6 +623,7 @@ def merged_pass(params, cfg: DAGNNConfig, x, edge_attr, batch: DAGBatch,
 
 def pair_applicable(cfg: DAGNNConfig, batch: DAGBatch) -> bool:
     return (getattr(batch, "pair", None) is not None
+            and not _NO_RES_STREAM
             and cfg.bidirectional and _fused_applicable(cfg)
             and tuple(batch.fwd.node_ids.shape) == tuple(batch.rev.node_ids.shape))
 
@@ -574,7 +676,10 @@ def _build_streams(cfg: DAGNNConfig, x, edge_attr, sched, dev):
     index of JAX's `lvl` stream is the loop index here. The transpose keys
     are left out when the schedule has none, or when a near/far schedule's
     transpose (far edges only) meets the generic branch: its backward then
-    scatter-adds, as the JAX package's does."""
+    scatter-adds, as the JAX package's does. On the fused branch a near/far
+    schedule adds nf (one _nf_layout entry), nsrc and eslot_v; its
+    transpose slots already index the direction's edge-grad buffer (unit
+    Kf under "r", Ke under "t"). Returns (fxs, ixs, nf or None)."""
     dt = _DTYPES[cfg.compute_dtype]
     fxs = {"x": x.to(dt)[_t(sched.node_ids, dev).long()]}
     if cfg.w_edge_attr and edge_attr is not None and cfg.num_rels > 1:
@@ -583,13 +688,18 @@ def _build_streams(cfg: DAGNNConfig, x, edge_attr, sched, dev):
            "edst": _t(sched.edge_dst, dev).to(torch.int32),
            "nmask": _t(sched.node_mask, dev).to(torch.float32),
            "emask": _t(sched.edge_mask, dev).to(torch.float32)}
-    use_t = sched.tgrad_eslot is not None and (
-        sched.edge_nsrc is None or _fused_applicable(cfg))
+    fused = _fused_applicable(cfg)
+    nf = None
+    if sched.edge_nsrc is not None and fused:
+        entry, ixs["nsrc"], ixs["eslot_v"] = _nf_layout(
+            sched, tuple(sched.node_ids.shape)[1], dev)
+        nf = (entry,)
+    use_t = sched.tgrad_eslot is not None and (sched.edge_nsrc is None or fused)
     if use_t:
         ixs["teslot"] = _t(sched.tgrad_eslot, dev).long()
         ixs["tdst"] = _t(sched.tgrad_dst, dev).to(torch.int32)
         ixs["tmask"] = _t(sched.tgrad_mask, dev).to(torch.float32)
-    return fxs, ixs
+    return fxs, ixs, nf
 
 
 def _gather_vals(h, eslot):
@@ -738,12 +848,12 @@ def _direction_pass(params, cfg: DAGNNConfig, x, edge_attr, sched, d,
     direction's level-sorted layout. `impl`: a StepImpl (fused branch, the
     row kernels at ndirs=1) or an AggImpl (generic branch). The node-space
     half (slot_space=False) waits for out_pool_all."""
-    fxs, ixs = _build_streams(cfg, x, edge_attr, sched, x.device)
+    fxs, ixs, nf = _build_streams(cfg, x, edge_attr, sched, x.device)
     xs = fxs["x"]
     L, kn = tuple(xs.shape[:2])
     if isinstance(impl, StepImpl):
-        h = _run(_Plan(cfg, fxs, ixs, impl, kw={"ndirs": 1}, dirs=(d,)), xs,
-                 params)
+        h = _run(_Plan(cfg, fxs, ixs, impl, kw={"ndirs": 1}, dirs=(d,), nf=nf),
+                 xs, params)
         h = h[: L * kn]
     else:
         h = _run(_GenericPlan(cfg, fxs, ixs, impl, _dir_keys(params, d)), xs,
@@ -791,12 +901,17 @@ def _route(cfg: DAGNNConfig, batch: DAGBatch, impl):
     """(route, impl) of a batch, as the JAX package routes it: "pair",
     "merged" or "direction" (fused), or "generic" (segment_impl="pallas").
     SPLIT_KERNELS / SPLIT_PLAIN run one direction at a time, so they take
-    any fused batch per direction."""
-    _require_slice(cfg, batch)
+    any fused batch per direction, except a near/far one (ValueError: the
+    near grads join K2's own cotangent sum, as the JAX kernel asserts)."""
+    _require_slice(cfg)
     if not _fused_applicable(cfg):
         route, allowed = "generic", (SEG_KERNELS, SEG_PLAIN)
     else:
         merged = merged_applicable(cfg, batch)
+        if impl in (SPLIT_KERNELS, SPLIT_PLAIN) and _nearfar(cfg, batch):
+            raise ValueError("SPLIT_KERNELS / SPLIT_PLAIN (merge_tg=False) "
+                             "cannot run a near/far batch: its near grads "
+                             "need merge_tg=True")
         if impl in (SPLIT_KERNELS, SPLIT_PLAIN) or not merged:
             route = "direction"
             allowed = (KERNELS, PLAIN, SPLIT_KERNELS, SPLIT_PLAIN)

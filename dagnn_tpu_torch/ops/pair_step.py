@@ -58,25 +58,6 @@ def _block_offsets(blocks):
     return out
 
 
-def _route(prev, nsrc, kn):
-    """Intra-pair value rows: prev[nsrc] (prev = the same-direction A
-    block's layer-packed outputs), zero where nsrc is a pad (Kn)."""
-    nsrc = nsrc.long()
-    ok = (nsrc >= 0) & (nsrc < kn)
-    rows = prev[torch.clamp(nsrc, 0, kn - 1)]
-    return torch.where(ok[:, None], rows, torch.zeros((), dtype=prev.dtype,
-                                                      device=prev.device))
-
-
-def _block_vals(mode, vals, vo, kvd, nsrc_b, prev, kn):
-    """A block's value rows [ke, L*H]: the gathered rows, then for a B block
-    its intra-pair rows routed from A's outputs."""
-    far = vals[vo:vo + kvd]
-    if mode != "q":
-        return far
-    return torch.cat([far, _route(prev, nsrc_b[kvd:], kn)])
-
-
 def pair_forward_plain(static, xin, vals, ea, edst, emask, nmask, nsrc,
                        weights, blocks, emit_res: bool = False):
     """Pair forward (K3), plain PyTorch. xin [4Kn, In]; vals [U, L*H] =
@@ -91,7 +72,9 @@ def pair_forward_plain(static, xin, vals, ea, edst, emask, nmask, nsrc,
     for bi, (mode, d, eo, ked, vo, kvd, _to, _ktd) in enumerate(
             _block_offsets(blocks)):
         ns, es = slice(bi * kn, (bi + 1) * kn), slice(eo, eo + ked)
-        vals_b = _block_vals(mode, vals, vo, kvd, nsrc[es], outs_packed.get(d), kn)
+        # a B block's intra-pair rows: the same-direction A block's outputs
+        vals_b = rs._block_vals(mode == "q", vals, vo, kvd, nsrc[es],
+                                outs_packed.get(d), kn)
         outs, ress = rs._block_forward(
             static, rs._wsel(weights, 2, d), xin[ns], vals_b,
             ea[es] if has_ea else None, rs._Segments(edst[es], emask[es], kn),
@@ -134,16 +117,15 @@ def pair_backward_plain(static, xin, vals, ea, edst, emask, nmask, nsrc,
             gadd = gadd + g_extra[d]
         dx_b, dvl, dea_b = rs._block_backward(
             static, rs._wsel(weights, 2, d), xin[ns],
-            _block_vals(mode, vals, vo, kvd, nsrc[es], outs_packed.get(d), kn),
+            rs._block_vals(mode == "q", vals, vo, kvd, nsrc[es],
+                           outs_packed.get(d), kn),
             ea[es] if has_ea else None, rs._Segments(edst[es], emask[es], kn),
             nms[bi], a32_all[es], nres_all[ns], g[ns], gadd,
             rs._dw_adder(dw, True, d))
         for l, dv in enumerate(dvl):
             dvals[vo:vo + kvd, l * hdim:(l + 1) * hdim] = dv[:kvd]
-        if mode == "q":
-            near = nsrc[eo + kvd:eo + ked]
-            nseg = rs._Segments(near, torch.ones_like(near, dtype=torch.float32), kn)
-            g_extra[d] = torch.cat([nseg.sum(rs._f(dv[kvd:])) for dv in dvl], dim=1)
+        if mode == "q":       # the intra-pair edges: the tail past kvd
+            g_extra[d] = rs._near_grads("r", dvl, nsrc[es], emask[es], kvd, kn)
         dx[ns] = dx_b.to(dt)
         if has_ea:
             dea[es] = dea_b.to(dea.dtype)

@@ -17,6 +17,25 @@ concat of the two direction blocks along axis 0 and each weight is stacked
 [2, ...]. State crossing the call is layer-packed: vals / outs /
 cotangents are [K, L*H], layer l in columns l*H:(l+1)*H.
 
+K7, the near/far layouts (nf, dag/schedule.py nearfar): nf gives each
+direction block (mode, Ke_d, Kf_d), and the blocks' widths may differ
+(nf_blocks). "r" (regions): vals hold only the block's Kf_d far rows; its
+near edges (the tail of the block, source in the previous wavefront row)
+read their values from `prev_out` (the previous row's outputs) at slot
+nsrc, pad nsrc = Kn reading zero. "t" (tgonly): full vals. "p": a plain
+block. In the backward the transpose stream covers far edges only: each
+block's near-edge value grads, rounded to the compute dtype, are summed
+over nsrc into `near_g_out` (the previous row's cotangent, in g's dtype),
+and the next row's `near_g` is added to this row's float32 cotangent sum.
+Under "t" the near rows of dvals are still written (the transpose
+schedule never reads them).
+
+K2r, K2 without residual streams (res=None, the JAX kernel's in-kernel
+forward recompute): the forward is recomputed from full-width vals (every
+block's rows at its edge offset, whatever its mode) and the backward then
+runs as with the streams, so its results are bitwise those of K2 fed by
+K1 on the same inputs.
+
 Each kernel has two implementations with one signature:
   * row_forward_plain / row_backward_plain: plain PyTorch, the same
     arithmetic and rounding points as the TPU kernel (segment ops are
@@ -55,8 +74,13 @@ from dagnn_tpu_torch.ops.gru import gru_gates
 _EPS = 1e-16
 _F32 = torch.float32
 
-# launches of each wrapper's CUDA kernels (one per wrapper call on a card)
-launch_counts = {"row_forward": 0, "row_backward": 0, "tg_accumulate": 0}
+# launches of each wrapper's CUDA kernels (one per wrapper call on a card):
+# a call with nf counts as K7 (row_forward_nf, row_backward_nf), a backward
+# without residual streams as K2r (row_backward_recompute), with or
+# without nf
+launch_counts = {"row_forward": 0, "row_backward": 0, "tg_accumulate": 0,
+                 "row_forward_nf": 0, "row_backward_nf": 0,
+                 "row_backward_recompute": 0}
 
 
 def reset_launch_counts():
@@ -259,20 +283,75 @@ def _forward_outputs(xin, ke, nlayers, hdim, emit_res):
             torch.empty((kn, 4 * nlayers * hdim), dtype=dt, device=dev))
 
 
+def nf_blocks(nf, ndirs, ke_total):
+    """The direction blocks of a row, per direction (mode, edge offset,
+    edge width, vals offset, vals width): the JAX kernels' _nf_blocks.
+    nf = ((mode, Ke_d, Kf_d), ...) per direction; a block's vals width is
+    Kf_d under "r", Ke_d otherwise. nf None: uniform "p" blocks of
+    ke_total / ndirs edges."""
+    blocks, eo, vo = [], 0, 0
+    for d in range(ndirs):
+        mode, ked, kfd = (nf[d] if nf is not None
+                          else ("p", ke_total // ndirs, ke_total // ndirs))
+        kvd = kfd if mode == "r" else ked
+        blocks.append((mode, eo, ked, vo, kvd))
+        eo, vo = eo + ked, vo + kvd
+    return blocks
+
+
+def _full_nf(nf):
+    """nf with every block plain at its edge width: the layout of
+    full-width vals (K2r's recompute)."""
+    return None if nf is None else tuple(("p", ked, ked) for _m, ked, _kf in nf)
+
+
+def _routed(nf):
+    return nf is not None and any(m == "r" for m, *_r in nf)
+
+
+def _route(prev, nsrc, kn):
+    """Routed value rows: prev[nsrc] (prev = a node block's layer-packed
+    outputs), zero where nsrc is a pad (Kn)."""
+    nsrc = nsrc.long()
+    ok = (nsrc >= 0) & (nsrc < kn)
+    rows = prev[torch.clamp(nsrc, 0, kn - 1)]
+    return torch.where(ok[:, None], rows, torch.zeros((), dtype=prev.dtype,
+                                                      device=prev.device))
+
+
+def _block_vals(routed, vals, vo, kvd, nsrc_b, prev, kn):
+    """A block's value rows [Ke_d, L*H]: its kvd gathered rows, then (when
+    `routed`: a K7 "r" block, or a pair's B block) the rest of its edges'
+    rows routed from `prev` by nsrc_b."""
+    far = vals[vo:vo + kvd]
+    if not routed:
+        return far
+    return torch.cat([far, _route(prev, nsrc_b[kvd:], kn)])
+
+
 def row_forward_plain(static, xin, vals, ea, edst, emask, nmask, weights,
-                      emit_res: bool = False, ndirs: int = 1):
+                      emit_res: bool = False, ndirs: int = 1, nf=None,
+                      nsrc=None, prev_out=None):
     """Whole-row forward (K1), plain PyTorch. vals [ndirs*Ke, L*H];
     returns outs [ndirs*Kn, L*H], and with emit_res the backward's
     residual streams (alpha32 [ndirs*Ke, L] f32, nres [ndirs*Kn, 4*L*H]:
-    agg/r/z/n per layer)."""
+    agg/r/z/n per layer).
+
+    K7 (nf, see nf_blocks): vals [sum of the vals widths, L*H]; an "r"
+    block's near rows come from prev_out [ndirs*Kn, L*H] (the previous
+    row's outputs) through nsrc [sum Ke_d]. edst / emask / ea / nsrc and
+    alpha32 span the full edge widths."""
     has_ea, hdim, nlayers = static
     kn = xin.shape[0] // ndirs
-    ke = edst.shape[0] // ndirs
     out, a32, nres = _forward_outputs(xin, edst.shape[0], nlayers, hdim, emit_res)
-    for d in range(ndirs):
-        ns, es = slice(d * kn, (d + 1) * kn), slice(d * ke, (d + 1) * ke)
+    for d, (mode, eo, ked, vo, kvd) in enumerate(nf_blocks(nf, ndirs,
+                                                           edst.shape[0])):
+        ns, es = slice(d * kn, (d + 1) * kn), slice(eo, eo + ked)
+        vals_d = _block_vals(mode == "r", vals, vo, kvd,
+                             nsrc[es] if mode == "r" else None,
+                             prev_out[ns] if mode == "r" else None, kn)
         outs, ress = _block_forward(
-            static, _wsel(weights, ndirs, d), xin[ns], vals[es],
+            static, _wsel(weights, ndirs, d), xin[ns], vals_d,
             ea[es] if has_ea else None, _Segments(edst[es], emask[es], kn),
             _f(nmask[ns])[:, None])
         _store_forward(out, a32, nres, ns, es, outs, ress, hdim)
@@ -397,7 +476,7 @@ def tg_accumulate_plain(g, tg, tdst, tmask):
     return (_f(g) + seg.sum(_f(tg))).to(g.dtype)
 
 
-def _split_tg(merge_tg, ndirs, g, tg, tdst, tmask, accumulate):
+def _split_tg(merge_tg, ndirs, g, tg, tdst, tmask, accumulate, nf=None):
     """The cotangent and transpose streams K2 takes: as given, or with
     merge_tg=False the cotangent pre-merged by K5 (`accumulate`) and empty
     transpose streams."""
@@ -406,13 +485,32 @@ def _split_tg(merge_tg, ndirs, g, tg, tdst, tmask, accumulate):
     if ndirs != 1:
         raise ValueError("merge_tg=False (the split transpose-grad merge, K5) "
                          "is single-direction only")
+    if nf is not None:
+        raise ValueError("near/far layouts (nf) need merge_tg=True: the near "
+                         "grads join K2's own cotangent sum, as the JAX "
+                         "kernel asserts")
     g = accumulate(g, tg, tdst, tmask)
     return g, tg[:0], tdst[:0], tmask[:0]
 
 
+def _near_grads(mode, dvl, nsrc_b, emask_b, kvd, kn):
+    """A block's contribution to the previous row's cotangent [Kn, L*H]
+    f32: its near edges' value grads (compute dtype) summed over nsrc;
+    zero for a "p" block. Under "r" the near edges are the block's tail
+    past the kvd far rows; under "t" every edge is listed and the far ones
+    (nsrc = Kn) drop out."""
+    if mode == "p":
+        return torch.zeros((kn, sum(dv.shape[1] for dv in dvl)), dtype=_F32,
+                           device=dvl[0].device)
+    lo = kvd if mode == "r" else 0
+    seg = _Segments(nsrc_b[lo:], emask_b[lo:], kn)
+    return torch.cat([seg.sum(_f(dv[lo:])) for dv in dvl], dim=1)
+
+
 def row_backward_plain(static, xin, vals, ea, edst, emask, nmask, weights,
                        g, tg, tdst, tmask, res, ndirs: int = 1, dw_acc=None,
-                       merge_tg: bool = True):
+                       merge_tg: bool = True, nf=None, nsrc=None,
+                       prev_out=None, near_g=None):
     """The row's VJP (K2), plain PyTorch.
 
     g [ndirs*Kn, L*H] cotangent of the row's outputs; tg [ndirs*Kt, L*H]
@@ -423,33 +521,61 @@ def row_backward_plain(static, xin, vals, ea, edst, emask, nmask, weights,
     (ndirs=1): tg is first added onto g by tg_accumulate_plain (K5).
     Returns (dx [ndirs*Kn, In], dvals [ndirs*Ke, L*H], dea or None,
     dw): dw holds float32 weight grads in _names order, added into dw_acc
-    when given."""
+    when given.
+
+    res=None (K2r): vals are full width and the residuals are recomputed
+    by row_forward_plain first. K7 (nf, nsrc, prev_out as in
+    row_forward_plain; with res the vals are the forward's): near_g
+    [ndirs*Kn, L*H] (the next row's near_g_out; None reads zero) is added
+    to the transpose-grad sum in float32; dvals holds the vals rows only
+    (far rows under "r"), and a fifth output near_g_out [ndirs*Kn, L*H]
+    in g's dtype carries the near grads to the previous row."""
     has_ea, hdim, nlayers = static
     g, tg, tdst, tmask = _split_tg(merge_tg, ndirs, g, tg, tdst, tmask,
-                                   tg_accumulate_plain)
+                                   tg_accumulate_plain, nf)
+    W = edst.shape[0]
+    blocks = nf_blocks(nf, ndirs, W)
+    vblocks = blocks                  # where each block's vals rows lie
+    if res is None:
+        full = _full_nf(nf)
+        res = row_forward_plain(static, xin, vals, ea, edst, emask, nmask,
+                                weights, emit_res=True, ndirs=ndirs,
+                                nf=full)[1:]
+        vblocks = nf_blocks(full, ndirs, W)
     a32_all, nres_all = res
     kn = xin.shape[0] // ndirs
-    ke = edst.shape[0] // ndirs
     kt = tdst.shape[0] // ndirs
     dx = torch.empty_like(xin)
-    dvals = torch.empty_like(vals)
+    dvals = vals.new_empty((sum(b[4] for b in blocks), vals.shape[1]))
     dea = torch.empty_like(ea) if has_ea else None
+    ng_out = None if nf is None else g.new_empty((xin.shape[0], g.shape[1]))
     dw = dw_acc if dw_acc is not None else _new_dw(weights, nlayers, has_ea,
                                                    xin.device)
-    for d in range(ndirs):
-        ns, es = slice(d * kn, (d + 1) * kn), slice(d * ke, (d + 1) * ke)
+    for d, ((mode, eo, ked, vo, kvd), vb) in enumerate(zip(blocks, vblocks)):
+        ns, es = slice(d * kn, (d + 1) * kn), slice(eo, eo + ked)
         ts = slice(d * kt, (d + 1) * kt)
-        tg_all = _Segments(tdst[ts], tmask[ts], kn).sum(_f(tg[ts]))
+        gadd = _Segments(tdst[ts], tmask[ts], kn).sum(_f(tg[ts]))
+        if near_g is not None:
+            gadd = gadd + _f(near_g[ns])
+        routed = vb[0] == "r"
+        vals_d = _block_vals(routed, vals, vb[3], vb[4],
+                             nsrc[es] if routed else None,
+                             prev_out[ns] if routed else None, kn)
         dx_d, dvl, dea_d = _block_backward(
-            static, _wsel(weights, ndirs, d), xin[ns], vals[es],
+            static, _wsel(weights, ndirs, d), xin[ns], vals_d,
             ea[es] if has_ea else None, _Segments(edst[es], emask[es], kn),
-            _f(nmask[ns])[:, None], a32_all[es], nres_all[ns], g[ns], tg_all,
+            _f(nmask[ns])[:, None], a32_all[es], nres_all[ns], g[ns], gadd,
             _dw_adder(dw, ndirs > 1, d))
         for l, dv in enumerate(dvl):
-            dvals[es, l * hdim:(l + 1) * hdim] = dv
+            dvals[vo:vo + kvd, l * hdim:(l + 1) * hdim] = dv[:kvd]
+        if ng_out is not None:
+            ng_out[ns] = _near_grads(mode, dvl, nsrc[es], emask[es], kvd,
+                                     kn).to(ng_out.dtype)
         dx[ns] = dx_d.to(dx.dtype)
         if has_ea:
             dea[es] = dea_d.to(dea.dtype)
+    if nf is not None:
+        return dx, dvals, dea, dw, ng_out
     return dx, dvals, dea, dw
 
 
@@ -458,7 +584,7 @@ def row_backward_plain(static, xin, vals, ea, edst, emask, nmask, weights,
 _SIGS = {
     "wf_attn_fwd": "ipi" "iiii" "pi" "pi" "p" "pi" "ppp" "ppppp" "pi" "pi" "p",
     "wf_gru_fwd": "iii" "iii" "pi" "pi" "ppppp" "p" "pi" "ppp" "i" "p",
-    "wf_seg_merge": "ipi" "ii" "ppppp" "p",
+    "wf_seg_merge": "ipi" "iii" "ppppppp" "p",
     "wf_rebuild": "ipi" "ii" "ppp" "i" "ppppp" "i" "p",
     "wf_gru_bwd_elem": "iii" "ii" "pi" "pppppp" "i" "pppp" "p",
     "wf_gemm_nn": "iii" "iii" "pp" "i" "pp" "p",
@@ -516,11 +642,32 @@ def _gemm_blocks(rows):
     return nb0
 
 
-def uniform_blocks(ndirs, ke, kt):
-    """The block table of a merged row: direction d's edges, values and
-    transpose edges at d*Ke / d*Kt, no intra-pair edges."""
-    return tuple((d, d, d * ke, ke, d * ke, ke, d * kt, kt, -1)
-                 for d in range(ndirs))
+def row_table(nf, ndirs, ke_total, kt_total):
+    """The block table of a row: block d is direction d at node block d,
+    its edges and vals rows where nf_blocks puts them, its transpose edges
+    at d*Kt. A K7 "r" block reads its near edges' values from node block d
+    of the near source (prev_out) through nsrc."""
+    kt = kt_total // ndirs
+    return tuple((d, d, eo, ked, vo, kvd, d * kt, kt, d if mode == "r" else -1)
+                 for d, (mode, eo, ked, vo, kvd) in
+                 enumerate(nf_blocks(nf, ndirs, ke_total)))
+
+
+def near_table(nf, rows, U):
+    """K7's near-grad merge: per block of the backward table `rows`, the
+    seg_merge entry that sums its near edges' value grads over nsrc onto
+    node block d of near_g_out. Its list is the block's near edges [io,
+    io+n) of nsrc (under "r" the tail past Kf_d, under "t" all edges, none
+    under "p"); their grads are rows so.. of the value-grad buffer, which
+    holds dvals (U rows) and after them the grads of edges read through
+    nsrc (dnear, rows U + edge)."""
+    out = []
+    for (mode, _ke, kf), (d, nb, eo, ke, vo, kv, *_r) in zip(nf, rows):
+        lo = kf if mode == "r" else 0
+        so = vo + lo if lo < kv else U + eo + lo
+        out.append((d, nb, 0, 0, so, 0, eo + lo, 0 if mode == "p" else ke - lo,
+                    -1))
+    return tuple(out)
 
 
 def _check(rc, fn):
@@ -579,10 +726,20 @@ def _masks(*ts):
     return [t.to(_F32).contiguous() for t in ts]
 
 
+def _check_sources(fn, groups, nsrc, near, rows, LH, dt):
+    """Blocks with a source read nsrc, and (K7) the near source's rows."""
+    if any(r[8] >= 0 for g in groups for r in g) and nsrc is None:
+        raise ValueError(f"{fn}: blocks read routed values but nsrc is None")
+    if near is not None:
+        _expect(fn, [(near, (rows, LH), dt)])
+
+
 def cuda_forward(fn, static, xin, vals, ea, edst, emask, nmask, weights,
-                 emit_res, groups, nw, nsrc=None):
+                 emit_res, groups, nw, nsrc=None, near=None):
     """Launch K1/K3's kernels over block groups run in order (within a
     layer a later group may read an earlier one's outputs through nsrc).
+    A block with a source reads its routed values from node block `src` of
+    `near` (K7: prev_out) or, with near None, of this call's outputs (K3).
     Returns outs (+ alpha32, nres with emit_res), as the plain versions."""
     has_ea, H, nl = static
     dt = xin.dtype
@@ -593,10 +750,11 @@ def cuda_forward(fn, static, xin, vals, ea, edst, emask, nmask, weights,
     U = sum(r[5] for g in groups for r in g)
     _expect(fn, [(vals, (U, LH), dt)])
     _check_widths(fn, groups, (edst, emask, ea, nsrc))
+    _check_sources(fn, groups, nsrc, near, xin.shape[0], LH, dt)
     edst, nsrc = _indices(edst, nsrc)
     emask, nmask = _masks(emask, nmask)
     ea = ea.contiguous() if has_ea else None
-    _on_card(fn, [xin, vals, ea, edst, emask, nmask, nsrc], dt)
+    _on_card(fn, [xin, vals, ea, edst, emask, nmask, nsrc, near], dt)
     R = ea.shape[1] if has_ea else 0
     names = [f"a{l}_{k}" for l in range(nl) for k in agg_keys(has_ea)]
     names += [f"c{l}_{k}" for l in range(nl)
@@ -620,10 +778,11 @@ def cuda_forward(fn, static, xin, vals, ea, edst, emask, nmask, weights,
         else:
             agg, ldg = _ptr(aggbuf), H
             a32p, res_p = 0, (0, 0, 0)
+        src = _ptr(near if near is not None else out, l * H)
         for tab, nb, nb0 in tabs:
             _check(lib.wf_attn_fwd(
                 code, tab, nb, kn, H, din, R, cur, ldc, _ptr(vals, l * H), LH,
-                _ptr(nsrc), _ptr(out, l * H), LH, _ptr(ea), _ptr(edst),
+                _ptr(nsrc), src, LH, _ptr(ea), _ptr(edst),
                 _ptr(emask), _ptr(w[f"a{l}_wq"]), _ptr(w[f"a{l}_wk"]),
                 _ptr(w[f"a{l}_b"]), _ptr(w.get(f"a{l}_we")),
                 _ptr(w.get(f"a{l}_be")), a32p, nl, agg, ldg, stream),
@@ -638,13 +797,19 @@ def cuda_forward(fn, static, xin, vals, ea, edst, emask, nmask, weights,
 
 
 def cuda_backward(fn, static, xin, vals, ea, edst, emask, nmask, weights,
-                  g, tg, tdst, tmask, res, dw_acc, plan, nw, nsrc=None):
+                  g, tg, tdst, tmask, res, dw_acc, plan, nw, nsrc=None,
+                  near=None, near_g=None, near_tab=None):
     """Launch K2/K4's kernels. plan: (group, merge) in run order; `merge`
     (or None) is a table whose lists [to, to+kt) over nsrc sum the intra-
     pair value grads of the groups run so far into this group's
     cotangent. A group is the directions of one row, in order (weight
     grads add into one f32 buffer per direction without atomics).
-    Returns (dx, dvals, dea or None, dw) as the plain versions."""
+    Returns (dx, dvals, dea or None, dw) as the plain versions.
+
+    K7: blocks with a source read their routed values from `near`
+    (prev_out; else from the outputs rebuilt here, K4); near_g is added to
+    the transpose-grad sum; near_tab (near_table) sums the near edges'
+    value grads into a fifth output, near_g_out [nblk*Kn, L*H]."""
     has_ea, H, nl = static
     dt = xin.dtype
     dev = xin.device
@@ -655,15 +820,20 @@ def cuda_backward(fn, static, xin, vals, ea, edst, emask, nmask, weights,
     LH = nl * H
     U = sum(r[5] for grp, _ in plan for r in grp)
     a32, nres = res
-    _expect(fn, [(vals, (U, LH), dt), (g, (nblk * kn, LH), dt),
+    rows = nblk * kn
+    _expect(fn, [(vals, (U, LH), dt), (g, (rows, LH), dt),
                  (tg, (T, LH), dt), (a32, (W, nl), _F32),
-                 (nres, (nblk * kn, 4 * LH), dt)])
+                 (nres, (rows, 4 * LH), dt)]
+            + ([(near_g, (rows, LH), dt)] if near_g is not None else []))
     _check_widths(fn, [grp for grp, _ in plan], (edst, emask, ea, nsrc), tdst)
+    _check_sources(fn, [grp for grp, _ in plan], nsrc, near, rows, LH, dt)
+    if near_tab is not None and nsrc is None:
+        raise ValueError(f"{fn}: the near-grad merge needs nsrc")
     edst, tdst, nsrc = _indices(edst, tdst, nsrc)
     emask, tmask, nmask = _masks(emask, tmask, nmask)
     ea = ea.contiguous() if has_ea else None
     _on_card(fn, [xin, vals, ea, edst, emask, nmask, g, tg, tdst, tmask, a32,
-                  nres, nsrc], dt)
+                  nres, nsrc, near, near_g], dt)
     R = ea.shape[1] if has_ea else 0
     names = [f"a{l}_{k}" for l in range(nl)
              for k in ("wqr", "wkr") + (("we", "be") if has_ea else ())]
@@ -677,10 +847,12 @@ def cuda_backward(fn, static, xin, vals, ea, edst, emask, nmask, weights,
     code = _DT_CODE[dt]
     stream = torch.cuda.current_stream(dev).cuda_stream
     e = lambda *s, t=dt: torch.empty(s, dtype=t, device=dev)
-    rows = nblk * kn
     dx = e(rows, emb)
-    dvals = e(U, LH)
-    dnear = e(W, LH) if nsrc is not None else None
+    # value grads: dvals, then the grads of edges read through nsrc (dnear,
+    # rows U + edge), in one buffer that near_tab's merge reads
+    dv_all = e(U + (W if nsrc is not None else 0), LH)
+    dvals = dv_all[:U]
+    dnear = dv_all[U:] if nsrc is not None else None
     dea = e(W, R) if has_ea else None
     dea_acc = e(W, R, t=_F32) if has_ea else None
     gtot = e(rows, LH, t=_F32)
@@ -693,9 +865,9 @@ def cuda_backward(fn, static, xin, vals, ea, edst, emask, nmask, weights,
     part = e(rows, max(emb, H) + H + 1 + H * R + H, t=_F32)
 
     all_tab, all_n = _tab(tuple(r for grp, _ in plan for r in grp))
-    _check(lib.wf_seg_merge(code, all_tab, all_n, kn, LH, _ptr(g), _ptr(tg),
-                            _ptr(tdst), _ptr(tmask), _ptr(gtot), stream),
-           "wf_seg_merge")
+    _check(lib.wf_seg_merge(code, all_tab, all_n, kn, LH, 0, _ptr(g), _ptr(tg),
+                            _ptr(tdst), _ptr(tmask), _ptr(near_g), _ptr(gtot),
+                            0, stream), "wf_seg_merge")
     for l in range(nl):
         c = 4 * l * H
         _check(lib.wf_rebuild(
@@ -706,9 +878,9 @@ def cuda_backward(fn, static, xin, vals, ea, edst, emask, nmask, weights,
     for grp, merge in plan:
         if merge:
             mt, mn = _tab(merge)
-            _check(lib.wf_seg_merge(code, mt, mn, kn, LH, 0, _ptr(dnear),
-                                    _ptr(nsrc), _ptr(emask), _ptr(gtot), stream),
-                   "wf_seg_merge")
+            _check(lib.wf_seg_merge(code, mt, mn, kn, LH, 0, 0, _ptr(dnear),
+                                    _ptr(nsrc), _ptr(emask), 0, _ptr(gtot), 0,
+                                    stream), "wf_seg_merge")
         tab, nb = _tab(grp)
         nb0 = _gemm_blocks(grp)
         for l in range(nl - 1, -1, -1):
@@ -730,7 +902,8 @@ def cuda_backward(fn, static, xin, vals, ea, edst, emask, nmask, weights,
             _check(lib.wf_attn_bwd(
                 code, tab, nb, kn, H, din, R, int(l == nl - 1), int(l == 0),
                 _ptr(dagg), cur, ldc, _ptr(vals, l * H), LH, _ptr(nsrc),
-                _ptr(outs, l * H), LH, _ptr(ea), _ptr(edst), _ptr(emask),
+                _ptr(near if near is not None else outs, l * H), LH, _ptr(ea),
+                _ptr(edst), _ptr(emask),
                 _ptr(a32, l), nl, _ptr(w[f"a{l}_wqr"]), _ptr(w[f"a{l}_wkr"]),
                 _ptr(w.get(f"a{l}_we")), _ptr(w.get(f"a{l}_be")),
                 _ptr(gbuf[l]), _ptr(dx), _ptr(dvals, l * H), LH,
@@ -746,23 +919,35 @@ def cuda_backward(fn, static, xin, vals, ea, edst, emask, nmask, weights,
                 _ptr(dw.get(f"a{l}_we")), _ptr(dw.get(f"a{l}_be")),
                 _ptr(dw[f"c{l}_b_ih"]), _ptr(dw[f"c{l}_b_hh"]), stream),
                 "wf_small_reduce")
-    return dx, dvals, dea, dw
+    if near_tab is None:
+        return dx, dvals, dea, dw
+    ng = e(rows, LH)
+    nt, nn = _tab(near_tab)
+    _check(lib.wf_seg_merge(code, nt, nn, kn, LH, 1, 0, _ptr(dv_all), _ptr(nsrc),
+                            _ptr(emask), 0, 0, _ptr(ng), stream), "wf_seg_merge")
+    return dx, dvals, dea, dw, ng
 
 
 def row_forward(static, xin, vals, ea, edst, emask, nmask, weights,
-                emit_res: bool = False, ndirs: int = 1):
-    """K1. CPU tensors: row_forward_plain. CUDA tensors: the kernels of
-    csrc/wavefront.cu (an attention and a GRU launch per layer)."""
+                emit_res: bool = False, ndirs: int = 1, nf=None, nsrc=None,
+                prev_out=None):
+    """K1, and with nf K7. CPU tensors: row_forward_plain. CUDA tensors:
+    the kernels of csrc/wavefront.cu (an attention and a GRU launch per
+    layer; under nf the ragged block table, "r" blocks reading their near
+    values from prev_out)."""
     if xin.device.type == "cpu":
         return row_forward_plain(static, xin, vals, ea, edst, emask, nmask,
-                                 weights, emit_res=emit_res, ndirs=ndirs)
+                                 weights, emit_res=emit_res, ndirs=ndirs,
+                                 nf=nf, nsrc=nsrc, prev_out=prev_out)
     if xin.device.type != "cuda":
         raise ValueError(f"row_forward: unsupported device {xin.device}")
-    ke = edst.shape[0] // ndirs
+    routed = _routed(nf)
     out = cuda_forward("row_forward", static, xin, vals, ea, edst, emask,
-                       nmask, weights, emit_res, [uniform_blocks(ndirs, ke, 0)],
-                       ndirs)
-    launch_counts["row_forward"] += 1
+                       nmask, weights, emit_res,
+                       [row_table(nf, ndirs, edst.shape[0], 0)], ndirs,
+                       nsrc=nsrc if routed else None,
+                       near=prev_out if routed else None)
+    launch_counts["row_forward" if nf is None else "row_forward_nf"] += 1
     return out
 
 
@@ -790,24 +975,45 @@ def tg_accumulate(g, tg, tdst, tmask):
 
 def row_backward(static, xin, vals, ea, edst, emask, nmask, weights,
                  g, tg, tdst, tmask, res, ndirs: int = 1, dw_acc=None,
-                 merge_tg: bool = True):
-    """K2. CPU tensors: row_backward_plain. CUDA tensors: the kernels of
-    csrc/wavefront.cu (a transpose-grad merge, a rebuild per layer, and six
-    launches per layer). merge_tg=False (ndirs=1): K5 (tg_accumulate) adds
-    tg onto g first, and K2's merge then sums no transpose list (it only
-    widens the cotangent to float32)."""
+                 merge_tg: bool = True, nf=None, nsrc=None, prev_out=None,
+                 near_g=None):
+    """K2, with nf K7, with res=None K2r. CPU tensors: row_backward_plain.
+    CUDA tensors: the kernels of csrc/wavefront.cu (a transpose-grad merge,
+    a rebuild per layer, and six launches per layer; under nf one more
+    merge for near_g_out). merge_tg=False (ndirs=1): K5 (tg_accumulate)
+    adds tg onto g first, and K2's merge then sums no transpose list (it
+    only widens the cotangent to float32). res=None: K1's kernels
+    recompute the residual streams into scratch buffers from the
+    full-width vals, then K2's launches run on them."""
     if xin.device.type == "cpu":
         return row_backward_plain(static, xin, vals, ea, edst, emask, nmask,
                                   weights, g, tg, tdst, tmask, res,
-                                  ndirs=ndirs, dw_acc=dw_acc, merge_tg=merge_tg)
+                                  ndirs=ndirs, dw_acc=dw_acc, merge_tg=merge_tg,
+                                  nf=nf, nsrc=nsrc, prev_out=prev_out,
+                                  near_g=near_g)
     if xin.device.type != "cuda":
         raise ValueError(f"row_backward: unsupported device {xin.device}")
     g, tg, tdst, tmask = _split_tg(merge_tg, ndirs, g, tg, tdst, tmask,
-                                   tg_accumulate)
-    blocks = uniform_blocks(ndirs, edst.shape[0] // ndirs,
-                            tdst.shape[0] // ndirs)
-    out = cuda_backward("row_backward", static, xin, vals, ea, edst, emask,
-                        nmask, weights, g, tg, tdst, tmask, res, dw_acc,
-                        [(blocks, None)], ndirs)
-    launch_counts["row_backward"] += 1
+                                   tg_accumulate, nf)
+    W = edst.shape[0]
+    recompute = res is None
+    tab = row_table(_full_nf(nf) if recompute else nf, ndirs, W, tdst.shape[0])
+    if recompute:
+        res = cuda_forward("row_backward", static, xin, vals, ea, edst, emask,
+                           nmask, weights, True, [tab], ndirs)[1:]
+    routed = not recompute and _routed(nf)
+    out = cuda_backward(
+        "row_backward", static, xin, vals, ea, edst, emask, nmask, weights,
+        g, tg, tdst, tmask, res, dw_acc, [(tab, None)], ndirs,
+        nsrc=nsrc if nf is not None else None,
+        near=prev_out if routed else None, near_g=near_g,
+        near_tab=(near_table(nf, tab, sum(r[5] for r in tab))
+                  if nf is not None else None))
+    if recompute and _routed(nf):
+        # far rows only, as the residual-stream K7 returns them
+        dv = out[1]
+        out = (out[0], torch.cat([dv[eo:eo + kv] for _m, eo, _k, _v, kv
+                                  in nf_blocks(nf, ndirs, W)]), *out[2:])
+    launch_counts["row_backward_recompute" if recompute else
+                  "row_backward" if nf is None else "row_backward_nf"] += 1
     return out

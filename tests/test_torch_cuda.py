@@ -3,9 +3,12 @@ shapes the flagship run does not reach: the row kernels K1/K2 at one
 direction (ndirs=1) and two, K2's split form after K5 (merge_tg=False),
 the pair kernels K3/K4 on a synthetic pair step with ragged blocks and
 intra-pair edges, the edge-softmax aggregate K6 (forward and backward,
-with empty, fully masked and out-of-range slots) and the transpose-grad
-accumulate K5; with and without edge attributes, widths that are not
-multiples of the kernels' 32-wide tiles, float32 and bfloat16.
+with empty, fully masked and out-of-range slots), the transpose-grad
+accumulate K5, the near/far modes K7 (ragged merged rows mixing "r", "t"
+and "p", an empty near list, near edges that all read pad slots) and K2
+without residual streams (K2r, bitwise K2); with and without edge
+attributes, widths that are not multiples of the kernels' 32-wide tiles,
+float32 and bfloat16.
 
 These tests need a CUDA device and skip without one. On a machine with a
 card (the JAX package absent), run them with
@@ -281,3 +284,137 @@ def test_tg_accumulate_kernel_matches_plain(dev, dt):
     assert torch.equal(rs.tg_accumulate(g, tg, tdst, tmask), k)
     # no transpose edges: g itself
     assert torch.equal(rs.tg_accumulate(g, tg[:0], tdst[:0], tmask[:0]), g)
+
+
+NF_ROWS = {
+    "r+t": (("r", 70, 41), ("t", 53, 53)),
+    "p+r, empty near list": (("p", 61, 61), ("r", 47, 47)),
+    "r, near edges read pad slots": (("r", 66, 30),),
+    "t": (("t", 59, 59),),
+}
+
+
+def _nf_row(dt, dev, nf, pad_near, kn=37, kt=43, H=45, emb=37, nl=2, R=3):
+    """A near/far row of odd widths: per block sorted slots, ~20% pad
+    edges (edst and nsrc = Kn, mask 0); under "r" the near edges after the
+    Kf far ones, under "t" a third of the edges near; with pad_near every
+    near edge (mask set) reads slot Kn, a pad. prev_out and near_g random."""
+    g = torch.Generator().manual_seed(len(nf) * 7 + pad_near)
+    u = lambda *s: (torch.rand(s, generator=g) * 2 - 1) * 0.3
+    nd = len(nf)
+    w = _weights(g, dt, dev, nd, True, H, emb, nl, R)
+    edst, emask, nsrc = [], [], []
+    for mode, ke, kf in nf:
+        cuts = [(0, kf), (kf, ke)] if mode == "r" else [(0, ke)]
+        e = torch.cat([torch.sort(torch.randint(0, kn, (b - a,), generator=g))[0]
+                       for a, b in cuts])
+        m = torch.rand(ke, generator=g) > 0.2
+        e[~m] = kn
+        near = torch.zeros(ke, dtype=torch.bool)
+        if mode == "r":
+            near[kf:] = True
+        elif mode == "t":
+            near = torch.rand(ke, generator=g) < 0.35
+        near &= m
+        ns = torch.full((ke,), kn)
+        if not pad_near:
+            ns[near] = torch.randint(0, kn, (int(near.sum()),), generator=g)
+        edst.append(e)
+        emask.append(m)
+        nsrc.append(ns)
+    W = sum(b[1] for b in nf)
+    U = sum(kf if m == "r" else ke for m, ke, kf in nf)
+    ea = torch.zeros(W, R)
+    ea[torch.arange(W), torch.randint(0, R, (W,), generator=g)] = 1
+    d = dict(xin=torch.randn(nd * kn, emb, generator=g), vals=u(U, nl * H) * 3,
+             ea=ea, edst=torch.cat(edst).int(), emask=torch.cat(emask).float(),
+             nsrc=torch.cat(nsrc).int(),
+             nmask=(torch.rand(nd * kn, generator=g) > 0.1).float(),
+             prev_out=u(nd * kn, nl * H) * 3,
+             near_g=torch.randn(nd * kn, nl * H, generator=g),
+             g=torch.randn(nd * kn, nl * H, generator=g),
+             tg=torch.randn(nd * kt, nl * H, generator=g),
+             tdst=torch.randint(0, kn + 1, (nd * kt,), generator=g).int(),
+             tmask=(torch.rand(nd * kt, generator=g) > 0.3).float())
+    d = {k: (v.to(dt) if k in ("xin", "vals", "ea", "g", "tg", "prev_out",
+                                 "near_g") else v).to(dev) for k, v in d.items()}
+    return (True, H, nl), d, w
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(NF_ROWS))
+def test_nf_kernels_match_plain(dev, case, dt):
+    """K7 forward and backward (near_g in, near_g_out out) against the
+    plain versions; "p" blocks and near edges that read pad slots give zero
+    near_g_out rows; a second backward is bitwise the first."""
+    from dagnn_tpu_torch.ops import row_step as rs
+    nf = NF_ROWS[case]
+    nd = len(nf)
+    st, d, w = _nf_row(dt, dev, nf, "pad" in case)
+    kw = dict(ndirs=nd, nf=nf, nsrc=d["nsrc"], prev_out=d["prev_out"])
+    fa = (st, d["xin"], d["vals"], d["ea"], d["edst"], d["emask"], d["nmask"], w)
+    n0 = dict(rs.launch_counts)
+    for emit in (False, True):
+        k = rs.row_forward(*fa, emit_res=emit, **kw)
+        p = rs.row_forward_plain(*fa, emit_res=emit, **kw)
+        for a, b in zip(k if emit else (k,), p if emit else (p,)):
+            assert _err(a, b) <= TOL[dt]
+    ba = fa + (d["g"], d["tg"], d["tdst"], d["tmask"], (p[1], p[2]))
+    kb = rs.row_backward(*ba, near_g=d["near_g"], **kw)
+    pb = rs.row_backward_plain(*ba, near_g=d["near_g"], **kw)
+    torch.cuda.synchronize()
+    assert rs.launch_counts["row_forward_nf"] == n0["row_forward_nf"] + 2
+    assert rs.launch_counts["row_backward_nf"] == n0["row_backward_nf"] + 1
+    assert rs.launch_counts["row_forward"] == n0["row_forward"]
+    f = checks.to_f32(fa)
+    fkw = dict(kw, prev_out=d["prev_out"].float())
+    f32res = rs.row_forward_plain(*f, emit_res=True, **fkw)[1:]
+    truth = rs.row_backward_plain(*f, *checks.to_f32(ba[8:12]), f32res,
+                                  near_g=d["near_g"].float(), **fkw)[3]
+    again = rs.row_backward(*ba, near_g=d["near_g"], **kw)
+    _check_backward(kb, pb, truth, again, dt, True)
+    assert kb[4].dtype == dt and _err(kb[4], pb[4]) <= TOL[dt]
+    assert torch.equal(again[4], kb[4])
+    kn = d["xin"].shape[0] // nd
+    for b, (mode, ke, kf) in enumerate(nf):
+        if mode == "p" or "pad" in case or (mode == "r" and ke == kf):
+            assert not kb[4][b * kn:(b + 1) * kn].any(), (case, b)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ["plain", "r+t"])
+def test_recompute_backward_is_bitwise(dev, case, dt):
+    """K2r (res=None) recomputes the residual streams with K1's kernels
+    from full-width values and is bitwise K2 fed by K1 on the same inputs;
+    under nf its dvals are the far rows, its near_g_out the same."""
+    from dagnn_tpu_torch.ops import row_step as rs
+    if case == "plain":
+        st, d, w = _row(dt, dev, 2, True, kn=35, ke=57, kt=41)
+        kw, full = dict(ndirs=2), d["vals"]
+    else:
+        nf = NF_ROWS[case]
+        st, d, w = _nf_row(dt, dev, nf, False)
+        kn = d["xin"].shape[0] // len(nf)
+        kw = dict(ndirs=len(nf), nf=nf, nsrc=d["nsrc"], near_g=d["near_g"])
+        full = torch.cat([
+            rs._block_vals(mode == "r", d["vals"], vo, kv, d["nsrc"][eo:eo + ke],
+                           d["prev_out"][b * kn:(b + 1) * kn], kn)
+            for b, (mode, eo, ke, vo, kv) in
+            enumerate(rs.nf_blocks(nf, len(nf), d["edst"].shape[0]))])
+    fa = (st, d["xin"], d["vals"], d["ea"], d["edst"], d["emask"], d["nmask"], w)
+    pkw = {k: v for k, v in kw.items() if k != "near_g"}
+    res = rs.row_forward(*fa, emit_res=True, prev_out=d.get("prev_out"),
+                         **pkw)[1:]
+    bw = (d["g"], d["tg"], d["tdst"], d["tmask"])
+    k2 = rs.row_backward(*fa, *bw, res, prev_out=d.get("prev_out"), **kw)
+    n0 = dict(rs.launch_counts)
+    k2r = rs.row_backward(fa[0], fa[1], full, *fa[3:], *bw, None, **kw)
+    torch.cuda.synchronize()
+    assert rs.launch_counts["row_backward_recompute"] == n0["row_backward_recompute"] + 1
+    assert rs.launch_counts["row_forward"] == n0["row_forward"]
+    assert len(k2r) == len(k2)
+    for i, (a, b) in enumerate(zip(k2r, k2)):
+        if i == 3:
+            assert all(torch.equal(a[n], b[n]) for n in b)
+        else:
+            assert torch.equal(a, b), i

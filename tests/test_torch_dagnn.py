@@ -48,18 +48,21 @@ EMB, HID, VOCAB, SEQ = 12, 16, 20, 3
 BF16_TOL, BF16_GRAD_TOL, NOISE_TOL = 3e-2, 1e-1, 8.0
 
 
-def small_setup(dtype="float32", seed=0, n_graphs=4, pair=0):
+def small_setup(dtype="float32", seed=0, n_graphs=4, pair=0, nearfar=0):
     """(jax cfg, port cfg, jax params, port params, jax batch, port batch)
     of the shrunk flagship; both batches collated from the same graphs,
     with a pair plan when pair > 0 (the JAX bench's rounding of max_levels
-    to even, bench.py:151-152)."""
+    to even, bench.py:151-152), in a near/far layout when nearfar is set
+    (PadConfig.nearfar)."""
     kw = dict(mean_nodes=14, vocab=VOCAB, seq_len=SEQ)
     jg, tg = jsynth(seed, n_graphs, **kw), tsynth(seed, n_graphs, **kw)
-    jpad = ge._pad_for(jg, chunk=8, edge_budget=16)
+    jpad = dataclasses.replace(ge._pad_for(jg, chunk=8, edge_budget=16),
+                               nearfar=nearfar)
     if pair:
         jpad = dataclasses.replace(
             jpad, pair=pair, max_levels=jpad.max_levels + jpad.max_levels % 2)
-    tpad = flagship.pad_for(tg, chunk=8, edge_budget=16, pair=pair)
+    tpad = dataclasses.replace(
+        flagship.pad_for(tg, chunk=8, edge_budget=16, pair=pair), nearfar=nearfar)
     tcfg = flagship.flagship_cfg(emb=EMB, hidden=HID, vocab=VOCAB, seq=SEQ,
                                  compute_dtype=dtype)
     jcfg = dataclasses.replace(ge._flagship_cfg(emb=EMB, hidden=HID),
@@ -217,9 +220,11 @@ def test_pair_matches_merged():
 
 
 def test_other_paths_raise():
-    """No silent fallback: near/far layouts on the fused kernels and
-    unported configs raise (segment_impl dense / scatter, the self_attn and
-    mattn aggregators, the node-space readout)."""
+    """No silent fallback: unported configs raise (segment_impl dense /
+    scatter, the self_attn and mattn aggregators, the node-space readout),
+    and so does the split transpose-grad form (SPLIT_KERNELS, merge_tg
+    False) on a near/far batch, whose near grads need K2's own merge (the
+    JAX kernel asserts merge_tg there)."""
     _, tcfg, _, tparams, _, tb = small_setup("float32", seed=2)
     for cfg in (dataclasses.replace(tcfg, segment_impl="dense"),
                 dataclasses.replace(tcfg, segment_impl="scatter"),
@@ -228,6 +233,9 @@ def test_other_paths_raise():
                 dataclasses.replace(tcfg, out_pool_all=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tdagnn.dagnn_forward(tparams, cfg, tb)
-    nearfar = tb._replace(fwd=tb.fwd._replace(edge_nsrc=tb.fwd.edge_dst))
-    with pytest.raises(NotImplementedError, match="near/far"):
-        tdagnn.dagnn_forward(tparams, tcfg, nearfar)
+    nearfar = small_setup("float32", seed=2, nearfar="regions")[5]
+    assert nearfar.fwd.edge_nsrc is not None
+    for cfg in (tcfg, dataclasses.replace(tcfg, bidirectional=False)):
+        with pytest.raises(ValueError, match="near/far"):
+            tdagnn.dagnn_forward(tparams, cfg, nearfar,
+                                 impl=tdagnn.SPLIT_KERNELS)

@@ -147,7 +147,8 @@ def test_pallas_path_takes_nearfar_layouts():
     transpose covers far edges only, so the backward scatter-adds (as the
     JAX package's does, tests/test_compute_modes.py:100-144); the result is
     the plain layout's (f32: outputs 2e-5, grads rtol 5e-4 / atol 5e-5).
-    The fused paths raise on it (K7)."""
+    The fused paths take it in their near/far modes (K7,
+    test_torch_nearfar.py), but not in the split transpose-grad form."""
     _, tcfg, _, tparams, _, _ = variant("float32", 10, segment_impl="pallas")
     graphs = synthetic_ast_batch(10, 4, mean_nodes=14, vocab=20, seq_len=3)
     pad = flagship.pad_for(graphs, chunk=8, edge_budget=16)
@@ -163,5 +164,6 @@ def test_pallas_path_takes_nearfar_layouts():
     close(l1, l0, "float32", name="loss")
     for k in g0:
         close(g1[k], g0[k], "float32", grad=True, name=k)
-    with pytest.raises(NotImplementedError, match="near/far"):
-        tdagnn.dagnn_forward(tparams, dataclasses.replace(tcfg, segment_impl="fused"), b1)
+    with pytest.raises(ValueError, match="near/far"):
+        tdagnn.dagnn_forward(tparams, dataclasses.replace(tcfg, segment_impl="fused"),
+                             b1, impl=tdagnn.SPLIT_PLAIN)

@@ -11,11 +11,11 @@
 // K5 (transpose-grad accumulate) replaces row_step.py _tg_accumulate: the
 //    seg_merge kernel launched alone, storing g + the merged sum rounded to
 //    g's type. It moves about 1.2 MB a flagship call (Kn 256, Kt 512, L*H
-//    600, bf16), 0.37 us at 3.35 TB/s: memory bound; one thread block per
-//    slot, columns across threads, reads coalesced along L*H. Measured on
-//    an H100 (chip_smoke.py phase 3d, device time from a CUDA graph):
-//    9.7 us, against 5.6 us for index_add_ on the same data: warp 0's
-//    ballot scan of all Kt entries per slot is the serial part.
+//    600, bf16), 0.37 us at 3.35 TB/s, but what bounds it is each slot's
+//    chain of latencies (see seg_merge below: staged keys, a compact list
+//    a warp, rows loaded four at once). On an H100 (chip_smoke.py phase 3d,
+//    device time from a CUDA graph): 4.4 us against 5.5 us for index_add_
+//    on the same data; the first version's block-per-slot scan took 9.7.
 // K7 (the near/far layouts, nf) replaces the nf branches of
 //    fused_row_forward / fused_row_backward (row_step.py _nf_blocks,
 //    _nf_rebuild_vals, the near-grad carry): one row's blocks with ragged
@@ -50,9 +50,10 @@
 // value sum and a torch.nn.GRUCell update. The wrappers (ops/row_step.py,
 // ops/pair_step.py) issue per layer and block group an attention launch and
 // a GRU launch (K1, K3: groups [A0|A1] then [B0|B1], so B reads A's layer-l
-// output), and for K2/K4 a transpose-grad merge, a state rebuild, and per
-// layer and group an elementwise GRU VJP, two GEMMs, an attention VJP, a
-// weight-grad GEMM and a bias/score weight reduction. K4 runs group B first,
+// output), and for K2/K4 a transpose-grad merge, a state rebuild per
+// layer, and per layer and group an elementwise GRU VJP, the two input-grad
+// GEMMs in one launch, an attention VJP, a weight-grad GEMM and a
+// bias/score weight reduction (13 launches a merged row). K4 runs group B first,
 // then sums B's intra-pair value grads over nsrc into A's cotangent with the
 // same merge kernel (a second index source), then runs group A.
 //
@@ -61,7 +62,8 @@
 // block's edge list in order (warp ballots keep the order, so every sum runs
 // in a fixed order) and owns that slot's softmax, aggregate and score
 // gradients. The GRU products are shared-memory tiled GEMMs with float32
-// accumulation and the gate math fused into their epilogue. Weight
+// accumulation and the gate math fused into their epilogue (the
+// backward's in bf16 on the tensor cores, see below). Weight
 // gradients are written per block tile or reduced over slots in a second
 // pass: no atomics, so runs are deterministic. The two blocks of one launch
 // that write weight grads must belong to different directions (checked).
@@ -79,11 +81,26 @@
 // about 20 MB and 2.4 GFLOP. Pair at the flagship pair=2 batch (4 blocks of
 // Kn 256, 2250 edges, 1734 gathered value rows, 1525 transpose edges): K3
 // about 13 MB and 2.2 GFLOP, K4 about 26 MB and 4.8 GFLOP. All are memory
-// bound on paper (a few us each). This first version runs its GEMMs on the
-// CUDA cores in float32 (no tensor cores), so it is bound by float32 FMA
-// throughput instead; wgmma/TMA tiles are later work.
+// bound on paper (a few us each). The backward's bf16 GEMMs (gemm_nn,
+// wgrad, rebuild) run on the tensor cores: mma.sync.m16n8k16 on 32 x 32
+// output tiles of 4 warps, operands kept bf16 in padded shared memory and
+// read with ldmatrix, the next K stages streamed in with cp.async (below).
+// They took K2 from 0.537 to 0.165 ms a merged row and K4 from 1.007 to
+// 0.298 ms a pair on an H100 (chip_smoke.py); on one merged row gemm_nn
+// takes 12.5 us, wgrad 13.9 and rebuild 6.7-7.0 (torch.matmul on the same
+// products: 14.5, 11.6 and 6.1 us), and attn_bwd, 21.6 us twice a row, now
+// sets K2's pace. Those tiles sit far from the tensor cores' rate: by the
+// arithmetic, a gemm_nn launch's 320 tiles re-read about 37 MB of operands
+// from L2 (32 x 900 and 900 x 32 bf16 each), and each K stage ends at a
+// barrier; wgmma
+// with TMA wants 16-byte-aligned rows (these are 600 and 1800 bytes), so
+// padded scratch operands come first. The float32 route, the forward's GRU
+// (gru_fwd) and the forward recompute keep the CUDA-core tiles: TF32 would
+// break the float32 checks.
 
 #include "common.cuh"
+
+#include <type_traits>
 
 #define MAXR 8
 #define MAXB 4
@@ -276,6 +293,170 @@ __device__ __forceinline__ void load_tile(float (*s)[BK + 1], const T* A, size_t
   }
 }
 
+// ------------------------------------ bf16 GEMM tiles on the tensor cores
+// K2/K4's GEMMs in bf16 (gemm_nn, wgrad, rebuild): a block of TC_THREADS =
+// 4 warps owns a TT x TT output tile (small, so a one-direction launch of
+// [256, 300] outputs still has 80 blocks), each warp a 16 x 16 quarter, two
+// mma.sync.m16n8k16 (bf16 in, f32 accumulate) per 16-deep step. Operand
+// tiles stay bf16 in shared memory, rows padded by 8 elements (80 or 144
+// bytes: the 8 rows an ldmatrix reads fall on distinct banks), read with
+// ldmatrix (.trans where the operand is stored k-major: the [K, N] weight,
+// wgrad's transposed A and its [m, k] X). K advances TK a stage (TK / 16
+// mma steps between barriers); the next stages stream in with cp.async
+// into a TSTAGES ring while the current one multiplies. Operand
+// rows are 600 or 1800 bytes at the flagship width: 8-byte aligned, not
+// 16, so the copies are 8 bytes (4 elements, zero-filled past the edge);
+// a launch whose leading dimensions or pointers are not 8-byte aligned
+// (odd widths) stages through registers instead (ASYNC false).
+#define TT 32           // output tile TT x TT
+#define TSTAGES 3
+#define TC_THREADS 128
+// K depth of a stage. 64 halves gemm_nn's barriers over its K = 3H; wgrad
+// (K = Kn) and rebuild (K = H) keep 32, since at 64 a block's ring takes
+// 30 KB of shared memory and wgrad's 1,160 blocks no longer fit one wave.
+#define TK_NN 64
+#define TK_WG 32
+#define TK_RB 32
+static_assert(TT == BM && TT == BN, "the bf16 and f32 routes share the grids");
+
+// a TSTAGES ring of both operands' stages, TK deep; either way round an
+// operand's stage takes at most (TT + 8) * TK elements
+template <int TK>
+struct TcSmem {
+  bf16 a[TSTAGES][(TT + 8) * TK];
+  bf16 b[TSTAGES][(TT + 8) * TK];
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void ldsm4(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm4t(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+__device__ __forceinline__ void mma16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// s[r * (COLS + 8) + c] = G[(r0 + r) * ld + c0 + c] for a ROWS x COLS
+// stage, zero outside the [R, C] matrix; 4-element chunks
+template <bool ASYNC, int ROWS, int COLS>
+__device__ __forceinline__ void tc_load(bf16* s, const bf16* G, size_t ld, int R, int C, int r0,
+                                        int c0) {
+  constexpr int LDS = COLS + 8, CPR = COLS / 4, PER = ROWS * CPR / TC_THREADS;
+  static_assert(ROWS * CPR % TC_THREADS == 0, "whole chunks a thread");
+  if constexpr (ASYNC) {
+#pragma unroll
+    for (int u = 0; u < PER; ++u) {
+      const int i = threadIdx.x + u * TC_THREADS, r = i / CPR, c = (i % CPR) * 4;
+      const int gr = r0 + r, gc = c0 + c;
+      const int nv = (gr < R && gc < C) ? min(4, C - gc) : 0;
+      cp_async8(s + r * LDS + c, nv ? G + (size_t)gr * ld + gc : G, 2 * nv);
+    }
+  } else {
+    bf16 v[PER][4];
+#pragma unroll
+    for (int u = 0; u < PER; ++u) {
+      const int i = threadIdx.x + u * TC_THREADS, gr = r0 + i / CPR, gc = c0 + (i % CPR) * 4;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        v[u][e] = (gr < R && gc + e < C) ? G[(size_t)gr * ld + gc + e] : __float2bfloat16_rn(0.f);
+    }
+#pragma unroll
+    for (int u = 0; u < PER; ++u) {
+      const int i = threadIdx.x + u * TC_THREADS;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[(i / CPR) * LDS + (i % CPR) * 4 + e] = v[u][e];
+    }
+  }
+}
+
+// acc[nb][i] = sum_k A(m, k) B(k, n) over the block's tile at (m0, n0):
+// A(m, k) at A[m * lda + k], or A[k * lda + m] with A_KM; B(k, n) at
+// B[n * ldb + k], or B[k * ldb + n] with B_KN. A stage holds an operand as
+// stored: [TT][TK] rows of k, or [TK][TT] rows of m (n), each row padded by
+// 8 elements. Element i of n8 block nb is row m0 + tc_row(i), column n0 +
+// tc_col(nb, i).
+template <int TK, bool A_KM, bool B_KN, bool ASYNC>
+__device__ __forceinline__ void tc_gemm(TcSmem<TK>& sm, const bf16* A, size_t lda, const bf16* B,
+                                        size_t ldb, int M, int N, int K, int m0, int n0,
+                                        float acc[2][4]) {
+  constexpr int LK = TK + 8, LT = TT + 8;   // row strides of the two layouts
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = (warp & 1) * 16, wn = (warp >> 1) * 16;
+#pragma unroll
+  for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nb][i] = 0.f;
+  const int nk = (K + TK - 1) / TK;
+  auto load = [&](int st, int k0) {
+    if constexpr (A_KM) tc_load<ASYNC, TK, TT>(sm.a[st], A, lda, K, M, k0, m0);
+    else tc_load<ASYNC, TT, TK>(sm.a[st], A, lda, M, K, m0, k0);
+    if constexpr (B_KN) tc_load<ASYNC, TK, TT>(sm.b[st], B, ldb, K, N, k0, n0);
+    else tc_load<ASYNC, TT, TK>(sm.b[st], B, ldb, N, K, n0, k0);
+  };
+#pragma unroll
+  for (int st = 0; st < TSTAGES - 1; ++st) {
+    if (st < nk) load(st, st * TK);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<TSTAGES - 2>();           // stage kt has landed (this thread's part)
+    __syncthreads();                        // everyone's part; stage kt-1 is free
+    const int pf = kt + TSTAGES - 1;
+    if (pf < nk) load(pf % TSTAGES, pf * TK);
+    cp_async_commit();
+    const bf16* sa = sm.a[kt % TSTAGES];
+    const bf16* sb = sm.b[kt % TSTAGES];
+#pragma unroll
+    for (int kk = 0; kk < TK; kk += 16) {
+      uint32_t a[4], b[4];
+      if constexpr (A_KM)
+        ldsm4t(a, sa + (kk + (lane & 7) + (lane >> 4) * 8) * LT + wm + ((lane >> 3) & 1) * 8);
+      else
+        ldsm4(a, sa + (wm + (lane & 7) + ((lane >> 3) & 1) * 8) * LK + kk + (lane >> 4) * 8);
+      if constexpr (B_KN)
+        ldsm4t(b, sb + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * LT + wn + (lane >> 4) * 8);
+      else
+        ldsm4(b, sb + (wn + (lane & 7) + (lane >> 4) * 8) * LK + kk + ((lane >> 3) & 1) * 8);
+      mma16816(acc[0], a, b[0], b[1]);
+      mma16816(acc[1], a, b[2], b[3]);
+    }
+  }
+  cp_async_wait<0>();
+}
+
+__device__ __forceinline__ int tc_row(int i) {
+  return ((threadIdx.x >> 5) & 1) * 16 + ((threadIdx.x & 31) >> 2) + 8 * (i >> 1);
+}
+__device__ __forceinline__ int tc_col(int nb, int i) {
+  return (threadIdx.x >> 6) * 16 + 8 * nb + 2 * (threadIdx.x & 3) + (i & 1);
+}
+
 // ------------------------------------------------------------- K1/K3: GRU
 // grid (ceil(H/BN), ceil(Kn/BM), nblk), block 256. out = GRU(cur, agg),
 // r/z/n residuals optional. Thread (ty, tx): hidden unit h0+tx, rows
@@ -352,86 +533,248 @@ __global__ void __launch_bounds__(NT) gru_fwd_kernel(
 }
 
 // ------------------------------------------------ K2/K4/K5/K7: seg merge
-// grid (Kn, nblk), block 128: base + (the sum of src rows over the list
-// entries [to, to+kt) whose idx is slot n (mask set), plus gadd's row if
-// given), in f32. The list's src rows start at row `to`, or with
-// src_at_vo at row `vo` (K7's near-grad merge, whose grads and indices lie
-// at different offsets). base is g (K2/K4's transpose-grad merge, K7's
-// adding the next row's near grads as gadd, and K5: src tg, idx tdst),
-// gtot itself with g null (K4's intra-pair merge: src the B blocks'
-// intra-pair value grads, idx nsrc, list = B_d's intra-pair range, node
-// block A_d), or 0 with both null (K7's near-grad merge: src the near
-// edges' value grads, idx nsrc). The sum goes to the f32 gtot, or with
-// gout set (K5, K7) to gout rounded to T.
-template <typename T>
-__global__ void seg_merge_kernel(Tab tb, int Kn, int LH, int src_at_vo, const T* g,
-                                 const T* src, const int* idx, const float* mask,
-                                 const T* gadd, float* gtot, T* gout) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int* lst = reinterpret_cast<int*>(smem);
-  __shared__ int s_cnt;
-  const Blk b = pick(tb, blockIdx.y);
-  const int n = blockIdx.x;
-  if ((threadIdx.x >> 5) == 0) {
-    const int c = build_list(idx + b.to, mask + b.to, b.kt, n, lst);
-    if ((threadIdx.x & 31) == 0) s_cnt = c;
+// base + (the sum of src rows over the list entries [to, to+kt) whose idx
+// is slot n (mask set), plus gadd's row if given), in f32. The list's src
+// rows start at row `to`, or with src_at_vo at row `vo` (K7's near-grad
+// merge, whose grads and indices lie at different offsets). base is g
+// (K2/K4's transpose-grad merge, K7's adding the next row's near grads as
+// gadd, and K5: src tg, idx tdst), gtot itself with g null (K4's
+// intra-pair merge: src the B blocks' intra-pair value grads, idx nsrc,
+// list = B_d's intra-pair range, node block A_d), or 0 with both null
+// (K7's near-grad merge: src the near edges' value grads, idx nsrc). The
+// sum goes to the f32 gtot, or with gout set (K5, K7) to gout rounded to T.
+//
+// Design. A call moves little (K5 at Kn 256, Kt 512, L*H 600 in bf16:
+// 1.23 MB, 0.37 us at 3.35 TB/s); what bounds it is each slot's chain of
+// dependent latencies. The first version took a block per slot whose warp
+// 0 alone ballot-scanned the whole list from device memory (16 dependent
+// rounds at Kt 512) before any row moved: 9.8 us against 5.8 us for
+// index_add_ on the H100. Here grid (Kn, nblk): one slot a block, SM_WPS
+// warps, each a share of its columns: the block stages its list's
+// keys (idx where mask is set, else -1) in shared memory once, 16-byte
+// loads where aligned, in chunks of SM_CHUNK entries; each warp ballots its
+// slot's entries out of shared memory into a short list (ascending: __popc
+// of the ballot below its lane), then loads SM_U listed src rows at once
+// before adding them in order, so the scan never waits on a load and the
+// rows' latencies overlap; V columns a lane at a time (V = 8: 16-byte bf16
+// loads, when L*H and every pointer allow it). The base and gadd rows are
+// loaded before the scan. The f32 order is the first version's (entries
+// ascending, then gadd, then the base), and so are the outputs, bit for
+// bit. One slot a block, with 4 warps sharing its columns: the more warps
+// share a slot's chain of loads, the shorter each warp's part of it.
+#define SM_WPS 4        // warps a slot (and a block); they split its columns
+#define SM_CHUNK 2048   // list entries staged in shared memory at a time
+#define SM_U 4          // list entries whose rows are loaded together
+#define SM_LCAP 64      // a warp's list; added up when the next ballot could overflow it
+
+// key[i] = idx[i] where mask[i] > 0, else -1, for i < ne (the whole block)
+__device__ __forceinline__ void stage_keys(int* key, const int* ix, const float* mk, int ne) {
+  int done = 0;
+  if (((reinterpret_cast<uintptr_t>(ix) | reinterpret_cast<uintptr_t>(mk)) & 15) == 0) {
+    done = ne & ~3;
+    for (int i = threadIdx.x; i < (ne >> 2); i += blockDim.x) {
+      const int4 a = reinterpret_cast<const int4*>(ix)[i];
+      const float4 m = reinterpret_cast<const float4*>(mk)[i];
+      reinterpret_cast<int4*>(key)[i] = make_int4(m.x > 0.f ? a.x : -1, m.y > 0.f ? a.y : -1,
+                                                  m.z > 0.f ? a.z : -1, m.w > 0.f ? a.w : -1);
+    }
   }
-  __syncthreads();
-  const int m = s_cnt;
+  for (int i = done + threadIdx.x; i < ne; i += blockDim.x) key[i] = mk[i] > 0.f ? ix[i] : -1;
+}
+
+// V consecutive elements as f32 (V = 8: one or two 16-byte loads)
+template <int V>
+__device__ __forceinline__ void ldv(const bf16* p, float* o) {
+  if constexpr (V == 8) {
+    const uint4 q = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+      o[2 * i] = f.x;
+      o[2 * i + 1] = f.y;
+    }
+  } else {
+    o[0] = ldf(p);
+  }
+}
+template <int V>
+__device__ __forceinline__ void ldv(const float* p, float* o) {
+  if constexpr (V == 8) {
+    const float4 a = reinterpret_cast<const float4*>(p)[0];
+    const float4 b = reinterpret_cast<const float4*>(p)[1];
+    o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
+    o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
+  } else {
+    o[0] = *p;
+  }
+}
+template <int V>
+__device__ __forceinline__ void stv(bf16* p, const float* v) {
+  if constexpr (V == 8) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+      w[i] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else {
+    *p = cvt<bf16>(v[0]);
+  }
+}
+template <int V>
+__device__ __forceinline__ void stv(float* p, const float* v) {
+  if constexpr (V == 8) {
+    reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+    reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+  } else {
+    *p = v[0];
+  }
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(SM_WPS * 32) seg_merge_kernel(
+    Tab tb, int Kn, int LH, int src_at_vo, const T* g, const T* src, const int* idx,
+    const float* mask, const T* gadd, float* gtot, T* gout) {
+  __shared__ __align__(16) int key[SM_CHUNK];
+  __shared__ int lists[SM_WPS][SM_LCAP];
+  const Blk b = pick(tb, blockIdx.y);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int* lst = lists[warp];
+  // The slot is blockIdx.x, written as block + warp / SM_WPS (0 here) and
+  // guarded by n < Kn (always true): in this form nvcc compiles the 16-byte
+  // merge to 92 registers a thread (80 with n = blockIdx.x alone), and the
+  // H100 runs it faster, with the same bits (PERF.md).
+  const int n = blockIdx.x + warp / SM_WPS, part = warp % SM_WPS;
+  const bool live = n < Kn;
   const size_t row = (size_t)b.nb * Kn + n;
   const size_t so = src_at_vo ? b.vo : b.to;
-  for (int c = threadIdx.x; c < LH; c += blockDim.x) {
-    float s = 0.f;
-    for (int j = 0; j < m; ++j) s += ldf(src + (so + lst[j]) * LH + c);
-    if (gadd) s += ldf(gadd + row * LH + c);
-    const float base = g ? ldf(g + row * LH + c) : gtot ? gtot[row * LH + c] : 0.f;
-    if (gout) gout[row * LH + c] = cvt<T>(base + s);
-    else gtot[row * LH + c] = base + s;
+  const int nch = (b.kt + SM_CHUNK - 1) / SM_CHUNK;
+  constexpr int CW = 32 * V * SM_WPS;       // columns a pass
+  for (int c0 = 0; c0 < LH; c0 += CW) {
+    const int col = c0 + (part * 32 + lane) * V;
+    float acc[V], ad[V], bs[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[i] = ad[i] = bs[i] = 0.f;
+    if (live && col < LH) {
+      if (gadd) ldv<V>(gadd + row * LH + col, ad);
+      if (g) ldv<V>(g + row * LH + col, bs);
+      else if (gtot) ldv<V>(gtot + row * LH + col, bs);
+    }
+    for (int ch = 0; ch < nch; ++ch) {
+      const int e0 = ch * SM_CHUNK, ne = min(SM_CHUNK, b.kt - e0);
+      if (nch > 1 || c0 == 0) {
+        __syncthreads();                    // every warp is done with the last chunk
+        stage_keys(key, idx + b.to + e0, mask + b.to + e0, ne);
+        __syncthreads();
+      }
+      if (!live) continue;
+      int cnt = 0;                          // entries listed, not yet added
+      for (int base = 0; base < ne; base += 32) {
+        const int e = base + lane;
+        const bool hit = e < ne && key[e] == n;
+        const unsigned m = __ballot_sync(0xffffffffu, hit);
+        if (hit) lst[cnt + __popc(m & ((1u << lane) - 1u))] = e0 + e;
+        cnt += __popc(m);
+        if (cnt <= SM_LCAP - 32 && base + 32 < ne) continue;
+        __syncwarp();
+        for (int j = 0; j < cnt; j += SM_U) {   // the listed rows, SM_U in flight
+          int js[SM_U];
+#pragma unroll
+          for (int u = 0; u < SM_U; ++u) js[u] = j + u < cnt ? lst[j + u] : -1;
+          float x[SM_U][V];
+#pragma unroll
+          for (int u = 0; u < SM_U; ++u)
+            if (js[u] >= 0 && col < LH) ldv<V>(src + (so + js[u]) * LH + col, x[u]);
+#pragma unroll
+          for (int u = 0; u < SM_U; ++u)
+            if (js[u] >= 0 && col < LH)
+#pragma unroll
+              for (int i = 0; i < V; ++i) acc[i] += x[u][i];
+        }
+        __syncwarp();
+        cnt = 0;
+      }
+    }
+    if (!live || col >= LH) continue;
+    float o[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      float s = acc[i];
+      if (gadd) s += ad[i];
+      o[i] = bs[i] + s;
+    }
+    if (gout) stv<V>(gout + row * LH + col, o);
+    else stv<V>(gtot + row * LH + col, o);
   }
 }
 
 // --------------------------------------------------------- K2/K4: rebuild
-// grid (ceil(H/BN), ceil(Kn/BM), nblk), block 256: h_n = agg w_hn^T + b_hn
-// (rounded), and the layer output rebuilt from the residuals (optional).
+// grid (ceil(H/32), ceil(Kn/32), nblk): h_n = agg w_hn^T + b_hn (rounded),
+// and the layer output rebuilt from the residuals (optional). bf16: the
+// tensor-core tile (TC_THREADS; agg [m, k], w_hn [h, k]); float32: the
+// CUDA-core tile (NT threads, 4 rows a thread), exact f32 products.
 template <typename T>
+__device__ __forceinline__ void rebuild_out(int Kn, int H, int m, int h, size_t r0, float acc,
+                                            float bb, const T* agg, const T* z, const T* nres_n,
+                                            int ldres, const float* nmask, T* hn, T* cur_out,
+                                            int ldo) {
+  if (m >= Kn || h >= H) return;
+  const size_t row = r0 + m;
+  hn[row * H + h] = cvt<T>(acc + bb);
+  if (cur_out) {
+    const float zd = ldf(z + row * ldres + h), nd = ldf(nres_n + row * ldres + h);
+    const float ag = ldf(agg + row * ldres + h);
+    cur_out[row * ldo + h] = cvt<T>(gru_combine(zd, nd, ag, nmask[row]));
+  }
+}
+
+template <typename T, bool ASYNC>
 __global__ void __launch_bounds__(NT) rebuild_kernel(
     Tab tb, int Kn, int H, const T* agg, const T* z, const T* nres_n, int ldres,
     const T* whh_all, const T* bhh_all, const float* nmask, T* hn, T* cur_out, int ldo) {
-  __shared__ float sA[BM][BK + 1];
-  __shared__ float sW[BN][BK + 1];
   const Blk b = pick(tb, blockIdx.z);
   const int d = b.dir, h0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
   const size_t r0 = (size_t)b.nb * Kn;
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
   const T* whn = whh_all + (size_t)d * 3 * H * H + (size_t)2 * H * H;
   const T* aggd = agg + r0 * ldres;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int k0 = 0; k0 < H; k0 += BK) {
-    load_tile<T>(sA, aggd, ldres, Kn, H, m0, k0);
-    load_tile<T>(sW, whn, H, H, H, h0, k0);
-    __syncthreads();
+  const T* bhn = bhh_all + (size_t)d * 3 * H + 2 * H;
+  if constexpr (std::is_same<T, bf16>::value) {
+    __shared__ __align__(16) TcSmem<TK_RB> sm;
+    float acc[2][4];
+    tc_gemm<TK_RB, false, false, ASYNC>(sm, aggd, ldres, whn, H, Kn, H, H, m0, h0, acc);
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int h = h0 + tc_col(nb, i);
+        rebuild_out<T>(Kn, H, m0 + tc_row(i), h, r0, acc[nb][i], h < H ? ldf(bhn + h) : 0.f,
+                       agg, z, nres_n, ldres, nmask, hn, cur_out, ldo);
+      }
+  } else {
+    __shared__ float sA[BM][BK + 1];
+    __shared__ float sW[BN][BK + 1];
+    const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int k0 = 0; k0 < H; k0 += BK) {
+      load_tile<T>(sA, aggd, ldres, Kn, H, m0, k0);
+      load_tile<T>(sW, whn, H, H, H, h0, k0);
+      __syncthreads();
 #pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
-      const float w = sW[tx][kk];
+      for (int kk = 0; kk < BK; ++kk) {
+        const float w = sW[tx][kk];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i] += sA[ty + 8 * i][kk] * w;
+        for (int i = 0; i < 4; ++i) acc[i] += sA[ty + 8 * i][kk] * w;
+      }
+      __syncthreads();
     }
-    __syncthreads();
-  }
-  const int h = h0 + tx;
-  if (h >= H) return;
-  const float bb = ldf(bhh_all + (size_t)d * 3 * H + 2 * H + h);
+    const int h = h0 + tx;
+    const float bb = h < H ? ldf(bhn + h) : 0.f;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 8 * i;
-    if (m >= Kn) continue;
-    const size_t row = r0 + m;
-    hn[row * H + h] = cvt<T>(acc[i] + bb);
-    if (cur_out) {
-      const float zd = ldf(z + row * ldres + h), nd = ldf(nres_n + row * ldres + h);
-      const float ag = ldf(agg + row * ldres + h);
-      cur_out[row * ldo + h] = cvt<T>(gru_combine(zd, nd, ag, nmask[row]));
-    }
+    for (int i = 0; i < 4; ++i)
+      rebuild_out<T>(Kn, H, m0 + ty + 8 * i, h, r0, acc[i], bb, agg, z, nres_n, ldres, nmask,
+                     hn, cur_out, ldo);
   }
 }
 
@@ -472,43 +815,64 @@ __global__ void gru_bwd_elem_kernel(int nb0, int total, int Kn, int H, const flo
 }
 
 // ------------------------------------------------------- K2/K4: NN GEMM
-// C[m, j] = sum_k A[m, k] B[k, j]; A [Kn, K] (compute type, per node
-// block), B a weight [K, N] per direction. mode 0: C f32; mode 1: C in the
-// compute type = round(acc + gz[m, j]). grid (ceil(N/BN), ceil(Kn/BM), nblk),
-// block z of GEMM_BLOCKS.
+// A layer's two input-grad GEMMs in one launch, C[m, j] = sum_k A[m, k]
+// B[k, j] with K = 3H: block z = 2 d + which, direction d of GEMM_BLOCKS;
+// which 0: dagg [Kn, H] = round(dgh w_hh + gz), in the compute type;
+// which 1: dcur [Kn, Din] = dgi w_ih, f32. grid (ceil(max(H, Din)/32),
+// ceil(Kn/32), 2 nblk); a block past its GEMM's N returns. bf16: the
+// tensor-core tile (B [K, N] read with ldmatrix.trans); float32: the
+// CUDA-core tile.
 template <typename T>
-__global__ void __launch_bounds__(NT) gemm_nn_kernel(int nb0, int Kn, int N, int K, const T* A,
-                                                     const T* B_all, int mode, void* C,
-                                                     const float* gz) {
-  __shared__ float sA[BM][BK + 1];
-  __shared__ float sB[BK][BN + 1];
-  const int d = blockIdx.z, n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+__device__ __forceinline__ void gemm_nn_out(int which, int Kn, int N, int m, int j, size_t r0,
+                                            float acc, T* dagg, const float* gz, float* dcur) {
+  if (m >= Kn || j >= N) return;
+  const size_t o = (r0 + m) * N + j;
+  if (which) dcur[o] = acc;
+  else dagg[o] = cvt<T>(acc + gz[o]);
+}
+
+template <typename T, bool ASYNC>
+__global__ void __launch_bounds__(NT) gemm_nn_kernel(int nb0, int Kn, int H, int Din,
+                                                     const T* dgh, const T* whh_all, T* dagg,
+                                                     const float* gz, const T* dgi,
+                                                     const T* wih_all, float* dcur) {
+  const int d = blockIdx.z >> 1, which = blockIdx.z & 1;
+  const int N = which ? Din : H, K = 3 * H;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  if (n0 >= N) return;
   const size_t r0 = (size_t)(nb0 + d) * Kn;
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  const T* Ad = A + r0 * K;
-  const T* B = B_all + (size_t)d * K * N;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    load_tile<T>(sA, Ad, K, Kn, K, m0, k0);
-    load_tile<T>(sB, B, N, K, N, k0, n0);
-    __syncthreads();
+  const T* Ad = (which ? dgi : dgh) + r0 * K;
+  const T* B = (which ? wih_all : whh_all) + (size_t)d * K * N;
+  if constexpr (std::is_same<T, bf16>::value) {
+    __shared__ __align__(16) TcSmem<TK_NN> sm;
+    float acc[2][4];
+    tc_gemm<TK_NN, false, true, ASYNC>(sm, Ad, K, B, N, Kn, N, K, m0, n0, acc);
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        gemm_nn_out<T>(which, Kn, N, m0 + tc_row(i), n0 + tc_col(nb, i), r0, acc[nb][i], dagg,
+                       gz, dcur);
+  } else {
+    __shared__ float sA[BM][BK + 1];
+    __shared__ float sB[BK][BN + 1];
+    const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int k0 = 0; k0 < K; k0 += BK) {
+      load_tile<T>(sA, Ad, K, Kn, K, m0, k0);
+      load_tile<T>(sB, B, N, K, N, k0, n0);
+      __syncthreads();
 #pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
-      const float bv = sB[kk][tx];
+      for (int kk = 0; kk < BK; ++kk) {
+        const float bv = sB[kk][tx];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i] += sA[ty + 8 * i][kk] * bv;
+        for (int i = 0; i < 4; ++i) acc[i] += sA[ty + 8 * i][kk] * bv;
+      }
+      __syncthreads();
     }
-    __syncthreads();
-  }
-  const int j = n0 + tx;
-  if (j >= N) return;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 8 * i;
-    if (m >= Kn) continue;
-    const size_t o = (r0 + m) * N + j;
-    if (mode == 0) static_cast<float*>(C)[o] = acc[i];
-    else static_cast<T*>(C)[o] = cvt<T>(acc[i] + gz[o]);
+    for (int i = 0; i < 4; ++i)
+      gemm_nn_out<T>(which, Kn, N, m0 + ty + 8 * i, n0 + tx, r0, acc[i], dagg, gz, dcur);
   }
 }
 
@@ -652,13 +1016,14 @@ __global__ void attn_bwd_kernel(Tab tb, int Kn, int H, int Dq, int R, int first,
 // dW[j, k] += sum_m A[m, j] X[m, k] for (A, X) = (dgi, cur) -> w_ih and
 // (dgh, agg) -> w_hh. grid (ceil(max(Din,H)/BN), ceil(3H/BM), 2*nblk),
 // block z>>1 of GEMM_BLOCKS.
-template <typename T>
+// bf16: the tensor-core tile, the sum over slots as its K (dgi/dgh read
+// [m, j] and X [m, k], both with ldmatrix.trans); float32: the CUDA-core
+// tile. Each dW element is added by the one tile that owns it.
+template <typename T, bool ASYNC>
 __global__ void __launch_bounds__(NT) wgrad_kernel(int nb0, int Kn, int H, int Din,
                                                    const T* dgi, const T* dgh,
                                                    const T* cur, int ldc, const T* agg, int ldg,
                                                    float* dwih, float* dwhh) {
-  __shared__ float sA[BK][BM + 1];
-  __shared__ float sX[BK][BN + 1];
   const int d = blockIdx.z >> 1, which = blockIdx.z & 1;
   const int K = which ? H : Din;
   const int k0 = blockIdx.x * BN, j0 = blockIdx.y * BM;
@@ -669,59 +1034,85 @@ __global__ void __launch_bounds__(NT) wgrad_kernel(int nb0, int Kn, int H, int D
   const T* X = which ? agg + r0 * ldg : cur + r0 * ldc;
   const size_t ldx = which ? ldg : ldc;
   float* dW = (which ? dwhh : dwih) + (size_t)d * J * K;
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int m0 = 0; m0 < Kn; m0 += BK) {
-    load_tile<T>(sA, A, J, Kn, J, m0, j0);
-    load_tile<T>(sX, X, ldx, Kn, K, m0, k0);
-    __syncthreads();
+  if constexpr (std::is_same<T, bf16>::value) {
+    __shared__ __align__(16) TcSmem<TK_WG> sm;
+    float acc[2][4];
+    tc_gemm<TK_WG, true, true, ASYNC>(sm, A, J, X, ldx, J, K, Kn, j0, k0, acc);
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int j = j0 + tc_row(i), k = k0 + tc_col(nb, i);
+        if (j < J && k < K) dW[(size_t)j * K + k] += acc[nb][i];
+      }
+  } else {
+    __shared__ float sA[BK][BM + 1];
+    __shared__ float sX[BK][BN + 1];
+    const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int m0 = 0; m0 < Kn; m0 += BK) {
+      load_tile<T>(sA, A, J, Kn, J, m0, j0);
+      load_tile<T>(sX, X, ldx, Kn, K, m0, k0);
+      __syncthreads();
 #pragma unroll 8
-    for (int mm = 0; mm < BK; ++mm) {
-      const float x = sX[mm][tx];
+      for (int mm = 0; mm < BK; ++mm) {
+        const float x = sX[mm][tx];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i] += sA[mm][ty + 8 * i] * x;
+        for (int i = 0; i < 4; ++i) acc[i] += sA[mm][ty + 8 * i] * x;
+      }
+      __syncthreads();
     }
-    __syncthreads();
-  }
-  const int k = k0 + tx;
-  if (k >= K) return;
+    const int k = k0 + tx;
+    if (k >= K) return;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int j = j0 + ty + 8 * i;
-    if (j < J) dW[(size_t)j * K + k] += acc[i];
+    for (int i = 0; i < 4; ++i) {
+      const int j = j0 + ty + 8 * i;
+      if (j < J) dW[(size_t)j * K + k] += acc[i];
+    }
   }
 }
 
 // ------------------------------------- K2/K4: score weights and GRU biases
-// grid (ceil(C/128), nblk), C = W + 6H columns: sums over the Kn slots in
-// order and adds into the f32 weight-grad accumulators. Block y of
-// GEMM_BLOCKS.
+// grid (ceil(C/32), nblk), C = W + 6H columns, block (32, SR_G): sums over
+// the Kn slots and adds into the f32 weight-grad accumulators. Column c =
+// 32 x + tx; thread row ty sums slots ty, ty + SR_G, ... in order, then
+// the SR_G partials are added in order ty = 0, 1, ...: a fixed order, no
+// atomics (one thread a column walking all Kn slots, 26 blocks a
+// direction, took 22 us on the H100). Block y of GEMM_BLOCKS.
+#define SR_G 8
+
 template <typename T>
-__global__ void small_reduce_kernel(int nb0, int Kn, int H, int Dq, int R, const float* part,
-                                    const T* dgi, const T* dgh,
-                                    float* dwq, float* dwk, float* db, float* dwe,
-                                    float* dbe, float* dbih, float* dbhh) {
-  const int d = blockIdx.y;
+__global__ void __launch_bounds__(32 * SR_G) small_reduce_kernel(
+    int nb0, int Kn, int H, int Dq, int R, const float* part, const T* dgi, const T* dgh,
+    float* dwq, float* dwk, float* db, float* dwe, float* dbe, float* dbih, float* dbhh) {
+  __shared__ float red[SR_G][33];
+  const int d = blockIdx.y, tx = threadIdx.x, ty = threadIdx.y;
   const size_t r0 = (size_t)(nb0 + d) * Kn;
   const int W = Dq + H + 1 + H * R + H;
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= W + 6 * H) return;
-  float s = 0.f;
-  if (c < W) {
-    for (int n = 0; n < Kn; ++n) s += part[(r0 + n) * W + c];
-    if (c < Dq) dwq[(size_t)d * Dq + c] += s;
-    else if (c < Dq + H) dwk[(size_t)d * H + c - Dq] += s;
-    else if (c == Dq + H) db[d] += s;
-    else if (c < Dq + H + 1 + H * R) { if (dwe) dwe[(size_t)d * H * R + c - Dq - H - 1] += s; }
-    else { if (dbe) dbe[(size_t)d * H + c - Dq - H - 1 - H * R] += s; }
-    return;
-  }
-  const int j = c - W;
-  const bool hh = j >= 3 * H;
-  const int jj = hh ? j - 3 * H : j;
+  const int c = blockIdx.x * 32 + tx;
+  const bool in_part = c < W, live = c < W + 6 * H;
+  const bool hh = c - W >= 3 * H;
+  const int jj = hh ? c - W - 3 * H : c - W;
   const T* A = (hh ? dgh : dgi) + r0 * 3 * H;
-  for (int m = 0; m < Kn; ++m) s += ldf(A + (size_t)m * 3 * H + jj);
-  (hh ? dbhh : dbih)[(size_t)d * 3 * H + jj] += s;
+  float s = 0.f;
+  if (live) {
+    if (in_part)
+      for (int n = ty; n < Kn; n += SR_G) s += part[(r0 + n) * W + c];
+    else
+      for (int n = ty; n < Kn; n += SR_G) s += ldf(A + (size_t)n * 3 * H + jj);
+  }
+  red[ty][tx] = s;
+  __syncthreads();
+  if (ty != 0 || !live) return;
+  s = red[0][tx];
+#pragma unroll
+  for (int g = 1; g < SR_G; ++g) s += red[g][tx];
+  if (!in_part) (hh ? dbhh : dbih)[(size_t)d * 3 * H + jj] += s;
+  else if (c < Dq) dwq[(size_t)d * Dq + c] += s;
+  else if (c < Dq + H) dwk[(size_t)d * H + c - Dq] += s;
+  else if (c == Dq + H) db[d] += s;
+  else if (c < Dq + H + 1 + H * R) { if (dwe) dwe[(size_t)d * H * R + c - Dq - H - 1] += s; }
+  else { if (dbe) dbe[(size_t)d * H + c - Dq - H - 1 - H * R] += s; }
 }
 
 // ------------------------------------------------------------ C interface
@@ -800,6 +1191,26 @@ extern "C" int wf_gru_fwd(int dtype, int nb0, int nblk, int Kn, int H, int Din,
   return (int)cudaGetLastError();
 }
 
+static bool al16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+static bool al8(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 7) == 0; }
+
+// seg_merge over a table's blocks: 16-byte columns when L*H and every
+// row pointer allow them, else one column a lane
+template <typename T>
+static void launch_seg_merge(const Tab& tb, int nblk, int Kn, int LH, int src_at_vo,
+                             const void* g, const void* src, const int* idx,
+                             const float* mask, const void* gadd, float* gtot, void* gout,
+                             cudaStream_t st) {
+  const dim3 grid(Kn, nblk), block(SM_WPS * 32);
+  const bool vec = LH % 8 == 0 && al16(g) && al16(src) && al16(gadd) && al16(gtot) && al16(gout);
+  if (vec)
+    seg_merge_kernel<T, 8><<<grid, block, 0, st>>>(
+        tb, Kn, LH, src_at_vo, P(T, g), P(T, src), idx, mask, P(T, gadd), gtot, PM(T, gout));
+  else
+    seg_merge_kernel<T, 1><<<grid, block, 0, st>>>(
+        tb, Kn, LH, src_at_vo, P(T, g), P(T, src), idx, mask, P(T, gadd), gtot, PM(T, gout));
+}
+
 extern "C" int wf_seg_merge(int dtype, const int* tab, int nblk, int Kn, int LH, int src_at_vo,
                             const void* g, const void* src, const int* idx, const float* mask,
                             const void* gadd, float* gtot, void* gout, void* stream) {
@@ -808,19 +1219,10 @@ extern "C" int wf_seg_merge(int dtype, const int* tab, int nblk, int Kn, int LH,
   if (!read_tab(tab, nblk, &tb, &kemax, &ktmax)) return (int)cudaErrorInvalidValue;
   if (!gtot && !gout) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid(Kn, nblk);
-  const size_t smem = (size_t)ktmax * sizeof(int);
-  if (dtype == 0) {
-    smem_opt_in(seg_merge_kernel<float>, smem);
-    seg_merge_kernel<float><<<grid, 128, smem, st>>>(tb, Kn, LH, src_at_vo, P(float, g),
-                                                     P(float, src), idx, mask, P(float, gadd),
-                                                     gtot, PM(float, gout));
-  } else {
-    smem_opt_in(seg_merge_kernel<bf16>, smem);
-    seg_merge_kernel<bf16><<<grid, 128, smem, st>>>(tb, Kn, LH, src_at_vo, P(bf16, g),
-                                                    P(bf16, src), idx, mask, P(bf16, gadd),
-                                                    gtot, PM(bf16, gout));
-  }
+  if (dtype == 0)
+    launch_seg_merge<float>(tb, nblk, Kn, LH, src_at_vo, g, src, idx, mask, gadd, gtot, gout, st);
+  else
+    launch_seg_merge<bf16>(tb, nblk, Kn, LH, src_at_vo, g, src, idx, mask, gadd, gtot, gout, st);
   return (int)cudaGetLastError();
 }
 
@@ -833,18 +1235,10 @@ extern "C" int wf_tg_accumulate(int dtype, int Kn, int LH, int Kt, const void* g
   Tab tb{};
   tb.b[0] = Blk{0, 0, 0, 0, 0, 0, 0, Kt, -1};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = (size_t)Kt * sizeof(int);
-  if (dtype == 0) {
-    smem_opt_in(seg_merge_kernel<float>, smem);
-    seg_merge_kernel<float><<<dim3(Kn, 1), 128, smem, st>>>(
-        tb, Kn, LH, 0, P(float, g), P(float, tg), tdst, tmask, nullptr, nullptr,
-        PM(float, out));
-  } else {
-    smem_opt_in(seg_merge_kernel<bf16>, smem);
-    seg_merge_kernel<bf16><<<dim3(Kn, 1), 128, smem, st>>>(
-        tb, Kn, LH, 0, P(bf16, g), P(bf16, tg), tdst, tmask, nullptr, nullptr,
-        PM(bf16, out));
-  }
+  if (dtype == 0)
+    launch_seg_merge<float>(tb, 1, Kn, LH, 0, g, tg, tdst, tmask, nullptr, nullptr, out, st);
+  else
+    launch_seg_merge<bf16>(tb, 1, Kn, LH, 0, g, tg, tdst, tmask, nullptr, nullptr, out, st);
   return (int)cudaGetLastError();
 }
 
@@ -857,15 +1251,18 @@ extern "C" int wf_rebuild(int dtype, const int* tab, int nblk, int Kn, int H, co
   if (!read_tab(tab, nblk, &tb, &kemax, &ktmax)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   dim3 grid((H + BN - 1) / BN, (Kn + BM - 1) / BM, nblk);
-  if (dtype == 0)
-    rebuild_kernel<float><<<grid, NT, 0, st>>>(tb, Kn, H, P(float, agg), P(float, z),
-                                               P(float, n), ldres, P(float, whh),
-                                               P(float, bhh), nmask, PM(float, hn),
-                                               PM(float, cur_out), ldo);
-  else
-    rebuild_kernel<bf16><<<grid, NT, 0, st>>>(tb, Kn, H, P(bf16, agg), P(bf16, z),
-                                              P(bf16, n), ldres, P(bf16, whh), P(bf16, bhh),
-                                              nmask, PM(bf16, hn), PM(bf16, cur_out), ldo);
+  if (dtype == 0) {
+    rebuild_kernel<float, false><<<grid, NT, 0, st>>>(tb, Kn, H, P(float, agg), P(float, z),
+                                                      P(float, n), ldres, P(float, whh),
+                                                      P(float, bhh), nmask, PM(float, hn),
+                                                      PM(float, cur_out), ldo);
+  } else {
+    auto k = (ldres % 4 == 0 && H % 4 == 0 && al8(agg) && al8(whh)) ? rebuild_kernel<bf16, true>
+                                                                     : rebuild_kernel<bf16, false>;
+    k<<<grid, TC_THREADS, 0, st>>>(tb, Kn, H, P(bf16, agg), P(bf16, z), P(bf16, n), ldres,
+                                   P(bf16, whh), P(bf16, bhh), nmask, PM(bf16, hn),
+                                   PM(bf16, cur_out), ldo);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -889,18 +1286,24 @@ extern "C" int wf_gru_bwd_elem(int dtype, int nb0, int nblk, int Kn, int H,
   return (int)cudaGetLastError();
 }
 
-extern "C" int wf_gemm_nn(int dtype, int nb0, int nblk, int Kn, int N, int K,
-                          const void* A, const void* B, int mode, void* C, const float* gz,
-                          void* stream) {
+// A layer's dagg = round(dgh w_hh + gz) and dcur = dgi w_ih, one launch
+extern "C" int wf_gemm_nn(int dtype, int nb0, int nblk, int Kn, int H, int Din,
+                          const void* dgh, const void* whh, void* dagg, const float* gz,
+                          const void* dgi, const void* wih, float* dcur, void* stream) {
   if (nblk < 1 || nblk > MAXB) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid((N + BN - 1) / BN, (Kn + BM - 1) / BM, nblk);
-  if (dtype == 0)
-    gemm_nn_kernel<float><<<grid, NT, 0, st>>>(nb0, Kn, N, K, P(float, A), P(float, B), mode, C,
-                                               gz);
-  else
-    gemm_nn_kernel<bf16><<<grid, NT, 0, st>>>(nb0, Kn, N, K, P(bf16, A), P(bf16, B), mode, C,
-                                              gz);
+  const int nmax = H > Din ? H : Din;
+  dim3 grid((nmax + BN - 1) / BN, (Kn + BM - 1) / BM, 2 * nblk);
+  if (dtype == 0) {
+    gemm_nn_kernel<float, false><<<grid, NT, 0, st>>>(nb0, Kn, H, Din, P(float, dgh),
+                                                      P(float, whh), PM(float, dagg), gz,
+                                                      P(float, dgi), P(float, wih), dcur);
+  } else {
+    const bool al = H % 4 == 0 && Din % 4 == 0 && al8(dgh) && al8(dgi) && al8(whh) && al8(wih);
+    auto k = al ? gemm_nn_kernel<bf16, true> : gemm_nn_kernel<bf16, false>;
+    k<<<grid, TC_THREADS, 0, st>>>(nb0, Kn, H, Din, P(bf16, dgh), P(bf16, whh), PM(bf16, dagg),
+                                   gz, P(bf16, dgi), P(bf16, wih), dcur);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -953,13 +1356,17 @@ extern "C" int wf_wgrad(int dtype, int nb0, int nblk, int Kn, int H, int Din,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int kmax = Din > H ? Din : H;
   dim3 grid((kmax + BN - 1) / BN, (3 * H + BM - 1) / BM, 2 * nblk);
-  if (dtype == 0)
-    wgrad_kernel<float><<<grid, NT, 0, st>>>(nb0, Kn, H, Din, P(float, dgi), P(float, dgh),
-                                             P(float, cur), ldc, P(float, agg), ldg, dwih,
-                                             dwhh);
-  else
-    wgrad_kernel<bf16><<<grid, NT, 0, st>>>(nb0, Kn, H, Din, P(bf16, dgi), P(bf16, dgh),
-                                            P(bf16, cur), ldc, P(bf16, agg), ldg, dwih, dwhh);
+  if (dtype == 0) {
+    wgrad_kernel<float, false><<<grid, NT, 0, st>>>(nb0, Kn, H, Din, P(float, dgi),
+                                                    P(float, dgh), P(float, cur), ldc,
+                                                    P(float, agg), ldg, dwih, dwhh);
+  } else {
+    const bool al = H % 4 == 0 && Din % 4 == 0 && ldc % 4 == 0 && ldg % 4 == 0 && al8(dgi) &&
+                    al8(dgh) && al8(cur) && al8(agg);
+    auto k = al ? wgrad_kernel<bf16, true> : wgrad_kernel<bf16, false>;
+    k<<<grid, TC_THREADS, 0, st>>>(nb0, Kn, H, Din, P(bf16, dgi), P(bf16, dgh), P(bf16, cur),
+                                   ldc, P(bf16, agg), ldg, dwih, dwhh);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -970,14 +1377,14 @@ extern "C" int wf_small_reduce(int dtype, int nb0, int nblk, int Kn, int H, int 
   if (nblk < 1 || nblk > MAXB) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int C = Dq + H + 1 + H * R + H + 6 * H;
-  dim3 grid((C + 127) / 128, nblk);
+  dim3 grid((C + 31) / 32, nblk), block(32, SR_G);
   if (dtype == 0)
-    small_reduce_kernel<float><<<grid, 128, 0, st>>>(nb0, Kn, H, Dq, R, part, P(float, dgi),
-                                                     P(float, dgh), dwq, dwk, db, dwe, dbe,
-                                                     dbih, dbhh);
+    small_reduce_kernel<float><<<grid, block, 0, st>>>(nb0, Kn, H, Dq, R, part, P(float, dgi),
+                                                       P(float, dgh), dwq, dwk, db, dwe, dbe,
+                                                       dbih, dbhh);
   else
-    small_reduce_kernel<bf16><<<grid, 128, 0, st>>>(nb0, Kn, H, Dq, R, part, P(bf16, dgi),
-                                                    P(bf16, dgh), dwq, dwk, db, dwe, dbe, dbih,
-                                                    dbhh);
+    small_reduce_kernel<bf16><<<grid, block, 0, st>>>(nb0, Kn, H, Dq, R, part, P(bf16, dgi),
+                                                      P(bf16, dgh), dwq, dwk, db, dwe, dbe,
+                                                      dbih, dbhh);
   return (int)cudaGetLastError();
 }

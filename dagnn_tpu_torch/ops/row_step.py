@@ -587,7 +587,7 @@ _SIGS = {
     "wf_seg_merge": "ipi" "iii" "ppppppp" "p",
     "wf_rebuild": "ipi" "ii" "ppp" "i" "ppppp" "i" "p",
     "wf_gru_bwd_elem": "iii" "ii" "pi" "pppppp" "i" "pppp" "p",
-    "wf_gemm_nn": "iii" "iii" "pp" "i" "pp" "p",
+    "wf_gemm_nn": "iii" "iii" "pppp" "ppp" "p",
     "wf_attn_bwd": "ipi" "iiiiii" "p" "pi" "pi" "p" "pi" "ppp" "pi" "pppp" "pp"
                    "pi" "pi" "ppp" "p",
     "wf_wgrad": "iii" "iii" "pp" "pi" "pi" "pp" "p",
@@ -893,11 +893,9 @@ def cuda_backward(fn, static, xin, vals, ea, edst, emask, nmask, weights,
                 _ptr(nres, c), _ptr(nres, c + H), _ptr(nres, c + 2 * H),
                 _ptr(nres, c + 3 * H), 4 * LH, _ptr(hn[l]), _ptr(dgi), _ptr(dgh),
                 _ptr(gz), stream), "wf_gru_bwd_elem")
-            _check(lib.wf_gemm_nn(code, nb0, nb, kn, H, 3 * H, _ptr(dgh),
-                                  _ptr(w[f"c{l}_w_hh"]), 1, _ptr(dagg), _ptr(gz),
-                                  stream), "wf_gemm_nn")
-            _check(lib.wf_gemm_nn(code, nb0, nb, kn, din, 3 * H, _ptr(dgi),
-                                  _ptr(w[f"c{l}_w_ih"]), 0, _ptr(gbuf[l]), 0,
+            _check(lib.wf_gemm_nn(code, nb0, nb, kn, H, din, _ptr(dgh),
+                                  _ptr(w[f"c{l}_w_hh"]), _ptr(dagg), _ptr(gz),
+                                  _ptr(dgi), _ptr(w[f"c{l}_w_ih"]), _ptr(gbuf[l]),
                                   stream), "wf_gemm_nn")
             _check(lib.wf_attn_bwd(
                 code, tab, nb, kn, H, din, R, int(l == nl - 1), int(l == 0),
@@ -979,7 +977,9 @@ def row_backward(static, xin, vals, ea, edst, emask, nmask, weights,
                  near_g=None):
     """K2, with nf K7, with res=None K2r. CPU tensors: row_backward_plain.
     CUDA tensors: the kernels of csrc/wavefront.cu (a transpose-grad merge,
-    a rebuild per layer, and six launches per layer; under nf one more
+    a rebuild per layer, and five launches per layer: the GRU VJP, both
+    input-grad GEMMs in one, the attention VJP, the weight-grad GEMM and the
+    bias / score-weight reduction; under nf one more
     merge for near_g_out). merge_tg=False (ndirs=1): K5 (tg_accumulate)
     adds tg onto g first, and K2's merge then sums no transpose list (it
     only widens the cotangent to float32). res=None: K1's kernels

@@ -5,8 +5,10 @@ the pair kernels K3/K4 on a synthetic pair step with ragged blocks and
 intra-pair edges, the edge-softmax aggregate K6 (forward and backward,
 with empty, fully masked and out-of-range slots), the transpose-grad
 accumulate K5, the near/far modes K7 (ragged merged rows mixing "r", "t"
-and "p", an empty near list, near edges that all read pad slots) and K2
-without residual streams (K2r, bitwise K2); with and without edge
+and "p", an empty near list, near edges that all read pad slots), K2
+without residual streams (K2r, bitwise K2), K2's GEMM launches alone
+(tensor cores in bf16) and the segment merge in each of its forms; with
+and without edge
 attributes, widths that are not multiples of the kernels' 32-wide tiles,
 float32 and bfloat16.
 
@@ -418,3 +420,177 @@ def test_recompute_backward_is_bitwise(dev, case, dt):
             assert all(torch.equal(a[n], b[n]) for n in b)
         else:
             assert torch.equal(a, b), i
+
+
+def _launch(name, *args):
+    """One C entry of the wavefront library on the current stream."""
+    from dagnn_tpu_torch.ops import row_step as rs
+    rs._check(getattr(rs._lib(), name)(
+        *args, torch.cuda.current_stream().cuda_stream), name)
+
+
+def _p(t):
+    from dagnn_tpu_torch.ops.row_step import _ptr
+    return _ptr(t)
+
+
+# GEMM shapes that are not multiples of the 32-wide tiles: H and emb
+# multiples of 4 take the cp.async route in bf16, odd ones the
+# register-staged one
+GEMM_SHAPES = {"odd": dict(kn=37, H=45, emb=37), "aligned": dict(kn=40, H=44, emb=36)}
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("nd", [1, 2])
+@pytest.mark.parametrize("shape", list(GEMM_SHAPES))
+def test_gemms_match_plain(dev, shape, nd, dt):
+    """K2's GEMM launches alone against float32 products of the same
+    operands: gemm_nn with both of a layer's GEMMs in one launch (dagg =
+    round(dgh w_hh + gz), dcur = dgi w_ih), wgrad adding dgi^T cur and
+    dgh^T agg into f32 accumulators, rebuild's h_n = round(agg w_hn^T +
+    b_hn) and its output rebuild (bitwise the plain combine); bitwise
+    repeatable."""
+    from dagnn_tpu_torch.ops import row_step as rs
+    kn, H, emb = (GEMM_SHAPES[shape][k] for k in ("kn", "H", "emb"))
+    gen = torch.Generator().manual_seed(nd * 7 + len(shape))
+    r = lambda *s: torch.randn(s, generator=gen).to(dt).to(dev)
+    f32 = lambda *s: torch.randn(s, generator=gen).to(dev)
+    code, rows, J, ldg = rs._DT_CODE[dt], nd * kn, 3 * H, 4 * H
+    dgh, dgi, whh, wih = r(rows, J), r(rows, J), r(nd, J, H), r(nd, J, emb)
+    gz = f32(rows, H)
+    cur, aggbuf = r(rows, emb), r(rows, ldg)
+    F = lambda t: t.float()
+
+    def gemm_nn():
+        dagg, dcur = torch.empty(rows, H, dtype=dt, device=dev), f32(rows, emb)
+        _launch("wf_gemm_nn", code, 0, nd, kn, H, emb, _p(dgh), _p(whh), _p(dagg),
+                _p(gz), _p(dgi), _p(wih), _p(dcur))
+        return dagg, dcur
+
+    dagg, dcur = gemm_nn()
+    blk = lambda t, d: t[d * kn:(d + 1) * kn]
+    dagg_ref = torch.cat([(F(blk(dgh, d)) @ F(whh[d]) + blk(gz, d)).to(dt) for d in range(nd)])
+    dcur_ref = torch.cat([F(blk(dgi, d)) @ F(wih[d]) for d in range(nd)])
+    assert _err(dagg, dagg_ref) <= TOL[dt] and _err(dcur, dcur_ref) <= TOL[dt]
+    again = gemm_nn()
+    assert torch.equal(again[0], dagg) and torch.equal(again[1], dcur)
+
+    dw0 = (f32(nd, J, emb), f32(nd, J, H))
+    dw = [t.clone() for t in dw0]
+    _launch("wf_wgrad", code, 0, nd, kn, H, emb, _p(dgi), _p(dgh), _p(cur), emb,
+            _p(aggbuf), ldg, _p(dw[0]), _p(dw[1]))
+    agg = aggbuf[:, :H]
+    for d in range(nd):
+        assert _err(dw[0][d] - dw0[0][d], F(blk(dgi, d)).T @ F(blk(cur, d))) <= TOL[dt]
+        assert _err(dw[1][d] - dw0[1][d], F(blk(dgh, d)).T @ F(blk(agg, d))) <= TOL[dt]
+
+    whh3, bhh = r(nd, J, H), r(nd, J)
+    nres = aggbuf                       # agg, z, n at columns 0, H, 2H (ld 4H)
+    nmask = (torch.rand(rows, generator=gen) > 0.2).float().to(dev)
+    tab, n = rs._tab(rs.row_table(None, nd, 0, 0))
+    hn = torch.empty(rows, H, dtype=dt, device=dev)
+    out = torch.empty(rows, H, dtype=dt, device=dev)
+    _launch("wf_rebuild", code, tab, n, kn, H, _p(nres), _p(nres[:, H:]), _p(nres[:, 2 * H:]),
+            ldg, _p(whh3), _p(bhh), _p(nmask), _p(hn), _p(out), H)
+    hn_ref = torch.cat([(F(blk(agg, d)) @ F(whh3[d, 2 * H:]).T + F(bhh[d, 2 * H:])).to(dt)
+                        for d in range(nd)])
+    assert _err(hn, hn_ref) <= TOL[dt]
+    z, nn_ = F(nres[:, H:2 * H]), F(nres[:, 2 * H:3 * H])
+    assert torch.equal(out, (((1.0 - z) * nn_ + z * F(agg)) * nmask[:, None]).to(dt))
+
+
+def _merge_ref(base, src, idx, mask, so, to, kt, kn, gadd):
+    """base + (the f32 sum of src rows so.. over entries to.. of idx whose
+    mask is set and slot lies in [0, kn)) + gadd, computed in float64."""
+    i, m = idx[to:to + kt].long(), mask[to:to + kt] > 0
+    ok = m & (i >= 0) & (i < kn)
+    s = torch.zeros(kn + 1, src.shape[1], dtype=torch.float64, device=src.device)
+    s.index_add_(0, torch.where(ok, i, kn), src[so:so + kt].double())
+    s = s[:kn]
+    if gadd is not None:
+        s = s + gadd.double()
+    return s if base is None else base.double() + s
+
+
+# (kt, the slots' law): a list longer than a warp and than the block's
+# staged chunk of 2048 entries, all on one slot; an empty list; random
+# slots with pad entries (slot Kn) and masked ones
+MERGE_LISTS = {"one slot, 2100 entries": (2100, "one"), "empty": (0, "rand"),
+               "random with pads": (300, "rand")}
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("lh", [90, 96])
+@pytest.mark.parametrize("case", list(MERGE_LISTS))
+@pytest.mark.parametrize("form", ["tg_accumulate", "gtot base", "src_at_vo", "gadd"])
+def test_seg_merge_forms(dev, form, case, lh, dt):
+    """seg_merge in each form it serves, against a float64 sum: K5
+    (tg_accumulate: g + the sum, rounded), the f32 gtot as its own base
+    (K4's intra-pair merge), a zero base with src rows at the table's vo
+    stored rounded (K7's near-grad merge), and g + the sum + gadd into gtot
+    (K2's transpose merge with the next row's near grads); two blocks of
+    different offsets; L*H 96 takes 16-byte columns, 90 one a lane;
+    bitwise repeatable."""
+    from dagnn_tpu_torch.ops import row_step as rs
+    kt, law = MERGE_LISTS[case]
+    kn, nb = 29, 2
+    gen = torch.Generator().manual_seed(kt + lh)
+    r = lambda *s: torch.randn(s, generator=gen).to(dt).to(dev)
+    idx = (torch.full((nb * kt,), 5) if law == "one"
+           else torch.randint(0, kn + 1, (nb * kt,), generator=gen)).int().to(dev)
+    mask = (torch.rand(nb * kt, generator=gen) > 0.25).float().to(dev)
+    if form == "tg_accumulate":
+        g, tg = r(kn, lh), r(kt, lh)
+        k = rs.tg_accumulate(g, tg, idx[:kt], mask[:kt])
+        ref = _merge_ref(g.float(), tg, idx, mask, 0, 0, kt, kn, None)
+        assert k.dtype == dt and _err(k, ref.to(dt)) <= TOL[dt]
+        assert torch.equal(rs.tg_accumulate(g, tg, idx[:kt], mask[:kt]), k)
+        return
+    code = rs._DT_CODE[dt]
+    vo = 7                               # src rows of block b at vo + b*kt (src_at_vo)
+    src = r(vo + nb * kt + 3, lh)
+    g, gadd = r(nb * kn, lh), r(nb * kn, lh)
+    gtot0 = torch.randn(nb * kn, lh, generator=gen).to(dev)
+    tab = tuple((b, b, 0, 0, vo + b * kt, 0, b * kt, kt, -1) for b in range(nb))
+    t, n = rs._tab(tab)
+
+    def run():
+        gtot, gout = gtot0.clone(), torch.empty(nb * kn, lh, dtype=dt, device=dev)
+        if form == "gtot base":
+            _launch("wf_seg_merge", code, t, n, kn, lh, 0, 0, _p(src), _p(idx), _p(mask),
+                    0, _p(gtot), 0)
+            return gtot
+        if form == "src_at_vo":
+            _launch("wf_seg_merge", code, t, n, kn, lh, 1, 0, _p(src), _p(idx), _p(mask),
+                    0, 0, _p(gout))
+            return gout
+        _launch("wf_seg_merge", code, t, n, kn, lh, 0, _p(g), _p(src), _p(idx), _p(mask),
+                _p(gadd), _p(gtot), 0)
+        return gtot
+
+    k = run()
+    blk = lambda x, b: None if x is None else x[b * kn:(b + 1) * kn]
+    for b in range(nb):
+        so = vo + b * kt if form == "src_at_vo" else b * kt
+        base = {"gtot base": gtot0, "src_at_vo": None, "gadd": g}[form]
+        ref = _merge_ref(blk(base, b), src, idx, mask, so, b * kt, kt, kn,
+                         blk(gadd, b) if form == "gadd" else None)
+        kb = blk(k, b)
+        assert _err(kb, ref.to(kb.dtype)) <= TOL[kb.dtype], b
+    assert torch.equal(run(), k)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("nd", [1, 2])
+def test_backward_is_bitwise_repeatable(dev, nd, dt):
+    """K2 twice on the same inputs gives the same bits in every output and
+    weight grad: no atomics, every sum in a fixed order."""
+    from dagnn_tpu_torch.ops import row_step as rs
+    st, d, w = _row(dt, dev, nd, True, kn=44, ke=90, kt=70, H=44, emb=36)
+    fa = (st, d["xin"], d["vals"], d["ea"], d["edst"], d["emask"], d["nmask"], w)
+    res = rs.row_forward(*fa, emit_res=True, ndirs=nd)[1:]
+    ba = fa + (d["g"], d["tg"], d["tdst"], d["tmask"], res)
+    a, b = rs.row_backward(*ba, ndirs=nd), rs.row_backward(*ba, ndirs=nd)
+    for i in (0, 1, 2):
+        assert torch.equal(a[i], b[i]), i
+    assert all(torch.equal(a[3][k], b[3][k]) for k in a[3])

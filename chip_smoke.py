@@ -33,6 +33,8 @@ split form), the merged and unidirectional wavefronts on near/far batches
       and against its plain version; timed beside K2 and K1
   3g. K2's launches one by one on one merged row (bf16), each timed from a
       CUDA graph, with torch.matmul on each GEMM's shapes as a yardstick
+  3h. K1's launches (attn_fwd, gru_fwd) the same way, with gru_fwd's
+      TFLOP/s and its products in torch.matmul as the yardstick
   4.  the merged workload (synthetic batch, flagship.pad_for, no pair plan)
   4b. the pair workload (the same graphs, flagship.pad_for(pair=2))
   4c. the near/far workloads (the same graphs, pad_for with nearfar
@@ -785,37 +787,30 @@ class _Recorder:
 
 
 def gemm_flops(name, kn, H, emb, nd):
-    """Operations of one bf16 GEMM launch of K2 at layer 0 (Din = emb)."""
+    """Operations of one bf16 GEMM launch of K2 (or K1's gru_fwd) at layer
+    0 (Din = emb; the flagship's layer 1 has Din = H = emb)."""
     return {"wf_gemm_nn": 2 * nd * kn * 3 * H * (H + emb),
             "wf_wgrad": 2 * nd * kn * 3 * H * (emb + H),
-            "wf_rebuild": 2 * nd * kn * H * H}.get(name)
+            "wf_rebuild": 2 * nd * kn * H * H,
+            "wf_gru_fwd": 2 * nd * kn * 3 * H * (emb + H)}.get(name)
 
 
-def phase_k2_launches(dev):
-    """Phase 3g: K2's CUDA launches one by one, on one merged row at the
-    flagship shapes in bf16. One row_backward call is captured into a CUDA
-    graph with the library's entries recorded (its buffers stay in the
-    graph's memory pool), replayed once so they hold a real pass's values;
-    then each launch is timed alone as phase 3 times whole kernels (50
-    launches from one CUDA graph, median of three windows). Beside each
-    GEMM, torch.matmul on the same shapes in bf16 (batched over directions
-    and the launch's products), a yardstick only: the port never calls
-    it."""
+def time_launches(run):
+    """Each CUDA launch of one call of run() (a wrapper of ops/row_step.py)
+    timed alone. The call is captured into a CUDA graph with the library's
+    entries recorded (its buffers stay in the graph's memory pool) and
+    replayed once, so they hold a real pass's values; then each launch is
+    timed as phase 3 times whole kernels (50 launches from one CUDA graph,
+    median of three windows)."""
     from dagnn_tpu_torch.ops import row_step as rs
-    dt = torch.bfloat16
-    st, d, w = row_inputs(dt, dev, **FLAGSHIP)
-    kn, H, emb, nd = (FLAGSHIP[k] for k in ("kn", "H", "emb", "nd"))
-    fa = (st, d["xin"], d["vals"], d["ea"], d["edst"], d["emask"], d["nmask"], w)
-    res = rs.row_forward(*fa, emit_res=True, ndirs=2)[1:]
-    ba = fa + (d["g"], d["tg"], d["tdst"], d["tmask"], res)
-    rs.row_backward(*ba, ndirs=2)                 # warm: the library is built
+    run()                                         # warm: the library is built
     torch.cuda.synchronize()
     rec, lib_fn = _Recorder(rs._lib()), rs._lib
     rs._lib = lambda: rec
     try:
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            rs.row_backward(*ba, ndirs=2)
+            run()
     finally:
         rs._lib = lib_fn
     graph.replay()
@@ -827,27 +822,23 @@ def phase_k2_launches(dev):
     out, seen = [], {}
     for name, fn, args in rec.calls:
         seen[name] = seen.get(name, 0) + 1
-        tag = f"{name}#{seen[name]}"
         t = timings(lambda: launch(fn, args, name))
-        out.append(dict(launch=tag, ms=t["ms"], windows=t["windows"], call_ms=t["call_ms"]))
-    g = torch.Generator().manual_seed(5)
-    r = lambda *s: torch.randn(s, generator=g).to(dt).to(dev)
-    mm = {"wf_gemm_nn": (r(2 * nd, kn, 3 * H), r(2 * nd, 3 * H, H)),
-          "wf_wgrad": (r(2 * nd, kn, 3 * H).transpose(1, 2), r(2 * nd, kn, H)),
-          "wf_rebuild": (r(nd, kn, H), r(nd, H, H).transpose(1, 2))}
-    lib_ms = {}
-    for name, (a, b) in mm.items():
-        lib_ms[name] = dict(timings(lambda: torch.matmul(a, b)),
-                            shape=f"{list(a.shape)} x {list(b.shape)}")
+        out.append(dict(launch=f"{name}#{seen[name]}", ms=t["ms"], windows=t["windows"],
+                        call_ms=t["call_ms"]))
+    del graph
+    return out
+
+
+def report_launches(out, lib_ms, what, kn, H, emb, nd):
+    """Print each launch's device time (TFLOP/s for the GEMMs) and each
+    kernel's share with its torch.matmul yardstick; returns the summary."""
     per = {}
     for o in out:
-        name = o["launch"].split("#")[0]
-        per.setdefault(name, []).append(o["ms"])
+        per.setdefault(o["launch"].split("#")[0], []).append(o["ms"])
     total = sum(o["ms"] for o in out)
-    print(f"  {len(out)} launches a merged row, {total:.4f} ms summed on the device")
+    print(f"  {len(out)} launches {what}, {total:.4f} ms summed on the device")
     for o in out:
-        name = o["launch"].split("#")[0]
-        fl = gemm_flops(name, kn, H, emb, nd)
+        fl = gemm_flops(o["launch"].split("#")[0], kn, H, emb, nd)
         line = (f"    {o['launch']:22s} {o['ms'] * 1e3:8.2f} us on the device (windows "
                 f"{fmt_windows(o['windows'])} ms), {o['call_ms'] * 1e3:.2f} us per eager call")
         if fl:
@@ -858,12 +849,64 @@ def phase_k2_launches(dev):
         print(f"  {name}: {len(ts)} a row, {sum(ts) * 1e3:.2f} us ({sum(ts) / total:.1%})"
               + (f"; torch.matmul bf16 {lm['shape']} {lm['ms'] * 1e3:.2f} us on the "
                  f"device (yardstick, one launch's products)" if lm else ""))
-    del graph
     return dict(launches=out, total_ms=total,
                 per_kernel={k: dict(count=len(v), ms=sum(v), library_ms=(
                     lib_ms[k]["ms"] if k in lib_ms else None)) for k, v in per.items()},
                 matmul={k: dict(ms=v["ms"], call_ms=v["call_ms"], shape=v["shape"])
                         for k, v in lib_ms.items()})
+
+
+def matmul_yardsticks(mm):
+    """timings of torch.matmul over each entry's operand pairs (bf16), a
+    yardstick only: the port never calls it."""
+    out = {}
+    for name, pairs in mm.items():
+        out[name] = dict(timings(lambda: [torch.matmul(a, b) for a, b in pairs]),
+                         shape=" + ".join(f"{list(a.shape)} x {list(b.shape)}"
+                                          for a, b in pairs))
+    return out
+
+
+def phase_k2_launches(dev):
+    """Phase 3g: K2's CUDA launches one by one, on one merged row at the
+    flagship shapes in bf16 (time_launches). Beside each GEMM, torch.matmul
+    on the same shapes in bf16 (batched over directions and the launch's
+    products), a yardstick only: the port never calls it."""
+    from dagnn_tpu_torch.ops import row_step as rs
+    dt = torch.bfloat16
+    st, d, w = row_inputs(dt, dev, **FLAGSHIP)
+    kn, H, emb, nd = (FLAGSHIP[k] for k in ("kn", "H", "emb", "nd"))
+    fa = (st, d["xin"], d["vals"], d["ea"], d["edst"], d["emask"], d["nmask"], w)
+    res = rs.row_forward(*fa, emit_res=True, ndirs=2)[1:]
+    ba = fa + (d["g"], d["tg"], d["tdst"], d["tmask"], res)
+    out = time_launches(lambda: rs.row_backward(*ba, ndirs=2))
+    g = torch.Generator().manual_seed(5)
+    r = lambda *s: torch.randn(s, generator=g).to(dt).to(dev)
+    lib_ms = matmul_yardsticks({
+        "wf_gemm_nn": [(r(2 * nd, kn, 3 * H), r(2 * nd, 3 * H, H))],
+        "wf_wgrad": [(r(2 * nd, kn, 3 * H).transpose(1, 2), r(2 * nd, kn, H))],
+        "wf_rebuild": [(r(nd, kn, H), r(nd, H, H).transpose(1, 2))]})
+    return report_launches(out, lib_ms, "a merged row", kn, H, emb, nd)
+
+
+def phase_k1_launches(dev):
+    """Phase 3h: K1's CUDA launches one by one (attn_fwd and gru_fwd per
+    layer), on one merged row at the flagship shapes in bf16, emit_res as
+    the training forward runs it (time_launches). Beside gru_fwd, its
+    products in torch.matmul in bf16, batched over directions: [nd, Kn,
+    Din] x [nd, Din, 3H] and [nd, Kn, H] x [nd, H, 3H], a yardstick only:
+    the port never calls it."""
+    from dagnn_tpu_torch.ops import row_step as rs
+    dt = torch.bfloat16
+    st, d, w = row_inputs(dt, dev, **FLAGSHIP)
+    kn, H, emb, nd = (FLAGSHIP[k] for k in ("kn", "H", "emb", "nd"))
+    fa = (st, d["xin"], d["vals"], d["ea"], d["edst"], d["emask"], d["nmask"], w)
+    out = time_launches(lambda: rs.row_forward(*fa, emit_res=True, ndirs=2))
+    g = torch.Generator().manual_seed(6)
+    r = lambda *s: torch.randn(s, generator=g).to(dt).to(dev)
+    lib_ms = matmul_yardsticks({"wf_gru_fwd": [(r(nd, kn, emb), r(nd, emb, 3 * H)),
+                                               (r(nd, kn, H), r(nd, H, 3 * H))]})
+    return report_launches(out, lib_ms, "a merged row", kn, H, emb, nd)
 
 
 # -------------------------------------------------------- the main path
@@ -1196,6 +1239,9 @@ def main(argv):
     print("[3g] K2 launch by launch, one merged row at the flagship shapes, bf16, "
           "with torch.matmul yardsticks beside the GEMMs")
     k2_launches = phase_k2_launches(dev)
+    print("[3h] K1 launch by launch, one merged row at the flagship shapes, bf16, "
+          "with a torch.matmul yardstick beside gru_fwd")
+    k1_launches = phase_k1_launches(dev)
 
     batch = convert.batch_to_torch(host0, dev)
     L = batch.fwd.node_ids.shape[0]
@@ -1359,7 +1405,7 @@ def main(argv):
     print(json.dumps({**runs, "split_checks": split, "cross_route": cross,
                       "nearfar_cross_route": nf_cross, "ab_steps": ab,
                       "split_row": {short(k): v for k, v in split_row.items()},
-                      "k2_launches": k2_launches,
+                      "k2_launches": k2_launches, "k1_launches": k1_launches,
                       "gpu": card,
                       "f32_kernels": {**rows[torch.float32], **pairs[torch.float32],
                                       **segs[torch.float32], **tgs[torch.float32],

@@ -49,9 +49,10 @@ __device__ __forceinline__ int build_list(const int* idx, const float* mask, int
   return cnt;
 }
 
-// dynamic shared memory above the 48 KB default needs an opt-in
+// dynamic shared memory that takes a block (with its static part, stat
+// bytes) above the 48 KB default needs an opt-in
 template <typename K>
-static void smem_opt_in(K kernel, size_t bytes) {
-  if (bytes > 48 * 1024)
+static void smem_opt_in(K kernel, size_t bytes, size_t stat = 0) {
+  if (bytes + stat > 48 * 1024)
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }

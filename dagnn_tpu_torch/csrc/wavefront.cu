@@ -14,8 +14,8 @@
 //    600, bf16), 0.37 us at 3.35 TB/s, but what bounds it is each slot's
 //    chain of latencies (see seg_merge below: staged keys, a compact list
 //    a warp, rows loaded four at once). On an H100 (chip_smoke.py phase 3d,
-//    device time from a CUDA graph): 4.4 us against 5.5 us for index_add_
-//    on the same data; the first version's block-per-slot scan took 9.7.
+//    device time from a CUDA graph): 4.4 us against 5.7 us for index_add_
+//    on the same data; the first version's block-per-slot scan took 9.8.
 // K7 (the near/far layouts, nf) replaces the nf branches of
 //    fused_row_forward / fused_row_backward (row_step.py _nf_blocks,
 //    _nf_rebuild_vals, the near-grad carry): one row's blocks with ragged
@@ -62,8 +62,8 @@
 // block's edge list in order (warp ballots keep the order, so every sum runs
 // in a fixed order) and owns that slot's softmax, aggregate and score
 // gradients. The GRU products are shared-memory tiled GEMMs with float32
-// accumulation and the gate math fused into their epilogue (the
-// backward's in bf16 on the tensor cores, see below). Weight
+// accumulation and the gate math fused into their epilogue (in bf16 on the
+// tensor cores, see below). Weight
 // gradients are written per block tile or reduced over slots in a second
 // pass: no atomics, so runs are deterministic. The two blocks of one launch
 // that write weight grads must belong to different directions (checked).
@@ -81,22 +81,25 @@
 // about 20 MB and 2.4 GFLOP. Pair at the flagship pair=2 batch (4 blocks of
 // Kn 256, 2250 edges, 1734 gathered value rows, 1525 transpose edges): K3
 // about 13 MB and 2.2 GFLOP, K4 about 26 MB and 4.8 GFLOP. All are memory
-// bound on paper (a few us each). The backward's bf16 GEMMs (gemm_nn,
-// wgrad, rebuild) run on the tensor cores: mma.sync.m16n8k16 on 32 x 32
-// output tiles of 4 warps, operands kept bf16 in padded shared memory and
-// read with ldmatrix, the next K stages streamed in with cp.async (below).
-// They took K2 from 0.537 to 0.165 ms a merged row and K4 from 1.007 to
-// 0.298 ms a pair on an H100 (chip_smoke.py); on one merged row gemm_nn
-// takes 12.5 us, wgrad 13.9 and rebuild 6.7-7.0 (torch.matmul on the same
-// products: 14.5, 11.6 and 6.1 us), and attn_bwd, 21.6 us twice a row, now
-// sets K2's pace. Those tiles sit far from the tensor cores' rate: by the
-// arithmetic, a gemm_nn launch's 320 tiles re-read about 37 MB of operands
-// from L2 (32 x 900 and 900 x 32 bf16 each), and each K stage ends at a
-// barrier; wgmma
-// with TMA wants 16-byte-aligned rows (these are 600 and 1800 bytes), so
-// padded scratch operands come first. The float32 route, the forward's GRU
-// (gru_fwd) and the forward recompute keep the CUDA-core tiles: TF32 would
-// break the float32 checks.
+// bound on paper (a few us each); what bounds them is latency: each
+// slot's chain of dependent loads in the segment ops (attn_fwd, seg_merge:
+// see their notes) and the K loops of small GEMM tiles. The bf16 GEMMs,
+// the forward's gru_fwd and the backward's gemm_nn, wgrad and rebuild, run
+// on the tensor cores: mma.sync.m16n8k16 on 32 x 32 output tiles, operands
+// kept bf16 in padded shared memory and read with ldmatrix, the next K
+// stages streamed in with cp.async (below). The float32 route keeps the
+// CUDA-core tiles: TF32 would break the float32 checks.
+// On an H100 (chip_smoke.py, device time from a CUDA graph; PERF.md): K1
+// 0.048 ms a merged row, K2 0.164, K3 0.102 a pair, K4 0.301. One merged
+// row launch by launch (phases 3g, 3h), us: gru_fwd 15.0-15.2 (36.4-36.8
+// TFLOP/s), attn_fwd 9.1-9.2, gemm_nn 12.3, wgrad 13.3-13.8, rebuild
+// 6.7-6.9, attn_bwd 21.4-21.6; torch.matmul on the products of the four
+// GEMMs 15.6, 14.4, 11.5 and 6.0 us. The
+// tiles sit far from the tensor cores' rate: by the arithmetic, a gemm_nn
+// launch's 320 tiles re-read about 37 MB of operands from L2 (32 x 900 and
+// 900 x 32 bf16 each), and each K stage ends at a barrier; wgmma with TMA
+// wants 16-byte-aligned rows (these are 600 and 1800 bytes), so padded
+// scratch operands come first.
 
 #include "common.cuh"
 
@@ -185,26 +188,159 @@ __device__ __forceinline__ bool edge_valid(const int* edst, const float* emask, 
 #define NT 256
 static_assert(BM * BK % NT == 0 && BM == BK && BN == BK, "square tiles, whole per thread");
 
+// ---------------------------------------------------- staged slot lists
+// Helpers of the kernels that list one destination slot's entries (attn_fwd,
+// seg_merge): the block's keys staged in shared memory in chunks, ballots
+// from there, and V consecutive columns a lane.
+#define SM_CHUNK 2048   // list entries staged in shared memory at a time
+#define SM_U 4          // listed rows loaded together
+
+// key[i] = idx[i] where mask[i] > 0, else -1, for i < ne (the whole block)
+__device__ __forceinline__ void stage_keys(int* key, const int* ix, const float* mk, int ne) {
+  int done = 0;
+  if (((reinterpret_cast<uintptr_t>(ix) | reinterpret_cast<uintptr_t>(mk)) & 15) == 0) {
+    done = ne & ~3;
+    for (int i = threadIdx.x; i < (ne >> 2); i += blockDim.x) {
+      const int4 a = reinterpret_cast<const int4*>(ix)[i];
+      const float4 m = reinterpret_cast<const float4*>(mk)[i];
+      reinterpret_cast<int4*>(key)[i] = make_int4(m.x > 0.f ? a.x : -1, m.y > 0.f ? a.y : -1,
+                                                  m.z > 0.f ? a.z : -1, m.w > 0.f ? a.w : -1);
+    }
+  }
+  for (int i = done + threadIdx.x; i < ne; i += blockDim.x) key[i] = mk[i] > 0.f ? ix[i] : -1;
+}
+
+// V consecutive elements as f32 (V = 8: one or two 16-byte loads; V = 4:
+// one 8-byte bf16 or 16-byte f32 load)
+template <int V>
+__device__ __forceinline__ void ldv(const bf16* p, float* o) {
+  if constexpr (V == 8 || V == 4) {
+    uint32_t w[4];
+    if constexpr (V == 8) {
+      const uint4 q = *reinterpret_cast<const uint4*>(p);
+      w[0] = q.x; w[1] = q.y; w[2] = q.z; w[3] = q.w;
+    } else {
+      const uint2 q = *reinterpret_cast<const uint2*>(p);
+      w[0] = q.x; w[1] = q.y;
+    }
+#pragma unroll
+    for (int i = 0; i < V / 2; ++i) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+      o[2 * i] = f.x;
+      o[2 * i + 1] = f.y;
+    }
+  } else {
+    o[0] = ldf(p);
+  }
+}
+template <int V>
+__device__ __forceinline__ void ldv(const float* p, float* o) {
+  if constexpr (V == 8 || V == 4) {
+    const float4 a = reinterpret_cast<const float4*>(p)[0];
+    o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
+    if constexpr (V == 8) {
+      const float4 b = reinterpret_cast<const float4*>(p)[1];
+      o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
+    }
+  } else {
+    o[0] = *p;
+  }
+}
+template <int V>
+__device__ __forceinline__ void stv(bf16* p, const float* v) {
+  if constexpr (V == 8 || V == 4) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < V / 2; ++i) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+      w[i] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    if constexpr (V == 8) *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+    else *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+  } else {
+    *p = cvt<bf16>(v[0]);
+  }
+}
+template <int V>
+__device__ __forceinline__ void stv(float* p, const float* v) {
+  if constexpr (V == 8 || V == 4) {
+    reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+    if constexpr (V == 8) reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+  } else {
+    *p = v[0];
+  }
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
 // ------------------------------------------------------- K1/K3: attention
-// grid (Kn, nblk), block 128. Scores, segment softmax and aggregate of one
-// destination slot; writes alpha32 (optional) and agg. Dynamic shared
-// memory: ke value-row pointers, ke edge ids, ke scores.
+// grid (Kn, nblk), block AF_THREADS. Scores, segment softmax and aggregate
+// of one destination slot; writes alpha32 (optional) and agg. Dynamic
+// shared memory: kemax value-row pointers, edge ids and scores (a slot may
+// own every edge of its block), and the direction's key-score weights in
+// f32 (wk, be, we: H (R + 2) values, staged once a block).
+//
+// Design. A call moves about 1.25 MB at the flagship merged row (0.37 us at
+// 3.35 TB/s); what bounds it is each slot's chain of dependent latencies,
+// so no step of the chain scans device memory: as in seg_merge, the block
+// stages its keys (edst where emask is set, else -1) in shared memory,
+// 16-byte loads where aligned, and warp 0 ballots the slot's edges out of
+// shared memory into an ascending list; the q score's loads and the
+// direction's key-score weights (staged in f32) are in flight meanwhile.
+// A warp an edge computes its key score (V value columns a lane); warp 0
+// runs the max and the exps across its lanes and the denominator in
+// ascending edge order by shuffles; then every thread owns V columns of
+// the aggregate and loads SM_U listed value rows at once before adding
+// them in list order. Every per-slot f32 sum runs in ascending edge order
+// (bit repeatable); the key scores sum a row's columns in another order at
+// V = 4 than at V = 1.
+#define AF_THREADS 128
+#define AF_U 4          // loads in flight a thread while staging
+
+// dst[(i % R) * H + i / R] = src[i] in f32 for i < n (R = 1: a copy; else
+// the transpose of a [H, R] matrix), AF_U loads in flight a thread (one
+// loop over all the staged weights, ten loads a thread, was slower on the
+// H100).
 template <typename T>
-__global__ void attn_fwd_kernel(Tab tb, int Kn, int H, int Dq, int R,
-                                const T* q, int ldq, Vals<T> vs,
-                                const T* ea, const int* edst_all, const float* emask_all,
-                                const T* wq_all, const T* wk_all, const T* b_all,
-                                const T* we_all, const T* be_all,
-                                float* a32, int lda32, T* agg, int ldagg) {
+__device__ __forceinline__ void stage_f32(float* dst, const T* src, int n, int R, int H) {
+  for (int i0 = threadIdx.x; i0 < n; i0 += AF_U * AF_THREADS) {
+    float x[AF_U];
+#pragma unroll
+    for (int u = 0; u < AF_U; ++u) {
+      const int i = i0 + u * AF_THREADS;
+      x[u] = i < n ? ldf(src + i) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < AF_U; ++u) {
+      const int i = i0 + u * AF_THREADS;
+      if (i < n) dst[(i % R) * H + i / R] = x[u];
+    }
+  }
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(AF_THREADS) attn_fwd_kernel(
+    Tab tb, int Kn, int H, int Dq, int R, const T* q, int ldq, Vals<T> vs, const T* ea,
+    const int* edst_all, const float* emask_all, const T* wq_all, const T* wk_all,
+    const T* b_all, const T* we_all, const T* be_all, float* a32, int lda32, T* agg,
+    int ldagg, int kemax) {
   extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ __align__(16) int key[SM_CHUNK];
+  __shared__ int s_cnt;
+  __shared__ float s_red[AF_THREADS / 32];
   const Blk b = pick(tb, blockIdx.y);
   const T** vp = reinterpret_cast<const T**>(smem);
-  int* lst = reinterpret_cast<int*>(vp + b.ke);
-  float* sc = reinterpret_cast<float*>(lst + b.ke);
-  __shared__ int s_cnt;
-  __shared__ float s_red[32];
+  int* lst = reinterpret_cast<int*>(vp + kemax);
+  float* sc = reinterpret_cast<float*>(lst + kemax);
+  float* swk = sc + kemax;                  // wk [H], be [H], we^T [R, H] in f32
+  float* sbe = swk + H;
+  float* swe = sbe + H;
   const int n = blockIdx.x, d = b.dir;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nw = blockDim.x >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  constexpr int NW = AF_THREADS / 32;
   const int* edst = edst_all + b.eo;
   const float* emask = emask_all + b.eo;
   const T* wq = wq_all + (size_t)d * Dq;
@@ -214,60 +350,147 @@ __global__ void attn_fwd_kernel(Tab tb, int Kn, int H, int Dq, int R,
   const float bias = ldf(b_all + d);
   const size_t row = (size_t)b.nb * Kn + n;
 
-  if (n == 0 && a32)
-    for (int e = tid; e < b.ke; e += blockDim.x)
+  // alpha32 of invalid edges is 0: edge e is the block of slot e mod Kn's
+  if (a32)
+    for (int e = n + tid * Kn; e < b.ke; e += AF_THREADS * Kn)
       if (!edge_valid(edst, emask, e, Kn)) a32[(size_t)(b.eo + e) * lda32] = 0.f;
-  if (warp == 0) {
-    const int c = build_list(edst, emask, b.ke, n, lst);
-    if (lane == 0) s_cnt = c;
-  }
+  // the q score's partial (k ascending a thread), then the weights
   float p = 0.f;
-  for (int k = tid; k < Dq; k += blockDim.x) p += ldf(q + row * ldq + k) * ldf(wq + k);
+  for (int k0 = tid; k0 < Dq; k0 += AF_U * AF_THREADS) {
+    float x[AF_U], y[AF_U];
+#pragma unroll
+    for (int u = 0; u < AF_U; ++u) {
+      const int k = k0 + u * AF_THREADS;
+      x[u] = k < Dq ? ldf(q + row * ldq + k) : 0.f;
+      y[u] = k < Dq ? ldf(wq + k) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < AF_U; ++u)
+      if (k0 + u * AF_THREADS < Dq) p += x[u] * y[u];
+  }
+  stage_f32(swk, wk, H, 1, H);
+  if (ea) {
+    stage_f32(sbe, be, H, 1, H);
+    stage_f32(swe, we, H * R, R, H);
+  }
   p = warp_sum(p);
   if (lane == 0) s_red[warp] = p;
-  __syncthreads();
-  const int m = s_cnt;
-  for (int j = tid; j < m; j += blockDim.x) vp[j] = vrow<T>(b, lst[j], Kn, vs);
-  __syncthreads();
-  for (int j = warp; j < m; j += nw) {
-    const size_t er = (size_t)b.eo + lst[j];
-    const T* v = vp[j];
-    float s = 0.f;
-    for (int h = lane; h < H; h += 32) {
-      float kk = ldz(v, h);
-      if (ea) {
-        float enc = 0.f;
-        for (int r = 0; r < R; ++r) enc += ldf(ea + er * R + r) * ldf(we + h * R + r);
-        kk = rnd<T>((kk + enc) + ldf(be + h));
+  int m = 0;                                // the slot's edges listed (warp 0)
+  for (int e0 = 0; e0 < b.ke; e0 += SM_CHUNK) {
+    const int ne = min(SM_CHUNK, b.ke - e0);
+    __syncthreads();                        // warp 0 is done with the last chunk
+    stage_keys(key, edst + e0, emask + e0, ne);
+    __syncthreads();
+    if (warp == 0)
+      for (int base = 0; base < ne; base += 32) {
+        const int e = base + lane;
+        const bool hit = e < ne && key[e] == n;
+        const unsigned bal = __ballot_sync(0xffffffffu, hit);
+        if (hit) lst[m + __popc(bal & ((1u << lane) - 1u))] = e0 + e;
+        m += __popc(bal);
       }
-      s += kk * ldf(wk + h);
+  }
+  if (tid == 0) s_cnt = m;
+  __syncthreads();
+  m = s_cnt;
+  for (int j = warp; j < m; j += NW) {      // key scores, a warp an edge
+    const int e = lst[j];
+    const size_t er = (size_t)b.eo + e;
+    const T* v = vrow<T>(b, e, Kn, vs);
+    if (lane == 0) vp[j] = v;
+    float eav[MAXR];
+#pragma unroll
+    for (int r = 0; r < MAXR; ++r) eav[r] = ea && r < R ? ldf(ea + er * R + r) : 0.f;
+    float s = 0.f;
+    for (int c = lane * V; c < H; c += 32 * V) {
+      float x[V], wk4[V], be4[V], we4[MAXR][V];
+      if (v) {
+        ldv<V>(v + c, x);
+      } else {
+#pragma unroll
+        for (int i = 0; i < V; ++i) x[i] = 0.f;
+      }
+      ldv<V>(swk + c, wk4);                 // V consecutive floats: no bank conflicts
+      if (ea) {
+        ldv<V>(sbe + c, be4);
+#pragma unroll
+        for (int r = 0; r < MAXR; ++r)
+          if (r < R) ldv<V>(swe + r * H + c, we4[r]);
+      }
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        float kk = x[i];
+        if (ea) {
+          float enc = 0.f;
+#pragma unroll
+          for (int r = 0; r < MAXR; ++r)
+            if (r < R) enc += eav[r] * we4[r][i];
+          kk = rnd<T>((kk + enc) + be4[i]);
+        }
+        s += kk * wk4[i];
+      }
     }
     s = warp_sum(s);
     if (lane == 0) sc[j] = s + bias;
   }
   __syncthreads();
-  if (tid == 0) {
+  if (warp == 0) {                          // the slot's softmax
     float qs = 0.f;
-    for (int w = 0; w < nw; ++w) qs += s_red[w];
+    for (int w = 0; w < NW; ++w) qs += s_red[w];
     qs = rnd<T>(qs);
     float mx = -FLT_MAX;
-    for (int j = 0; j < m; ++j) { sc[j] = qs + sc[j]; mx = fmaxf(mx, sc[j]); }
+    for (int j = lane; j < m; j += 32) {
+      sc[j] = qs + sc[j];
+      mx = fmaxf(mx, sc[j]);
+    }
+    mx = warp_max(mx);
     if (mx <= -FLT_MAX) mx = 0.f;
     const float smd = rnd<T>(mx);
     float den = 0.f;
-    for (int j = 0; j < m; ++j) { sc[j] = expf(sc[j] - smd); den += rnd<T>(sc[j]); }
+    for (int base = 0; base < m; base += 32) {
+      const int j = base + lane;
+      float ex = 0.f;
+      if (j < m) {
+        ex = expf(sc[j] - smd);
+        sc[j] = ex;
+      }
+      const float rx = rnd<T>(ex);
+      const int c = min(32, m - base);
+      for (int u = 0; u < c; ++u) den += __shfl_sync(0xffffffffu, rx, u);   // in edge order
+    }
     const float dd = rnd<T>(den) + 1e-16f;
-    for (int j = 0; j < m; ++j) {
+    for (int j = lane; j < m; j += 32) {
       const float al = sc[j] / dd;
       if (a32) a32[(size_t)(b.eo + lst[j]) * lda32] = al;
       sc[j] = rnd<T>(al);
     }
   }
   __syncthreads();
-  for (int h = tid; h < H; h += blockDim.x) {
-    float s = 0.f;
-    for (int j = 0; j < m; ++j) s += rnd<T>(ldz(vp[j], h) * sc[j]);
-    agg[row * ldagg + h] = cvt<T>(s);
+  for (int col = tid * V; col < H; col += AF_THREADS * V) {   // the aggregate
+    float acc[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[i] = 0.f;
+    for (int j = 0; j < m; j += SM_U) {
+      float x[SM_U][V];
+#pragma unroll
+      for (int u = 0; u < SM_U; ++u) {
+        const T* v = j + u < m ? vp[j + u] : nullptr;
+        if (v) {
+          ldv<V>(v + col, x[u]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < V; ++i) x[u][i] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < SM_U; ++u)
+        if (j + u < m) {
+          const float al = sc[j + u];
+#pragma unroll
+          for (int i = 0; i < V; ++i) acc[i] += rnd<T>(x[u][i] * al);
+        }
+    }
+    stv<V>(agg + row * ldagg + col, acc);
   }
 }
 
@@ -294,7 +517,8 @@ __device__ __forceinline__ void load_tile(float (*s)[BK + 1], const T* A, size_t
 }
 
 // ------------------------------------ bf16 GEMM tiles on the tensor cores
-// K2/K4's GEMMs in bf16 (gemm_nn, wgrad, rebuild): a block of TC_THREADS =
+// K2/K4's GEMMs in bf16 (gemm_nn, wgrad, rebuild; K1/K3's gru_fwd runs
+// the same pieces in its own K loop, tc_gru): a block of TC_THREADS =
 // 4 warps owns a TT x TT output tile (small, so a one-direction launch of
 // [256, 300] outputs still has 80 blocks), each warp a 16 x 16 quarter, two
 // mma.sync.m16n8k16 (bf16 in, f32 accumulate) per 16-deep step. Operand
@@ -363,16 +587,17 @@ __device__ __forceinline__ void mma16816(float* c, const uint32_t* a, uint32_t b
 }
 
 // s[r * (COLS + 8) + c] = G[(r0 + r) * ld + c0 + c] for a ROWS x COLS
-// stage, zero outside the [R, C] matrix; 4-element chunks
+// stage, zero outside the [R, C] matrix; 4-element chunks, by the
+// TC_THREADS threads tid of one warp group
 template <bool ASYNC, int ROWS, int COLS>
 __device__ __forceinline__ void tc_load(bf16* s, const bf16* G, size_t ld, int R, int C, int r0,
-                                        int c0) {
+                                        int c0, int tid) {
   constexpr int LDS = COLS + 8, CPR = COLS / 4, PER = ROWS * CPR / TC_THREADS;
   static_assert(ROWS * CPR % TC_THREADS == 0, "whole chunks a thread");
   if constexpr (ASYNC) {
 #pragma unroll
     for (int u = 0; u < PER; ++u) {
-      const int i = threadIdx.x + u * TC_THREADS, r = i / CPR, c = (i % CPR) * 4;
+      const int i = tid + u * TC_THREADS, r = i / CPR, c = (i % CPR) * 4;
       const int gr = r0 + r, gc = c0 + c;
       const int nv = (gr < R && gc < C) ? min(4, C - gc) : 0;
       cp_async8(s + r * LDS + c, nv ? G + (size_t)gr * ld + gc : G, 2 * nv);
@@ -381,14 +606,14 @@ __device__ __forceinline__ void tc_load(bf16* s, const bf16* G, size_t ld, int R
     bf16 v[PER][4];
 #pragma unroll
     for (int u = 0; u < PER; ++u) {
-      const int i = threadIdx.x + u * TC_THREADS, gr = r0 + i / CPR, gc = c0 + (i % CPR) * 4;
+      const int i = tid + u * TC_THREADS, gr = r0 + i / CPR, gc = c0 + (i % CPR) * 4;
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         v[u][e] = (gr < R && gc + e < C) ? G[(size_t)gr * ld + gc + e] : __float2bfloat16_rn(0.f);
     }
 #pragma unroll
     for (int u = 0; u < PER; ++u) {
-      const int i = threadIdx.x + u * TC_THREADS;
+      const int i = tid + u * TC_THREADS;
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[(i / CPR) * LDS + (i % CPR) * 4 + e] = v[u][e];
     }
@@ -399,8 +624,8 @@ __device__ __forceinline__ void tc_load(bf16* s, const bf16* G, size_t ld, int R
 // A(m, k) at A[m * lda + k], or A[k * lda + m] with A_KM; B(k, n) at
 // B[n * ldb + k], or B[k * ldb + n] with B_KN. A stage holds an operand as
 // stored: [TT][TK] rows of k, or [TK][TT] rows of m (n), each row padded by
-// 8 elements. Element i of n8 block nb is row m0 + tc_row(i), column n0 +
-// tc_col(nb, i).
+// 8 elements. Element i of n8 block nb is row m0 + tc_row(i, t), column
+// n0 + tc_col(nb, i, t) of thread t.
 template <int TK, bool A_KM, bool B_KN, bool ASYNC>
 __device__ __forceinline__ void tc_gemm(TcSmem<TK>& sm, const bf16* A, size_t lda, const bf16* B,
                                         size_t ldb, int M, int N, int K, int m0, int n0,
@@ -414,10 +639,11 @@ __device__ __forceinline__ void tc_gemm(TcSmem<TK>& sm, const bf16* A, size_t ld
     for (int i = 0; i < 4; ++i) acc[nb][i] = 0.f;
   const int nk = (K + TK - 1) / TK;
   auto load = [&](int st, int k0) {
-    if constexpr (A_KM) tc_load<ASYNC, TK, TT>(sm.a[st], A, lda, K, M, k0, m0);
-    else tc_load<ASYNC, TT, TK>(sm.a[st], A, lda, M, K, m0, k0);
-    if constexpr (B_KN) tc_load<ASYNC, TK, TT>(sm.b[st], B, ldb, K, N, k0, n0);
-    else tc_load<ASYNC, TT, TK>(sm.b[st], B, ldb, N, K, n0, k0);
+    const int t = threadIdx.x;
+    if constexpr (A_KM) tc_load<ASYNC, TK, TT>(sm.a[st], A, lda, K, M, k0, m0, t);
+    else tc_load<ASYNC, TT, TK>(sm.a[st], A, lda, M, K, m0, k0, t);
+    if constexpr (B_KN) tc_load<ASYNC, TK, TT>(sm.b[st], B, ldb, K, N, k0, n0, t);
+    else tc_load<ASYNC, TT, TK>(sm.b[st], B, ldb, N, K, n0, k0, t);
   };
 #pragma unroll
   for (int st = 0; st < TSTAGES - 1; ++st) {
@@ -450,85 +676,219 @@ __device__ __forceinline__ void tc_gemm(TcSmem<TK>& sm, const bf16* A, size_t ld
   cp_async_wait<0>();
 }
 
-__device__ __forceinline__ int tc_row(int i) {
-  return ((threadIdx.x >> 5) & 1) * 16 + ((threadIdx.x & 31) >> 2) + 8 * (i >> 1);
+// of thread t of a TC_THREADS warp group
+__device__ __forceinline__ int tc_row(int i, int t) {
+  return ((t >> 5) & 1) * 16 + ((t & 31) >> 2) + 8 * (i >> 1);
 }
-__device__ __forceinline__ int tc_col(int nb, int i) {
-  return (threadIdx.x >> 6) * 16 + 8 * nb + 2 * (threadIdx.x & 3) + (i & 1);
+__device__ __forceinline__ int tc_col(int nb, int i, int t) {
+  return (t >> 6) * 16 + 8 * nb + 2 * (t & 3) + (i & 1);
 }
 
 // ------------------------------------------------------------- K1/K3: GRU
-// grid (ceil(H/BN), ceil(Kn/BM), nblk), block 256. out = GRU(cur, agg),
-// r/z/n residuals optional. Thread (ty, tx): hidden unit h0+tx, rows
-// m0+ty+8i. Block z: direction z, node block nb0 + z (see GEMM_BLOCKS).
+// grid (ceil(H/32), ceil(Kn/32), nblk). out = GRU(cur, agg), r/z/n
+// residuals optional. Block z: direction z, node block nb0 + z (see
+// GEMM_BLOCKS). A tile's four products, r: cur w_ih_r + agg w_hh_r, z: the
+// same with the z rows, i_n: cur w_ih_n, h_n: agg w_hh_n, all with f32
+// sums; the gate math in the epilogue, per output element.
+//
+// bf16: two warp groups of TC_THREADS split K: group 0 sums cur's
+// products (cur w_ih^T, K = Din), group 1 agg's (agg w_hh^T, K = H), each
+// over its own GRU_STAGES ring of TK_GRU-deep stages: one A tile and the r,
+// z and n rows of its weight, read as stored ([3H, K], rows of k), TT x
+// TK_GRU each, one A fragment feeding the three weights' mma.sync. So a
+// tile runs twice the warps over half the chain of stages. Each stage's
+// products go into fresh accumulators that are then added to the f32
+// sums: mma.sync's accumulate truncates, and a chain of them through one
+// register drifted far enough from round-to-nearest to flip z's and n's
+// bf16 roundings often (the step checks saw it); stage sums rounded to
+// nearest keep the plain version's accuracy. The two groups then trade
+// partial sums through shared memory (r = cur's + agg's, one f32 add) and
+// each writes half the tile. The rings, GRU_STAGES deep, take 80 KB of
+// dynamic shared memory (on the H100 4 stages ran a little faster than 3,
+// with the same bits; TK_GRU 64 at 120 KB was slower).
+// float32: the CUDA-core tile (NT threads; thread (ty, tx): hidden unit
+// h0+tx, rows m0+ty+8i), exact f32 products.
+#define TK_GRU 32
+#define GRU_STAGES 4
+#define GRU_THREADS (2 * TC_THREADS)
+
+struct GruStage {
+  bf16 a[TT * (TK_GRU + 8)];
+  bf16 w[3][TT * (TK_GRU + 8)];
+};
+
+// one warp group's sums over K: acc[g][nb][i], g 0 r, 1 z, 2 the n gate's
+// (i_n from cur, h_n from agg); element (nb, i) at row m0 + tc_row(i, t),
+// unit h0 + tc_col(nb, i, t). Every thread of the block runs nk_all stages
+// (the longer group's count) so that both groups meet the same barriers.
+template <bool ASYNC>
+__device__ __forceinline__ void tc_gru(GruStage* ring, const bf16* A, size_t lda, const bf16* W,
+                                       int M, int H, int K, int nk_all, int m0, int h0,
+                                       float acc[3][2][4]) {
+  constexpr int TK = TK_GRU, LK = TK + 8;
+  const int t = threadIdx.x % TC_THREADS, lane = t & 31, warp = t >> 5;
+  const int wm = (warp & 1) * 16, wn = (warp >> 1) * 16;
+#pragma unroll
+  for (int g = 0; g < 3; ++g)
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[g][nb][i] = 0.f;
+  const int nk = (K + TK - 1) / TK;
+  auto load = [&](int st, int s) {
+    const int k0 = s * TK;
+    tc_load<ASYNC, TT, TK>(ring[st].a, A, lda, M, K, m0, k0, t);
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+      tc_load<ASYNC, TT, TK>(ring[st].w[g], W + (size_t)g * H * K, K, H, K, h0, k0, t);
+  };
+#pragma unroll
+  for (int st = 0; st < GRU_STAGES - 1; ++st) {
+    if (st < nk) load(st, st);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk_all; ++kt) {
+    cp_async_wait<GRU_STAGES - 2>();
+    __syncthreads();
+    const int pf = kt + GRU_STAGES - 1;
+    if (pf < nk) load(pf % GRU_STAGES, pf);
+    cp_async_commit();
+    if (kt >= nk) continue;
+    const GruStage& sg = ring[kt % GRU_STAGES];
+    float part[3][2][4];
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) part[g][nb][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < TK; kk += 16) {
+      uint32_t a[4];
+      ldsm4(a, sg.a + (wm + (lane & 7) + ((lane >> 3) & 1) * 8) * LK + kk + (lane >> 4) * 8);
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+        uint32_t b[4];
+        ldsm4(b, sg.w[g] + (wn + (lane & 7) + (lane >> 4) * 8) * LK + kk + ((lane >> 3) & 1) * 8);
+        mma16816(part[g][0], a, b[0], b[1]);
+        mma16816(part[g][1], a, b[2], b[3]);
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[g][nb][i] += part[g][nb][i];
+  }
+  cp_async_wait<0>();
+}
+
+// one output element: the gates from the four sums, z and n rounded before
+// the combine (K2's rebuild recombines the stored z and n bit for bit)
 template <typename T>
+__device__ __forceinline__ void gru_out(int d, int Kn, int H, int m, int h, size_t r0, float sr,
+                                        float sz, float si, float sh, const T* brz_all,
+                                        const T* bin_all, const T* bhn_all, const T* agg,
+                                        int ldg, const float* nmask, T* out, int ldo, T* rr,
+                                        T* zz, T* nn, int ldres) {
+  if (m >= Kn || h >= H) return;
+  const size_t row = r0 + m;
+  const float r = sigm(sr + ldf(brz_all + (size_t)d * 2 * H + h));
+  const float z = sigm(sz + ldf(brz_all + (size_t)d * 2 * H + H + h));
+  const float hn = sh + ldf(bhn_all + (size_t)d * H + h);
+  const float n = tanhf((si + ldf(bin_all + (size_t)d * H + h)) + r * hn);
+  const float zd = rnd<T>(z), nd = rnd<T>(n);
+  const float ag = ldf(agg + row * ldg + h);
+  out[row * ldo + h] = cvt<T>(gru_combine(zd, nd, ag, nmask[row]));
+  if (rr) {
+    rr[row * ldres + h] = cvt<T>(r);
+    zz[row * ldres + h] = cvt<T>(z);
+    nn[row * ldres + h] = cvt<T>(n);
+  }
+}
+
+template <typename T, bool ASYNC>
 __global__ void __launch_bounds__(NT) gru_fwd_kernel(
     int nb0, int Kn, int H, int Din, const T* cur, int ldc, const T* agg, int ldg,
     const T* wih_all, const T* whh_all, const T* brz_all, const T* bin_all,
     const T* bhn_all, const float* nmask, T* out, int ldo, T* rr, T* zz, T* nn,
     int ldres) {
-  __shared__ float sA[BM][BK + 1];
-  __shared__ float sW[3][BN][BK + 1];
   const int d = blockIdx.z, h0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
   const size_t r0 = (size_t)(nb0 + d) * Kn;
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
   const T* wih = wih_all + (size_t)d * 3 * H * Din;
   const T* whh = whh_all + (size_t)d * 3 * H * H;
   const T* curd = cur + r0 * ldc;
   const T* aggd = agg + r0 * ldg;
-  float acc[4][4];
+  if constexpr (std::is_same<T, bf16>::value) {
+    extern __shared__ __align__(16) unsigned char gsm[];
+    const int grp = threadIdx.x / TC_THREADS, t = threadIdx.x % TC_THREADS, o = 1 - grp;
+    const int nx = (Din + TK_GRU - 1) / TK_GRU, nh = (H + TK_GRU - 1) / TK_GRU;
+    float acc[3][2][4];
+    tc_gru<ASYNC>(reinterpret_cast<GruStage*>(gsm) + grp * GRU_STAGES, grp ? aggd : curd,
+                  grp ? ldg : ldc, grp ? whh : wih, Kn, H, grp ? H : Din, max(nx, nh), m0, h0,
+                  acc);
+    // group g writes n8 block g of every warp's tile and sends block o (the
+    // selects keep the register arrays statically indexed)
+    float* xch = reinterpret_cast<float*>(gsm);   // [group][gate][i][t]
+    __syncthreads();                              // both rings are drained
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int g = 0; g < 3; ++g)
 #pragma unroll
-    for (int g = 0; g < 4; ++g) acc[i][g] = 0.f;
-
-  for (int phase = 0; phase < 2; ++phase) {
-    const T* A = phase ? aggd : curd;
-    const size_t lda = phase ? ldg : ldc;
-    const T* W = phase ? whh : wih;
-    const int K = phase ? H : Din;
-    const int g2 = phase ? 3 : 2;  // n-gate accumulator: i_n or h_n
-    for (int k0 = 0; k0 < K; k0 += BK) {
-      load_tile<T>(sA, A, lda, Kn, K, m0, k0);
-      for (int g = 0; g < 3; ++g) load_tile<T>(sW[g], W + (size_t)g * H * K, K, H, K, h0, k0);
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < BK; ++kk) {
-        const float w0 = sW[0][tx][kk], w1 = sW[1][tx][kk], w2 = sW[2][tx][kk];
+      for (int i = 0; i < 4; ++i)
+        xch[((grp * 3 + g) * 4 + i) * TC_THREADS + t] = grp ? acc[g][0][i] : acc[g][1][i];
+    __syncthreads();
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float av = sA[ty + 8 * i][kk];
-          acc[i][0] += av * w0;
-          acc[i][1] += av * w1;
-          acc[i][g2] += av * w2;
-        }
+    for (int i = 0; i < 4; ++i) {
+      float y[3], k[3];
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+        y[g] = xch[((o * 3 + g) * 4 + i) * TC_THREADS + t];
+        k[g] = grp ? acc[g][1][i] : acc[g][0][i];
       }
-      __syncthreads();
+      gru_out<T>(d, Kn, H, m0 + tc_row(i, t), h0 + tc_col(grp, i, t), r0, k[0] + y[0],
+                 k[1] + y[1], grp ? y[2] : k[2], grp ? k[2] : y[2], brz_all, bin_all, bhn_all,
+                 agg, ldg, nmask, out, ldo, rr, zz, nn, ldres);
     }
-  }
-  const int h = h0 + tx;
-  if (h >= H) return;
-  const float brr = ldf(brz_all + (size_t)d * 2 * H + h);
-  const float bzz = ldf(brz_all + (size_t)d * 2 * H + H + h);
-  const float bi = ldf(bin_all + (size_t)d * H + h);
-  const float bh = ldf(bhn_all + (size_t)d * H + h);
+  } else {
+    __shared__ float sA[BM][BK + 1];
+    __shared__ float sW[3][BN][BK + 1];
+    const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+    float acc[4][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 8 * i;
-    if (m >= Kn) continue;
-    const size_t row = r0 + m;
-    const float r = sigm(acc[i][0] + brr);
-    const float z = sigm(acc[i][1] + bzz);
-    const float hn = acc[i][3] + bh;
-    const float n = tanhf((acc[i][2] + bi) + r * hn);
-    const float zd = rnd<T>(z), nd = rnd<T>(n);
-    const float ag = ldf(agg + row * ldg + h);
-    out[row * ldo + h] = cvt<T>(gru_combine(zd, nd, ag, nmask[row]));
-    if (rr) {
-      rr[row * ldres + h] = cvt<T>(r);
-      zz[row * ldres + h] = cvt<T>(z);
-      nn[row * ldres + h] = cvt<T>(n);
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int g = 0; g < 4; ++g) acc[i][g] = 0.f;
+
+    for (int phase = 0; phase < 2; ++phase) {
+      const T* A = phase ? aggd : curd;
+      const size_t lda = phase ? ldg : ldc;
+      const T* W = phase ? whh : wih;
+      const int K = phase ? H : Din;
+      const int g2 = phase ? 3 : 2;  // n-gate accumulator: i_n or h_n
+      for (int k0 = 0; k0 < K; k0 += BK) {
+        load_tile<T>(sA, A, lda, Kn, K, m0, k0);
+        for (int g = 0; g < 3; ++g) load_tile<T>(sW[g], W + (size_t)g * H * K, K, H, K, h0, k0);
+        __syncthreads();
+#pragma unroll 8
+        for (int kk = 0; kk < BK; ++kk) {
+          const float w0 = sW[0][tx][kk], w1 = sW[1][tx][kk], w2 = sW[2][tx][kk];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float av = sA[ty + 8 * i][kk];
+            acc[i][0] += av * w0;
+            acc[i][1] += av * w1;
+            acc[i][g2] += av * w2;
+          }
+        }
+        __syncthreads();
+      }
     }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      gru_out<T>(d, Kn, H, m0 + ty + 8 * i, h0 + tx, r0, acc[i][0], acc[i][1], acc[i][2],
+                 acc[i][3], brz_all, bin_all, bhn_all, agg, ldg, nmask, out, ldo, rr, zz, nn,
+                 ldres);
   }
 }
 
@@ -549,7 +909,7 @@ __global__ void __launch_bounds__(NT) gru_fwd_kernel(
 // dependent latencies. The first version took a block per slot whose warp
 // 0 alone ballot-scanned the whole list from device memory (16 dependent
 // rounds at Kt 512) before any row moved: 9.8 us against 5.8 us for
-// index_add_ on the H100. Here grid (Kn, nblk): one slot a block, SM_WPS
+// index_add_ on the H100 (PERF.md). Here grid (Kn, nblk): one slot a block, SM_WPS
 // warps, each a share of its columns: the block stages its list's
 // keys (idx where mask is set, else -1) in shared memory once, 16-byte
 // loads where aligned, in chunks of SM_CHUNK entries; each warp ballots its
@@ -563,75 +923,7 @@ __global__ void __launch_bounds__(NT) gru_fwd_kernel(
 // bit. One slot a block, with 4 warps sharing its columns: the more warps
 // share a slot's chain of loads, the shorter each warp's part of it.
 #define SM_WPS 4        // warps a slot (and a block); they split its columns
-#define SM_CHUNK 2048   // list entries staged in shared memory at a time
-#define SM_U 4          // list entries whose rows are loaded together
 #define SM_LCAP 64      // a warp's list; added up when the next ballot could overflow it
-
-// key[i] = idx[i] where mask[i] > 0, else -1, for i < ne (the whole block)
-__device__ __forceinline__ void stage_keys(int* key, const int* ix, const float* mk, int ne) {
-  int done = 0;
-  if (((reinterpret_cast<uintptr_t>(ix) | reinterpret_cast<uintptr_t>(mk)) & 15) == 0) {
-    done = ne & ~3;
-    for (int i = threadIdx.x; i < (ne >> 2); i += blockDim.x) {
-      const int4 a = reinterpret_cast<const int4*>(ix)[i];
-      const float4 m = reinterpret_cast<const float4*>(mk)[i];
-      reinterpret_cast<int4*>(key)[i] = make_int4(m.x > 0.f ? a.x : -1, m.y > 0.f ? a.y : -1,
-                                                  m.z > 0.f ? a.z : -1, m.w > 0.f ? a.w : -1);
-    }
-  }
-  for (int i = done + threadIdx.x; i < ne; i += blockDim.x) key[i] = mk[i] > 0.f ? ix[i] : -1;
-}
-
-// V consecutive elements as f32 (V = 8: one or two 16-byte loads)
-template <int V>
-__device__ __forceinline__ void ldv(const bf16* p, float* o) {
-  if constexpr (V == 8) {
-    const uint4 q = *reinterpret_cast<const uint4*>(p);
-    const uint32_t w[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-      o[2 * i] = f.x;
-      o[2 * i + 1] = f.y;
-    }
-  } else {
-    o[0] = ldf(p);
-  }
-}
-template <int V>
-__device__ __forceinline__ void ldv(const float* p, float* o) {
-  if constexpr (V == 8) {
-    const float4 a = reinterpret_cast<const float4*>(p)[0];
-    const float4 b = reinterpret_cast<const float4*>(p)[1];
-    o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
-    o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
-  } else {
-    o[0] = *p;
-  }
-}
-template <int V>
-__device__ __forceinline__ void stv(bf16* p, const float* v) {
-  if constexpr (V == 8) {
-    uint32_t w[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-      w[i] = *reinterpret_cast<const uint32_t*>(&h);
-    }
-    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-  } else {
-    *p = cvt<bf16>(v[0]);
-  }
-}
-template <int V>
-__device__ __forceinline__ void stv(float* p, const float* v) {
-  if constexpr (V == 8) {
-    reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-    reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-  } else {
-    *p = v[0];
-  }
-}
 
 template <typename T, int V>
 __global__ void __launch_bounds__(SM_WPS * 32) seg_merge_kernel(
@@ -748,8 +1040,9 @@ __global__ void __launch_bounds__(NT) rebuild_kernel(
     for (int nb = 0; nb < 2; ++nb)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int h = h0 + tc_col(nb, i);
-        rebuild_out<T>(Kn, H, m0 + tc_row(i), h, r0, acc[nb][i], h < H ? ldf(bhn + h) : 0.f,
+        const int h = h0 + tc_col(nb, i, threadIdx.x);
+        rebuild_out<T>(Kn, H, m0 + tc_row(i, threadIdx.x), h, r0, acc[nb][i],
+                       h < H ? ldf(bhn + h) : 0.f,
                        agg, z, nres_n, ldres, nmask, hn, cur_out, ldo);
       }
   } else {
@@ -851,7 +1144,8 @@ __global__ void __launch_bounds__(NT) gemm_nn_kernel(int nb0, int Kn, int H, int
     for (int nb = 0; nb < 2; ++nb)
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        gemm_nn_out<T>(which, Kn, N, m0 + tc_row(i), n0 + tc_col(nb, i), r0, acc[nb][i], dagg,
+        gemm_nn_out<T>(which, Kn, N, m0 + tc_row(i, threadIdx.x),
+                       n0 + tc_col(nb, i, threadIdx.x), r0, acc[nb][i], dagg,
                        gz, dcur);
   } else {
     __shared__ float sA[BM][BK + 1];
@@ -1042,7 +1336,7 @@ __global__ void __launch_bounds__(NT) wgrad_kernel(int nb0, int Kn, int H, int D
     for (int nb = 0; nb < 2; ++nb)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int j = j0 + tc_row(i), k = k0 + tc_col(nb, i);
+        const int j = j0 + tc_row(i, threadIdx.x), k = k0 + tc_col(nb, i, threadIdx.x);
         if (j < J && k < K) dW[(size_t)j * K + k] += acc[nb][i];
       }
   } else {
@@ -1136,6 +1430,11 @@ static bool read_tab(const int* t, int nblk, Tab* tb, int* kemax, int* ktmax) {
   return true;
 }
 
+static bool al16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+static bool al8(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 7) == 0; }
+
+// attn_fwd over a table's blocks: V = 4 value columns a lane when H, the
+// leading dimensions and the pointers allow 4-element loads, else one
 template <typename T>
 static void launch_attn_fwd(const Tab& tb, int nblk, int kemax, int Kn, int H, int Dq, int R,
                             const void* q, int ldq, const void* val, int ldv, const int* nsrc,
@@ -1143,12 +1442,17 @@ static void launch_attn_fwd(const Tab& tb, int nblk, int kemax, int Kn, int H, i
                             const float* emask, const void* wq, const void* wk, const void* b,
                             const void* we, const void* be, float* a32, int lda32, void* agg,
                             int ldagg, cudaStream_t st) {
-  const size_t smem = (size_t)kemax * (sizeof(T*) + 2 * sizeof(int));
-  smem_opt_in(attn_fwd_kernel<T>, smem);
+  const size_t smem = (size_t)kemax * (sizeof(T*) + 2 * sizeof(int)) +
+                      (size_t)H * (R + 2) * sizeof(float);
+  const auto alv = [](const void* p) { return sizeof(T) == 2 ? al8(p) : al16(p); };
+  const bool vec = H % 4 == 0 && ldv % 4 == 0 && lds % 4 == 0 && ldagg % 4 == 0 && alv(val) &&
+                   alv(src) && alv(agg);
+  auto k = vec ? attn_fwd_kernel<T, 4> : attn_fwd_kernel<T, 1>;
+  smem_opt_in(k, smem, sizeof(int) * SM_CHUNK);
   Vals<T> vs{P(T, val), ldv, nsrc, P(T, src), lds};
-  attn_fwd_kernel<T><<<dim3(Kn, nblk), 128, smem, st>>>(
-      tb, Kn, H, Dq, R, P(T, q), ldq, vs, P(T, ea), edst, emask, P(T, wq), P(T, wk), P(T, b),
-      P(T, we), P(T, be), a32, lda32, PM(T, agg), ldagg);
+  k<<<dim3(Kn, nblk), AF_THREADS, smem, st>>>(tb, Kn, H, Dq, R, P(T, q), ldq, vs, P(T, ea), edst,
+                                             emask, P(T, wq), P(T, wk), P(T, b), P(T, we),
+                                             P(T, be), a32, lda32, PM(T, agg), ldagg, kemax);
 }
 
 extern "C" int wf_attn_fwd(int dtype, const int* tab, int nblk, int Kn, int H, int Dq, int R,
@@ -1159,7 +1463,7 @@ extern "C" int wf_attn_fwd(int dtype, const int* tab, int nblk, int Kn, int H, i
                            int ldagg, void* stream) {
   Tab tb;
   int kemax, ktmax;
-  if (!read_tab(tab, nblk, &tb, &kemax, &ktmax)) return (int)cudaErrorInvalidValue;
+  if (R > MAXR || !read_tab(tab, nblk, &tb, &kemax, &ktmax)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     launch_attn_fwd<float>(tb, nblk, kemax, Kn, H, Dq, R, q, ldq, val, ldv, nsrc, src, lds, ea,
@@ -1178,21 +1482,24 @@ extern "C" int wf_gru_fwd(int dtype, int nb0, int nblk, int Kn, int H, int Din,
   if (nblk < 1 || nblk > MAXB) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   dim3 grid((H + BN - 1) / BN, (Kn + BM - 1) / BM, nblk);
-  if (dtype == 0)
-    gru_fwd_kernel<float><<<grid, NT, 0, st>>>(
+  if (dtype == 0) {
+    gru_fwd_kernel<float, false><<<grid, NT, 0, st>>>(
         nb0, Kn, H, Din, P(float, cur), ldc, P(float, agg), ldg, P(float, wih), P(float, whh),
         P(float, brz), P(float, bin), P(float, bhn), nmask, PM(float, out), ldo, PM(float, r),
         PM(float, z), PM(float, n), ldres);
-  else
-    gru_fwd_kernel<bf16><<<grid, NT, 0, st>>>(
-        nb0, Kn, H, Din, P(bf16, cur), ldc, P(bf16, agg), ldg, P(bf16, wih), P(bf16, whh),
-        P(bf16, brz), P(bf16, bin), P(bf16, bhn), nmask, PM(bf16, out), ldo, PM(bf16, r),
-        PM(bf16, z), PM(bf16, n), ldres);
+  } else {
+    const bool al = H % 4 == 0 && Din % 4 == 0 && ldc % 4 == 0 && ldg % 4 == 0 && al8(cur) &&
+                    al8(agg) && al8(wih) && al8(whh);
+    auto k = al ? gru_fwd_kernel<bf16, true> : gru_fwd_kernel<bf16, false>;
+    const size_t smem = sizeof(GruStage) * 2 * GRU_STAGES;
+    smem_opt_in(k, smem);
+    k<<<grid, GRU_THREADS, smem, st>>>(nb0, Kn, H, Din, P(bf16, cur), ldc, P(bf16, agg), ldg,
+                                   P(bf16, wih), P(bf16, whh), P(bf16, brz), P(bf16, bin),
+                                   P(bf16, bhn), nmask, PM(bf16, out), ldo, PM(bf16, r),
+                                   PM(bf16, z), PM(bf16, n), ldres);
+  }
   return (int)cudaGetLastError();
 }
-
-static bool al16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
-static bool al8(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 7) == 0; }
 
 // seg_merge over a table's blocks: 16-byte columns when L*H and every
 // row pointer allow them, else one column a lane

@@ -964,15 +964,15 @@ def dagnn_forward(params, cfg: DAGNNConfig, batch: DAGBatch,
         if route in ("pair", "merged"):
             # this direction's output rows straight from the merged buffer
             ms = _remap_slot(_t(oslots, dev).long(), kn, L, d)
-            hcat, xsel = h2[ms], x2[ms]
+            hd, xd = h2, x2
         else:
             # pad entries point at slot 0 and are killed by the mask
             hd, xd = _direction_pass(params, cfg, x, batch.edge_attr, sched, d,
                                      impl)
             ms = _t(oslots, dev).long()
-            hcat, xsel = hd[ms], xd[ms]
-        if cfg.out_wx:
-            hcat = torch.cat([xsel, hcat], dim=-1)
+        hcat = hd[ms]
+        if cfg.out_wx:          # x's rows are gathered only where read
+            hcat = torch.cat([xd[ms], hcat], dim=-1)
         omask = batch.out_slots_mask_fwd if d == 0 else batch.out_slots_mask_rev
         parts.append(_pool_gathered(hcat, _t(omask, dev).bool(), cfg.out_pool))
     out = torch.cat(parts, dim=-1)

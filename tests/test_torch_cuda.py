@@ -7,7 +7,10 @@ with empty, fully masked and out-of-range slots), the transpose-grad
 accumulate K5, the near/far modes K7 (ragged merged rows mixing "r", "t"
 and "p", an empty near list, near edges that all read pad slots), K2
 without residual streams (K2r, bitwise K2), K2's GEMM launches alone
-(tensor cores in bf16) and the segment merge in each of its forms; with
+(tensor cores in bf16), K1's two launches alone (the GRU on the tensor
+cores in bf16; the attention with empty and single-slot lists, huge
+masked scores and routed reads) and the segment merge in each of its
+forms; with
 and without edge
 attributes, widths that are not multiples of the kernels' 32-wide tiles,
 float32 and bfloat16.
@@ -497,6 +500,131 @@ def test_gemms_match_plain(dev, shape, nd, dt):
     assert _err(hn, hn_ref) <= TOL[dt]
     z, nn_ = F(nres[:, H:2 * H]), F(nres[:, 2 * H:3 * H])
     assert torch.equal(out, (((1.0 - z) * nn_ + z * F(agg)) * nmask[:, None]).to(dt))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("nd", [1, 2])
+@pytest.mark.parametrize("shape", list(GEMM_SHAPES))
+def test_gru_fwd_matches_f32_products(dev, shape, nd, dt):
+    """K1/K3's GRU launch alone (tensor cores in bf16) against float32
+    products of the same operands: r, z and n from cur w_ih^T + agg w_hh^T
+    and the biases; the output bitwise the combine of the launch's own
+    stored z and n (K2's rebuild recombines them); bitwise repeatable.
+    agg and the residuals lie in an nres-like buffer (leading dimension 4H)."""
+    from dagnn_tpu_torch.ops import row_step as rs
+    kn, H, emb = (GEMM_SHAPES[shape][k] for k in ("kn", "H", "emb"))
+    gen = torch.Generator().manual_seed(nd * 11 + len(shape))
+    r = lambda *s: (0.5 * torch.randn(s, generator=gen)).to(dt).to(dev)
+    code, rows, ldr = rs._DT_CODE[dt], nd * kn, 4 * H
+    cur, nres = r(rows, emb), r(rows, ldr)
+    wih, whh = r(nd, 3 * H, emb), r(nd, 3 * H, H)
+    brz, bin_, bhn = r(nd, 2 * H), r(nd, H), r(nd, H)
+    nmask = (torch.rand(rows, generator=gen) > 0.2).float().to(dev)
+    F = lambda t: t.float()
+
+    def run():
+        res = nres.clone()
+        out = torch.empty(rows, H, dtype=dt, device=dev)
+        _launch("wf_gru_fwd", code, 0, nd, kn, H, emb, _p(cur), emb, _p(res), ldr,
+                _p(wih), _p(whh), _p(brz), _p(bin_), _p(bhn), _p(nmask), _p(out), H,
+                _p(res[:, H:]), _p(res[:, 2 * H:]), _p(res[:, 3 * H:]), ldr)
+        return out, res
+
+    out, res = run()
+    agg = F(nres[:, :H])
+    for d in range(nd):
+        b = slice(d * kn, (d + 1) * kn)
+        gi = F(cur[b]) @ F(wih[d]).T
+        gh = agg[b] @ F(whh[d]).T
+        rr = torch.sigmoid(gi[:, :H] + gh[:, :H] + F(brz[d, :H]))
+        zz = torch.sigmoid(gi[:, H:2 * H] + gh[:, H:2 * H] + F(brz[d, H:]))
+        nn_ = torch.tanh(gi[:, 2 * H:] + F(bin_[d]) + rr * (gh[:, 2 * H:] + F(bhn[d])))
+        for name, got, want in (("r", res[b, H:2 * H], rr), ("z", res[b, 2 * H:3 * H], zz),
+                                ("n", res[b, 3 * H:], nn_)):
+            assert _err(got, want.to(dt)) <= TOL[dt], (name, d)
+    assert torch.equal(res[:, :H], nres[:, :H])          # agg is read, not written
+    z, n = F(res[:, 2 * H:3 * H]), F(res[:, 3 * H:])
+    assert torch.equal(out, (((1.0 - z) * n + z * agg) * nmask[:, None]).to(dt))
+    again = run()
+    assert torch.equal(again[0], out) and torch.equal(again[1], res)
+
+
+# attn_fwd alone: (kn, ke, the law of the edges, nf). "random": sorted
+# slots, masked edges and pad slots (Kn), ke not a multiple of 4 or 32;
+# "one slot": 613 edges all on slot 5 (slots 0-4 and 6.. empty) but pads;
+# "huge masked": masked edges on real slots whose scores exceed 88;
+# "routed": a K7 "r" block, the tail of its edges read from prev_out
+# through nsrc, pad nsrc (Kn) among them
+ATTN_CASES = {"random": (37, 70, "random", None), "one slot": (29, 613, "one", None),
+              "huge masked": (23, 45, "huge", None),
+              "routed": (37, 97, "random", (("r", 97, 41),))}
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("H", [45, 44])
+@pytest.mark.parametrize("case", list(ATTN_CASES))
+def test_attn_fwd_matches_plain(dev, case, H, dt):
+    """K1/K3's attention launch alone against row_forward_plain's first
+    layer (its alpha32 and agg) on one block: an empty slot gets agg 0,
+    masked edges with huge scores stay out (no NaN), pad slots and pad
+    nsrc read nothing, alpha32 is 0 on every invalid edge; H 44 takes the
+    4-column loads, 45 one column a lane; bitwise repeatable."""
+    from dagnn_tpu_torch.ops import row_step as rs
+    kn, ke, law, nf = ATTN_CASES[case]
+    emb, R = 37, 3
+    g = torch.Generator().manual_seed(ke + H)
+    w = _weights(g, dt, dev, 1, True, H, emb, 1, R)
+    if law == "one":
+        edst = torch.full((ke,), 5)
+    else:
+        edst = torch.sort(torch.randint(0, kn, (ke,), generator=g))[0]
+    emask = torch.rand(ke, generator=g) > 0.2
+    pad = torch.rand(ke, generator=g) < 0.1
+    edst[pad] = kn
+    if law == "random":
+        edst[edst == 0] = 1                      # slot 0 has no edges
+    ea = torch.zeros(ke, R)
+    ea[torch.arange(ke), torch.randint(0, R, (ke,), generator=g)] = 1
+    kv = nf[0][2] if nf else ke
+    vals = (torch.rand(kv, H, generator=g) * 2 - 1) * 0.5
+    if law == "huge":                            # masked: k . wk far above 88
+        vals[~emask] = 400 * torch.sign(w["a0_wk"].float().cpu()).flatten()
+    d = dict(xin=torch.randn(kn, emb, generator=g), vals=vals, ea=ea, edst=edst.int(),
+             emask=emask.float(), nmask=torch.ones(kn))
+    if nf:
+        nsrc = torch.full((ke,), kn)
+        nsrc[kv:] = torch.randint(0, kn + 1, (ke - kv,), generator=g)
+        d.update(nsrc=nsrc.int(), prev_out=torch.randn(kn, H, generator=g))
+    d = {k: (v.to(dt) if k in ("xin", "vals", "ea", "prev_out") else v).to(dev)
+         for k, v in d.items()}
+    st = (True, H, 1)
+    _, pa32, pres = rs.row_forward_plain(
+        st, d["xin"], d["vals"], d["ea"], d["edst"], d["emask"], d["nmask"], w,
+        emit_res=True, nf=nf, nsrc=d.get("nsrc"), prev_out=d.get("prev_out"))
+    tab, nb = rs._tab(rs.row_table(nf, 1, ke, 0))
+    src = d.get("prev_out")
+
+    def run():
+        a32 = torch.full((ke, 1), float("nan"), device=dev)
+        agg = torch.full((kn, 4 * H), float("nan"), dtype=dt, device=dev)
+        _launch("wf_attn_fwd", rs._DT_CODE[dt], tab, nb, kn, H, emb, R, _p(d["xin"]), emb,
+                _p(d["vals"]), H, _p(d.get("nsrc")), _p(src), H, _p(d["ea"]), _p(d["edst"]),
+                _p(d["emask"]), _p(w["a0_wq"]), _p(w["a0_wk"]), _p(w["a0_b"]), _p(w["a0_we"]),
+                _p(w["a0_be"]), _p(a32), 1, _p(agg), 4 * H)
+        return a32, agg[:, :H]
+
+    a32, agg = run()
+    valid = (d["emask"] > 0) & (d["edst"] < kn)
+    assert torch.isfinite(a32).all() and torch.isfinite(agg.float()).all()
+    assert not a32[~valid].any()
+    assert _err(a32, pa32) <= TOL[dt] and _err(agg, pres[:, :H]) <= TOL[dt]
+    empty = torch.ones(kn, dtype=torch.bool, device=dev)
+    empty[d["edst"][valid].long()] = False
+    assert empty.any() and not agg[empty].any()
+    if law == "huge":
+        assert (~d["emask"].bool()).any()
+    again = run()
+    assert torch.equal(again[0], a32) and torch.equal(again[1], agg)
 
 
 def _merge_ref(base, src, idx, mask, so, to, kt, kn, gadd):

@@ -48,12 +48,14 @@ EMB, HID, VOCAB, SEQ = 12, 16, 20, 3
 BF16_TOL, BF16_GRAD_TOL, NOISE_TOL = 3e-2, 1e-1, 8.0
 
 
-def small_setup(dtype="float32", seed=0, n_graphs=4, pair=0, nearfar=0):
+def small_setup(dtype="float32", seed=0, n_graphs=4, pair=0, nearfar=0,
+                out_wx=False):
     """(jax cfg, port cfg, jax params, port params, jax batch, port batch)
     of the shrunk flagship; both batches collated from the same graphs,
     with a pair plan when pair > 0 (the JAX bench's rounding of max_levels
     to even, bench.py:151-152), in a near/far layout when nearfar is set
-    (PadConfig.nearfar)."""
+    (PadConfig.nearfar); out_wx puts each direction's input rows beside
+    the pooled states (a wider head)."""
     kw = dict(mean_nodes=14, vocab=VOCAB, seq_len=SEQ)
     jg, tg = jsynth(seed, n_graphs, **kw), tsynth(seed, n_graphs, **kw)
     jpad = dataclasses.replace(ge._pad_for(jg, chunk=8, edge_budget=16),
@@ -68,6 +70,8 @@ def small_setup(dtype="float32", seed=0, n_graphs=4, pair=0, nearfar=0):
     jcfg = dataclasses.replace(ge._flagship_cfg(emb=EMB, hidden=HID),
                                num_vocab=VOCAB, max_seq_len=SEQ,
                                compute_dtype=dtype, segment_impl="fused")
+    tcfg = dataclasses.replace(tcfg, out_wx=out_wx)
+    jcfg = dataclasses.replace(jcfg, out_wx=out_wx)
     jparams = jdagnn.dagnn_init(jax.random.PRNGKey(seed), jcfg)
     tparams = convert.params_from_numpy(jax.tree.map(np.asarray, jparams),
                                         device="cpu")
@@ -144,6 +148,29 @@ def test_params_round_trip():
 def test_forward_and_grads_match_jax_fused(dtype):
     jcfg, tcfg, jparams, tparams, jb, tb = small_setup(dtype)
     assert tb.fwd.node_ids.shape[0] > 4          # a real multi-row wavefront
+    want, jl, jg = jax_run(jcfg, jparams, jb)
+    with torch.no_grad():
+        got = tdagnn.dagnn_forward(tparams, tcfg, tb).float().numpy()
+    close(got, want, dtype, name="logits")
+    tl, tg = port_loss_and_grads(tcfg, tparams, tb)
+    close(tl, jl, dtype, name="loss")
+    assert set(jg) == set(tg)
+    if dtype == "bfloat16":
+        close_bf16_grads(tg, jg, tcfg, tparams, tb)
+        return
+    for k in jg:
+        close(tg[k], jg[k], dtype, grad=True, name=k)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_out_wx_matches_jax(dtype):
+    """out_wx=True (the reference's default; the flagship turns it off): the
+    readout concatenates each direction's input rows at the output slots
+    before the pooled states, on the merged wavefront."""
+    jcfg, tcfg, jparams, tparams, jb, tb = small_setup(dtype, seed=3,
+                                                       out_wx=True)
+    assert tcfg.out_wx and tcfg.out_hidden_dim == 2 * (EMB + 2 * HID)
+    assert tdagnn._route(tcfg, tb, None)[0] == "merged"
     want, jl, jg = jax_run(jcfg, jparams, jb)
     with torch.no_grad():
         got = tdagnn.dagnn_forward(tparams, tcfg, tb).float().numpy()

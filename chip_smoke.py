@@ -22,8 +22,9 @@ split form), the merged and unidirectional wavefronts on near/far batches
       the flagship shapes, bf16 and f32, with bounds and two timings: on
       the device (50 calls replayed from one CUDA graph) and per eager call
   3b. K3 and K4 the same way on one pair step of the flagship pair batch
-  3c. K6 forward and backward the same way on one level of the flagship
-      batch (Ke 512, 257 slots, H 300)
+  3c. K6 forward and backward the same way on two levels of the flagship
+      batch (Ke 512, 257 slots, H 300): the busiest and the median by valid
+      edges, each with its valid edges and most edges a slot
   3d. K5 the same way (Kn 256, Kt 512, L*H 600), with index_add_ on the
       same data as the one-PyTorch-call time; and one row at one direction,
       K2 (merge_tg=True) against K5 + K2 (merge_tg=False)
@@ -617,13 +618,26 @@ def report(name, dt, r):
           f"{r['err']:.3e} of max|plain| {r['scale']:.3e} (tolerance {TOL[dt]:g})")
 
 
-def phase_segment_attn(dev, host, H=300):
+def median_level(host, key):
+    """(direction schedule, row) of the flagship batch whose `key` mask has
+    the median count of entries set over both directions' levels: what
+    most of a step's launches of a per-level kernel see."""
+    rows = sorted((int(getattr(s, key)[r].sum()), i, r)
+                  for i, s in enumerate((host.fwd, host.rev))
+                  for r in range(getattr(s, key).shape[0]))
+    _, i, r = rows[len(rows) // 2]
+    return (host.fwd, host.rev)[i], r
+
+
+def phase_segment_attn(dev, host, level, H=300):
     """Phase 3c: K6 forward and backward against their plain versions on
     one level of the flagship batch (its slots and masks; random scores,
-    values and cotangent from a seed), bf16 and f32; timed as phase 3."""
+    values and cotangent from a seed), bf16 and f32; timed as phase 3.
+    `level` picks the level: "busiest" or "median" by valid edges."""
     from dagnn_tpu_torch import checks
     from dagnn_tpu_torch.ops import segment_attn as sa
-    sched, row = busiest_level(host, "edge_mask")
+    pick = busiest_level if level == "busiest" else median_level
+    sched, row = pick(host, "edge_mask")
     kn = sched.node_ids.shape[1]
     S = kn + 1
     dst = torch.as_tensor(sched.edge_dst[row]).int().to(dev)
@@ -631,10 +645,12 @@ def phase_segment_attn(dev, host, H=300):
     ke = dst.shape[0]
     ne = int((mask > 0).sum())
     deg = torch.bincount(dst[mask > 0].long(), minlength=S)
-    print(f"  level {row} of the {'fwd' if sched is host.fwd else 'rev'} schedule: "
-          f"{ne} of {ke} edges valid, {int((deg > 0).sum())} of {S} slots "
-          f"non-empty, at most {int(deg.max())} edges a slot")
-    results = {}
+    print(f"  {level} level: level {row} of the "
+          f"{'fwd' if sched is host.fwd else 'rev'} schedule: {ne} of {ke} edges "
+          f"valid, {int((deg > 0).sum())} of {S} slots non-empty, at most "
+          f"{int(deg.max())} edges a slot")
+    results = {"level": dict(schedule="fwd" if sched is host.fwd else "rev", row=row,
+                             valid_edges=ne, max_edges_a_slot=int(deg.max()))}
     for dt in (torch.bfloat16, torch.float32):
         g = torch.Generator().manual_seed(2)
         sc = torch.randn(ke, generator=g).to(dt).to(dev)
@@ -1052,7 +1068,8 @@ def profile_step(tag, train_step, params, state, batch, card, out_dir):
     """Optional (--profile): one train step under torch.profiler. Writes
     the trace to <out_dir>/step_trace_<tag>.json and prints, from its
     kernel and memory-op events, the device's busy share of the step's span
-    and the device time by kernel."""
+    and the device time by kernel, and K6's summed device time where the
+    step launched it."""
     import collections
     import os
     from torch.profiler import ProfilerActivity, profile
@@ -1082,6 +1099,14 @@ def profile_step(tag, train_step, params, state, batch, card, out_dir):
         by[name.split("<")[0].split("(")[0]] += e["dur"]
     for name, us in by.most_common(12):
         print(f"    {us / 1e3:9.3f} ms {100 * us / busy:5.1f}%  {name}")
+    k6 = {k: [e["dur"] for e in dev if e["name"].replace("void ", "").startswith(k)]
+          for k in ("sa_fwd_kernel", "sa_bwd_kernel")}
+    if any(k6.values()):
+        tot = sum(sum(d) for d in k6.values())
+        print(f"[profile {tag}] K6: " + ", ".join(
+            f"{k} {sum(d) / 1e3:.3f} ms in {len(d)} launches" for k, d in k6.items())
+            + f"; together {tot / 1e3:.3f} ms of the step's busy {busy / 1e3:.2f} ms "
+            f"({100 * tot / busy:.1f}%)")
 
 
 def _counted_modules():
@@ -1222,8 +1247,9 @@ def main(argv):
           + json.dumps(WIDTH))
     pairs = phase_kernels(pair_spec(dev, host2.pair, kn, p))
     print("[3c] K6 forward (K6f) and backward (K6b) against their plain "
-          "versions, one level of the flagship batch, H 300")
-    segs = phase_segment_attn(dev, host0)
+          "versions, the busiest and the median level of the flagship batch, H 300")
+    segs = phase_segment_attn(dev, host0, "busiest")
+    segs_median = phase_segment_attn(dev, host0, "median")
     print("[3d] K5 against its plain version, one level's transpose schedule "
           "of the flagship batch")
     tgs = phase_tg_accumulate(dev, host0)
@@ -1406,6 +1432,12 @@ def main(argv):
                       "nearfar_cross_route": nf_cross, "ab_steps": ab,
                       "split_row": {short(k): v for k, v in split_row.items()},
                       "k2_launches": k2_launches, "k1_launches": k1_launches,
+                      "k6": {lv: {"level": res["level"], **{
+                          short(dt): {k: {x: r[x] for x in ("ms", "windows", "call_ms",
+                                                            "plain_ms", "rel")}
+                                      for k, r in res[dt].items()}
+                          for dt in (torch.bfloat16, torch.float32)}}
+                             for lv, res in (("busiest", segs), ("median", segs_median))},
                       "gpu": card,
                       "f32_kernels": {**rows[torch.float32], **pairs[torch.float32],
                                       **segs[torch.float32], **tgs[torch.float32],

@@ -1,7 +1,9 @@
 // Device helpers shared by the port's CUDA sources (wavefront.cu, the row
 // and pair kernels K1-K5; segment_attn.cu, the edge-softmax aggregate K6):
 // typed loads and stores in float32, rounding through the compute type, a
-// warp sum, and the ordered per-slot edge list every segment op is built on.
+// warp sum, and an ordered per-slot edge list scanned from device memory
+// (wavefront.cu's attn_bwd; the other segment ops stage their keys in
+// shared memory first).
 // ops/build.py hashes this header with each source that includes it.
 
 #pragma once

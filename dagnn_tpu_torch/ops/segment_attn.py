@@ -79,9 +79,17 @@ _SIGS = {
 _DT_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
+_LIB = None
+
+
 def _lib():
-    from dagnn_tpu_torch.ops import build
-    return build.load("segment_attn", _SIGS)
+    """csrc/segment_attn.cu's library, built and loaded at the first call
+    and kept here (build.load takes its lock on every call)."""
+    global _LIB
+    if _LIB is None:
+        from dagnn_tpu_torch.ops import build
+        _LIB = build.load("segment_attn", _SIGS)
+    return _LIB
 
 
 def _operands(fn, scores, values, dst, mask, g=None):
@@ -109,8 +117,9 @@ def _operands(fn, scores, values, dst, mask, g=None):
 
 def segment_attn_forward(scores, values, dst, mask, num_slots: int):
     """K6 forward. CPU tensors: the plain version. CUDA tensors: one
-    launch of csrc/segment_attn.cu's sa_fwd_kernel (a thread block per
-    slot); scores and values share one dtype."""
+    launch of csrc/segment_attn.cu's sa_fwd_kernel (a warp per slot over
+    dst / mask / scores staged in shared memory, the softmax in the warp);
+    scores and values share one dtype."""
     if values.device.type == "cpu":
         return segment_attn_forward_plain(scores, values, dst, mask, num_slots)
     ts = _operands("segment_attn_forward", scores, values, dst, mask)
@@ -127,8 +136,9 @@ def segment_attn_forward(scores, values, dst, mask, num_slots: int):
 
 def segment_attn_backward(scores, values, dst, mask, g, num_slots: int):
     """K6 backward. CPU tensors: the plain version. CUDA tensors: one
-    launch of csrc/segment_attn.cu's sa_bwd_kernel. Returns (d_scores,
-    d_values)."""
+    launch of csrc/segment_attn.cu's sa_bwd_kernel (a warp per slot as in
+    the forward, g[s] in registers; the dead edges' zero grads written in
+    the same launch). Returns (d_scores, d_values)."""
     if values.device.type == "cpu":
         return segment_attn_backward_plain(scores, values, dst, mask, g,
                                            num_slots)

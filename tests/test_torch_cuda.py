@@ -3,7 +3,9 @@ shapes the flagship run does not reach: the row kernels K1/K2 at one
 direction (ndirs=1) and two, K2's split form after K5 (merge_tg=False),
 the pair kernels K3/K4 on a synthetic pair step with ragged blocks and
 intra-pair edges, the edge-softmax aggregate K6 (forward and backward,
-with empty, fully masked and out-of-range slots), the transpose-grad
+with empty, fully masked and out-of-range slots, ids in random order,
+negative ids, 613 edges on one slot, masked scores far above 88, Ke 0,
+S 1, unaligned operands and one level of 32,768 edges), the transpose-grad
 accumulate K5, the near/far modes K7 (ragged merged rows mixing "r", "t"
 and "p", an empty near list, near edges that all read pad slots), K2
 without residual streams (K2r, bitwise K2), K2's GEMM launches alone
@@ -223,52 +225,99 @@ def test_split_backward_matches_plain(dev, dt):
     _check_backward(kb, pb, truth, rs.row_backward(*ba, merge_tg=False), dt, True)
 
 
-def _segments(dt, dev, ke=77, s=13, h=45, seed=0):
-    """K6 operands at odd widths: sorted slots with slot 3 empty, slot 6's
-    edges all masked, ~25% masked edges, the last two edges out of range
-    (slot s, mask set); a cotangent per slot."""
+# K6 cases: (Ke, S, H) and what each adds to random dst / mask
+K6_CASES = {
+    "sorted": (77, 13, 45),              # odd H, empty / fully masked slots
+    "unsorted": (300, 40, 64),           # dst in random order
+    "613 on one slot": (900, 20, 45),    # more than a round, more than a list
+    "masked above 88": (200, 17, 300),   # masked scores of 100-1000
+    "ids out of range": (150, 11, 46),   # negative and >= S ids, mask set
+    "Ke 0": (0, 9, 45),
+    "S 1": (60, 1, 45),
+    "H 300, 2-byte base": (512, 257, 300),   # values, scores, dst unaligned
+    "Ke 32768": (32768, 257, 300),       # 16 chunks; 3,000 edges on one slot
+}
+
+
+def _segments(dt, dev, case, seed=0):
+    """K6 operands for a case of K6_CASES on the card, with the cotangent
+    and the slot count: about 25% masked edges; "sorted" also has slot 3
+    empty, slot 6's edges all masked and its last two edges out of range
+    (slot S, mask set)."""
+    ke, s, h = K6_CASES[case]
     g = torch.Generator().manual_seed(seed)
-    dst = torch.sort(torch.randint(0, s, (ke,), generator=g))[0]
-    dst[dst == 3] = 4
+    dst = torch.randint(0, s, (ke,), generator=g)
     mask = torch.rand(ke, generator=g) > 0.25
-    mask[dst == 6] = False
-    dst[-2:] = s
-    mask[-2:] = True
-    return (torch.randn(ke, generator=g).to(dt).to(dev),
-            torch.randn(ke, h, generator=g).to(dt).to(dev),
-            dst.int().to(dev), mask.float().to(dev),
-            torch.randn(s, h, generator=g).to(dt).to(dev))
+    sc = torch.randn(ke, generator=g)
+    if case == "sorted":
+        dst = torch.sort(dst)[0]
+        dst[dst == 3] = 4
+        mask[dst == 6] = False
+        dst[-2:] = s
+        mask[-2:] = True
+    elif case == "613 on one slot":
+        dst[torch.randperm(ke, generator=g)[:613]] = 5
+        mask[dst == 5] = True
+    elif case == "Ke 32768":
+        dst[torch.randperm(ke, generator=g)[:3000]] = 7
+    elif case == "masked above 88":
+        sc = torch.where(mask, sc, 100 + 900 * torch.rand(ke, generator=g))
+    elif case == "ids out of range":
+        bad = torch.rand(ke, generator=g) < 0.2
+        dst[bad] = torch.randint(-3, 0, (ke,), generator=g)[bad]
+        dst[bad & (torch.rand(ke, generator=g) < 0.5)] = s + 1
+        mask[bad] = True
+    v = torch.randn(ke, h, generator=g)
+    gout = torch.randn(s, h, generator=g)
+    if case == "H 300, 2-byte base":
+        # contiguous views one element into larger flat buffers
+        flat = torch.zeros(ke * h + 1, dtype=dt, device=dev)
+        flat[1:] = v.flatten().to(dt).to(dev)
+        sflat = torch.zeros(ke + 1, dtype=dt, device=dev)
+        sflat[1:] = sc.to(dt).to(dev)
+        dflat = torch.zeros(ke + 1, dtype=torch.int32, device=dev)
+        dflat[1:] = dst.int().to(dev)
+        return (sflat[1:], flat[1:].view(ke, h), dflat[1:], mask.float().to(dev),
+                gout.to(dt).to(dev), s)
+    return (sc.to(dt).to(dev), v.to(dt).to(dev), dst.int().to(dev),
+            mask.float().to(dev), gout.to(dt).to(dev), s)
 
 
+@pytest.mark.parametrize("case", list(K6_CASES))
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_segment_attn_kernels_match_plain(dev, dt):
+def test_segment_attn_kernels_match_plain(dev, dt, case):
     """K6 forward and backward against their plain versions; empty, fully
-    masked and out-of-range edges give zeros; a second launch is bitwise
-    the first (no atomics)."""
+    masked and out-of-range edges give zeros and never NaN; a second launch
+    is bitwise the first (no atomics)."""
     from dagnn_tpu_torch.ops import segment_attn as sa
-    S = 13
-    sc, v, dst, mask, g = _segments(dt, dev, s=S)
+    sc, v, dst, mask, g, S = _segments(dt, dev, case)
     k = sa.segment_attn_forward(sc, v, dst, mask, S)
     kb = sa.segment_attn_backward(sc, v, dst, mask, g, S)
     torch.cuda.synchronize()
     assert k.dtype == dt and kb[0].dtype == dt and kb[1].dtype == dt
+    assert k.shape == (S, v.shape[1]) and kb[1].shape == v.shape
     assert _err(k, sa.segment_attn_forward_plain(sc, v, dst, mask, S)) <= TOL[dt]
     for a, b in zip(kb, sa.segment_attn_backward_plain(sc, v, dst, mask, g, S)):
         assert _err(a, b) <= TOL[dt]
-    assert not k[3].any() and not k[6].any()
-    dead = (mask == 0) | (dst >= S)
-    assert not kb[0][dead].any() and not kb[1][dead].any()
+    valid = (mask > 0) & (dst >= 0) & (dst < S)
+    deg = torch.bincount(dst[valid].long(), minlength=S)
+    assert not k[deg == 0].any()
+    assert not kb[0][~valid].any() and not kb[1][~valid].any()
     assert torch.equal(sa.segment_attn_forward(sc, v, dst, mask, S), k)
     again = sa.segment_attn_backward(sc, v, dst, mask, g, S)
     assert torch.equal(again[0], kb[0]) and torch.equal(again[1], kb[1])
-    # through the autograd Function: one launch each way
+    # through the autograd Function: one launch each way, the wrappers' bits
+    # on the same operands (a clone may be aligned where a view was not, and
+    # 8-byte columns sum a dot product's columns in another order)
     n0 = dict(sa.launch_counts)
     scr, vr = sc.clone().requires_grad_(True), v.clone().requires_grad_(True)
     out = sa.pallas_edge_softmax_aggregate(scr, vr, dst, mask, S)
     grads = torch.autograd.grad(out, (scr, vr), g)
-    assert torch.equal(out, k) and torch.equal(grads[0], kb[0])
     assert sa.launch_counts == {"segment_attn_forward": n0["segment_attn_forward"] + 1,
                                 "segment_attn_backward": n0["segment_attn_backward"] + 1}
+    want = sa.segment_attn_backward(scr.detach(), vr.detach(), dst, mask, g, S)
+    assert torch.equal(out, k)
+    assert torch.equal(grads[0], want[0]) and torch.equal(grads[1], want[1])
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])

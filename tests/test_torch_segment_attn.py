@@ -4,6 +4,7 @@ package's Pallas kernels (interpret mode on the CPU):
     autograd Function (scores, values) against pallas_edge_softmax_aggregate
     and its custom VJP, with masked edges, an edge whose slot lies out of
     range, the pad slot as a real segment, empty and fully masked slots;
+    and with dst in permuted order, 70 edges on one slot and a negative id;
   * K5, the transpose-grad accumulate, against _tg_accumulate;
   * K2's split form, row_backward_plain(merge_tg=False) at one direction,
     against fused_row_backward(merge_tg=False);
@@ -65,10 +66,10 @@ def _k6_close(a, b, dtype, grad, name):
         _f32_close(a, b, grad, name)
 
 
-@pytest.mark.parametrize("fn", ["kernels", "plain"])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_edge_softmax_aggregate_matches_pallas(dtype, fn):
-    inp = _k6_inputs(0)
+def _k6_against_pallas(inp, dtype, fn):
+    """inp through pallas_edge_softmax_aggregate (fn "kernels") or its plain
+    twin and through the JAX function in interpret mode with its VJP; the
+    output and both grads held to the file's tolerances. Returns them."""
     jdt, tdt = DTYPES[dtype]
     js, jv = jnp.asarray(inp["scores"], jdt), jnp.asarray(inp["values"], jdt)
     jg = jnp.asarray(inp["g"], jdt)
@@ -88,9 +89,55 @@ def test_edge_softmax_aggregate_matches_pallas(dtype, fn):
     _k6_close(_tnp(got.detach()), want, dtype, False, "out")
     _k6_close(_tnp(gds), wds, dtype, True, "d_scores")
     _k6_close(_tnp(gdv), wdv, dtype, True, "d_values")
+    return got, gds, gdv
+
+
+@pytest.mark.parametrize("fn", ["kernels", "plain"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_edge_softmax_aggregate_matches_pallas(dtype, fn):
+    inp = _k6_inputs(0)
+    got, gds, gdv = _k6_against_pallas(inp, dtype, fn)
     # empty, fully masked and out-of-range: zero out, zero grads
     assert not got[2].any() and not got[5].any()
     dead = ~torch.tensor(inp["mask"]) | (torch.tensor(inp["dst"]) >= S)
+    assert not gds[dead].any() and not gdv[dead].any()
+
+
+KE2 = 128                     # with one slot of 70 edges
+
+
+def _k6_inputs_unsorted(seed):
+    """KE2 edges in permuted order: 70 on slot 3 (more than a 32-edge
+    round), the rest over the other slots and S (out of range), one id -1
+    with its mask set, ~20% of the others masked."""
+    rng = np.random.default_rng(seed)
+    dst = np.concatenate([np.full(70, 3),
+                          rng.choice([0, 1, 2, 4, 5, 6, 7, 8, 9], KE2 - 71), [-1]])
+    mask = rng.random(KE2) > 0.2
+    mask[70:][dst[70:] == 5] = False
+    mask[dst == 3] = True
+    mask[-1] = True
+    perm = rng.permutation(KE2)
+    return dict(scores=rng.normal(size=KE2).astype(np.float32),
+                values=rng.normal(size=(KE2, H)).astype(np.float32),
+                dst=dst[perm].astype(np.int32), mask=mask[perm],
+                g=rng.normal(size=(S, H)).astype(np.float32))
+
+
+@pytest.mark.parametrize("fn", ["kernels", "plain"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_edge_softmax_aggregate_unsorted_matches_pallas(dtype, fn):
+    """The cases the card kernels branch on: dst in no order, a slot with
+    more edges than a warp has lanes, a negative id."""
+    inp = _k6_inputs_unsorted(3)
+    assert (inp["dst"] == 3).sum() == 70 and (np.diff(inp["dst"]) < 0).any()
+    got, gds, gdv = _k6_against_pallas(inp, dtype, fn)
+    # slots without a valid edge (slot 5's are all masked) aggregate to 0;
+    # the dead edges' grads are 0
+    dst, mask = torch.tensor(inp["dst"]), torch.tensor(inp["mask"])
+    dead = ~mask | (dst < 0) | (dst >= S)
+    deg = torch.bincount(dst[~dead].long(), minlength=S)
+    assert deg[5] == 0 and not got[deg == 0].any()
     assert not gds[dead].any() and not gdv[dead].any()
 
 

@@ -1,4 +1,5 @@
-"""Smoke run of the PyTorch/CUDA port on one GPU: the flagship TOK train step.
+"""Smoke run of the PyTorch/CUDA port on one GPU: the flagship TOK train step
+and the TOK training driver.
 
 Drives dagnn_tpu_torch (never the JAX package) through the entry points a
 user calls, at the flagship's full width (emb/hidden 300, 160 synthetic
@@ -73,6 +74,21 @@ split form), the merged and unidirectional wavefronts on near/far batches
   17. step times in turns (a, b, b, a), 5 steps each: merged against each
       near/far merged path and against K2r, unidirectional against its
       near/far path
+  the TOK training driver (launch counts set to 0 before run A, read
+  after run C):
+  18. main_tok.main in process at the driver's defaults (the flagship's
+      widths, batch 160, chunk 256, bf16, fused) on 800 synthetic ASTs:
+      run A trains 2 epochs with checkpoints, run B asks for 3 in A's
+      directories and resumes at epoch 3 (one checkpoint left), run C
+      trains 3 afresh; finite losses falling from epoch 1 to 2, F1 in
+      [0, 1], B's epoch 3 equal to C's, parameters on the card, K1/K2
+      launched and no other kernel; epoch seconds, graphs/s and edges/s,
+      evaluation seconds, and collation, copy and train step timed alone
+  18b. outside the counted runs, at the loader's shapes (its bucket, not
+      pad_for's): one bf16 step on its train batch 0, kernels against
+      plain at phase 5's tolerances
+  18c. the forward's logits on its first valid batch, kernels against
+      plain (bf16 tolerance), predicted ids equal where the margin decides
 
 The second-to-last line is the kernel table as JSON, the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero.
@@ -82,9 +98,12 @@ The second-to-last line is the kernel table as JSON, the last line
                                        # (traces in traces/, or --trace-dir DIR)
 """
 
+import argparse
 import contextlib
 import dataclasses
 import json
+import math
+import os
 import re
 import subprocess
 import sys
@@ -1059,6 +1078,30 @@ def check_predict(label, predict, params, cfg, batch):
           "predict output out of range")
 
 
+def forward_vs_plain(label, params, cfg, batch):
+    """The kernels' logits against the plain versions' on one batch (the
+    real graphs'), at the bf16 output tolerance; the kernels' predicted
+    ids must equal the plain ones wherever the plain top-two margin
+    exceeds twice the largest logit difference."""
+    from dagnn_tpu_torch import checks
+    from dagnn_tpu_torch.nn.dagnn import KERNELS, PLAIN, dagnn_forward
+    g = int(batch.n_graph)
+    with torch.no_grad():
+        k = dagnn_forward(params, cfg, batch, impl=KERNELS)[:g].float()
+        p = dagnn_forward(params, cfg, batch, impl=PLAIN)[:g].float()
+    rel, err, scale = checks.rel_err(k, p)
+    top = p.topk(2, dim=-1).values
+    decided = (top[..., 0] - top[..., 1]) > 2 * err
+    same = k.argmax(-1) == p.argmax(-1)
+    print(f"{label} forward, kernels vs plain: logits {tuple(k.shape)} "
+          f"max_abs_err {err:.3e} of {scale:.3e} = {rel:.3e} (tolerance "
+          f"{TOL[torch.bfloat16]:g}); predicted ids equal at "
+          f"{int(same.sum())} of {same.numel()}, at {int(same[decided].sum())} "
+          f"of the {int(decided.sum())} decided by more than 2x that error")
+    check(rel <= TOL[torch.bfloat16] and bool(same[decided].all()),
+          "the kernels' forward disagrees with the plain forward")
+
+
 def trace_dir(argv):
     """Where --profile writes its traces: --trace-dir DIR, else traces/."""
     return argv[argv.index("--trace-dir") + 1] if "--trace-dir" in argv else "traces"
@@ -1186,6 +1229,235 @@ def drive_path(tag, labels, cfg, params, batch, expect, kernels, plain, card,
         from dagnn_tpu_torch.nn import dagnn
         steppers[tag] = (train_step, p, state, batch, dagnn._NO_RES_STREAM)
     return dict(edges_per_s=eps, step_ms=ms, losses=losses, launches=lc)
+
+
+# ------------------------------------------------------- the TOK driver
+
+DRIVER_FLAGS = ["--synthetic", "800", "--synthetic_mean_nodes", "125",
+                "--synthetic_targets", "structural", "--folds", "1",
+                "--patience", "10"]
+
+
+def _csv_rows(path):
+    import csv
+    with open(path) as f:
+        return [[float(v) for v in r] for r in list(csv.reader(f))[1:]]
+
+
+@contextlib.contextmanager
+def driver_probes():
+    """Record, without changing them, what the driver's run hands around:
+    the dataset load_dataset returns, the device of each fold's initial
+    parameters, the wall time of each evaluate call, and the route
+    dagnn_forward takes for each batch. Restored on exit."""
+    from collections import Counter
+    from dagnn_tpu_torch.cli import ogb_driver
+    from dagnn_tpu_torch.nn import dagnn
+    seen = dict(data=None, devices=set(), eval_s=[], routes=Counter())
+    orig = (ogb_driver.load_dataset, ogb_driver.init_params,
+            ogb_driver.evaluate, dagnn._route)
+
+    def load_dataset(*a):
+        seen["data"] = orig[0](*a)
+        return seen["data"]
+
+    def init_params(*a):
+        params = orig[1](*a)
+        seen["devices"] |= {v.device.type for v in params.values()}
+        return params
+
+    def evaluate(*a):
+        t0 = time.perf_counter()
+        out = orig[2](*a)
+        seen["eval_s"].append(time.perf_counter() - t0)
+        return out
+
+    def route(*a):
+        r = orig[3](*a)
+        seen["routes"][r[0]] += 1
+        return r
+
+    (ogb_driver.load_dataset, ogb_driver.init_params, ogb_driver.evaluate,
+     dagnn._route) = (load_dataset, init_params, evaluate, route)
+    try:
+        yield seen
+    finally:
+        (ogb_driver.load_dataset, ogb_driver.init_params, ogb_driver.evaluate,
+         dagnn._route) = orig
+
+
+def phase_driver(card):
+    """Phase 18: the TOK driver through its entry point main_tok.main, at
+    the flagship's widths (the driver's defaults: emb 300, 2 layers,
+    attn_h, bidirectional, batch 160, chunk 256, head 5002, bf16, fused)
+    on 800 synthetic ASTs (640 train, 4 steps an epoch). Run A trains 2
+    epochs with checkpoints; run B asks for 3 in A's directories and must
+    resume from A's last checkpoint at epoch 3, leaving one checkpoint;
+    run C trains 3 epochs afresh without checkpoints. B's epoch 3 must
+    equal C's. The launch counts are set to 0 before A and read after C:
+    K1 and K2 launched, no other kernel. Then, outside the counted runs,
+    the kernels at the loader's shapes against their plain versions (a
+    train step on its batch 0, 18b; a forward on its first valid batch,
+    18c), and the epoch's parts alone: the bucket measured before the
+    epoch's first batch, collation a batch, the batch's copy to the card,
+    and the train step on one batch."""
+    import shutil
+    import tempfile
+    from dagnn_tpu_torch import convert
+    from dagnn_tpu_torch.cli import main_tok, ogb_driver
+    from dagnn_tpu_torch.dag.batch import collate
+    from dagnn_tpu_torch.data.dataloader import DAGLoader
+    from dagnn_tpu_torch.nn import dagnn
+    from dagnn_tpu_torch.nn.dagnn import KERNELS, PLAIN
+    from dagnn_tpu_torch.train.optim import make_optimizer
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_driver_")
+    dirs = lambda tag: ["--dir_results", f"{root}/{tag}/results",
+                        "--dir_save", f"{root}/{tag}/saved"]
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        with driver_probes() as seen:
+            main_tok.main(DRIVER_FLAGS + ["--epochs", "2"] + dirs("A"))
+            saved_a = sorted(os.listdir(f"{root}/A/saved"))
+            main_tok.main(DRIVER_FLAGS + ["--epochs", "3"] + dirs("A"))
+            main_tok.main(DRIVER_FLAGS + ["--epochs", "3", "--checkpointing", "0"]
+                          + dirs("C"))
+        wall = time.perf_counter() - t0
+        lc = read_counts()
+        print(f"[18] {card}: launch counts over runs A, B, C: {lc}; routes "
+              f"(forward passes by path) {dict(seen['routes'])}")
+        check(lc["row_forward"] > 0 and lc["row_backward"] > 0,
+              "driver: K1 or K2 never launched")
+        check(all(v == 0 for k, v in lc.items()
+                  if k not in ("row_forward", "row_backward")),
+              "driver: a kernel other than K1/K2 launched")
+        check(seen["devices"] == {"cuda"},
+              f"driver: parameters on {seen['devices']}, not cuda")
+        rows_a = _csv_rows(f"{root}/A/results/dagnn_tok_train.csv")
+        rows_c = _csv_rows(f"{root}/C/results/dagnn_tok_train.csv")
+        secs_a = _csv_rows(f"{root}/A/results/dagnn_tok_times.csv")
+        secs_c = _csv_rows(f"{root}/C/results/dagnn_tok_times.csv")
+        for tag, rows in (("A+B", rows_a), ("C", rows_c)):
+            for r in rows:
+                print(f"[18] run {tag} fold {int(r[0])} epoch {int(r[1])}: loss "
+                      f"{r[2]!r} F1 train {r[3]!r} valid {r[4]!r} test {r[5]!r}")
+        check(saved_a == ["dagnn_tok_1_2.ckpt"],
+              f"driver: run A left checkpoints {saved_a}")
+        check(os.listdir(f"{root}/A/saved") == ["dagnn_tok_1_3.ckpt"],
+              f"driver: run B left {os.listdir(f'{root}/A/saved')}")
+        check(not os.path.exists(f"{root}/C/saved")
+              or not os.listdir(f"{root}/C/saved"), "driver: run C checkpointed")
+        check([r[:2] for r in rows_a] == [[1, 1], [1, 2], [1, 3]],
+              "driver: run B did not resume at fold 1, epoch 3")
+        check([r[:2] for r in rows_c] == [[1, 1], [1, 2], [1, 3]],
+              "driver: run C did not train epochs 1-3")
+        for r in rows_a + rows_c:
+            check(math.isfinite(r[2]), "driver: non-finite epoch loss")
+            check(all(0.0 <= v <= 1.0 for v in r[3:]), "driver: F1 out of [0, 1]")
+        check(rows_a[1][2] < rows_a[0][2] and rows_c[1][2] < rows_c[0][2],
+              "driver: the loss of epoch 2 is not below epoch 1's")
+        b3, c3 = rows_a[2], rows_c[2]
+        rel = abs(b3[2] - c3[2]) / abs(c3[2])
+        print(f"[18] resumed epoch 3 (B) against uninterrupted (C): loss "
+              f"{b3[2]!r} / {c3[2]!r}, relative difference {rel!r}; F1 "
+              f"{b3[3:]} / {c3[3:]}")
+        check(rel <= 1e-6 and b3[3:] == c3[3:],
+              "driver: the resumed epoch 3 differs from the uninterrupted one")
+
+        train = seen["data"][0]
+        n_graphs = len(train)
+        n_edges = sum(g.num_edges for g in train)
+        steps = -(-n_graphs // 160)
+        ep_s = [r[2] for r in secs_c]
+        print(f"[18] {card}: epoch train seconds of {steps}-step epochs (host "
+              f"clock: collation in the prefetch thread, copies to the card, the "
+              f"launch loop, a loss read a step) run C {' / '.join(f'{v:.3f}' for v in ep_s)}, run "
+              f"A+B {' / '.join(f'{r[2]:.3f}' for r in secs_a)}; {steps} train "
+              f"steps an epoch, {n_graphs} graphs, {n_edges} edges")
+        for i, s in enumerate(ep_s):
+            print(f"    run C epoch {i + 1}: {n_graphs / s:.1f} graphs/s, "
+                  f"{n_edges / s:.1f} edges/s, {s / steps * 1e3:.1f} ms a step")
+        ev = seen["eval_s"]
+        print(f"[18] {card}: evaluation (train subset {len(seen['data'][1]) * 4}, valid "
+              f"{len(seen['data'][1])}, test {len(seen['data'][2])} graphs) seconds "
+              f"an epoch: " + " / ".join(f"{sum(ev[i:i + 3]):.3f}"
+                                          for i in range(0, len(ev), 3))
+              + f"; three runs' wall {wall:.1f} s")
+
+        # the epoch's parts alone, outside the counted runs
+        loader = DAGLoader(train, 160, shuffle=True, seed=1, chunk_size=256,
+                           prefetch=0)
+        groups = loader._epoch_batches()
+        t0 = time.perf_counter()
+        pad = loader._ensure_pad(groups)       # the epoch's bucket, measured
+        pad_s = time.perf_counter() - t0       # before its first batch
+        t0 = time.perf_counter()
+        host = [collate(g, pad) for g in groups]
+        coll_s = (time.perf_counter() - t0) / len(host)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batches = [convert.batch_to_torch(b, "cuda") for b in host]
+        torch.cuda.synchronize()
+        h2d_s = (time.perf_counter() - t0) / len(host)
+        b = batches[0]
+        args = ogb_driver.add_common_args(argparse.ArgumentParser()).parse_args(
+            DRIVER_FLAGS)
+        args.num_vocab = len(seen["data"][3]) - 2
+        cfg = ogb_driver.build_model_cfg(args, "tok")
+        opt = make_optimizer(args.lr, args.clip)
+        train_step, _ = ogb_driver.make_step_fns(cfg, opt, "tok")
+        params = ogb_driver.init_params(cfg, 0, "cuda")
+        # the kernels at the loader's shapes (its bucket, not pad_for's),
+        # held to their plain versions: a train step on batch 0 and a
+        # forward on the first valid batch (the driver's evaluation bucket)
+        shapes = lambda x: (f"L={x.fwd.node_ids.shape[0]}, Kn="
+                            f"{x.fwd.node_ids.shape[1]}, Ke={x.fwd.edge_src.shape[1]}"
+                            f", Kt={x.fwd.tgrad_eslot.shape[1]}")
+        print(f"[18b] {dagnn._route(cfg, b, None)[0]} route on the loader's train "
+              f"batch 0 ({shapes(b)})")
+        phase_step("[18b]", params, cfg, b, KERNELS, PLAIN)
+        valid = DAGLoader(seen["data"][1], 160, shuffle=False, chunk_size=256,
+                          prefetch=0)
+        vb = convert.batch_to_torch(next(iter(valid)), "cuda")
+        print(f"[18c] {dagnn._route(cfg, vb, None)[0]} route on the loader's first "
+              f"valid batch ({shapes(vb)})")
+        forward_vs_plain("[18c]", params, cfg, vb)
+        state = opt.init(params)
+        params, state, loss, _ = train_step(params, state, b)
+        float(loss)
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev0.record()
+        for _ in range(5):
+            params, state, loss, _ = train_step(params, state, b)
+            float(loss)                     # the driver's read a step
+        ev1.record()
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / 5
+        step_dev = ev0.elapsed_time(ev1) / 5 / 1e3
+        print(f"[18] {card}: the epoch's bucket (PadConfig.for_graphs over its "
+              f"{len(groups)} batches, before the first) {pad_s:.4f} s, "
+              f"{pad_s / len(groups):.4f} s a batch; collation {coll_s:.4f} s a "
+              f"batch (alone), copy to the card {h2d_s:.4f} s a batch, train step "
+              f"{step_s:.4f} s (host clock, a loss read a step; {step_dev:.4f} s "
+              f"by CUDA events) on the loader's batch 0 ({shapes(b)}); steps x "
+              f"step time "
+              f"{steps * step_s:.3f} s against the epochs' "
+              + " / ".join(f"{v:.3f}" for v in ep_s[1:]) + " s: gap "
+              + " / ".join(f"{v - steps * step_s:.3f}" for v in ep_s[1:]) + " s")
+        return dict(launches=lc, routes=dict(seen["routes"]), epoch_s=ep_s,
+                    epoch_s_ab=[r[2] for r in secs_a], steps=steps,
+                    graphs=n_graphs, edges=n_edges,
+                    graphs_per_s=[n_graphs / s for s in ep_s],
+                    edges_per_s=[n_edges / s for s in ep_s], eval_s=ev,
+                    bucket_s=pad_s, bucket_s_per_batch=pad_s / len(groups),
+                    collate_s=coll_s, h2d_s=h2d_s, step_s=step_s,
+                    step_dev_s=step_dev, resume_loss_rel=rel,
+                    rows_ab=rows_a, rows_c=rows_c)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def main(argv):
@@ -1391,6 +1663,9 @@ def main(argv):
     ab = {f"{a}/{b}": phase_ab("[17]", a, b, steppers) for a, b in (
         ("merged", "nearfar_rt"), ("merged", "nearfar_r"),
         ("unidirectional", "nearfar_unidirectional"), ("merged", "merged_k2r"))}
+    print("[18] the TOK driver (main_tok.main), runs A (2 epochs), B (resumed "
+          "to 3), C (3 afresh): " + " ".join(DRIVER_FLAGS))
+    driver = phase_driver(card)
     runs = {"merged": merged, "pair": paired, "pallas": pallas,
             "unidirectional": uni, "nearfar_rt": nf_rt, "nearfar_r": nf_r,
             "nearfar_unidirectional": nf_u, "merged_k2r": k2r}
@@ -1426,9 +1701,10 @@ def main(argv):
                         "max_abs_err": r["err"], "ms": r["ms"], "call_ms": r["call_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                         "bound_by": r["bound"][1], "library_ms": r.get("library_ms"),
-                        "launches_by_path": {k: v["launches"][name] for k, v in runs.items()
+                        "launches_by_path": {k: v["launches"][name] for k, v in
+                                             {**runs, "tok_driver": driver}.items()
                                              if v["launches"][name]}})
-    print(json.dumps({**runs, "split_checks": split, "cross_route": cross,
+    print(json.dumps({**runs, "tok_driver": driver, "split_checks": split, "cross_route": cross,
                       "nearfar_cross_route": nf_cross, "ab_steps": ab,
                       "split_row": {short(k): v for k, v in split_row.items()},
                       "k2_launches": k2_launches, "k1_launches": k1_launches,

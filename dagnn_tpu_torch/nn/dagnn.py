@@ -888,7 +888,8 @@ def _pool_gathered(hsel, mask, kind):
 def _apply_head(params, cfg: DAGNNConfig, out, rng, train):
     if train and cfg.dropout > 0.0:
         raise NotImplementedError("dropout is not ported yet: ROADMAP queue "
-                                  "1, the rest of the DAGNN config surface")
+                                  "1, item 5 (the rest of the DAGNN config "
+                                  "surface)")
     out = out.float()
     if cfg.num_class > 0 or cfg.num_vocab == 1:
         y = linear({"w": params["head.w"], "b": params["head.b"]}, out)

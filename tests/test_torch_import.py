@@ -40,6 +40,36 @@ def test_imports_without_jax():
     assert out.stdout.startswith("ok")
 
 
+
+def test_driver_runs_without_jax(tmp_path):
+    """The TOK driver end to end with jax and the JAX package absent, on a
+    constructed ogbg-code2 tree (Code2Dataset's npz cache, imported
+    lazily by the driver) and on synthetic data: no lazy import falls
+    into the JAX package."""
+    from test_code2_dataset import make_raw_tree
+    make_raw_tree(str(tmp_path / "ds" / "ogbg_code2"), n_graphs=9, seed=1)
+    small = ["--emb_dim", "8", "--num_vocab", "6", "--batch_size", "4",
+             "--chunk_size", "16", "--epochs", "1", "--folds", "1", "--cpu",
+             "--dir_results", str(tmp_path / "r"), "--dir_save", str(tmp_path / "s")]
+    code = ("import sys, torch\n"
+            "torch.set_num_threads(1)\n"
+            "for m in ('jax', 'jaxlib', 'optax', 'flax', 'dagnn_tpu'):\n"
+            "    sys.modules[m] = None\n"
+            "from dagnn_tpu_torch.cli import main_tok\n"
+            f"main_tok.main({small!r} + ['--data_root', {str(tmp_path / 'ds')!r}])\n"
+            f"main_tok.main({small!r} + ['--synthetic', '12', '--name', 'syn'])\n"
+            "import dagnn_tpu_torch.data.code2_dataset\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.rstrip().endswith("ok")
+    assert (tmp_path / "ds" / "ogbg_code2" / "processed" / "data.npz").exists()
+    for name in ("dagnn_tok", "syn"):
+        assert (tmp_path / "r" / f"{name}_train.csv").exists()
+
+
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(REPO)) for p in PKG.rglob("*.py")] + ["chip_smoke.py"]))
 def test_no_jax_package_imports(path):

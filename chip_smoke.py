@@ -1,5 +1,5 @@
-"""Smoke run of the PyTorch/CUDA port on one GPU: the flagship TOK train step
-and the TOK training driver.
+"""Smoke run of the PyTorch/CUDA port on one GPU: the flagship TOK train step,
+the TOK and LP training drivers and every aggregator kind.
 
 Drives dagnn_tpu_torch (never the JAX package) through the entry points a
 user calls, at the flagship's full width (emb/hidden 300, 160 synthetic
@@ -89,6 +89,28 @@ split form), the merged and unidirectional wavefronts on near/far batches
       plain at phase 5's tolerances
   18c. the forward's logits on its first valid batch, kernels against
       plain (bf16 tolerance), predicted ids equal where the margin decides
+  the LP training driver (counts set to 0 before run A, read after run C):
+  19. main_lp.main in process at its defaults (gated_sum, unidirectional,
+      275 classes; the generic branch) on 18's corpus: runs A, B, C as in
+      18, B's epoch 3 bitwise C's, finite losses falling, accuracy in
+      [0, 1], K5 launched and no other kernel; epoch seconds and rates
+  19a. outside the counted runs, main_lp's config at the LP loader's
+      shapes, generic branch kernels against plain: a bf16 train step
+      (class_loss) on its train batch 0 at phase 5's gates, the logits of
+      its first valid batch at the bf16 tolerance
+  19b. every aggregator kind (add and max bidirectional with the quirk,
+      gated_sum, self_attn_h, mattn_h, attn_x, attn_h on "dense",
+      recurr=False) at the flagship's widths on phase 4's batch: one bf16
+      train pass each, kernels against plain at phase 5's gates, its K6
+      and K5 launches counted, its forward and backward timed
+  19c. out_pool_all on the flagship's attn_h, fused: the per-direction
+      wavefront (K1/K2 at one direction) with the node-space readout.
+      Max pool: an f32 train pass, kernels against plain at 5c's
+      tolerances; a bf16 pass at phase 5's loss and norm gates, its
+      leaves printed beside the pool's share of tied features; the bf16
+      logits against plain as 18c. Mean pool (no ties; K5 sums every
+      node): a bf16 pass at all of phase 5's gates. Launches counted,
+      both bf16 passes timed
 
 The second-to-last line is the kernel table as JSON, the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero.
@@ -947,23 +969,32 @@ def phase_k1_launches(dev):
 # -------------------------------------------------------- the main path
 
 def loss_and_grads(params, cfg, batch, impl):
-    """(loss, {name: grad}, global grad norm) of one forward and backward."""
+    """(loss, {name: grad}, global grad norm) of one forward and backward:
+    the TOK loss, or with cfg.num_class the LP loss (class_loss on the
+    longest path's class)."""
     from dagnn_tpu_torch.nn.dagnn import dagnn_forward
-    from dagnn_tpu_torch.train.losses import tok_loss
+    from dagnn_tpu_torch.train.losses import class_loss, tok_loss
     p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-    loss = tok_loss(dagnn_forward(p, cfg, batch, impl=impl), batch.y["y_arr"],
-                    batch.graph_mask)
+    out = dagnn_forward(p, cfg, batch, impl=impl)
+    if cfg.num_class:
+        y = torch.as_tensor(batch.y["len_longest_path"], device=out.device)
+        loss = class_loss(out, y, batch.graph_mask)
+    else:
+        loss = tok_loss(out, batch.y["y_arr"], batch.graph_mask)
     gs = torch.autograd.grad(loss, list(p.values()))
     norm = torch.sqrt(sum((g.float() ** 2).sum() for g in gs))
     return float(loss.detach()), dict(zip(p, gs)), float(norm)
 
 
-def phase_step(label, params, cfg, batch, kernels, plain, group=None):
+def phase_step(label, params, cfg, batch, kernels, plain, group=None,
+               leaves=True):
     """Phases 5 / 5b / 9a / 10a / 10e: the kernel step's parameter grads
     against the plain step's, leaf by leaf on each leaf's own scale (after
     `group`, if given). The plain step in float32 with the same
     bf16-rounded weights marks the elements that are zero in exact
-    arithmetic."""
+    arithmetic. With leaves=False only the loss and the grad norm are
+    held to their gate; the leaves are printed. Returns the worst leaf's
+    (relative error, name)."""
     from dagnn_tpu_torch import checks
     kl, kg, kn = loss_and_grads(params, cfg, batch, kernels)
     pl, pg, pn = loss_and_grads(params, cfg, batch, plain)
@@ -990,9 +1021,10 @@ def phase_step(label, params, cfg, batch, kernels, plain, group=None):
     print(f"    worst noise {max(r[3] for r in rows):.3g} "
           f"({max(rows, key=lambda r: r[3])[4]})")
     bad = [r[4] for r in rows
-           if not (r[0] <= STEP_TOL["leaf"] and r[3] <= NOISE_TOL)]
+           if leaves and not (r[0] <= STEP_TOL["leaf"] and r[3] <= NOISE_TOL)]
     check(e_loss <= STEP_TOL["loss"] and e_norm <= STEP_TOL["loss"] and not bad,
           f"kernel step disagrees with plain step on {bad or 'the loss or norm'}")
+    return rows[0][0], rows[0][4]
 
 
 @contextlib.contextmanager
@@ -1078,17 +1110,19 @@ def check_predict(label, predict, params, cfg, batch):
           "predict output out of range")
 
 
-def forward_vs_plain(label, params, cfg, batch):
+def forward_vs_plain(label, params, cfg, batch, impls=None):
     """The kernels' logits against the plain versions' on one batch (the
     real graphs'), at the bf16 output tolerance; the kernels' predicted
     ids must equal the plain ones wherever the plain top-two margin
-    exceeds twice the largest logit difference."""
+    exceeds twice the largest logit difference. impls: (kernels, plain),
+    KERNELS and PLAIN when None."""
     from dagnn_tpu_torch import checks
     from dagnn_tpu_torch.nn.dagnn import KERNELS, PLAIN, dagnn_forward
+    kernels, plain = impls or (KERNELS, PLAIN)
     g = int(batch.n_graph)
     with torch.no_grad():
-        k = dagnn_forward(params, cfg, batch, impl=KERNELS)[:g].float()
-        p = dagnn_forward(params, cfg, batch, impl=PLAIN)[:g].float()
+        k = dagnn_forward(params, cfg, batch, impl=kernels)[:g].float()
+        p = dagnn_forward(params, cfg, batch, impl=plain)[:g].float()
     rel, err, scale = checks.rel_err(k, p)
     top = p.topk(2, dim=-1).values
     decided = (top[..., 0] - top[..., 1]) > 2 * err
@@ -1286,178 +1320,386 @@ def driver_probes():
          dagnn._route) = orig
 
 
-def phase_driver(card):
-    """Phase 18: the TOK driver through its entry point main_tok.main, at
-    the flagship's widths (the driver's defaults: emb 300, 2 layers,
-    attn_h, bidirectional, batch 160, chunk 256, head 5002, bf16, fused)
-    on 800 synthetic ASTs (640 train, 4 steps an epoch). Run A trains 2
-    epochs with checkpoints; run B asks for 3 in A's directories and must
-    resume from A's last checkpoint at epoch 3, leaving one checkpoint;
-    run C trains 3 epochs afresh without checkpoints. B's epoch 3 must
-    equal C's. The launch counts are set to 0 before A and read after C:
-    K1 and K2 launched, no other kernel. Then, outside the counted runs,
-    the kernels at the loader's shapes against their plain versions (a
-    train step on its batch 0, 18b; a forward on its first valid batch,
-    18c), and the epoch's parts alone: the bucket measured before the
-    epoch's first batch, collation a batch, the batch's copy to the card,
-    and the train step on one batch."""
+def driver_runs(label, main, task, card, kernels):
+    """Runs A, B, C of a training driver's entry point `main` (main_tok or
+    main_lp) in process on DRIVER_FLAGS, with the launch counts set to 0
+    before A and read after C: run A trains 2 epochs with checkpoints; run
+    B asks for 3 in A's directories and must resume from A's last
+    checkpoint at epoch 3, leaving one checkpoint; run C trains 3 epochs
+    afresh without checkpoints. Checks: B's epoch 3 equal to C's, finite
+    losses falling from epoch 1 to 2, the metric (F1 or accuracy) in
+    [0, 1], parameters on the card, each wrapper of `kernels` launched and
+    no other. Returns (seen, counts, rows A+B, rows C, seconds A+B,
+    seconds C, wall seconds, the resumed epoch's relative loss gap) and
+    removes its directories."""
     import shutil
     import tempfile
-    from dagnn_tpu_torch import convert
-    from dagnn_tpu_torch.cli import main_tok, ogb_driver
-    from dagnn_tpu_torch.dag.batch import collate
-    from dagnn_tpu_torch.data.dataloader import DAGLoader
-    from dagnn_tpu_torch.nn import dagnn
-    from dagnn_tpu_torch.nn.dagnn import KERNELS, PLAIN
-    from dagnn_tpu_torch.train.optim import make_optimizer
-
-    root = tempfile.mkdtemp(prefix="chip_smoke_driver_")
+    root = tempfile.mkdtemp(prefix=f"chip_smoke_{task}_")
+    name = f"dagnn_{task}"
     dirs = lambda tag: ["--dir_results", f"{root}/{tag}/results",
                         "--dir_save", f"{root}/{tag}/saved"]
     try:
         reset_counts()
         t0 = time.perf_counter()
         with driver_probes() as seen:
-            main_tok.main(DRIVER_FLAGS + ["--epochs", "2"] + dirs("A"))
+            main(DRIVER_FLAGS + ["--epochs", "2"] + dirs("A"))
             saved_a = sorted(os.listdir(f"{root}/A/saved"))
-            main_tok.main(DRIVER_FLAGS + ["--epochs", "3"] + dirs("A"))
-            main_tok.main(DRIVER_FLAGS + ["--epochs", "3", "--checkpointing", "0"]
-                          + dirs("C"))
+            main(DRIVER_FLAGS + ["--epochs", "3"] + dirs("A"))
+            main(DRIVER_FLAGS + ["--epochs", "3", "--checkpointing", "0"] + dirs("C"))
         wall = time.perf_counter() - t0
         lc = read_counts()
-        print(f"[18] {card}: launch counts over runs A, B, C: {lc}; routes "
+        print(f"{label} {card}: launch counts over runs A, B, C: {lc}; routes "
               f"(forward passes by path) {dict(seen['routes'])}")
-        check(lc["row_forward"] > 0 and lc["row_backward"] > 0,
-              "driver: K1 or K2 never launched")
-        check(all(v == 0 for k, v in lc.items()
-                  if k not in ("row_forward", "row_backward")),
-              "driver: a kernel other than K1/K2 launched")
+        check(all(lc[k] > 0 for k in kernels),
+              f"{task} driver: a kernel of {kernels} never launched")
+        check(all(v == 0 for k, v in lc.items() if k not in kernels),
+              f"{task} driver: a kernel other than {kernels} launched")
         check(seen["devices"] == {"cuda"},
-              f"driver: parameters on {seen['devices']}, not cuda")
-        rows_a = _csv_rows(f"{root}/A/results/dagnn_tok_train.csv")
-        rows_c = _csv_rows(f"{root}/C/results/dagnn_tok_train.csv")
-        secs_a = _csv_rows(f"{root}/A/results/dagnn_tok_times.csv")
-        secs_c = _csv_rows(f"{root}/C/results/dagnn_tok_times.csv")
+              f"{task} driver: parameters on {seen['devices']}, not cuda")
+        rows_a = _csv_rows(f"{root}/A/results/{name}_train.csv")
+        rows_c = _csv_rows(f"{root}/C/results/{name}_train.csv")
+        secs_a = _csv_rows(f"{root}/A/results/{name}_times.csv")
+        secs_c = _csv_rows(f"{root}/C/results/{name}_times.csv")
+        metric = "F1" if task == "tok" else "accuracy"
         for tag, rows in (("A+B", rows_a), ("C", rows_c)):
             for r in rows:
-                print(f"[18] run {tag} fold {int(r[0])} epoch {int(r[1])}: loss "
-                      f"{r[2]!r} F1 train {r[3]!r} valid {r[4]!r} test {r[5]!r}")
-        check(saved_a == ["dagnn_tok_1_2.ckpt"],
-              f"driver: run A left checkpoints {saved_a}")
-        check(os.listdir(f"{root}/A/saved") == ["dagnn_tok_1_3.ckpt"],
-              f"driver: run B left {os.listdir(f'{root}/A/saved')}")
+                print(f"{label} run {tag} fold {int(r[0])} epoch {int(r[1])}: loss "
+                      f"{r[2]!r} {metric} train {r[3]!r} valid {r[4]!r} test {r[5]!r}")
+        check(saved_a == [f"{name}_1_2.ckpt"],
+              f"{task} driver: run A left checkpoints {saved_a}")
+        check(os.listdir(f"{root}/A/saved") == [f"{name}_1_3.ckpt"],
+              f"{task} driver: run B left {os.listdir(f'{root}/A/saved')}")
         check(not os.path.exists(f"{root}/C/saved")
-              or not os.listdir(f"{root}/C/saved"), "driver: run C checkpointed")
+              or not os.listdir(f"{root}/C/saved"), f"{task} driver: run C checkpointed")
         check([r[:2] for r in rows_a] == [[1, 1], [1, 2], [1, 3]],
-              "driver: run B did not resume at fold 1, epoch 3")
+              f"{task} driver: run B did not resume at fold 1, epoch 3")
         check([r[:2] for r in rows_c] == [[1, 1], [1, 2], [1, 3]],
-              "driver: run C did not train epochs 1-3")
+              f"{task} driver: run C did not train epochs 1-3")
         for r in rows_a + rows_c:
-            check(math.isfinite(r[2]), "driver: non-finite epoch loss")
-            check(all(0.0 <= v <= 1.0 for v in r[3:]), "driver: F1 out of [0, 1]")
+            check(math.isfinite(r[2]), f"{task} driver: non-finite epoch loss")
+            check(all(0.0 <= v <= 1.0 for v in r[3:]),
+                  f"{task} driver: {metric} out of [0, 1]")
         check(rows_a[1][2] < rows_a[0][2] and rows_c[1][2] < rows_c[0][2],
-              "driver: the loss of epoch 2 is not below epoch 1's")
+              f"{task} driver: the loss of epoch 2 is not below epoch 1's")
         b3, c3 = rows_a[2], rows_c[2]
         rel = abs(b3[2] - c3[2]) / abs(c3[2])
-        print(f"[18] resumed epoch 3 (B) against uninterrupted (C): loss "
-              f"{b3[2]!r} / {c3[2]!r}, relative difference {rel!r}; F1 "
+        print(f"{label} resumed epoch 3 (B) against uninterrupted (C): loss "
+              f"{b3[2]!r} / {c3[2]!r}, relative difference {rel!r}; {metric} "
               f"{b3[3:]} / {c3[3:]}")
-        check(rel <= 1e-6 and b3[3:] == c3[3:],
-              "driver: the resumed epoch 3 differs from the uninterrupted one")
-
-        train = seen["data"][0]
-        n_graphs = len(train)
-        n_edges = sum(g.num_edges for g in train)
-        steps = -(-n_graphs // 160)
-        ep_s = [r[2] for r in secs_c]
-        print(f"[18] {card}: epoch train seconds of {steps}-step epochs (host "
-              f"clock: collation in the prefetch thread, copies to the card, the "
-              f"launch loop, a loss read a step) run C {' / '.join(f'{v:.3f}' for v in ep_s)}, run "
-              f"A+B {' / '.join(f'{r[2]:.3f}' for r in secs_a)}; {steps} train "
-              f"steps an epoch, {n_graphs} graphs, {n_edges} edges")
-        for i, s in enumerate(ep_s):
-            print(f"    run C epoch {i + 1}: {n_graphs / s:.1f} graphs/s, "
-                  f"{n_edges / s:.1f} edges/s, {s / steps * 1e3:.1f} ms a step")
-        ev = seen["eval_s"]
-        print(f"[18] {card}: evaluation (train subset {len(seen['data'][1]) * 4}, valid "
-              f"{len(seen['data'][1])}, test {len(seen['data'][2])} graphs) seconds "
-              f"an epoch: " + " / ".join(f"{sum(ev[i:i + 3]):.3f}"
-                                          for i in range(0, len(ev), 3))
-              + f"; three runs' wall {wall:.1f} s")
-
-        # the epoch's parts alone, outside the counted runs
-        loader = DAGLoader(train, 160, shuffle=True, seed=1, chunk_size=256,
-                           prefetch=0)
-        groups = loader._epoch_batches()
-        t0 = time.perf_counter()
-        pad = loader._ensure_pad(groups)       # the epoch's bucket, measured
-        pad_s = time.perf_counter() - t0       # before its first batch
-        t0 = time.perf_counter()
-        host = [collate(g, pad) for g in groups]
-        coll_s = (time.perf_counter() - t0) / len(host)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        batches = [convert.batch_to_torch(b, "cuda") for b in host]
-        torch.cuda.synchronize()
-        h2d_s = (time.perf_counter() - t0) / len(host)
-        b = batches[0]
-        args = ogb_driver.add_common_args(argparse.ArgumentParser()).parse_args(
-            DRIVER_FLAGS)
-        args.num_vocab = len(seen["data"][3]) - 2
-        cfg = ogb_driver.build_model_cfg(args, "tok")
-        opt = make_optimizer(args.lr, args.clip)
-        train_step, _ = ogb_driver.make_step_fns(cfg, opt, "tok")
-        params = ogb_driver.init_params(cfg, 0, "cuda")
-        # the kernels at the loader's shapes (its bucket, not pad_for's),
-        # held to their plain versions: a train step on batch 0 and a
-        # forward on the first valid batch (the driver's evaluation bucket)
-        shapes = lambda x: (f"L={x.fwd.node_ids.shape[0]}, Kn="
-                            f"{x.fwd.node_ids.shape[1]}, Ke={x.fwd.edge_src.shape[1]}"
-                            f", Kt={x.fwd.tgrad_eslot.shape[1]}")
-        print(f"[18b] {dagnn._route(cfg, b, None)[0]} route on the loader's train "
-              f"batch 0 ({shapes(b)})")
-        phase_step("[18b]", params, cfg, b, KERNELS, PLAIN)
-        valid = DAGLoader(seen["data"][1], 160, shuffle=False, chunk_size=256,
-                          prefetch=0)
-        vb = convert.batch_to_torch(next(iter(valid)), "cuda")
-        print(f"[18c] {dagnn._route(cfg, vb, None)[0]} route on the loader's first "
-              f"valid batch ({shapes(vb)})")
-        forward_vs_plain("[18c]", params, cfg, vb)
-        state = opt.init(params)
-        params, state, loss, _ = train_step(params, state, b)
-        float(loss)
-        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ev0.record()
-        for _ in range(5):
-            params, state, loss, _ = train_step(params, state, b)
-            float(loss)                     # the driver's read a step
-        ev1.record()
-        torch.cuda.synchronize()
-        step_s = (time.perf_counter() - t0) / 5
-        step_dev = ev0.elapsed_time(ev1) / 5 / 1e3
-        print(f"[18] {card}: the epoch's bucket (PadConfig.for_graphs over its "
-              f"{len(groups)} batches, before the first) {pad_s:.4f} s, "
-              f"{pad_s / len(groups):.4f} s a batch; collation {coll_s:.4f} s a "
-              f"batch (alone), copy to the card {h2d_s:.4f} s a batch, train step "
-              f"{step_s:.4f} s (host clock, a loss read a step; {step_dev:.4f} s "
-              f"by CUDA events) on the loader's batch 0 ({shapes(b)}); steps x "
-              f"step time "
-              f"{steps * step_s:.3f} s against the epochs' "
-              + " / ".join(f"{v:.3f}" for v in ep_s[1:]) + " s: gap "
-              + " / ".join(f"{v - steps * step_s:.3f}" for v in ep_s[1:]) + " s")
-        return dict(launches=lc, routes=dict(seen["routes"]), epoch_s=ep_s,
-                    epoch_s_ab=[r[2] for r in secs_a], steps=steps,
-                    graphs=n_graphs, edges=n_edges,
-                    graphs_per_s=[n_graphs / s for s in ep_s],
-                    edges_per_s=[n_edges / s for s in ep_s], eval_s=ev,
-                    bucket_s=pad_s, bucket_s_per_batch=pad_s / len(groups),
-                    collate_s=coll_s, h2d_s=h2d_s, step_s=step_s,
-                    step_dev_s=step_dev, resume_loss_rel=rel,
-                    rows_ab=rows_a, rows_c=rows_c)
+        check(rel == 0.0 and b3[3:] == c3[3:],
+              f"{task} driver: the resumed epoch 3 differs from the uninterrupted one")
+        return seen, lc, rows_a, rows_c, secs_a, secs_c, wall, rel
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def epoch_rates(label, seen, secs_a, secs_c, wall, card):
+    """The epochs' train seconds, graphs/s and edges/s (host clock) and
+    the evaluation seconds an epoch, printed; returns them."""
+    train = seen["data"][0]
+    n_graphs = len(train)
+    n_edges = sum(g.num_edges for g in train)
+    steps = -(-n_graphs // 160)
+    ep_s = [r[2] for r in secs_c]
+    print(f"{label} {card}: epoch train seconds of {steps}-step epochs (host "
+          f"clock: collation in the prefetch thread, copies to the card, the "
+          f"launch loop, a loss read a step) run C {' / '.join(f'{v:.3f}' for v in ep_s)}, run "
+          f"A+B {' / '.join(f'{r[2]:.3f}' for r in secs_a)}; {steps} train "
+          f"steps an epoch, {n_graphs} graphs, {n_edges} edges")
+    for i, s in enumerate(ep_s):
+        print(f"    run C epoch {i + 1}: {n_graphs / s:.1f} graphs/s, "
+              f"{n_edges / s:.1f} edges/s, {s / steps * 1e3:.1f} ms a step")
+    ev = seen["eval_s"]
+    print(f"{label} {card}: evaluation (train subset {len(seen['data'][1]) * 4}, valid "
+          f"{len(seen['data'][1])}, test {len(seen['data'][2])} graphs) seconds "
+          f"an epoch: " + " / ".join(f"{sum(ev[i:i + 3]):.3f}"
+                                      for i in range(0, len(ev), 3))
+          + f"; three runs' wall {wall:.1f} s")
+    return dict(epoch_s=ep_s, epoch_s_ab=[r[2] for r in secs_a], steps=steps,
+                graphs=n_graphs, edges=n_edges,
+                graphs_per_s=[n_graphs / s for s in ep_s],
+                edges_per_s=[n_edges / s for s in ep_s], eval_s=ev, wall_s=wall)
+
+
+def loader_shapes(x):
+    return (f"L={x.fwd.node_ids.shape[0]}, Kn={x.fwd.node_ids.shape[1]}, "
+            f"Ke={x.fwd.edge_src.shape[1]}, Kt={x.fwd.tgrad_eslot.shape[1]}")
+
+
+def loader_checks(tags, cfg, params, b, valid, impls, kernels):
+    """Phases 18b/18c and 19a: outside the counted runs, the kernels at
+    the driver's loader's shapes (its bucket, not pad_for's) held to their
+    plain versions (impls: kernels, plain): a bf16 train step on the
+    train loader's batch 0 `b` at phase 5's gates (tags[0]), and the
+    logits of the first batch of the valid graphs `valid` (the driver's
+    evaluation bucket) at the bf16 output tolerance (tags[1]). The
+    wrappers named in `kernels` must have launched there, and no other."""
+    from dagnn_tpu_torch import convert
+    from dagnn_tpu_torch.data.dataloader import DAGLoader
+    from dagnn_tpu_torch.nn import dagnn
+    reset_counts()
+    print(f"{tags[0]} {dagnn._route(cfg, b, None)[0]} route on the loader's "
+          f"train batch 0 ({loader_shapes(b)})")
+    phase_step(tags[0], params, cfg, b, *impls)
+    loader = DAGLoader(valid, 160, shuffle=False, chunk_size=256, prefetch=0)
+    vb = convert.batch_to_torch(next(iter(loader)), "cuda")
+    print(f"{tags[1]} {dagnn._route(cfg, vb, None)[0]} route on the loader's "
+          f"first valid batch ({loader_shapes(vb)})")
+    forward_vs_plain(tags[1], params, cfg, vb, impls)
+    lc = read_counts()
+    print(f"{tags[1]} launch counts over the step and the forward: {lc}")
+    check(all(lc[k] > 0 for k in kernels)
+          and all(v == 0 for k, v in lc.items() if k not in kernels),
+          f"{tags[1]}: launches other than those of {kernels}")
+
+
+def phase_driver(card):
+    """Phase 18: the TOK driver through its entry point main_tok.main, at
+    the flagship's widths (the driver's defaults: emb 300, 2 layers,
+    attn_h, bidirectional, batch 160, chunk 256, head 5002, bf16, fused)
+    on 800 synthetic ASTs (640 train, 4 steps an epoch): runs A, B and C
+    (driver_runs), K1 and K2 launched, no other kernel. Then, outside the
+    counted runs, the kernels at the loader's shapes against their plain
+    versions (a train step on its batch 0, 18b; a forward on its first
+    valid batch, 18c), and the epoch's parts alone: the bucket measured
+    before the epoch's first batch, collation a batch, the batch's copy to
+    the card, and the train step on one batch."""
+    from dagnn_tpu_torch import convert
+    from dagnn_tpu_torch.cli import main_tok, ogb_driver
+    from dagnn_tpu_torch.dag.batch import collate
+    from dagnn_tpu_torch.data.dataloader import DAGLoader
+    from dagnn_tpu_torch.nn.dagnn import KERNELS, PLAIN
+    from dagnn_tpu_torch.train.optim import make_optimizer
+
+    seen, lc, rows_a, rows_c, secs_a, secs_c, wall, rel = driver_runs(
+        "[18]", main_tok.main, "tok", card, ("row_forward", "row_backward"))
+    rates = epoch_rates("[18]", seen, secs_a, secs_c, wall, card)
+    train, ep_s, steps = seen["data"][0], rates["epoch_s"], rates["steps"]
+
+    # the epoch's parts alone, outside the counted runs
+    loader = DAGLoader(train, 160, shuffle=True, seed=1, chunk_size=256,
+                       prefetch=0)
+    groups = loader._epoch_batches()
+    t0 = time.perf_counter()
+    pad = loader._ensure_pad(groups)       # the epoch's bucket, measured
+    pad_s = time.perf_counter() - t0       # before its first batch
+    t0 = time.perf_counter()
+    host = [collate(g, pad) for g in groups]
+    coll_s = (time.perf_counter() - t0) / len(host)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batches = [convert.batch_to_torch(b, "cuda") for b in host]
+    torch.cuda.synchronize()
+    h2d_s = (time.perf_counter() - t0) / len(host)
+    b = batches[0]
+    args = ogb_driver.add_common_args(argparse.ArgumentParser()).parse_args(
+        DRIVER_FLAGS)
+    args.num_vocab = len(seen["data"][3]) - 2
+    cfg = ogb_driver.build_model_cfg(args, "tok")
+    opt = make_optimizer(args.lr, args.clip)
+    train_step, _ = ogb_driver.make_step_fns(cfg, opt, "tok")
+    params = ogb_driver.init_params(cfg, 0, "cuda")
+    loader_checks(("[18b]", "[18c]"), cfg, params, b, seen["data"][1],
+                  (KERNELS, PLAIN), ("row_forward", "row_backward"))
+    state = opt.init(params)
+    params, state, loss, _ = train_step(params, state, b)
+    float(loss)
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev0.record()
+    for _ in range(5):
+        params, state, loss, _ = train_step(params, state, b)
+        float(loss)                     # the driver's read a step
+    ev1.record()
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / 5
+    step_dev = ev0.elapsed_time(ev1) / 5 / 1e3
+    print(f"[18] {card}: the epoch's bucket (PadConfig.for_graphs over its "
+          f"{len(groups)} batches, before the first) {pad_s:.4f} s, "
+          f"{pad_s / len(groups):.4f} s a batch; collation {coll_s:.4f} s a "
+          f"batch (alone), copy to the card {h2d_s:.4f} s a batch, train step "
+          f"{step_s:.4f} s (host clock, a loss read a step; {step_dev:.4f} s "
+          f"by CUDA events) on the loader's batch 0 ({loader_shapes(b)}); steps x "
+          f"step time "
+          f"{steps * step_s:.3f} s against the epochs' "
+          + " / ".join(f"{v:.3f}" for v in ep_s[1:]) + " s: gap "
+          + " / ".join(f"{v - steps * step_s:.3f}" for v in ep_s[1:]) + " s")
+    return dict(launches=lc, routes=dict(seen["routes"]), **rates,
+                bucket_s=pad_s, bucket_s_per_batch=pad_s / len(groups),
+                collate_s=coll_s, h2d_s=h2d_s, step_s=step_s,
+                step_dev_s=step_dev, resume_loss_rel=rel,
+                rows_ab=rows_a, rows_c=rows_c)
+
+
+def phase_lp_driver(card):
+    """Phase 19: the LP driver through its entry point main_lp.main at its
+    defaults (gated_sum, unidirectional; emb 300, 2 layers, 275 classes,
+    batch 160, chunk 256, bf16, auto: the generic branch) on phase 18's
+    corpus: runs A, B and C (driver_runs), K5 launched (the sum kind's
+    segment sums and the transpose merges) and no other kernel. Then 19a,
+    outside the counted runs: K5 at the LP loader's shapes against its
+    plain version (loader_checks, with main_lp's config)."""
+    from dagnn_tpu_torch import convert
+    from dagnn_tpu_torch.cli import main_lp, ogb_driver
+    from dagnn_tpu_torch.data.dataloader import DAGLoader
+    from dagnn_tpu_torch.nn.dagnn import SEG_KERNELS, SEG_PLAIN
+    seen, lc, rows_a, rows_c, secs_a, secs_c, wall, rel = driver_runs(
+        "[19]", main_lp.main, "lp", card, ("tg_accumulate",))
+    check(set(seen["routes"]) == {"generic"},
+          f"lp driver: routes {dict(seen['routes'])}, not the generic branch")
+    rates = epoch_rates("[19]", seen, secs_a, secs_c, wall, card)
+    args = main_lp.parser().parse_args(DRIVER_FLAGS)
+    args.num_vocab = len(seen["data"][3]) - 2
+    cfg = ogb_driver.build_model_cfg(args, "lp")
+    params = ogb_driver.init_params(cfg, 0, "cuda")
+    loader = DAGLoader(seen["data"][0], 160, shuffle=True, seed=1,
+                       chunk_size=256, prefetch=0)
+    b = convert.batch_to_torch(next(iter(loader)), "cuda")
+    print(f"[19a] main_lp's config: agg {cfg.agg}, bidirectional "
+          f"{cfg.bidirectional}, {cfg.num_class} classes, {cfg.compute_dtype}, "
+          f"segment_impl {cfg.segment_impl}")
+    loader_checks(("[19a]", "[19a]"), cfg, params, b, seen["data"][1],
+                  (SEG_KERNELS, SEG_PLAIN), ("tg_accumulate",))
+    return dict(launches=lc, routes=dict(seen["routes"]), **rates,
+                resume_loss_rel=rel, rows_ab=rows_a, rows_c=rows_c)
+
+
+# phase 19b: the aggregator kinds at the flagship's widths (dataclasses
+# fields replaced on flagship_cfg(); each runs the generic branch)
+KINDS = {"add": dict(agg="add"), "max": dict(agg="max"),
+         "gated_sum": dict(agg="gated_sum"), "self_attn_h": dict(agg="self_attn_h"),
+         "mattn_h": dict(agg="mattn_h"), "attn_x": dict(agg="attn_x"),
+         "attn_h dense": dict(segment_impl="dense"),
+         "recurr=False": dict(recurr=False)}
+
+
+def time_pass(fn, reps=3):
+    """Mean ms of fn() (a forward and backward) by CUDA events."""
+    torch.cuda.synchronize()
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    for _ in range(reps):
+        fn()
+    ev1.record()
+    torch.cuda.synchronize()
+    return ev0.elapsed_time(ev1) / reps
+
+
+def phase_kinds(dev, batch, card):
+    """Phase 19b: each aggregator kind of KINDS (add and max bidirectional
+    with ref_shared_agg_quirk, as the defaults have it) in the flagship
+    model on phase 4's batch: one bf16 train pass, kernels against plain
+    at phase 5's gates, with its K6 and K5 launches counted (per level,
+    layer and direction: K5 merges the transpose grads once, and sums the
+    add / gated_sum messages in the forward and its replay; K6 runs
+    forward, replayed and backward on the attention kinds); then the
+    kernel pass timed by CUDA events (3 passes, forward and backward)."""
+    from dagnn_tpu_torch import checks, flagship
+    from dagnn_tpu_torch.nn import dagnn
+    from dagnn_tpu_torch.nn.dagnn import SEG_KERNELS, SEG_PLAIN, dagnn_init
+    L = batch.fwd.node_ids.shape[0]
+    out = {}
+    for tag, kw in KINDS.items():
+        cfg = dataclasses.replace(flagship.flagship_cfg(), **kw)
+        check(dagnn._route(cfg, batch, None)[0] == "generic",
+              f"{tag}: not on the generic branch")
+        params = dagnn_init(0, cfg, device=dev)
+        n = cfg.num_layers * L * len(cfg.dirs)
+        expect = {"tg_accumulate": n}
+        if cfg.agg_attn:
+            expect.update(segment_attn_forward=2 * n, segment_attn_backward=n)
+        elif cfg.agg in ("add", "gated_sum"):
+            expect["tg_accumulate"] = 3 * n
+        reset_counts()
+        phase_step(f"[19b] {tag}:", params, cfg, batch, SEG_KERNELS, SEG_PLAIN,
+                   group=checks.score_linears)
+        lc = check_counts("[19b]", f"{tag} one train pass", expect)
+        ms = time_pass(lambda: loss_and_grads(params, cfg, batch, SEG_KERNELS))
+        print(f"[19b] {tag}: forward and backward {ms:.2f} ms (CUDA events, "
+              f"3 passes) on {card}")
+        out[tag] = dict(launches=lc, pass_ms=ms)
+    return out
+
+
+def pool_ties(params, cfg, batch):
+    """Of the max pool over every node of a graph (the node-space
+    readout) in the layers' state features (the kernels' bf16 states; x,
+    the encoder's output, is the same in the plain version), the share of
+    (graph, feature) pairs whose largest value two or more nodes hold
+    (ties), and whose two largest values are at most one bf16 step apart
+    (near ties). At such a pair a state rounded one step apart moves the
+    feature's whole gradient to another node."""
+    from dagnn_tpu_torch.nn.dagnn import dagnn_node_states
+    from dagnn_tpu_torch.ops import segment
+    with torch.no_grad():
+        _, h_dirs = dagnn_node_states(params, cfg, batch)
+        h = torch.cat([hd[l] for hd in h_dirs for l in range(cfg.num_layers)],
+                      dim=-1).float()
+        g = int(batch.n_graph)
+        gid = torch.as_tensor(batch.graph_id, device=h.device).long()
+        live = torch.as_tensor(batch.node_mask, device=h.device).bool() & (gid < g)
+        m1 = segment.segment_max(h, gid, g + 1, live)[:g]
+        at_max = live[:, None] & (h == m1[gid.clamp(max=g - 1)])
+        n_max = torch.zeros((g + 1, h.shape[1]), device=h.device)
+        n_max.index_add_(0, torch.where(live, gid, g), at_max.float())
+        m2 = segment.segment_max(torch.where(at_max, -torch.inf, h), gid, g + 1,
+                                 live)[:g]
+        # one bf16 step at m1: 2^(e - 8) for m1 = f 2^e, f in [0.5, 1)
+        step = torch.ldexp(torch.ones_like(m1), torch.frexp(m1)[1] - 8)
+        tie = n_max[:g] >= 2
+        near = tie | ((m1 - m2) <= step)
+    return float(tie.float().mean()), float(near.float().mean()), tuple(h.shape)
+
+
+def phase_node_space(dev, batch, card):
+    """Phase 19c: out_pool_all (the node-space readout) on the flagship's
+    attn_h with segment_impl "fused": the per-direction wavefront, K1/K2
+    at one direction, read out through _perm_gather and a pool over every
+    node of a graph. With the flagship's max pool: one f32 train pass,
+    kernels against plain at CROSS_TOL; one bf16 train pass at phase 5's
+    loss and norm gates, its leaves printed beside the max pool's ties
+    and near ties (pool_ties) but not gated, since a tied feature's
+    gradient lands on one node or another; the bf16 logits against plain
+    (forward_vs_plain). With a mean pool, which has no ties: one bf16
+    train pass at all of phase 5's gates, leaves included; its readout
+    sums run K5 over every node of the batch. Launches counted over the
+    train passes."""
+    from dagnn_tpu_torch import flagship
+    from dagnn_tpu_torch.nn import dagnn
+    from dagnn_tpu_torch.nn.dagnn import KERNELS, PLAIN, dagnn_init
+    L = batch.fwd.node_ids.shape[0]
+    cfg = dataclasses.replace(flagship.flagship_cfg(), out_pool_all=True)
+    cfg_mean = dataclasses.replace(cfg, out_pool="mean")
+    check(dagnn._route(cfg, batch, None)[0] == "direction",
+          "out_pool_all: not on the per-direction fused route")
+    params = dagnn_init(0, cfg, device=dev)
+    reset_counts()
+    cross = phase_cross("[19c]", "out_pool_all, fused, kernels vs plain", params,
+                        cfg, (batch, KERNELS), (batch, PLAIN))
+    worst = phase_step("[19c] max pool, bf16:", params, cfg, batch, KERNELS,
+                       PLAIN, leaves=False)
+    worst_mean = phase_step("[19c] mean pool, bf16:", params, cfg_mean, batch,
+                            KERNELS, PLAIN)
+    lc = check_counts("[19c]", "node-space train passes (f32 max, bf16 max, "
+                      "bf16 mean)", {"row_forward": 6 * L, "row_backward": 6 * L,
+                                     "tg_accumulate": 1})
+    tie, near, shape = pool_ties(params, cfg, batch)
+    print(f"[19c] the max pool over the layers' node states {shape} of "
+          f"{int(batch.n_graph)} graphs, bf16 kernels: {100 * tie:.2f}% of "
+          f"(graph, feature) pairs tied, {100 * near:.2f}% within one bf16 "
+          f"step; the max pool's worst leaf {worst[1]} at {worst[0]:.3e} "
+          f"(not gated), the mean pool's {worst_mean[1]} at "
+          f"{worst_mean[0]:.3e} (gate {STEP_TOL['leaf']:g})")
+    forward_vs_plain("[19c] bf16", params, cfg, batch)
+    ms = time_pass(lambda: loss_and_grads(params, cfg, batch, KERNELS))
+    ms_mean = time_pass(lambda: loss_and_grads(params, cfg_mean, batch, KERNELS))
+    print(f"[19c] out_pool_all, fused: bf16 forward and backward {ms:.2f} ms "
+          f"(max pool), {ms_mean:.2f} ms (mean pool) (CUDA events, 3 passes "
+          f"each) on {card}")
+    return dict(launches=lc, pass_ms=ms, pass_ms_mean=ms_mean, cross=cross,
+                bf16_worst_leaf=worst, bf16_worst_leaf_mean=worst_mean,
+                ties=tie, near_ties=near)
 
 
 def main(argv):
@@ -1666,6 +1908,13 @@ def main(argv):
     print("[18] the TOK driver (main_tok.main), runs A (2 epochs), B (resumed "
           "to 3), C (3 afresh): " + " ".join(DRIVER_FLAGS))
     driver = phase_driver(card)
+    print("[19] the LP driver (main_lp.main) at its defaults (gated_sum, "
+          "unidirectional), runs A, B, C as in 18: " + " ".join(DRIVER_FLAGS))
+    lp = phase_lp_driver(card)
+    print("[19b] every aggregator kind at the flagship's widths on phase 4's "
+          "batch, one bf16 train pass each, kernels against plain")
+    kinds = phase_kinds(dev, batch, card)
+    node_space = phase_node_space(dev, batch, card)
     runs = {"merged": merged, "pair": paired, "pallas": pallas,
             "unidirectional": uni, "nearfar_rt": nf_rt, "nearfar_r": nf_r,
             "nearfar_unidirectional": nf_u, "merged_k2r": k2r}
@@ -1702,9 +1951,14 @@ def main(argv):
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                         "bound_by": r["bound"][1], "library_ms": r.get("library_ms"),
                         "launches_by_path": {k: v["launches"][name] for k, v in
-                                             {**runs, "tok_driver": driver}.items()
+                                             {**runs, "tok_driver": driver,
+                                              "lp_driver": lp, "node_space": node_space,
+                                              **{f"kind {t}": v for t, v in kinds.items()}
+                                              }.items()
                                              if v["launches"][name]}})
-    print(json.dumps({**runs, "tok_driver": driver, "split_checks": split, "cross_route": cross,
+    print(json.dumps({**runs, "tok_driver": driver, "lp_driver": lp, "kinds": kinds,
+                      "node_space": node_space,
+                      "split_checks": split, "cross_route": cross,
                       "nearfar_cross_route": nf_cross, "ab_steps": ab,
                       "split_row": {short(k): v for k, v in split_row.items()},
                       "k2_launches": k2_launches, "k1_launches": k1_launches,

@@ -9,14 +9,18 @@ ogbg-code2 raw directory when available, or from the synthetic AST
 generator.
 
 It runs on the CUDA device unless --cpu is given, and raises without a
-card (no CPU fallback). --segment_impl auto is "fused" (the row kernels)
-and --compute_dtype auto is bfloat16 on the card, float32 with --cpu, as
-the JAX driver chooses by backend. Each fold's parameters come from
+card (no CPU fallback). --segment_impl auto is "fused" (the row kernels
+where the config takes them, the generic branch otherwise: LP's gated_sum
+default runs there) and --compute_dtype auto is bfloat16 on the card,
+float32 with --cpu, as the JAX driver chooses by backend; "dense" and
+"scatter" run the generic branch. Each fold's parameters come from
 `init_params`; each batch goes to the device with convert.batch_to_torch.
-Parts of the JAX driver that wait for other slices raise
-NotImplementedError naming their ROADMAP queue 1 item: the baselines
-(--gnn other than dagnn, item 6), dropout and segment_impl dense/scatter
-(item 5). Checkpoints are the port's own format (train/checkpoint.py).
+Dropout (--dagnn_dropout) draws from one torch.Generator per fold on the
+run's device, reseeded at each epoch from --seed, the fold and the epoch,
+so a resumed epoch draws the masks an uninterrupted run draws. The
+baselines (--gnn other than dagnn) raise NotImplementedError naming
+ROADMAP queue 1, item 6. Checkpoints are the port's own format
+(train/checkpoint.py).
 
 The train step keeps the JAX driver's nonfinite-step guard: when the loss
 or any gradient is not finite, the update is skipped, parameters and
@@ -97,8 +101,8 @@ def add_common_args(p: argparse.ArgumentParser):
     p.add_argument("--prefetch", type=int, default=2)
     p.add_argument("--segment_impl", default="auto",
                    choices=["auto", "dense", "scatter", "fused"],
-                   help="auto: the fused row kernels (the only impl ported; "
-                        "dense and scatter raise)")
+                   help="auto: fused (the row kernels where the config takes "
+                        "them); dense and scatter: the generic branch")
     p.add_argument("--compute_dtype", default="auto",
                    choices=["auto", "float32", "bfloat16"],
                    help="auto: bfloat16 on the card, float32 with --cpu")
@@ -114,10 +118,6 @@ def build_model_cfg(args, task: str, num_nodetypes=98, num_nodeattributes=10030)
         raise NotImplementedError(
             f"--gnn {args.gnn} is not ported yet: ROADMAP queue 1, item 6 "
             "(baselines)")
-    if args.dagnn_dropout > 0:
-        raise NotImplementedError(
-            "--dagnn_dropout > 0 is not ported yet: ROADMAP queue 1, item 5 "
-            "(the rest of the DAGNN config surface)")
     enc = EncoderSpec("ast", emb_dim=args.emb_dim,
                       num_nodetypes=num_nodetypes,
                       num_nodeattributes=num_nodeattributes,
@@ -144,7 +144,7 @@ def build_model_cfg(args, task: str, num_nodetypes=98, num_nodeattributes=10030)
 
 
 def _impl_for(args):
-    # the fused row kernels on the card and (their plain versions) on the CPU
+    # the kernels on the card and (their plain versions) on the CPU
     return "fused" if args.segment_impl == "auto" else args.segment_impl
 
 
@@ -218,7 +218,8 @@ def make_step_fns(cfg, opt, task: str = "tok"):
     """(train_step, predict) for a DAGNN config on the TOK or LP task.
 
     train_step(params, opt_state, batch, rng=None) ->
-        (params, opt_state, loss, finite)
+        (params, opt_state, loss, finite); rng: a torch.Generator on the
+        parameters' device, for dropout
     predict(params, batch) -> argmax ids ([G, S] tokens, or [G] classes)"""
     if not isinstance(cfg, DAGNNConfig):
         raise NotImplementedError(
@@ -321,6 +322,7 @@ def run(args, task: str):
     fold_results = []
     for fold in range(start_fold, args.folds + 1):
         params = init_params(cfg, args.seed + fold, device)
+        gen = torch.Generator(device=device)        # dropout's draws
         opt_state = opt.init(params)
         start_epoch = 1
         best = {"epoch": 0, "train": 0.0, "valid": -1.0, "test": 0.0}
@@ -356,9 +358,10 @@ def run(args, task: str):
             losses = []
             skipped = 0
             loader = mk_loader(train, True, args.seed + fold * 1000 + epoch)
+            gen.manual_seed(args.seed + fold * 1000 + epoch)
             for batch in loader:
                 params, opt_state, loss, finite = train_step(
-                    params, opt_state, batch_to_torch(batch, device))
+                    params, opt_state, batch_to_torch(batch, device), gen)
                 lv = float(loss)
                 if np.isfinite(lv):
                     losses.append(lv)

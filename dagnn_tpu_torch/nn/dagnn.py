@@ -1,24 +1,27 @@
 """Canonical DAGNN on the wavefront: direction-merged, pair-scheduled and
 per direction.
 
-Counterpart of dagnn_tpu/nn/dagnn.py for the slice the port runs today:
-the additive-attention (`attn_h`), GRU-stack configurations with the
-slot-space readout, the flagship TOK model among them. dagnn_forward
-routes a batch as the JAX package does:
-  * fused (segment_impl="fused"), bidirectional, both directions' padded
-    shapes equal (merged_applicable): both direction passes run in one
-    wavefront whose rows are the concat [fwd block | rev block]. Without a
-    pair plan that is the merged wavefront, each row one call of the row
-    kernels (ops/row_step.py, K1 forward, K2 backward); with a pair plan
-    (dag/pair.py) the pair-scheduled wavefront, each pair of rows one call
-    of the pair kernels (ops/pair_step.py, K3, K4). One
-    torch.autograd.Function (_Wavefront over a _Plan) drives both.
-  * any other fused batch (unidirectional, or shapes that differ): the
-    per-direction wavefront, one _direction_pass per direction over the
-    same _Plan with the row kernels at ndirs=1. Its backward merges the
-    transpose edge grads inside K2 (KERNELS), or with SPLIT_KERNELS in K5
-    first (row_step.tg_accumulate) and K2 after, the JAX package's
-    two-call form.
+Counterpart of dagnn_tpu/nn/dagnn.py, the whole config surface: every
+aggregator kind, agg_x, vid_dim, recurr, ref_shared_agg_quirk, dropout,
+the slot-space and node-space (out_pool_all) readouts, with or without
+out_slots. dagnn_forward routes a batch as the JAX package does:
+  * fused (segment_impl="fused", the `attn` kind with a GRU stack, no
+    agg_x / vids: _fused_applicable), bidirectional, slot-space readout,
+    both directions' padded shapes equal (merged_applicable): both
+    direction passes run in one wavefront whose rows are the concat
+    [fwd block | rev block]. Without a pair plan that is the merged
+    wavefront, each row one call of the row kernels (ops/row_step.py, K1
+    forward, K2 backward); with a pair plan (dag/pair.py) the
+    pair-scheduled wavefront, each pair of rows one call of the pair
+    kernels (ops/pair_step.py, K3, K4). One torch.autograd.Function
+    (_Wavefront over a _Plan) drives both.
+  * any other fused batch (unidirectional, out_pool_all, or shapes that
+    differ): the per-direction wavefront, one _direction_pass per
+    direction over the same _Plan with the row kernels at ndirs=1. Its
+    backward merges the transpose edge grads inside K2 (KERNELS), or with
+    SPLIT_KERNELS in K5 first (row_step.tg_accumulate) and K2 after, the
+    JAX package's two-call form. The node-space readout reads its states
+    through _perm_gather, whose VJP is the inverse-permutation gather.
   * near/far batches (PadConfig.nearfar: the schedules carry edge_nsrc)
     take the same two fused wavefronts with the row kernels in their nf
     modes (K7): "regions" directions gather only far predecessor rows and
@@ -28,19 +31,20 @@ routes a batch as the JAX package does:
     JAX package's knob) the merged wavefront keeps no residual streams:
     its backward re-gathers full-width values and the row backward
     recomputes the forward (K2r); the pair path is then off, as in JAX.
-  * segment_impl="pallas": the per-direction wavefront's generic branch.
-    Each level runs _step_outs (the attention score, the edge-softmax
-    aggregate K6 of ops/segment_attn.py, a GRU cell in torch.matmul) into a
-    write-once state buffer [nl, L*Kn+1, H]; its autograd Function
-    (_GenericWavefront) replays the levels in reverse, each level's VJP by
-    torch.autograd.grad, with the transpose edge grads merged by K5.
+  * every config the fused paths do not take, under every segment_impl
+    ("dense", "scatter", "pallas", and "fused" on another kind): the
+    per-direction wavefront's generic branch. Each level runs _step_outs
+    (nn/aggregators.py: the attention kinds through the edge-softmax
+    aggregate K6 of ops/segment_attn.py, `add` and `gated_sum` through
+    K5's segment sum, `max` through a scatter max; a GRU cell or a linear
+    cell in torch.matmul) into a write-once state buffer [nl, L*Kn+1, H];
+    its autograd Function (_GenericWavefront) replays the levels in
+    reverse, each level's VJP by torch.autograd.grad, with the transpose
+    edge grads merged by K5.
 
-Any other configuration raises NotImplementedError naming its ROADMAP
-item; nothing falls back to another path.
-
-Parameters are a flat dict keyed by the JAX tree's dotted paths
-("encoder.attr_emb", "aggr.1.0.attn_lin.w", "cells.0.1.w_ih", "head.w";
-see convert.py).
+Nothing falls back to another path. Parameters are a flat dict keyed by
+the JAX tree's dotted paths ("encoder.attr_emb", "aggr.1.0.attn_lin.w",
+"cells.0.1.w_ih", "head.w"; see convert.py).
 """
 
 from __future__ import annotations
@@ -55,10 +59,12 @@ import torch
 from dagnn_tpu_torch import resolve_device
 from dagnn_tpu_torch.convert import flatten_tree, unflatten_tree
 from dagnn_tpu_torch.dag.batch import DAGBatch
-from dagnn_tpu_torch.nn.aggregators import (AggregatorSpec, aggregate_level,
+from dagnn_tpu_torch.nn.aggregators import (SEG_KERNELS, SEG_PLAIN, AggImpl,
+                                            AggregatorSpec, aggregate_level,
                                             aggregator_init, encode_edges)
 from dagnn_tpu_torch.nn.encoders import EncoderSpec, encoder_init, encode
-from dagnn_tpu_torch.ops import pair_step, row_step, segment_attn
+from dagnn_tpu_torch.nn.readout import pool_nodes
+from dagnn_tpu_torch.ops import pair_step, row_step
 from dagnn_tpu_torch.ops.gru import gru_cell, gru_init
 from dagnn_tpu_torch.ops.linear import linear, linear_init
 
@@ -178,6 +184,9 @@ def dagnn_init(seed, cfg: DAGNNConfig, dtype=torch.float32,
         torch.Generator().manual_seed(int(seed))
     p = {"encoder": encoder_init(gen, cfg.encoder, dtype)}
     if cfg.shared_aggregator:
+        # one initial add/max aggregator under every (direction, layer)
+        # leaf, as in the JAX package; the copy below makes the leaves
+        # separate tensors that training moves apart (ROADMAP queue 3)
         shared = aggregator_init(gen, cfg.aggregator_spec(0), dtype)
         p["aggr"] = [[shared for _ in range(cfg.num_layers)] for _ in cfg.dirs]
     else:
@@ -208,10 +217,15 @@ def dagnn_init(seed, cfg: DAGNNConfig, dtype=torch.float32,
               for _ in range(cfg.max_seq_len)]
         p["head"] = {"w": torch.stack([h["w"] for h in hs]),
                      "b": torch.stack([h["b"] for h in hs])}
-    return {k: v.to(dev) for k, v in flatten_tree(p).items()}
+    return {k: v.to(dev, copy=True) for k, v in flatten_tree(p).items()}
 
 
 # ------------------------------------------------------------ applicability
+
+# every name but "fused" runs the generic branch, where all compute one
+# function (nn/aggregators.py)
+SEGMENT_IMPLS = ("dense", "scatter", "fused", "pallas")
+
 
 def _fused_applicable(cfg: DAGNNConfig) -> bool:
     """Configs the row kernels cover: additive-attention aggregators with
@@ -234,29 +248,6 @@ def merged_applicable(cfg: DAGNNConfig, batch: DAGBatch) -> bool:
     if f.edge_nsrc is not None or r.edge_nsrc is not None:
         return tuple(f.edge_src_slot.shape)[0] == tuple(r.edge_src_slot.shape)[0]
     return tuple(f.edge_src_slot.shape) == tuple(r.edge_src_slot.shape)
-
-
-def _generic_applicable(cfg: DAGNNConfig) -> bool:
-    """Configs the generic branch covers in the port: the fused configs'
-    model on segment_impl="pallas" (attn aggregators over K6)."""
-    return (cfg.segment_impl == "pallas" and not cfg.agg_x
-            and cfg.vid_dim == 0 and cfg.recurr
-            and cfg.agg_attn and not cfg.agg_attn_x
-            and all(cfg.aggregator_spec(l).kind == "attn"
-                    for l in range(cfg.num_layers)))
-
-
-def _require_slice(cfg: DAGNNConfig):
-    if cfg.out_pool_all:
-        raise NotImplementedError(
-            "out_pool_all (node-space readout) is not ported yet: ROADMAP "
-            "queue 1, item 5 (the rest of the DAGNN config surface)")
-    if not (_fused_applicable(cfg) or _generic_applicable(cfg)):
-        raise NotImplementedError(
-            f"agg={cfg.agg!r}, segment_impl={cfg.segment_impl!r} is not "
-            "ported yet: only attn aggregators with a GRU stack on "
-            "segment_impl 'fused' or 'pallas' are. ROADMAP queue 1, item 5 "
-            "(the rest of the DAGNN config surface)")
 
 
 def _nearfar(cfg: DAGNNConfig, batch: DAGBatch) -> bool:
@@ -374,14 +365,6 @@ class StepImpl(NamedTuple):
     backward: object
 
 
-class AggImpl(NamedTuple):
-    """The functions the generic branch runs: the edge-softmax aggregate
-    (K6's contract, forward and backward) and the transpose-grad merge
-    (K5), as wrappers (default) or plain versions."""
-    aggregate: object
-    merge: object
-
-
 KERNELS = StepImpl(row_step.row_forward, row_step.row_backward)
 PLAIN = StepImpl(row_step.row_forward_plain, row_step.row_backward_plain)
 PAIR_KERNELS = StepImpl(pair_step.pair_forward, pair_step.pair_backward)
@@ -392,10 +375,8 @@ SPLIT_KERNELS = StepImpl(row_step.row_forward,
 SPLIT_PLAIN = StepImpl(row_step.row_forward_plain,
                        functools.partial(row_step.row_backward_plain,
                                          merge_tg=False))
-SEG_KERNELS = AggImpl(segment_attn.pallas_edge_softmax_aggregate,
-                      row_step.tg_accumulate)
-SEG_PLAIN = AggImpl(segment_attn.plain_edge_softmax_aggregate,
-                    row_step.tg_accumulate_plain)
+# the generic branch runs SEG_KERNELS (K6 and K5) or SEG_PLAIN
+_PLAIN_IMPLS = (PLAIN, PAIR_PLAIN, SPLIT_PLAIN, SEG_PLAIN)
 
 
 def _param_keys(cfg: DAGNNConfig, has_ea: bool, dirs=(0, 1)):
@@ -587,15 +568,17 @@ class _Wavefront(torch.autograd.Function):
         return (None, dxs, *dws)
 
 
-def _run(plan, xs, params, function=None):
+def _run(plan, streams, params, function=None):
     """The plan's state buffer: through its autograd Function (`function`,
-    _Wavefront by default) when a gradient is wanted, else plan.infer."""
+    _Wavefront by default) when a gradient is wanted, else plan.infer.
+    `streams` are the plan's differentiable inputs (x, and the generic
+    branch's xsrc, which may be None)."""
     wparams = [params[k] for k in plan.keys]
-    if torch.is_grad_enabled() and (xs.requires_grad
-                                    or any(p.requires_grad for p in wparams)):
-        return (function or _Wavefront).apply(plan, xs, *wparams)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (*streams, *wparams)):
+        return (function or _Wavefront).apply(plan, *streams, *wparams)
     with torch.no_grad():
-        return plan.infer(xs, wparams)
+        return plan.infer(*streams, wparams)
 
 
 def merged_pass(params, cfg: DAGNNConfig, x, edge_attr, batch: DAGBatch,
@@ -609,7 +592,7 @@ def merged_pass(params, cfg: DAGNNConfig, x, edge_attr, batch: DAGBatch,
                                                    batch.rev, x.device)
     xs = fxs["x"]
     h = _run(_Plan(cfg, fxs, ixs, impl, kw={"ndirs": 2}, nf=nf,
-                   res_stream=not _NO_RES_STREAM), xs, params)
+                   res_stream=not _NO_RES_STREAM), (xs,), params)
     return h[: L * kn2], xs.reshape(L * kn2, -1)
 
 
@@ -657,7 +640,7 @@ def pair_pass(params, cfg: DAGNNConfig, x, edge_attr, batch: DAGBatch,
     fxs, ixs = _build_streams_pair(cfg, x, edge_attr, batch.pair, x.device)
     plan = _Plan(cfg, fxs, ixs, impl, tail=(batch.pair.blocks,))
     xs = fxs["x"]
-    h = _run(plan, xs, params)
+    h = _run(plan, (xs,), params)
     return h[: plan.n * plan.unit], xs.reshape(plan.n * plan.unit, -1)
 
 
@@ -665,25 +648,41 @@ def pair_pass(params, cfg: DAGNNConfig, x, edge_attr, batch: DAGBatch,
 #
 # One direction's schedule at a time (dagnn_tpu/nn/dagnn.py _direction_pass):
 # the fused branch runs the row kernels at ndirs=1 over the _Plan above;
-# the generic branch (segment_impl="pallas") runs _step_outs level by level.
+# the generic branch runs _step_outs level by level.
 
-def _build_streams(cfg: DAGNNConfig, x, edge_attr, sched, dev):
+def _build_streams(cfg: DAGNNConfig, x, edge_attr, sched, dev,
+                   kill_edges=False):
     """One direction's streams in the level-sorted layout, converted once
     per batch: x in the compute dtype [L, Kn, emb], ea [L, Ke, R], and the
     index / mask streams in the kernels' types (eslot into the state
     buffer [L*Kn + 1], garbage L*Kn; teslot into the edge-grad buffer
     [L*Ke + 1], garbage L*Ke; edst and tdst block-local, pad Kn). The level
-    index of JAX's `lvl` stream is the loop index here. The transpose keys
-    are left out when the schedule has none, or when a near/far schedule's
-    transpose (far edges only) meets the generic branch: its backward then
-    scatter-adds, as the JAX package's does. On the fused branch a near/far
-    schedule adds nf (one _nf_layout entry), nsrc and eslot_v; its
-    transpose slots already index the direction's edge-grad buffer (unit
-    Kf under "r", Ke under "t"). Returns (fxs, ixs, nf or None)."""
+    index of JAX's `lvl` stream is the loop index here. Under agg_x or an
+    *_x attention, xsrc = x[edge_src] [L, Ke, emb] (a second differentiable
+    stream); with vid_dim, vsrc and vnode: the one-hot vertex ids
+    (arange(N+1) % vid_dim, reference dvae/dagnn.py:130-134) at edge_src
+    and at node_ids. The transpose keys are left out when the schedule has
+    none, under agg_x (whose values are not states), or when a near/far
+    schedule's transpose (far edges only) meets the generic branch: its
+    backward then scatter-adds, as the JAX package's does. kill_edges (the
+    reverse pass under reverse_agg_noop) zeroes emask and tmask. On the
+    fused branch a near/far schedule adds nf (one _nf_layout entry), nsrc
+    and eslot_v; its transpose slots already index the direction's
+    edge-grad buffer (unit Kf under "r", Ke under "t"). Returns (fxs, ixs,
+    nf or None)."""
     dt = _DTYPES[cfg.compute_dtype]
-    fxs = {"x": x.to(dt)[_t(sched.node_ids, dev).long()]}
+    xd = x.to(dt)
+    fxs = {"x": xd[_t(sched.node_ids, dev).long()]}
     if cfg.w_edge_attr and edge_attr is not None and cfg.num_rels > 1:
         fxs["ea"] = _t(edge_attr, dev)[_t(sched.edge_id, dev).long()].to(dt)
+    if cfg.agg_x or cfg.agg_attn_x:
+        fxs["xsrc"] = xd[_t(sched.edge_src, dev).long()]
+    if cfg.vid_dim > 0:
+        vids = torch.nn.functional.one_hot(
+            torch.arange(x.shape[0], device=dev) % cfg.vid_dim,
+            cfg.vid_dim).to(dt)
+        fxs["vsrc"] = vids[_t(sched.edge_src, dev).long()]
+        fxs["vnode"] = vids[_t(sched.node_ids, dev).long()]
     ixs = {"eslot": _t(sched.edge_src_slot, dev).long(),
            "edst": _t(sched.edge_dst, dev).to(torch.int32),
            "nmask": _t(sched.node_mask, dev).to(torch.float32),
@@ -694,40 +693,74 @@ def _build_streams(cfg: DAGNNConfig, x, edge_attr, sched, dev):
         entry, ixs["nsrc"], ixs["eslot_v"] = _nf_layout(
             sched, tuple(sched.node_ids.shape)[1], dev)
         nf = (entry,)
-    use_t = sched.tgrad_eslot is not None and (sched.edge_nsrc is None or fused)
+    use_t = (sched.tgrad_eslot is not None and not cfg.agg_x
+             and (sched.edge_nsrc is None or fused))
     if use_t:
         ixs["teslot"] = _t(sched.tgrad_eslot, dev).long()
         ixs["tdst"] = _t(sched.tgrad_dst, dev).to(torch.int32)
         ixs["tmask"] = _t(sched.tgrad_mask, dev).to(torch.float32)
+    if kill_edges:
+        # every reverse aggregate is exactly zero upstream: masking all
+        # edges reproduces that (masked sum 0, fully masked max segment 0)
+        # and zeroes the edge-grad stream of the backward
+        ixs["emask"] = torch.zeros_like(ixs["emask"])
+        if use_t:
+            ixs["tmask"] = torch.zeros_like(ixs["tmask"])
     return fxs, ixs, nf
 
 
-def _gather_vals(h, eslot):
-    """[nl, Ke, H] predecessor states of one level's edges (agg_x, whose
-    aggregate reads x instead, is not ported)."""
-    return h[:, eslot, :]
-
-
-def _step_outs(cfg: DAGNNConfig, params_dir, specs, vals, fxs, ixs,
-               aggregate):
+def _step_outs(cfg: DAGNNConfig, params_dir, specs, vals, fxs, ixs, fns):
     """One level's per-layer outputs [nl, Kn, H] from pre-gathered inputs
-    (dagnn_tpu/nn/dagnn.py _step_outs for attn_h with a GRU stack): layer
-    i aggregates its predecessors' states vals[i] (keys: the states plus
-    the encoded edge attributes; query: the layer's input) through
-    `aggregate` (K6's contract), runs a GRU cell and zeroes pad slots."""
+    (dagnn_tpu/nn/dagnn.py _step_outs): layer i aggregates its
+    predecessors' states vals[i] (under agg_x, once for every layer, the
+    predecessors' inputs xsrc, zero-padded to H), with keys and queries as
+    the kind takes them (*_h: the states, with the vertex ids under
+    vid_dim, and the layer's input or the previous layer's output; *_x: the
+    inputs), then a GRU cell (or with recurr=False a linear cell over
+    [input, aggregate]) and zeroes pad slots. `fns`: the aggregate and
+    merge functions (K6, K5 or their plain versions)."""
     inp_x = fxs["x"]
     kn = inp_x.shape[0]
-    ea = fxs.get("ea")
+    ea, x_src = fxs.get("ea"), fxs.get("xsrc")
+    v_src, v_node = fxs.get("vsrc"), fxs.get("vnode")
     keep = ixs["nmask"][:, None] > 0
+
+    def agg(ap, spec, values, **kw):
+        return aggregate_level(
+            ap, spec, values, ixs["edst"], ixs["emask"], kn + 1,
+            edge_emb=encode_edges(ap, spec, ea), fns=fns, **kw)[:kn]
+
+    ps_common = None
+    if cfg.agg_x:
+        kw = dict(key_src=x_src, query=inp_x) if cfg.agg_attn else {}
+        ps = agg(params_dir["aggr"][0], specs[0], x_src, **kw)
+        # zero-pad emb -> hidden (reference dagnn.py:165-167)
+        ps_common = torch.nn.functional.pad(
+            ps, (0, cfg.hidden_dim - ps.shape[-1]))
+    with_vid = lambda t: t if v_src is None else torch.cat([t, v_src], -1)
     cur, outs = inp_x, []
     for i in range(cfg.num_layers):
-        ap = params_dir["aggr"][i]
-        ps_h = aggregate_level(
-            ap, specs[i], vals[i], ixs["edst"], ixs["emask"], kn + 1,
-            key_src=vals[i], query=cur,
-            edge_emb=encode_edges(ap, specs[i], ea), impl=cfg.segment_impl,
-            softmax_aggregate=aggregate)[:kn]
-        cur = torch.where(keep, gru_cell(params_dir["cells"][i], cur, ps_h), 0.0)
+        if cfg.agg_x:
+            ps_h = ps_common
+        else:
+            spec, val = specs[i], vals[i]
+            kw = {}
+            if cfg.agg_attn and cfg.agg_attn_x:
+                kw = dict(key_src=x_src, query=inp_x)
+            elif cfg.agg_attn:
+                # layer i's query: its input (the previous layer's output)
+                q = cur
+                if i > 0 and v_node is not None:
+                    q = torch.cat([q, v_node], -1)
+                kw = dict(key_src=with_vid(val), query=q)
+            ps_h = agg(params_dir["aggr"][i], spec,
+                       with_vid(val) if spec.kind == "gated_sum" else val, **kw)
+        cell = params_dir["cells"][i]
+        if cfg.recurr:
+            out = gru_cell(cell, cur, ps_h)
+        else:
+            out = linear(cell, torch.cat([cur, ps_h], dim=-1))
+        cur = torch.where(keep, out, 0.0)
         outs.append(cur)
     return torch.stack(outs)
 
@@ -744,21 +777,23 @@ class _GenericPlan:
     [nl, L*Kn + 1, H] (garbage row last, left zero). The backward replays
     them in reverse (JAX's _wavefront_bwd): at each level the output
     cotangent is g's rows plus, through the transpose schedule, the edge
-    grads of later levels merged by `impl.merge` (K5, a launch per layer),
+    grads of later levels merged by `fns.merge` (K5, a launch per layer),
     and torch.autograd.grad of the recomputed _step_outs gives the weight,
-    value and x grads. Value grads go to the edge-grad buffer
+    value, x and xsrc grads. Value grads go to the edge-grad buffer
     [nl, L*Ke + 1, H] at rows lvl*Ke (or, without a transpose schedule, are
-    scatter-added into the state cotangent). Weights are cast to the
-    compute dtype inside, so their grads come back in float32 and the
-    levels' grads are summed in float32."""
+    scatter-added into the state cotangent). Under agg_x the levels read no
+    states: no values are gathered and no value grads flow. Weights are
+    cast to the compute dtype inside, so their grads come back in float32
+    and the levels' grads are summed in float32."""
 
-    def __init__(self, cfg, fxs, ixs, impl: AggImpl, keys):
-        self.cfg, self.ixs, self.impl, self.keys = cfg, ixs, impl, keys
-        self.ea = fxs.get("ea")
+    def __init__(self, cfg, fxs, ixs, fns: AggImpl, keys):
+        self.cfg, self.ixs, self.fns, self.keys = cfg, ixs, fns, keys
+        self.side = {k: fxs[k] for k in ("ea", "vsrc", "vnode") if k in fxs}
         self.dt = _DTYPES[cfg.compute_dtype]
         self.specs = [cfg.aggregator_spec(l) for l in range(cfg.num_layers)]
         self.L, self.kn = tuple(fxs["x"].shape[:2])
         self.ke = ixs["eslot"].shape[1]
+        self.reads_states = not cfg.agg_x
 
     def params_dir(self, wparams):
         """{"aggr": [...], "cells": [...]} in the compute dtype."""
@@ -766,26 +801,33 @@ class _GenericPlan:
             ".".join(k.split(".")[:1] + k.split(".")[2:]): v.to(self.dt)
             for k, v in zip(self.keys, wparams)})
 
-    def _level(self, s, x, vals, pdir):
-        fx = {"x": x} if self.ea is None else {"x": x, "ea": self.ea[s]}
+    def _vals(self, h, s):
+        """[nl, Ke, H] predecessor states of level s's edges, or None."""
+        return h[:, self.ixs["eslot"][s], :] if self.reads_states else None
+
+    def _level(self, s, x, xsrc, vals, pdir):
+        fx = {k: v[s] for k, v in self.side.items()}
+        fx["x"] = x
+        if xsrc is not None:
+            fx["xsrc"] = xsrc
         ix = {k: self.ixs[k][s] for k in ("nmask", "edst", "emask")}
-        return _step_outs(self.cfg, pdir, self.specs, vals, fx, ix,
-                          self.impl.aggregate)
+        return _step_outs(self.cfg, pdir, self.specs, vals, fx, ix, self.fns)
 
-    def infer(self, xs, wparams):
-        return self.forward(xs, wparams)
+    def infer(self, xs, xsrc, wparams):
+        return self.forward(xs, xsrc, wparams)
 
-    def forward(self, xs, wparams):
+    def forward(self, xs, xsrc, wparams):
         cfg, L, kn = self.cfg, self.L, self.kn
         pdir = self.params_dir(wparams)
         h = torch.zeros((cfg.num_layers, L * kn + 1, cfg.hidden_dim),
                         dtype=self.dt, device=xs.device)
         for s in range(L):
-            vals = _gather_vals(h, self.ixs["eslot"][s])
-            h[:, s * kn:(s + 1) * kn] = self._level(s, xs[s], vals, pdir)
+            h[:, s * kn:(s + 1) * kn] = self._level(
+                s, xs[s], None if xsrc is None else xsrc[s], self._vals(h, s),
+                pdir)
         return h
 
-    def backward(self, xs, h, wparams, g):
+    def backward(self, xs, xsrc, h, wparams, g):
         nl, L, kn, ke = self.cfg.num_layers, self.L, self.kn, self.ke
         ix = self.ixs
         use_t = "teslot" in ix
@@ -793,71 +835,121 @@ class _GenericPlan:
                            device=g.device) if use_t else g.clone())
         dws = [torch.zeros(w.shape, dtype=torch.float32, device=w.device)
                for w in wparams]
-        dxs = torch.empty_like(xs)
+        dxs = torch.zeros_like(xs)
+        dxsrc = None if xsrc is None else torch.zeros_like(xsrc)
         for s in range(L - 1, -1, -1):
-            vals = _gather_vals(h, ix["eslot"][s])
             if use_t:
                 tg = acc[:, ix["teslot"][s]]                  # [nl, Kt, H]
                 g_out = torch.stack([
-                    self.impl.merge(g[l, s * kn:(s + 1) * kn], tg[l],
-                                    ix["tdst"][s], ix["tmask"][s])
+                    self.fns.merge(g[l, s * kn:(s + 1) * kn], tg[l],
+                                   ix["tdst"][s], ix["tmask"][s])
                     for l in range(nl)])
             else:
                 g_out = acc[:, s * kn:(s + 1) * kn]
             with torch.enable_grad():
                 wl = [w.detach().requires_grad_(True) for w in wparams]
-                v = vals.detach().requires_grad_(True)
-                x = xs[s].detach().requires_grad_(True)
-                outs = self._level(s, x, v, self.params_dir(wl))
-                grads = torch.autograd.grad(outs, wl + [v, x], g_out,
+                ins = [xs[s].detach().requires_grad_(True)]
+                if xsrc is not None:
+                    ins.append(xsrc[s].detach().requires_grad_(True))
+                vals = self._vals(h, s)
+                if vals is not None:
+                    ins.append(vals.detach().requires_grad_(True))
+                outs = self._level(s, ins[0], ins[1] if xsrc is not None else None,
+                                   ins[-1] if vals is not None else None,
+                                   self.params_dir(wl))
+                grads = torch.autograd.grad(outs, wl + ins, g_out,
                                             allow_unused=True)
-            for dw, gw in zip(dws, grads[:-2]):
+            for dw, gw in zip(dws, grads[:len(wl)]):
                 if gw is not None:
                     dw.add_(gw)
-            dv, dxs[s] = grads[-2], grads[-1]
+            gin = grads[len(wl):]
+            if gin[0] is not None:
+                dxs[s] = gin[0]
+            if xsrc is not None and gin[1] is not None:
+                dxsrc[s] = gin[1]
+            dv = gin[-1] if vals is not None else None
+            if dv is None:
+                continue
             if use_t:
                 acc[:, s * ke:(s + 1) * ke] = dv
             else:
                 acc.index_add_(1, ix["eslot"][s], dv)
-        return dxs, [dw.to(w.dtype) for dw, w in zip(dws, wparams)]
+        return dxs, dxsrc, [dw.to(w.dtype) for dw, w in zip(dws, wparams)]
 
 
 class _GenericWavefront(torch.autograd.Function):
     """One direction's generic wavefront: the levels forward, the replayed
-    levels in reverse (see _GenericPlan)."""
+    levels in reverse (see _GenericPlan). xsrc may be None."""
 
     @staticmethod
-    def forward(ctx, plan, xs, *wparams):
-        h = plan.forward(xs, wparams)
-        ctx.plan = plan
-        ctx.save_for_backward(xs, h, *wparams)
+    def forward(ctx, plan, xs, xsrc, *wparams):
+        h = plan.forward(xs, xsrc, wparams)
+        ctx.plan, ctx.has_xsrc = plan, xsrc is not None
+        ctx.save_for_backward(xs, xsrc, h, *wparams)
         return h
 
     @staticmethod
     def backward(ctx, g):
-        xs, h, *wparams = ctx.saved_tensors
-        dxs, dws = ctx.plan.backward(xs, h, wparams, g.contiguous())
-        return (None, dxs, *dws)
+        xs, xsrc, h, *wparams = ctx.saved_tensors
+        dxs, dxsrc, dws = ctx.plan.backward(
+            xs, xsrc if ctx.has_xsrc else None, h, wparams, g.contiguous())
+        return (None, dxs, dxsrc, *dws)
+
+
+class _PermGather(torch.autograd.Function):
+    """src[idx] whose VJP is the inverse-permutation gather (JAX's
+    _perm_gather): legal when every row of src appears at most once in idx,
+    as each node owns one slot per schedule. d_src[r] = g[inv_idx[r]] where
+    inv_valid[r], else 0: no scatter, no atomics."""
+
+    @staticmethod
+    def forward(ctx, src, idx, inv_idx, inv_valid):
+        ctx.save_for_backward(inv_idx, inv_valid)
+        return src[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        inv_idx, inv_valid = ctx.saved_tensors
+        d_src = torch.where(inv_valid[:, None],
+                            g[torch.clamp(inv_idx, 0, g.shape[0] - 1)],
+                            torch.zeros((), dtype=g.dtype, device=g.device))
+        return d_src, None, None, None
+
+
+def _perm_gather(src, idx, inv_idx, inv_valid):
+    return _PermGather.apply(src, idx, inv_idx, inv_valid)
 
 
 def _direction_pass(params, cfg: DAGNNConfig, x, edge_attr, sched, d,
-                    impl):
-    """The wavefront pass of direction d in slot space (JAX's
-    _direction_pass with slot_space=True). Returns (h_flat [L*Kn, nl*H],
-    layer l in columns l*H:(l+1)*H, and x_slot [L*Kn, emb]) in the
-    direction's level-sorted layout. `impl`: a StepImpl (fused branch, the
-    row kernels at ndirs=1) or an AggImpl (generic branch). The node-space
-    half (slot_space=False) waits for out_pool_all."""
-    fxs, ixs, nf = _build_streams(cfg, x, edge_attr, sched, x.device)
+                    impl, slot_space: bool = True, kill_edges: bool = False):
+    """The wavefront pass of direction d (JAX's _direction_pass). Returns,
+    with slot_space, (h_flat [L*Kn, nl*H], layer l in columns l*H:(l+1)*H,
+    and x_slot [L*Kn, emb]) in the direction's level-sorted layout; else
+    the node-space states [nl, N+1, H] (the fused branch through
+    _perm_gather, the generic branch by h[:, node_slot]). `impl`: a
+    StepImpl (fused branch, the row kernels at ndirs=1) or an AggImpl
+    (generic branch). kill_edges: see _build_streams."""
+    dev = x.device
+    fxs, ixs, nf = _build_streams(cfg, x, edge_attr, sched, dev, kill_edges)
     xs = fxs["x"]
     L, kn = tuple(xs.shape[:2])
+    node_slot = _t(sched.node_slot, dev).long()
     if isinstance(impl, StepImpl):
         h = _run(_Plan(cfg, fxs, ixs, impl, kw={"ndirs": 1}, dirs=(d,), nf=nf),
-                 xs, params)
+                 (xs,), params)                            # [L*Kn+1, nl*H]
+        if not slot_space:
+            n_pad = node_slot.shape[0] - 1
+            nid = _t(sched.node_ids, dev).long().reshape(L * kn)
+            inv = torch.cat([nid, nid.new_full((1,), n_pad)])
+            valid = torch.cat([nid != n_pad, nid.new_zeros((1,), dtype=torch.bool)])
+            hn = _perm_gather(h, node_slot, inv, valid)      # [N+1, nl*H]
+            return hn.reshape(n_pad + 1, cfg.num_layers, -1).movedim(1, 0)
         h = h[: L * kn]
     else:
-        h = _run(_GenericPlan(cfg, fxs, ixs, impl, _dir_keys(params, d)), xs,
-                 params, _GenericWavefront)
+        h = _run(_GenericPlan(cfg, fxs, ixs, impl, _dir_keys(params, d)),
+                 (xs, fxs.get("xsrc")), params, _GenericWavefront)
+        if not slot_space:
+            return h[:, node_slot]
         # [nl, L*Kn+1, H] -> [L*Kn, nl*H], the per-layer concat
         h = torch.cat([h[l, : L * kn] for l in range(cfg.num_layers)], dim=-1)
     return h, xs.reshape(L * kn, -1)
@@ -885,12 +977,23 @@ def _pool_gathered(hsel, mask, kind):
     raise ValueError(f"unknown pool kind {kind}")
 
 
+def _keep_mask(shape, keep, rng, device):
+    """Dropout's mask: each element True with probability `keep`, from a
+    uniform draw of `rng` (a torch.Generator on `device`)."""
+    return torch.rand(shape, generator=rng, device=device) < keep
+
+
 def _apply_head(params, cfg: DAGNNConfig, out, rng, train):
-    if train and cfg.dropout > 0.0:
-        raise NotImplementedError("dropout is not ported yet: ROADMAP queue "
-                                  "1, item 5 (the rest of the DAGNN config "
-                                  "surface)")
+    """The head over the pooled [G, D], after dropout when training: each
+    element kept with probability 1 - dropout and scaled by
+    1 / (1 - dropout)."""
     out = out.float()
+    if train and cfg.dropout > 0.0:
+        if rng is None:
+            raise ValueError("dropout in training needs a torch.Generator (rng)")
+        keep = 1.0 - cfg.dropout
+        out = torch.where(_keep_mask(out.shape, keep, rng, out.device),
+                          out / keep, 0.0)
     if cfg.num_class > 0 or cfg.num_vocab == 1:
         y = linear({"w": params["head.w"], "b": params["head.b"]}, out)
         return torch.relu(y) if cfg.num_class == 0 else y
@@ -900,15 +1003,19 @@ def _apply_head(params, cfg: DAGNNConfig, out, rng, train):
 
 def _route(cfg: DAGNNConfig, batch: DAGBatch, impl):
     """(route, impl) of a batch, as the JAX package routes it: "pair",
-    "merged" or "direction" (fused), or "generic" (segment_impl="pallas").
-    SPLIT_KERNELS / SPLIT_PLAIN run one direction at a time, so they take
-    any fused batch per direction, except a near/far one (ValueError: the
-    near grads join K2's own cotangent sum, as the JAX kernel asserts)."""
-    _require_slice(cfg)
+    "merged" or "direction" (fused), or "generic" (every config the fused
+    paths do not take). The node-space readout (out_pool_all) runs per
+    direction. SPLIT_KERNELS / SPLIT_PLAIN run one direction at a time, so
+    they take any fused batch per direction, except a near/far one
+    (ValueError: the near grads join K2's own cotangent sum, as the JAX
+    kernel asserts). An unknown segment_impl name raises ValueError."""
+    if cfg.segment_impl not in SEGMENT_IMPLS:
+        raise ValueError(f"unknown segment_impl {cfg.segment_impl!r}: one of "
+                         f"{SEGMENT_IMPLS}")
     if not _fused_applicable(cfg):
         route, allowed = "generic", (SEG_KERNELS, SEG_PLAIN)
     else:
-        merged = merged_applicable(cfg, batch)
+        merged = not cfg.out_pool_all and merged_applicable(cfg, batch)
         if impl in (SPLIT_KERNELS, SPLIT_PLAIN) and _nearfar(cfg, batch):
             raise ValueError("SPLIT_KERNELS / SPLIT_PLAIN (merge_tg=False) "
                              "cannot run a near/far batch: its near grads "
@@ -926,29 +1033,66 @@ def _route(cfg: DAGNNConfig, batch: DAGBatch, impl):
     return route, impl
 
 
+def _encode(params, cfg: DAGNNConfig, batch: DAGBatch, dev):
+    """The encoder's node inputs [N+1, emb], the garbage row exactly zero
+    so pad gathers are inert."""
+    enc = {k[len("encoder."):]: v for k, v in params.items()
+           if k.startswith("encoder.")}
+    x = encode(enc, cfg.encoder, _t(batch.x, dev),
+               _t(batch.extras["node_depth"], dev)
+               if "node_depth" in batch.extras else None)
+    return torch.where(_t(batch.node_mask, dev).bool()[:, None], x, 0.0)
+
+
+def _node_states(params, cfg, batch, impl, dev):
+    x = _encode(params, cfg, batch, dev)
+    h_dirs = [_direction_pass(params, cfg, x, batch.edge_attr,
+                              batch.fwd if d == 0 else batch.rev, d, impl,
+                              slot_space=False,
+                              kill_edges=(d == 1 and cfg.reverse_agg_noop))
+              for d in cfg.dirs]
+    return x, h_dirs
+
+
+def dagnn_node_states(params, cfg: DAGNNConfig, batch: DAGBatch):
+    """Run the encoder and every direction pass (the kernels: the fused
+    branch at one direction, or the generic branch); return (x, h_dirs)
+    where h_dirs[d] is [num_layers, N+1, H] in node space. The seam the VAE
+    encoder builds its own readout on (reference dvae/dagnn.py:147-170)."""
+    impl = KERNELS if _fused_applicable(cfg) else SEG_KERNELS
+    return _node_states(params, cfg, batch, impl, params["head.w"].device)
+
+
 def dagnn_forward(params, cfg: DAGNNConfig, batch: DAGBatch,
                   rng: Optional[torch.Generator] = None, train: bool = False,
                   impl=None):
     """Full forward pass: per-position token logits [G, S, V] (class
     logits [G, C] / regression [G, 1] per config). Runs on the device of
-    the parameters. A fused bidirectional batch runs pair_pass (with a pair
-    plan) or merged_pass when both directions' shapes agree; any other
-    fused batch, and every segment_impl="pallas" batch, runs
-    _direction_pass per direction. `impl` picks the functions: None for
-    the kernels; KERNELS / PLAIN on the merged and per-direction paths,
-    PAIR_KERNELS / PAIR_PLAIN on the pair path, SPLIT_KERNELS / SPLIT_PLAIN
-    (per direction, on any fused batch), SEG_KERNELS / SEG_PLAIN on the
-    generic branch (another choice raises ValueError)."""
+    the parameters. A fused bidirectional batch with the slot-space
+    readout runs pair_pass (with a pair plan) or merged_pass when both
+    directions' shapes agree; any other batch runs _direction_pass per
+    direction (the fused or the generic branch). `impl` picks the
+    functions: None for the kernels; KERNELS / PLAIN on the merged and
+    per-direction paths, PAIR_KERNELS / PAIR_PLAIN on the pair path,
+    SPLIT_KERNELS / SPLIT_PLAIN (per direction, on any fused batch),
+    SEG_KERNELS / SEG_PLAIN on the generic branch (another choice raises
+    ValueError). The readout's segment sums use K5 or, under a plain
+    impl, its plain version. rng: a torch.Generator for dropout when
+    `train` (cfg.dropout > 0)."""
     route, impl = _route(cfg, batch, impl)
     dev = params["head.w"].device
-    enc = {k[len("encoder."):]: v for k, v in params.items()
-           if k.startswith("encoder.")}
-    node_mask = _t(batch.node_mask, dev).bool()
-    x = encode(enc, cfg.encoder, _t(batch.x, dev),
-               _t(batch.extras["node_depth"], dev)
-               if "node_depth" in batch.extras else None)
-    # keep the garbage row exactly zero so pad gathers are inert
-    x = torch.where(node_mask[:, None], x, 0.0)
+    merge = (row_step.tg_accumulate_plain if impl in _PLAIN_IMPLS
+             else row_step.tg_accumulate)
+    num_graphs = batch.num_graph_slots
+    if cfg.out_pool_all:
+        # node space: every direction's layers beside x, pooled per graph
+        x, h_dirs = _node_states(params, cfg, batch, impl, dev)
+        layers = [h[l] for h in h_dirs for l in range(cfg.num_layers)]
+        hcat = torch.cat(([x] if cfg.out_wx else []) + layers, dim=-1)
+        out = pool_nodes(hcat, _t(batch.graph_id, dev), num_graphs,
+                         cfg.out_pool, _t(batch.node_mask, dev).bool(), merge)
+        return _apply_head(params, cfg, out, rng, train)
+    x = _encode(params, cfg, batch, dev)
     if route in ("pair", "merged"):
         run = pair_pass if route == "pair" else merged_pass
         h2, x2 = run(params, cfg, x, batch.edge_attr, batch, impl)
@@ -957,24 +1101,35 @@ def dagnn_forward(params, cfg: DAGNNConfig, batch: DAGBatch,
         sched = batch.fwd if d == 0 else batch.rev
         L, kn = tuple(sched.node_ids.shape)
         oslots = batch.out_slots_fwd if d == 0 else batch.out_slots_rev
-        if oslots is None:
-            raise NotImplementedError(
-                "segment-pool readout without out_slots is not ported yet: "
-                "ROADMAP queue 1, item 5 (the rest of the DAGNN config "
-                "surface, nn/readout.py)")
-        if route in ("pair", "merged"):
+        merged = route in ("pair", "merged")
+        if merged and oslots is not None:
             # this direction's output rows straight from the merged buffer
-            ms = _remap_slot(_t(oslots, dev).long(), kn, L, d)
             hd, xd = h2, x2
+            ms = _remap_slot(_t(oslots, dev).long(), kn, L, d)
+        elif merged:
+            # the direction's view of the merged buffer
+            view = lambda a: a.reshape(L, 2, kn, -1)[:, d].reshape(L * kn, -1)
+            hd, xd = view(h2), view(x2)
         else:
+            hd, xd = _direction_pass(
+                params, cfg, x, batch.edge_attr, sched, d, impl,
+                kill_edges=(d == 1 and cfg.reverse_agg_noop))
             # pad entries point at slot 0 and are killed by the mask
-            hd, xd = _direction_pass(params, cfg, x, batch.edge_attr, sched, d,
-                                     impl)
-            ms = _t(oslots, dev).long()
-        hcat = hd[ms]
-        if cfg.out_wx:          # x's rows are gathered only where read
-            hcat = torch.cat([xd[ms], hcat], dim=-1)
-        omask = batch.out_slots_mask_fwd if d == 0 else batch.out_slots_mask_rev
-        parts.append(_pool_gathered(hcat, _t(omask, dev).bool(), cfg.out_pool))
+            ms = None if oslots is None else _t(oslots, dev).long()
+        if oslots is not None:
+            hcat = hd[ms]
+            if cfg.out_wx:          # x's rows are gathered only where read
+                hcat = torch.cat([xd[ms], hcat], dim=-1)
+            omask = batch.out_slots_mask_fwd if d == 0 else batch.out_slots_mask_rev
+            parts.append(_pool_gathered(hcat, _t(omask, dev).bool(), cfg.out_pool))
+            continue
+        # a segment pool over the direction's slots, its output nodes only
+        hcat = torch.cat([xd, hd], dim=-1) if cfg.out_wx else hd
+        nid = _t(sched.node_ids, dev).long().reshape(L * kn)
+        omask = batch.out_mask_fwd if d == 0 else batch.out_mask_rev
+        slot_mask = (_t(omask, dev).bool() & _t(batch.node_mask, dev).bool())[nid]
+        parts.append(pool_nodes(hcat, _t(batch.graph_id, dev)[nid], num_graphs,
+                                cfg.out_pool, slot_mask, merge))
     out = torch.cat(parts, dim=-1)
     return _apply_head(params, cfg, out, rng, train)
+

@@ -1,7 +1,7 @@
-"""Segment ops over per-level edge groups: the plain semantics.
+"""Segment ops over per-level edge groups.
 
-Counterpart of dagnn_tpu/ops/segment.py (segment_sum, segment_softmax,
-edge_softmax_aggregate), the part this port's wavefronts use. Every edge
+Counterpart of dagnn_tpu/ops/segment.py (segment_sum, segment_max,
+segment_softmax, edge_softmax_aggregate). Every edge
 carries a LOCAL destination slot within its level, so segments span
 [0, num_segments): small, dense and static.
 
@@ -13,9 +13,14 @@ max, exponentiates and divides by (sum + 1e-16), as
 torch_geometric.utils.softmax does. Everything is computed in the inputs'
 dtype, as the JAX functions do.
 
-These are plain PyTorch functions: the CPU tests use them, and on the card
-they are the reference the kernels are held against (ops/segment_attn.py,
-ops/row_step.tg_accumulate), never the path.
+segment_sum, segment_softmax and edge_softmax_aggregate are plain PyTorch
+functions: the CPU tests use them, and on the card they are the reference
+the kernels are held against (ops/segment_attn.py, ops/row_step.
+tg_accumulate), never the path. The path's sum is merged_segment_sum, an
+autograd Function over K5's contract (on the card row_step.tg_accumulate:
+a fixed float32 order, one rounding, no atomics, so a step repeats bit for
+bit). segment_max stays scatter_reduce("amax") on the card too: the JAX
+package computes it in XLA, and a max does not depend on the order.
 """
 
 from __future__ import annotations
@@ -86,3 +91,60 @@ def edge_softmax_aggregate(scores: torch.Tensor, values: torch.Tensor,
     aggregators' message passing (reference ogbg-code/model/dagnn.py:307-310)."""
     alpha = segment_softmax(scores, segment_ids, num_segments, mask)
     return segment_sum(values * alpha[:, None], segment_ids, num_segments, mask)
+
+
+def segment_max(values: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-segment max of `values` rows [E, ...] -> [num_segments, ...].
+    Masked rows read finfo.min (of values' dtype); an empty or fully masked
+    segment gives 0, with a zero gradient. Tied maxima share the gradient
+    evenly, as jax.ops.segment_max's does."""
+    valid = valid_edges(segment_ids, num_segments, mask)
+    neg = torch.finfo(values.dtype).min
+    col = valid.reshape((-1,) + (1,) * (values.dim() - 1))
+    v = torch.where(col, values, torch.full((), neg, dtype=values.dtype,
+                                            device=values.device))
+    ids = _ids(segment_ids, valid, num_segments)
+    ids = ids.reshape(col.shape).expand_as(v)
+    out = torch.full((num_segments + 1,) + tuple(values.shape[1:]), neg,
+                     dtype=values.dtype, device=values.device)
+    out = out.scatter_reduce(0, ids, v, "amax", include_self=False)
+    out = out[:num_segments]
+    return torch.where(out <= neg, torch.zeros((), dtype=out.dtype,
+                                               device=out.device), out)
+
+
+class _MergedSegmentSum(torch.autograd.Function):
+    """forward: merge(zeros [num_segments, C], values, ids, mask), K5's
+    contract; backward: the masked gather of the cotangent at ids."""
+
+    @staticmethod
+    def forward(ctx, values, segment_ids, mask, num_segments, merge):
+        ctx.save_for_backward(segment_ids, mask)
+        ctx.num_segments = num_segments
+        zero = torch.zeros((num_segments, values.shape[1]), dtype=values.dtype,
+                           device=values.device)
+        return merge(zero, values.contiguous(), segment_ids, mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        segment_ids, mask = ctx.saved_tensors
+        valid = valid_edges(segment_ids, ctx.num_segments, mask)
+        idx = torch.where(valid, segment_ids.long(), 0)
+        dv = torch.where(valid[:, None], g[idx],
+                         torch.zeros((), dtype=g.dtype, device=g.device))
+        return dv, None, None, None, None
+
+
+def merged_segment_sum(values: torch.Tensor, segment_ids: torch.Tensor,
+                       num_segments: int, mask: torch.Tensor,
+                       merge) -> torch.Tensor:
+    """segment_sum of values [E, C] into [num_segments, C], differentiable,
+    through `merge`, a function with K5's contract (g, tg, tdst, tmask) ->
+    g + the masked sum of tg's rows onto tdst: row_step.tg_accumulate (the
+    kernel on the card, its plain version for CPU tensors) or
+    row_step.tg_accumulate_plain. Either sums in float32 and rounds once to
+    values' dtype."""
+    return _MergedSegmentSum.apply(values, segment_ids, mask, num_segments,
+                                   merge)

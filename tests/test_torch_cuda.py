@@ -5,8 +5,10 @@ the pair kernels K3/K4 on a synthetic pair step with ragged blocks and
 intra-pair edges, the edge-softmax aggregate K6 (forward and backward,
 with empty, fully masked and out-of-range slots, ids in random order,
 negative ids, 613 edges on one slot, masked scores far above 88, Ke 0,
-S 1, unaligned operands and one level of 32,768 edges), the transpose-grad
-accumulate K5, the near/far modes K7 (ragged merged rows mixing "r", "t"
+S 1, width 13, unaligned operands and one level of 32,768 edges), the
+transpose-grad accumulate K5 (and K5 as the sum kinds' segment sum at
+widths 13 and 305; the max kind's segment max on the card against the
+CPU), the near/far modes K7 (ragged merged rows mixing "r", "t"
 and "p", an empty near list, near edges that all read pad slots), K2
 without residual streams (K2r, bitwise K2), K2's GEMM launches alone
 (tensor cores in bf16), K1's two launches alone (the GRU on the tensor
@@ -232,6 +234,7 @@ K6_CASES = {
     "613 on one slot": (900, 20, 45),    # more than a round, more than a list
     "masked above 88": (200, 17, 300),   # masked scores of 100-1000
     "ids out of range": (150, 11, 46),   # negative and >= S ids, mask set
+    "H 13": (90, 11, 13),                # an odd width below a warp's lanes
     "Ke 0": (0, 9, 45),
     "S 1": (60, 1, 45),
     "H 300, 2-byte base": (512, 257, 300),   # values, scores, dst unaligned
@@ -338,6 +341,63 @@ def test_tg_accumulate_kernel_matches_plain(dev, dt):
     assert torch.equal(rs.tg_accumulate(g, tg, tdst, tmask), k)
     # no transpose edges: g itself
     assert torch.equal(rs.tg_accumulate(g, tg[:0], tdst[:0], tmask[:0]), g)
+
+
+@pytest.mark.parametrize("c", [13, 305])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_merged_segment_sum_kernel_matches_plain(dev, dt, c):
+    """K5 as the sum kinds' segment sum (ops/segment.merged_segment_sum:
+    a zero base, the pad slot a real segment, masked edges and ids out of
+    range dropped) at odd widths (13; gated_sum's 300 + vid_dim 5): one
+    launch, against its plain version, bitwise repeatable, and its
+    backward the masked gather of the cotangent."""
+    from dagnn_tpu_torch.ops import row_step as rs
+    from dagnn_tpu_torch.ops import segment
+    gen = torch.Generator().manual_seed(4)
+    ke, s = 70, 9
+    v = torch.randn(ke, c, generator=gen).to(dt).to(dev).requires_grad_(True)
+    ids = torch.randint(-1, s + 1, (ke,), generator=gen).int().to(dev)
+    mask = (torch.rand(ke, generator=gen) > 0.3).float().to(dev)
+    n0 = rs.launch_counts["tg_accumulate"]
+    k = segment.merged_segment_sum(v, ids, s, mask, rs.tg_accumulate)
+    assert rs.launch_counts["tg_accumulate"] == n0 + 1
+    assert k.dtype == dt and k.shape == (s, c)
+    p = segment.merged_segment_sum(v, ids, s, mask, rs.tg_accumulate_plain)
+    assert _err(k, p) <= TOL[dt]
+    assert torch.equal(segment.merged_segment_sum(v, ids, s, mask,
+                                                  rs.tg_accumulate), k)
+    g = torch.randn(s, c, generator=gen).to(dt).to(dev)
+    (dv,) = torch.autograd.grad(k, v, g)
+    valid = (mask > 0) & (ids >= 0) & (ids < s)
+    want = torch.where(valid[:, None], g[ids.long().clamp(0, s - 1)], 0)
+    assert torch.equal(dv, want)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_segment_max_on_card_matches_cpu(dev, dt):
+    """The `max` kind's segment max (scatter_reduce on the card, no kernel
+    of the port) with a tie, a fully masked and an empty segment: bf16's
+    finfo.min is not float32's; the card gives the CPU's values and
+    gradients bit for bit."""
+    from dagnn_tpu_torch.ops import segment
+    gen = torch.Generator().manual_seed(5)
+    v = torch.randn(40, 13, generator=gen).to(dt)
+    v[1] = v[0]
+    ids = torch.randint(0, 6, (40,), generator=gen)
+    ids[:2] = 2
+    ids[ids == 4] = 3
+    mask = torch.rand(40, generator=gen) > 0.25
+    mask[:2] = True
+    mask[ids == 5] = False
+    g = torch.randn(6, 13, generator=gen).to(dt)
+    outs = []
+    for d in ("cpu", dev):
+        vv = v.to(d).requires_grad_(True)
+        out = segment.segment_max(vv, ids.to(d), 6, mask.to(d))
+        outs.append((out.cpu(), torch.autograd.grad(out, vv, g.to(d))[0].cpu()))
+    assert not outs[0][0][4:].any()          # slot 4 empty, slot 5 all masked
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
 
 
 NF_ROWS = {

@@ -247,19 +247,39 @@ def test_pair_matches_merged():
 
 
 def test_other_paths_raise():
-    """No silent fallback: unported configs raise (segment_impl dense /
-    scatter, the self_attn and mattn aggregators, the node-space readout),
-    and so does the split transpose-grad form (SPLIT_KERNELS, merge_tg
-    False) on a near/far batch, whose near grads need K2's own merge (the
-    JAX kernel asserts merge_tg there)."""
-    _, tcfg, _, tparams, _, tb = small_setup("float32", seed=2)
-    for cfg in (dataclasses.replace(tcfg, segment_impl="dense"),
-                dataclasses.replace(tcfg, segment_impl="scatter"),
-                dataclasses.replace(tcfg, agg="self_attn_h"),
-                dataclasses.replace(tcfg, agg="mattn_h", segment_impl="pallas"),
-                dataclasses.replace(tcfg, out_pool_all=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tdagnn.dagnn_forward(tparams, cfg, tb)
+    """No silent fallback. The configs this test once held to a raise
+    (segment_impl dense / scatter, self_attn_h on "fused", mattn_h on
+    "pallas", the node-space readout out_pool_all on the fused
+    per-direction branch) run now and match the JAX package from the same
+    weights (f32 outputs 2e-5, grads rtol 5e-4 / atol 5e-5); the JAX side
+    runs each config as given, out_pool_all on "dense" (the same function
+    as its fused path, without Pallas interpret mode). The split
+    transpose-grad form (SPLIT_KERNELS, merge_tg False) still raises on a
+    near/far batch, whose near grads need K2's own merge (the JAX kernel
+    asserts merge_tg there)."""
+    jcfg0, tcfg, _, _, jb, tb = small_setup("float32", seed=2)
+    for kw, route in ((dict(segment_impl="dense"), "generic"),
+                      (dict(segment_impl="scatter"), "generic"),
+                      (dict(agg="self_attn_h"), "generic"),
+                      (dict(agg="mattn_h", segment_impl="pallas"), "generic"),
+                      (dict(out_pool_all=True), "direction")):
+        cfg = dataclasses.replace(tcfg, **kw)
+        assert tdagnn._route(cfg, tb, None)[0] == route
+        jcfg = dataclasses.replace(jcfg0, **kw)
+        if jcfg.out_pool_all:
+            jcfg = dataclasses.replace(jcfg, segment_impl="dense")
+        jparams = jdagnn.dagnn_init(jax.random.PRNGKey(2), jcfg)
+        tparams = convert.params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                            device="cpu")
+        want, jl, jg = jax_run(jcfg, jparams, jb)
+        with torch.no_grad():
+            got = tdagnn.dagnn_forward(tparams, cfg, tb).numpy()
+        close(got, want, "float32", name=f"{kw} logits")
+        tl, tg = port_loss_and_grads(cfg, tparams, tb)
+        close(tl, jl, "float32", name=f"{kw} loss")
+        assert set(jg) == set(tg)
+        for k in jg:
+            close(tg[k], jg[k], "float32", grad=True, name=f"{kw} {k}")
     nearfar = small_setup("float32", seed=2, nearfar="regions")[5]
     assert nearfar.fwd.edge_nsrc is not None
     for cfg in (tcfg, dataclasses.replace(tcfg, bidirectional=False)):

@@ -20,8 +20,10 @@ import argparse
 import csv
 import dataclasses
 import os
+import sys
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -32,6 +34,7 @@ from dagnn_tpu.nn import encoders as jencoders
 from dagnn_tpu_torch import convert
 from dagnn_tpu_torch.cli import main_tok
 from dagnn_tpu_torch.cli import ogb_driver as tdriver
+from dagnn_tpu_torch.nn import dagnn as tdagnn
 from test_code2_dataset import make_raw_tree
 
 torch.set_num_threads(1)
@@ -76,12 +79,13 @@ def _rows(tmp_path, tag, name, suffix="_train"):
         return [[float(v) for v in r] for r in list(csv.reader(f))[1:]]
 
 
-def _run_both(tmp_path, task, argv):
-    """Both drivers on the same flags; returns their train and fold rows."""
+def _run_both(tmp_path, task, argv, impls=("dense", "fused")):
+    """Both drivers on the same flags, each with its --segment_impl of
+    `impls`; returns their train and fold rows."""
     name = f"dagnn_{task}"
-    jres = jdriver.run(_args(jdriver, argv + ["--segment_impl", "dense"],
+    jres = jdriver.run(_args(jdriver, argv + ["--segment_impl", impls[0]],
                              tmp_path, "jax"), task)
-    tres = tdriver.run(_args(tdriver, argv + ["--segment_impl", "fused"],
+    tres = tdriver.run(_args(tdriver, argv + ["--segment_impl", impls[1]],
                              tmp_path, "port"), task)
     assert tres == jres
     return ({tag: _rows(tmp_path, tag, name) for tag in ("jax", "port")},
@@ -182,18 +186,53 @@ def test_resume_matches_jax(tmp_path, jax_weights):
     assert os.listdir(tmp_path / "port" / "saved") == ["dagnn_tok_1_2.ckpt"]
 
 
-@pytest.mark.parametrize("flags, match", [
-    (["--gnn", "gin"], "item 6"),
-    (["--dagnn_dropout", "0.1"], "item 5"),
-    (["--segment_impl", "dense"], "item 5"),
-    (["--segment_impl", "scatter"], "item 5"),
-])
-def test_unported_flags_raise(tmp_path, flags, match):
+def test_unported_flags_raise(tmp_path):
+    """The baselines wait for ROADMAP queue 1, item 6."""
     args = _args(tdriver, ["--synthetic", "20", "--emb_dim", "8", "--num_vocab",
-                           "6", "--epochs", "1", "--folds", "1", "--cpu"] + flags,
-                 tmp_path, "port")
-    with pytest.raises(NotImplementedError, match=match):
+                           "6", "--epochs", "1", "--folds", "1", "--cpu",
+                           "--gnn", "gin"], tmp_path, "port")
+    with pytest.raises(NotImplementedError, match="item 6"):
         tdriver.run(args, "tok")
+
+
+def _kept(shape):
+    """A fixed dropout mask: every tenth element dropped."""
+    return np.arange(int(np.prod(shape))).reshape(shape) % 10 != 3
+
+
+@pytest.mark.parametrize("task, flags, impls", [
+    ("lp", ["--dagnn_agg", "gated_sum"], ("scatter", "scatter")),
+    ("tok", [], ("dense", "dense")),
+    ("lp", ["--dagnn_agg", "attn_h", "--dagnn_dropout", "0.1"], ("dense", "fused")),
+], ids=["lp-scatter-gated_sum", "tok-dense", "lp-dropout"])
+def test_flags_match_jax(tmp_path, jax_weights, monkeypatch, task, flags, impls):
+    """--segment_impl dense / scatter (the port's generic branch) and
+    --dagnn_dropout 0.1 against the JAX driver's curves. The two packages'
+    random streams differ, so under dropout both draw one fixed mask
+    (every tenth element dropped): what is held is that training drops and
+    scales by 1/0.9 and evaluation does not."""
+    if "--dagnn_dropout" in flags:
+        monkeypatch.setattr(jax.random, "bernoulli",
+                            lambda key, p, shape: jnp.asarray(_kept(shape)))
+        monkeypatch.setattr(tdagnn, "_keep_mask", lambda shape, keep, rng, dev:
+                            torch.as_tensor(_kept(tuple(shape)), device=dev))
+    train, folds = _run_both(tmp_path, task, SMALL + flags, impls)
+    _same_curves(train, folds, 2)
+
+
+def test_main_lp_defaults_match_jax(tmp_path, jax_weights, monkeypatch):
+    """main_lp at its defaults (gated_sum, unidirectional: the port's
+    generic branch) against the JAX package's main_lp, small widths."""
+    from dagnn_tpu.cli import main_lp as jmain_lp
+    from dagnn_tpu_torch.cli import main_lp
+    dirs = lambda tag: ["--dir_results", str(tmp_path / tag / "results"),
+                        "--dir_save", str(tmp_path / tag / "saved")]
+    monkeypatch.setattr(sys, "argv", ["main_lp"] + SMALL + dirs("jax"))
+    jmain_lp.main()
+    main_lp.main(SMALL + dirs("port"))
+    train = {tag: _rows(tmp_path, tag, "dagnn_lp") for tag in ("jax", "port")}
+    folds = {tag: _rows(tmp_path, tag, "dagnn_lp", "") for tag in ("jax", "port")}
+    _same_curves(train, folds, 2)
 
 
 def test_no_cpu_fallback(tmp_path):

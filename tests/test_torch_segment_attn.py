@@ -17,16 +17,21 @@ rounding step taken at a different point). K2's weight grads as in
 test_torch_row_step.py.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from dagnn_tpu.nn import aggregators as jagg
 from dagnn_tpu.ops import segment as jseg
 from dagnn_tpu.ops.pallas import row_step as jrs
 from dagnn_tpu.ops.pallas.segment_attn import pallas_edge_softmax_aggregate as jesa
 from dagnn_tpu_torch import checks
+from dagnn_tpu_torch.convert import flatten_tree as checks_flat
+from dagnn_tpu_torch.convert import unflatten_tree as unflatten
 from dagnn_tpu_torch.nn import aggregators
 from dagnn_tpu_torch.ops import row_step as trs
 from dagnn_tpu_torch.ops import segment as tseg
@@ -272,11 +277,39 @@ def test_split_is_single_direction_and_unported_aggregates_raise():
                                two("edst"), two("emask"), two("nmask"), w, two("g"),
                                two("tg"), two("tdst"), two("tmask"), None,
                                ndirs=2, merge_tg=False)
-    v = torch.zeros(KE1, HID)
+    # the aggregates this test once held to a raise run now on K6's
+    # contract (its plain version on the CPU) and match the JAX package's
+    # aggregate_level (mattn's query gather clamps pad slot KN explicitly;
+    # the pad slot's output row, which callers cut off, has a zero
+    # cotangent)
+    rng = np.random.default_rng(5)
+    n = lambda *s: rng.normal(size=s).astype(np.float32)
+    edst = np.sort(rng.integers(0, KN + 1, KE1)).astype(np.int32)
+    emask = rng.random(KE1) > 0.2
+    v, k, q, g = n(KE1, HID), n(KE1, HID), n(KN, EMB), n(KN + 1, HID)
+    g[KN] = 0.0
     for spec, impl in ((aggregators.AggregatorSpec("mattn", HID, HID, EMB), "pallas"),
                        (aggregators.AggregatorSpec("self_attn", HID, HID), "pallas"),
                        (aggregators.AggregatorSpec("attn", HID, HID, EMB), "dense"),
                        (aggregators.AggregatorSpec("attn", HID, HID, EMB), "scatter")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            aggregators.aggregate_level({}, spec, v, torch.zeros(KE1, dtype=torch.int32),
-                                        torch.ones(KE1), KN + 1, impl=impl)
+        jspec = jagg.AggregatorSpec(**dataclasses.asdict(spec))
+        params = jagg.aggregator_init(jax.random.PRNGKey(1), jspec)
+        want, vjp = jax.vjp(lambda p, a, b, c: jagg.aggregate_level(
+            p, jspec, a, jnp.asarray(edst), jnp.asarray(emask), KN + 1,
+            key_src=b, query=c, impl=impl), params, *map(jnp.asarray, (v, k, q)))
+        jgrads = vjp(jnp.asarray(g))
+        tp = {kk: torch.tensor(np.asarray(x)).requires_grad_(True)
+              for kk, x in checks_flat(params).items()}
+        ts = [torch.tensor(a).requires_grad_(True) for a in (v, k, q)]
+        got = aggregators.aggregate_level(
+            unflatten(tp), spec, ts[0], torch.tensor(edst),
+            torch.tensor(emask).float(), KN + 1, key_src=ts[1], query=ts[2])
+        _f32_close(got.detach().numpy(), want, False, f"{spec.kind} {impl}")
+        tgr = torch.autograd.grad(got, list(tp.values()) + ts, torch.tensor(g),
+                                  allow_unused=True)     # self_attn: no query
+        jflat = checks_flat(jgrads[0])
+        for (kk, _), t in zip(tp.items(), tgr):
+            _f32_close(t.numpy(), jflat[kk], True, f"{spec.kind} {impl} {kk}")
+        for name, t, j in zip(("values", "keys", "query"), tgr[len(tp):], jgrads[1:]):
+            t = np.zeros(j.shape) if t is None else t.numpy()
+            _f32_close(t, j, True, f"{spec.kind} {impl} d_{name}")

@@ -1,5 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: the flagship TOK train step,
-the TOK and LP training drivers and every aggregator kind.
+the TOK and LP training drivers, every aggregator kind and the NA/BN VAE
+driver.
 
 Drives dagnn_tpu_torch (never the JAX package) through the entry points a
 user calls, at the flagship's full width (emb/hidden 300, 160 synthetic
@@ -111,13 +112,34 @@ split form), the merged and unidirectional wavefronts on near/far batches
       logits against plain as 18c. Mean pool (no ties; K5 sums every
       node): a bf16 pass at all of phase 5's gates. Launches counted,
       both bf16 passes timed
+  the VAE driver (counts set to 0 before run A, read after run C):
+  20. train_vae.main in process at scripts/na_train.sh's settings (DAGNN,
+      attn_h, hs 501, nz 56, 2 layers, batch 32; the generic branch) on
+      1,000 graphs of the repo's ENAS corpus: runs A (2 epochs), B
+      (resumed to 3 in A's directory), C (3 afresh), latents every epoch;
+      B's epoch 3 and parameters bitwise C's, losses finite and falling,
+      a finite test NLL, latents [900, 56] / [100, 56], K6 and K5 launched
+      at the counts of the passes and no other kernel; epoch seconds,
+      graphs/s, latent and test-NLL seconds
+  20a. outside the counted runs, at the NA loader's shapes (Kn 256, Ke
+      1,024, 32 live nodes a level): one f32 train step, kernels against
+      plain (loss and norm 1e-5, leaves rtol 5e-4 / atol 5e-5), mu of a
+      128-graph batch within 2e-5; the train step timed; K6 forward and
+      backward and K5 at the busiest level timed as 3c / 3d at width 501
+      (the one-column path)
+  20b. scripts/bn_train.sh's settings (DAGNN_BN, bidirectional, batch
+      128) on 512 synthetic BN graphs, one epoch, launches counted; one
+      step gated as 20a
+  20c. DVAE and DVAE_BN, two short epochs each: no kernel of the port
+      launched, finite falling losses
 
 The second-to-last line is the kernel table as JSON, the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero.
 
     python3 chip_smoke.py              # needs one CUDA device
     python3 chip_smoke.py --profile    # adds a profiled train step per path
-                                       # (traces in traces/, or --trace-dir DIR)
+                                       # and one NA VAE step (traces in
+                                       # traces/, or --trace-dir DIR)
 """
 
 import argparse
@@ -396,22 +418,25 @@ def recompute_costs(static, d, weights, dt):
     return b_bytes - res + fwd_only, f_ops + b_ops
 
 
-def segment_costs(ke, ne, S, H, es):
+def segment_costs(ke, ne, ns, S, H, es):
     """(forward bytes, forward ops, backward bytes, backward ops) of one K6
-    call at es bytes an element: scores, values, dst and mask read once,
-    the output (forward) or the cotangent in and both grads out (backward);
-    operations on this call's ne valid edges (the weighted sum, and the
-    dot, the value grads and the score grad)."""
-    in_b = ke * es + ke * H * es + ke * 8
+    call at es bytes an element. Read once: dst and mask of all ke edges,
+    the scores and value rows of the ne valid edges only (the masked ones
+    do not enter the function), and in the backward the cotangent rows of
+    the ns slots that have a valid edge. Written once: the full output
+    [S, H] (forward), d_scores [ke] and d_values [ke, H] (backward).
+    Operations on the ne valid edges (the weighted sum; the dot, the value
+    grads and the score grad)."""
+    in_b = ke * 8 + ne * es + ne * H * es
     return (in_b + S * H * es, ne * (2 * H + 5),
-            in_b + S * H * es + ke * es + ke * H * es, ne * (3 * H + 8))
+            in_b + ns * H * es + ke * es + ke * H * es, ne * (3 * H + 8))
 
 
 def tg_costs(kn, kt, nt, c, es):
-    """(bytes, ops) of one K5 call: g and the output [Kn, C], tg [Kt, C],
-    tdst and tmask once each; an add per element of g and of each of the
-    nt valid transpose rows."""
-    return 2 * kn * c * es + kt * c * es + kt * 8, (nt + kn) * c
+    """(bytes, ops) of one K5 call: g read and the output written [Kn, C],
+    tdst and tmask of all kt rows, the tg rows of the nt valid transpose
+    edges only; an add per element of g and of each valid tg row."""
+    return 2 * kn * c * es + nt * c * es + kt * 8, (nt + kn) * c
 
 
 def bound_ms(nbytes, ops, dt):
@@ -705,7 +730,7 @@ def phase_segment_attn(dev, host, level, H=300):
         torch.cuda.synchronize()
         errs = {"K6f": [checks.rel_err(kf, pf)],
                 "K6b": [checks.rel_err(kb[0], pb[0]), checks.rel_err(kb[1], pb[1])]}
-        fb, fo, bb, bo = segment_costs(ke, ne, S, H, es)
+        fb, fo, bb, bo = segment_costs(ke, ne, int((deg > 0).sum()), S, H, es)
         cost = {"K6f": (fb, fo), "K6b": (bb, bo)}
         runs = {"K6f": (lambda: sa.segment_attn_forward(sc, v, dst, mask, S),
                         lambda: sa.segment_attn_forward_plain(sc, v, dst, mask, S)),
@@ -1146,7 +1171,8 @@ def profile_step(tag, train_step, params, state, batch, card, out_dir):
     the trace to <out_dir>/step_trace_<tag>.json and prints, from its
     kernel and memory-op events, the device's busy share of the step's span
     and the device time by kernel, and K6's summed device time where the
-    step launched it."""
+    step launched it. Returns those readings (None without device
+    events)."""
     import collections
     import os
     from torch.profiler import ProfilerActivity, profile
@@ -1163,7 +1189,7 @@ def profile_step(tag, train_step, params, state, batch, card, out_dir):
            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     if not dev:
         print(f"[profile {tag}] the trace holds no device events: not measured")
-        return
+        return None
     t0 = min(e["ts"] for e in dev)
     t1 = max(e["ts"] + e["dur"] for e in dev)
     busy = sum(e["dur"] for e in dev)
@@ -1184,6 +1210,9 @@ def profile_step(tag, train_step, params, state, batch, card, out_dir):
             f"{k} {sum(d) / 1e3:.3f} ms in {len(d)} launches" for k, d in k6.items())
             + f"; together {tot / 1e3:.3f} ms of the step's busy {busy / 1e3:.2f} ms "
             f"({100 * tot / busy:.1f}%)")
+    return dict(span_ms=(t1 - t0) / 1e3, busy_ms=busy / 1e3, busy_share=busy / (t1 - t0),
+                events=len(dev), top_ms={n: us / 1e3 for n, us in by.most_common(12)},
+                k6={k: dict(ms=sum(d) / 1e3, launches=len(d)) for k, d in k6.items()})
 
 
 def _counted_modules():
@@ -1702,6 +1731,340 @@ def phase_node_space(dev, batch, card):
                 ties=tie, near_ties=near)
 
 
+# ------------------------------------------------------- the VAE driver
+
+# scripts/na_train.sh and scripts/bn_train.sh at their widths; only depth
+# (epochs, --max-count) is cut
+NA_FLAGS = ["--data-name", "final_structures6", "--data-type", "ENAS",
+            "--model", "DAGNN", "--nvt", "6", "--hs", "501", "--nz", "56",
+            "--batch-size", "32", "--lr", "1e-4", "--save-interval", "1",
+            "--load-latest-model", "--max-count", "1000"]
+BN_FLAGS = ["--data-name", "asia_200k", "--data-type", "BN", "--model",
+            "DAGNN_BN", "--nvt", "8", "--hs", "501", "--nz", "56",
+            "--batch-size", "128", "--lr", "1e-4", "--bidirectional",
+            "--save-interval", "1", "--load-latest-model", "--max-count", "512"]
+
+
+@contextlib.contextmanager
+def vae_probes():
+    """Record, without changing them, what the VAE driver's runs do: the
+    devices of the initial parameters, the train and inference passes of
+    the model (VAEModel.loss with and without training, encode_mu), and
+    the host seconds of each epoch's train loop (ended by a synchronize;
+    the driver reads the sums right after), of each latent extraction and
+    of each test NLL. Restored on exit."""
+    from dagnn_tpu_torch.cli import train_vae as tv
+    seen = dict(devices=set(), train=0, infer=0, epochs=[], latent_s=[],
+                nll_s=[])
+    M = tv.VAEModel
+    orig = (M.init, M.loss, M.encode_mu, tv.train_epoch,
+            tv.save_latent_representations, tv.test_nll)
+
+    def init(self, seed):
+        params = orig[0](self, seed)
+        seen["devices"] |= {v.device.type for v in params.values()}
+        return params
+
+    def loss(self, params, prepared, gen, training=True, impl=None):
+        seen["train" if training else "infer"] += 1
+        return orig[1](self, params, prepared, gen, training, impl)
+
+    def encode_mu(self, *a, **k):
+        seen["infer"] += 1
+        return orig[2](self, *a, **k)
+
+    def timed(i, key):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            out = orig[i](*a, **k)
+            torch.cuda.synchronize()
+            seen[key].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    M.init, M.loss, M.encode_mu = init, loss, encode_mu
+    tv.train_epoch = timed(3, "epochs")
+    tv.save_latent_representations = timed(4, "latent_s")
+    tv.test_nll = timed(5, "nll_s")
+    try:
+        yield seen
+    finally:
+        (M.init, M.loss, M.encode_mu, tv.train_epoch,
+         tv.save_latent_representations, tv.test_nll) = orig
+
+
+def vae_passes(args, runs, n_train, n_test):
+    """(train passes, inference passes) of the driver's runs, from the
+    flags and the corpus alone: `runs` the epochs each run trains. An
+    epoch is ceil(n_train / --batch-size) train passes; each epoch saves
+    (--save-interval 1) the latents of the train and test graphs in
+    batches of --infer-batch-size; each run ends with one test NLL over
+    the test graphs unless --no-test."""
+    check(args.save_interval == 1, "vae_passes counts a save every epoch")
+    up = lambda n, b: -(-n // b)
+    ib = args.infer_batch_size
+    nll = 0 if args.no_test else up(n_test, ib)
+    return (sum(runs) * up(n_train, args.batch_size),
+            sum(runs) * (up(n_train, ib) + up(n_test, ib)) + len(runs) * nll)
+
+
+def vae_expect(model, train, infer):
+    """The launches `train` train passes and `infer` inference passes of a
+    DAGNN VAE make: per level, layer and direction n = L x layers x
+    directions, K6 forward twice a train pass (the forward and its replay
+    in the backward) and once an inference pass, K6 backward and K5 (the
+    transpose merges) once a train pass."""
+    cfg = model.cfg
+    n = cfg.max_n * cfg.num_layers * len(cfg.encoder_cfg.dirs)
+    return {"segment_attn_forward": n * (2 * train + infer),
+            "segment_attn_backward": n * train, "tg_accumulate": n * train}
+
+
+def check_passes(label, seen, want):
+    """The probes' pass counts against vae_passes' derivation."""
+    print(f"{label} train / inference passes: {seen['train']} / {seen['infer']}, "
+          f"from the flags and the corpus {want[0]} / {want[1]}")
+    check((seen["train"], seen["infer"]) == want,
+          f"{label}: the driver's passes differ from the flags' count")
+
+
+def _vae_rows(res_dir):
+    return _csv_rows(os.path.join(res_dir, "train_loss.txt"))
+
+
+def vae_step(model, params, prepared, impl, seed=0):
+    """(loss, {name: grad}, global grad norm) of one f32 train pass of the
+    VAE with the encoder's segment functions `impl`; the noise drawn from
+    a generator seeded `seed`, so two calls draw the same."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    total = model.loss(p, prepared, gen, impl=impl)[0]
+    gs = torch.autograd.grad(total, list(p.values()), allow_unused=True)
+    gs = {k: torch.zeros_like(v) if g is None else g for (k, v), g in zip(p.items(), gs)}
+    norm = torch.sqrt(sum((g * g).sum() for g in gs.values()))
+    return float(total.detach()), gs, float(norm)
+
+
+def vae_gates(label, model, params, prepared, infer):
+    """Phases 20a / 20b: one f32 train step's loss, norm and every leaf with
+    the kernels against their plain versions (CROSS_TOL), and mu of an
+    inference batch within 2e-5 of max|plain|. Returns the readings."""
+    from dagnn_tpu_torch import checks
+    from dagnn_tpu_torch.nn.aggregators import SEG_KERNELS, SEG_PLAIN
+    kl, kg, kn = vae_step(model, params, prepared, SEG_KERNELS)
+    pl, pg, pn = vae_step(model, params, prepared, SEG_PLAIN)
+    t = CROSS_TOL
+    e_loss, e_norm = abs(kl - pl) / abs(pl), abs(kn - pn) / pn
+    ratio = {k: float(((kg[k] - pg[k]).abs()
+                       / (t["atol"] + t["rtol"] * pg[k].abs())).max()) for k in pg}
+    worst = max(ratio, key=ratio.get)
+    with torch.no_grad():
+        mk = model.encode_mu(params, infer, SEG_KERNELS)
+        mp = model.encode_mu(params, infer, SEG_PLAIN)
+    mu_rel, mu_err, mu_scale = checks.rel_err(mk, mp)
+    print(f"{label} f32 train step, kernels vs plain: loss {kl:.7f} vs {pl:.7f} "
+          f"(rel {e_loss:.2e}), grad norm rel {e_norm:.2e} (tolerance "
+          f"{t['loss']:g}); {len(pg)} leaves, worst {worst} at {ratio[worst]:.3g} "
+          f"of rtol {t['rtol']:g} / atol {t['atol']:g}; mu of {tuple(mk.shape)} "
+          f"{mu_err:.3e} of {mu_scale:.3e} = {mu_rel:.3e} (tolerance 2e-5)")
+    check(e_loss <= t["loss"] and e_norm <= t["loss"] and ratio[worst] <= 1.0,
+          f"{label}: the kernel step disagrees with the plain step")
+    check(mu_rel <= 2e-5, f"{label}: mu disagrees with plain")
+    return dict(loss_rel=e_loss, norm_rel=e_norm, worst=(worst, ratio[worst]),
+                mu_rel=mu_rel)
+
+
+def vae_shapes(host):
+    return (loader_shapes(host) + ", live nodes a level "
+            f"{int(host.fwd.node_mask.sum(1).max())}")
+
+
+def phase_vae(dev, card, argv):
+    """Phase 20: the VAE driver through its entry point train_vae.main.
+    20: NA (scripts/na_train.sh: DAGNN, attn_h, hs 501, nz 56, batch 32)
+    on 1,000 graphs of the repo's ENAS corpus (900 train: 28 steps of 32
+    and one of 4), runs A (2 epochs), B (resumed to 3 in A's directory), C
+    (3 afresh), every epoch's latents; B's epoch 3 bitwise C's, only K6
+    and K5 launched, at vae_expect's counts. 20a: at the NA loader's
+    shapes, one f32 train step and an inference batch's mu, kernels
+    against plain (vae_gates), and K6 / K5 at the busiest level timed as
+    phase 3c / 3d. 20b: BN (scripts/bn_train.sh: DAGNN_BN,
+    bidirectional, batch 128) on 512 synthetic BN graphs, one epoch,
+    counted, then gated as 20a. 20c: DVAE and DVAE_BN, two short epochs
+    each: no kernel of the port, finite falling losses."""
+    import pickle
+    import shutil
+    import tempfile
+    import numpy as np
+    from dagnn_tpu_torch.cli import train_vae as tv
+    from dagnn_tpu_torch.vae.dagnn_vae import na_collate
+    root = tempfile.mkdtemp(prefix="chip_smoke_vae_")
+    out = {}
+    try:
+        d = lambda tag: ["--res_dir", f"{root}/{tag}"]
+        reset_counts()
+        t0 = time.perf_counter()
+        with vae_probes() as seen:
+            tv.main(NA_FLAGS + ["--epochs", "2"] + d("A"))
+            saved_a = sorted(f for f in os.listdir(f"{root}/A") if f.endswith(".ckpt"))
+            tv.main(NA_FLAGS + ["--epochs", "3"] + d("A"))
+            tv.main(NA_FLAGS + ["--epochs", "3"] + d("C"))
+        wall = time.perf_counter() - t0
+        lc = read_counts()
+        args = tv.parse_args(NA_FLAGS)
+        train, test, ga = tv.load_data(tv.parse_args(NA_FLAGS + d("C")))
+        model = tv.VAEModel(args, ga, dev)
+        passes = vae_passes(args, [2, 1, 3], len(train), len(test))
+        check_passes("[20] runs A, B, C", seen, passes)
+        want = {k: 0 for k in lc}
+        want.update(vae_expect(model, *passes))
+        print(f"[20] {card}: launch counts over runs A, B, C {lc}; expected {want}")
+        check(lc == want, "NA VAE driver: launch counts differ from the passes")
+        check(seen["devices"] == {"cuda"}, f"NA VAE: parameters on {seen['devices']}")
+        rows_a, rows_c = _vae_rows(f"{root}/A"), _vae_rows(f"{root}/C")
+        for tag, rows in (("A+B", rows_a), ("C", rows_c)):
+            for r in rows:
+                print(f"[20] run {tag} epoch {int(r[0])}: loss {r[1]!r} recon "
+                      f"{r[2]!r} kld {r[3]!r}")
+        check(saved_a == ["DAGNN_0_1.ckpt", "DAGNN_0_2.ckpt"],
+              f"NA VAE: run A left {saved_a}")
+        check([r[0] for r in rows_a] == [1, 2, 3] and [r[0] for r in rows_c] == [1, 2, 3],
+              "NA VAE: run B did not resume at epoch 3, or run C did not train 1-3")
+        check(all(math.isfinite(v) for r in rows_a + rows_c for v in r),
+              "NA VAE: a non-finite epoch loss")
+        check(rows_a[1][1] < rows_a[0][1] and rows_c[1][1] < rows_c[0][1],
+              "NA VAE: the loss of epoch 2 is not below epoch 1's")
+        check(rows_a[2] == rows_c[2], f"NA VAE: the resumed epoch 3 {rows_a[2]} "
+              f"differs from the uninterrupted {rows_c[2]}")
+        ca, cc = (torch.load(f"{root}/{t}/DAGNN_0_3.ckpt", weights_only=True)
+                  for t in ("A", "C"))
+        check(all(torch.equal(ca["params"][k], cc["params"][k]) for k in cc["params"]),
+              "NA VAE: the resumed run's parameters differ from the uninterrupted")
+        with open(f"{root}/C/test_results.txt") as f:
+            nll = [float(line.rsplit(":", 1)[1]) for line in f]
+        with open(f"{root}/C/final_structures6_latent_epoch3.pkl", "rb") as f:
+            z_tr, y_tr, z_te, y_te = pickle.load(f)
+        print(f"[20] test NLL {nll}; latents Z_train {z_tr.shape}, Z_test "
+              f"{z_te.shape}, finite {bool(np.isfinite(z_tr).all() and np.isfinite(z_te).all())}")
+        check(all(math.isfinite(v) for v in nll), "NA VAE: non-finite test NLL")
+        check(z_tr.shape == (900, 56) and z_te.shape == (100, 56)
+              and os.path.exists(f"{root}/C/final_structures6_latent_epoch3.mat"),
+              "NA VAE: latents missing or of the wrong shape")
+        ep = seen["epochs"]
+        print(f"[20] {card}: epoch train seconds (host clock: collation, copy, "
+              f"launches, no loss read a step) " + " / ".join(f"{e:.3f}" for e in ep)
+              + f"; {len(train)} graphs, {-(-len(train) // args.batch_size)} steps an "
+              "epoch; graphs/s " + " / ".join(f"{len(train) / e:.1f}" for e in ep)
+              + "; latent extraction "
+              + " / ".join(f"{v:.3f}" for v in seen["latent_s"]) + " s, test NLL "
+              + " / ".join(f"{v:.3f}" for v in seen["nll_s"]) + f" s; three runs' wall "
+              f"{wall:.1f} s")
+
+        # 20a, outside the counted runs: the NA loader's batch 0 and an
+        # inference batch, from one set of weights
+        rnd = np.random.default_rng(args.seed)
+        order = rnd.permutation(len(train))
+        graphs = [train[j] for j in order[:32]]
+        params = model.init(0)
+        prepared = model.prepare(graphs)
+        host = na_collate(graphs, model.cfg)[0]
+        print(f"[20a] NA loader's batch 0: {vae_shapes(host)}")
+        infer = model.prepare(train[:128])
+        reset_counts()
+        gates = vae_gates("[20a]", model, params, prepared, infer)
+        opt = tv.make_optimizer(args.lr, args.clip)
+        step = tv.make_train_step(model, opt)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        state = opt.init(params)
+        p, s, _ = step(params, state, prepared, gen, args.lr)      # warm-up
+        torch.cuda.synchronize()
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        ev0.record()
+        for _ in range(5):
+            p, s, stats = step(p, s, prepared, gen, args.lr)
+        ev1.record()
+        torch.cuda.synchronize()
+        step_host = (time.perf_counter() - h0) / 5 * 1e3
+        step_dev = ev0.elapsed_time(ev1) / 5
+        print(f"[20a] {card}: NA train step {step_host:.2f} ms (host clock, 5 steps "
+              f"after a warm-up, no loss read), {step_dev:.2f} ms by CUDA events; "
+              f"last loss {float(stats[0]):.4f}")
+        prof = None
+        if "--profile" in argv:
+            prof = profile_step("vae_na", lambda a, b, c: step(a, b, c, gen, args.lr),
+                                p, s, prepared, card, trace_dir(argv))
+        print("[20a] K6 forward / backward at the busiest level of the NA batch, H 501")
+        segs = phase_segment_attn(dev, host, "busiest", H=501)
+        print("[20a] K5 at the busiest transpose level of the NA batch, C 501")
+        tgs = phase_tg_accumulate(dev, host, LH=501)
+        keep = ("ms", "windows", "call_ms", "plain_ms", "library_ms", "err", "rel",
+                "bound", "bytes", "ops")
+        shapes = {short(dt): {k: {x: r.get(x) for x in keep}
+                              for k, r in {**segs[dt], **tgs[dt]}.items()}
+                  for dt in (torch.bfloat16, torch.float32)}
+        out["na"] = dict(launches=lc, train_passes=seen["train"],
+                         infer_passes=seen["infer"], rows_ab=rows_a, rows_c=rows_c,
+                         test_nll=nll, epoch_s=ep,
+                         graphs_per_s=[len(train) / e for e in ep],
+                         latent_s=seen["latent_s"], nll_s=seen["nll_s"], wall_s=wall,
+                         step_ms=step_host, step_dev_ms=step_dev, profile=prof,
+                         gates=gates, level=segs["level"], kernels=shapes)
+
+        # 20b: BN, one epoch, counted; then gated as 20a
+        reset_counts()
+        with vae_probes() as seen_bn:
+            tv.main(BN_FLAGS + ["--epochs", "1"] + d("BN"))
+        lc_bn = read_counts()
+        args_bn = tv.parse_args(BN_FLAGS + d("BN"))
+        train_bn, test_bn, ga_bn = tv.load_data(args_bn)
+        model_bn = tv.VAEModel(args_bn, ga_bn, dev)
+        passes = vae_passes(args_bn, [1], len(train_bn), len(test_bn))
+        check_passes("[20b] BN run", seen_bn, passes)
+        want = {k: 0 for k in lc_bn}
+        want.update(vae_expect(model_bn, *passes))
+        rows_bn = _vae_rows(f"{root}/BN")
+        print(f"[20b] {card}: BN run, {len(train_bn)} train graphs, epoch "
+              f"{rows_bn[0]}; {seen_bn['epochs'][0]:.3f} s train; launch counts "
+              f"{lc_bn}, expected {want}")
+        check(lc_bn == want, "BN VAE driver: launch counts differ from the passes")
+        check(all(math.isfinite(v) for v in rows_bn[0]), "BN VAE: non-finite loss")
+        bgraphs = train_bn[:128]
+        bhost = na_collate(bgraphs, model_bn.cfg)[0]
+        print(f"[20b] BN loader's batch 0: {vae_shapes(bhost)}")
+        gates_bn = vae_gates("[20b]", model_bn, model_bn.init(0),
+                             model_bn.prepare(bgraphs), model_bn.prepare(bgraphs))
+        out["bn"] = dict(launches=lc_bn, train_passes=seen_bn["train"],
+                         infer_passes=seen_bn["infer"], rows=rows_bn,
+                         epoch_s=seen_bn["epochs"], gates=gates_bn)
+
+        # 20c: the base D-VAEs run no kernel of the port
+        for model_name, flags in (("DVAE", NA_FLAGS), ("DVAE_BN", BN_FLAGS)):
+            tag = model_name.lower()
+            argv_c = (flags + ["--model", model_name, "--max-count", "320",
+                               "--epochs", "2", "--no-test"] + d(tag))
+            reset_counts()
+            with vae_probes() as seen_c:
+                tv.main(argv_c)
+            lc_c = read_counts()
+            args_c = tv.parse_args(argv_c)
+            tr_c, te_c, _ = tv.load_data(args_c)
+            check_passes(f"[20c] {model_name}", seen_c,
+                         vae_passes(args_c, [2], len(tr_c), len(te_c)))
+            rows = _vae_rows(f"{root}/{tag}")
+            print(f"[20c] {model_name}: epochs {rows}; train seconds "
+                  + " / ".join(f"{e:.3f}" for e in seen_c["epochs"])
+                  + f"; launch counts {lc_c}")
+            check(all(v == 0 for v in lc_c.values()),
+                  f"{model_name}: a kernel of the port launched")
+            check(all(math.isfinite(v) for r in rows for v in r) and rows[1][1] < rows[0][1],
+                  f"{model_name}: losses not finite and falling")
+            out[tag] = dict(launches=lc_c, rows=rows, epoch_s=seen_c["epochs"])
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1915,6 +2278,9 @@ def main(argv):
           "batch, one bf16 train pass each, kernels against plain")
     kinds = phase_kinds(dev, batch, card)
     node_space = phase_node_space(dev, batch, card)
+    print("[20] the VAE driver (train_vae.main): NA runs A (2 epochs), B (resumed "
+          "to 3), C (3 afresh): " + " ".join(NA_FLAGS))
+    vae = phase_vae(dev, card, argv)
     runs = {"merged": merged, "pair": paired, "pallas": pallas,
             "unidirectional": uni, "nearfar_rt": nf_rt, "nearfar_r": nf_r,
             "nearfar_unidirectional": nf_u, "merged_k2r": k2r}
@@ -1953,11 +2319,18 @@ def main(argv):
                         "launches_by_path": {k: v["launches"][name] for k, v in
                                              {**runs, "tok_driver": driver,
                                               "lp_driver": lp, "node_space": node_space,
-                                              **{f"kind {t}": v for t, v in kinds.items()}
+                                              **{f"kind {t}": v for t, v in kinds.items()},
+                                              **{f"vae_{t}": v for t, v in vae.items()}
                                               }.items()
                                              if v["launches"][name]}})
+        if kern in vae["na"]["kernels"]["float32"]:
+            r = vae["na"]["kernels"]["float32"][kern]
+            kernels[-1]["vae_na_f32"] = {
+                "ms": r["ms"], "plain_ms": r["plain_ms"], "max_abs_err": r["err"],
+                "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                "library_ms": r["library_ms"]}
     print(json.dumps({**runs, "tok_driver": driver, "lp_driver": lp, "kinds": kinds,
-                      "node_space": node_space,
+                      "node_space": node_space, "vae": vae,
                       "split_checks": split, "cross_route": cross,
                       "nearfar_cross_route": nf_cross, "ab_steps": ab,
                       "split_row": {short(k): v for k, v in split_row.items()},

@@ -1,0 +1,412 @@
+"""NA/BN VAE training driver.
+
+Counterpart of dagnn_tpu/cli/train_vae.py (reference: dvae/train.py), with
+the same flags: load ENAS or BN graphs (cached), train a DAGNN, DAGNN_BN,
+DVAE or DVAE_BN VAE with Adam, ReduceLROnPlateau(0.1, 10) and gradient
+clipping, checkpoint and extract latent representations every
+--save-interval epochs (.pkl and .mat, which the sparse-GP/BO step reads),
+report the test reconstruction NLL, resume from a checkpoint.
+
+    python -m dagnn_tpu_torch.cli.train_vae --cpu --max-count 200 \\
+        --epochs 2 --hs 16 --nz 6
+
+It runs on the CUDA device unless --cpu is given, and raises without a
+card (no CPU fallback). Each batch is collated on the host and copied to
+the device once (convert.batch_to_torch); the DAGNN encoders run the
+port's generic wavefront (K6 and K5), the base D-VAEs no kernel of the
+port. The other --model choices raise NotImplementedError naming ROADMAP
+queue 1, item 7b.
+
+Where it differs from the JAX driver, on purpose (ROADMAP queue 3):
+  * the plateau schedule lowers the learning rate (lr * scale into Adam),
+    where the JAX driver scales the gradients, which Adam undoes;
+  * a resumed run is the uninterrupted run: the permutation generator is
+    fast-forwarded through the finished epochs, the reparameterization
+    noise is seeded from (--seed, epoch), and the scheduler's state rides
+    in the checkpoint's results;
+  * --scan-chunk (JAX: optimizer steps fused into one device dispatch) is
+    the number of steps between host reads of the epoch's loss sums, which
+    stay on the device in between;
+  * the corpus cache is the port's own file, `<res_dir>/<data-name>_torch.npz`
+    of plain arrays (the JAX driver's `<data-name>.pkl` pickles its
+    NAGraph objects and is not read here); it records the flags that built
+    it and is rebuilt when they differ, where the JAX driver reads its
+    cache whatever --max-count says; checkpoints are the port's own format
+    (train/checkpoint.py).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import pickle
+import time
+from typing import List
+
+import numpy as np
+import scipy.io
+import torch
+
+from dagnn_tpu_torch import resolve_device
+from dagnn_tpu_torch.convert import batch_to_torch
+from dagnn_tpu_torch.data.na import (GraphArgs, NAGraph, load_bn, load_enas,
+                                     parse_bn_row, synthetic_bn_rows)
+from dagnn_tpu_torch.train import checkpoint as ckpt
+from dagnn_tpu_torch.train.metrics import CSVLogger
+from dagnn_tpu_torch.train.optim import PlateauScheduler, make_optimizer
+from dagnn_tpu_torch.vae.dagnn_vae import (DAGNNVAEConfig, dagnn_vae_encode,
+                                           dagnn_vae_init, dagnn_vae_loss,
+                                           na_collate, na_dense_views)
+from dagnn_tpu_torch.vae.dvae import (DVAEConfig, dvae_base_init,
+                                      dvae_encode_sequential, dvae_teacher_loss,
+                                      kld, reparameterize, sub_params)
+
+PORTED = ("DAGNN", "DAGNN_BN", "DVAE", "DVAE_BN")
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__)
+    # mirrors dvae/train.py:25-98
+    p.add_argument("--data-name", default="final_structures6")
+    p.add_argument("--data-path", default=None,
+                   help="graph corpus txt; defaults by data-type")
+    p.add_argument("--data-type", default="ENAS", choices=["ENAS", "BN"])
+    p.add_argument("--nvt", type=int, default=6)
+    p.add_argument("--model", default="DAGNN",
+                   choices=["DAGNN", "DAGNN_BN", "DVAE", "DVAE_BN",
+                            "SVAE", "SVAE_oneshot", "SVAE_GraphRNN",
+                            "SVAE_GraphRNN_BFS", "DVAE_GCN", "DVAE_fast",
+                            "DVAE_DeepGMG"])
+    p.add_argument("--hs", type=int, default=501)
+    p.add_argument("--nz", type=int, default=56)
+    p.add_argument("--bidirectional", action="store_true")
+    p.add_argument("--dagnn_layers", type=int, default=2)
+    p.add_argument("--dagnn_agg", default="attn_h")
+    p.add_argument("--dagnn_out_pool_all", type=int, default=0)
+    p.add_argument("--dagnn_out_pool", default="max")
+    p.add_argument("--dagnn_dropout", type=float, default=0.0)
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--epochs", type=int, default=10)
+    p.add_argument("--batch-size", type=int, default=32)
+    p.add_argument("--infer-batch-size", type=int, default=128)
+    p.add_argument("--clip", type=float, default=0.25)
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--save-interval", type=int, default=10)
+    p.add_argument("--res_dir", default="results/vae")
+    p.add_argument("--load-latest-model", action="store_true")
+    p.add_argument("--continue-from", type=int, default=None)
+    p.add_argument("--load-partial", default=None, metavar="CKPT",
+                   help="partial state load from a checkpoint with a "
+                        "possibly different architecture (reference "
+                        "load_module_state, dvae/util.py:41-63)")
+    p.add_argument("--no-test", action="store_true")
+    p.add_argument("--small-train", action="store_true")
+    p.add_argument("--scan-chunk", type=int, default=128,
+                   help="train steps between host reads of the loss sums")
+    p.add_argument("--max-count", type=int, default=None)
+    p.add_argument("--cpu", action="store_true",
+                   help="run on the CPU (smoke/debug runs)")
+    return p.parse_args(argv)
+
+
+# ---------------------------------------------------------------- data
+
+def _pack(graphs: List[NAGraph]):
+    """NAGraphs as plain arrays: node counts, padded types and adjacency,
+    scores."""
+    n = np.array([g.num_nodes for g in graphs], np.int64)
+    m = int(n.max(initial=1))
+    types = np.zeros((len(graphs), m), np.int32)
+    adj = np.zeros((len(graphs), m, m), np.uint8)
+    for i, g in enumerate(graphs):
+        types[i, :n[i]] = g.types
+        adj[i, :n[i], :n[i]] = g.adj
+    return n, types, adj, np.array([g.y for g in graphs], np.float64)
+
+
+def _unpack(n, types, adj, y):
+    return [NAGraph(types=types[i, :k].copy(), adj=adj[i, :k, :k].copy(),
+                    y=float(y[i])) for i, k in enumerate(n)]
+
+
+def _corpus_key(args) -> str:
+    """The flags that decide the corpus, as the cache records them."""
+    return json.dumps([args.data_type, args.nvt, args.max_count,
+                       args.data_path, args.seed])
+
+
+def load_data(args):
+    """Load and cache the corpus (dvae/train.py:119-142). The cache holds
+    the flags that built it and is read only when they are this run's;
+    otherwise the corpus is built anew and the cache overwritten."""
+    os.makedirs(args.res_dir, exist_ok=True)
+    cache = os.path.join(args.res_dir, f"{args.data_name}_torch.npz")
+    if os.path.exists(cache):
+        with np.load(cache, allow_pickle=False) as z:
+            if "key" in z and str(z["key"]) == _corpus_key(args):
+                ga = GraphArgs(*[int(v) for v in z["graph_args"]])
+                return (_unpack(*[z[f"train_{k}"] for k in "ntay"]),
+                        _unpack(*[z[f"test_{k}"] for k in "ntay"]), ga)
+    if args.data_type == "ENAS":
+        # the ENAS corpus ships with the repo (gzipped dataset asset)
+        path = args.data_path or os.path.join(
+            os.path.dirname(__file__), "..", "..", "data",
+            "final_structures6.txt.gz")
+        tr, te, ga = load_enas(path, n_types=args.nvt, max_count=args.max_count)
+    elif args.data_path and os.path.exists(args.data_path):
+        tr, te, ga = load_bn(args.data_path, n_types=args.nvt,
+                             max_count=args.max_count)
+    else:
+        # asia_200k.txt is absent from the reference checkout: a synthetic
+        # corpus in the same format
+        import ast
+        gs = []
+        for r in synthetic_bn_rows(args.max_count or 2000, n_types=args.nvt,
+                                   seed=args.seed):
+            row, y = ast.literal_eval(r)
+            g = parse_bn_row(row)
+            g.y = y
+            gs.append(g)
+        cut = int(len(gs) * 0.9)
+        tr, te = gs[:cut], gs[cut:]
+        ga = GraphArgs(num_vertex_type=args.nvt + 2,
+                       max_n=max(g.num_nodes for g in gs))
+    arrays = {"key": np.array(_corpus_key(args)),
+              "graph_args": np.array([ga.num_vertex_type, ga.max_n,
+                                      ga.start_type, ga.end_type,
+                                      ga.num_class], np.int64)}
+    for tag, gs in (("train", tr), ("test", te)):
+        arrays.update({f"{tag}_{k}": a for k, a in zip("ntay", _pack(gs))})
+    np.savez(cache, **arrays)
+    return tr, te, ga
+
+
+# --------------------------------------------------------------- model
+
+def check_model(kind: str):
+    if kind not in PORTED:
+        raise NotImplementedError(
+            f"--model {kind} is not ported yet: ROADMAP queue 1, item 7b")
+
+
+class VAEModel:
+    """One facade over the DAGNN-coupled and base D-VAE variants, on one
+    device."""
+
+    def __init__(self, args, ga: GraphArgs, device):
+        check_model(args.model)
+        self.kind = args.model
+        self.device = device
+        if self.kind.startswith("DAGNN"):
+            self.cfg = DAGNNVAEConfig(
+                max_n=ga.max_n, nvt=ga.num_vertex_type, hs=args.hs, nz=args.nz,
+                num_layers=args.dagnn_layers, bidirectional=args.bidirectional,
+                agg=args.dagnn_agg, out_pool_all=bool(args.dagnn_out_pool_all),
+                out_pool=args.dagnn_out_pool, dropout=args.dagnn_dropout,
+                bn=self.kind == "DAGNN_BN")
+        else:
+            self.cfg = DVAEConfig(
+                max_n=ga.max_n, nvt=ga.num_vertex_type, hs=args.hs, nz=args.nz,
+                num_layers=1, bidirectional=args.bidirectional,
+                vid=self.kind == "DVAE", bn=self.kind == "DVAE_BN",
+                dec_agg="gated_sum",
+                pred_source="x" if self.kind == "DVAE_BN" else "h")
+
+    def init(self, seed: int):
+        """Initial parameters from `seed` (the port's own random stream)."""
+        if self.kind.startswith("DAGNN"):
+            return dagnn_vae_init(seed, self.cfg, device=self.device)
+        return dvae_base_init(seed, self.cfg, device=self.device)
+
+    def prepare(self, graphs: List[NAGraph]):
+        """(batch or None, types, adj, nv) on the device: the DAGNN
+        encoder's collated batch and the decoder's dense views."""
+        if self.kind.startswith("DAGNN"):
+            batch, types, adj, nv = na_collate(graphs, self.cfg)
+            batch = batch_to_torch(batch, self.device)
+        else:
+            batch = None
+            types, adj, nv = na_dense_views(graphs, self.cfg.max_n)
+        dev = lambda a: torch.as_tensor(a).to(self.device)
+        return batch, dev(types), dev(adj), dev(nv)
+
+    def loss(self, params, prepared, gen, training=True, impl=None):
+        """(total, recon, kld); gen draws the reparameterization noise.
+        impl: the DAGNN encoder's segment functions (SEG_KERNELS when
+        None, or SEG_PLAIN)."""
+        batch, types, adj, nv = prepared
+        if self.kind.startswith("DAGNN"):
+            return dagnn_vae_loss(params, self.cfg, batch, types, adj, nv, gen,
+                                  training, impl)
+        mu, logvar = dvae_encode_sequential(params, self.cfg, types, adj, nv)
+        z = reparameterize(gen, mu, logvar, self.cfg.eps_scale, training)
+        recon, _ = dvae_teacher_loss(sub_params(params, "dec."), self.cfg, z,
+                                     types, adj, nv)
+        k = kld(mu, logvar)
+        return recon + self.cfg.beta * k, recon, k
+
+    def encode_mu(self, params, prepared, impl=None):
+        batch, types, adj, nv = prepared
+        if self.kind.startswith("DAGNN"):
+            return dagnn_vae_encode(params, self.cfg, batch, impl)[0][: len(types)]
+        return dvae_encode_sequential(params, self.cfg, types, adj, nv)[0]
+
+
+def make_train_step(model: VAEModel, opt):
+    """train_step(params, opt_state, prepared, gen, lr) -> (params,
+    opt_state, [total, recon, kld] on the device): one loss and backward,
+    clip and Adam at learning rate lr. Parameters the loss does not reach
+    (the encoder's dummy head; the gate/mapper pairs an attention model
+    does not use) get zero gradients, as jax.grad gives them."""
+
+    def train_step(params, opt_state, prepared, gen, lr):
+        p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        total, recon, kl = model.loss(p, prepared, gen)
+        gs = torch.autograd.grad(total, list(p.values()), allow_unused=True)
+        with torch.no_grad():
+            grads = {k: torch.zeros_like(v) if g is None else g
+                     for (k, v), g in zip(p.items(), gs)}
+            updates, opt_state = opt.update(grads, opt_state, lr)
+            params = {k: params[k] + updates[k] for k in params}
+        return params, opt_state, torch.stack([total, recon, kl]).detach()
+
+    return train_step
+
+
+def train_epoch(args, model, train_step, params, opt_state, data, order,
+                gen, lr, epoch, t0):
+    """One epoch's batches in `order` (the reference's exact batches,
+    dvae/train.py:228-235, the tail one short). The loss sums stay on the
+    device; the host reads them every --scan-chunk steps for the progress
+    line. Returns (params, opt_state, [total, recon, kld] sums)."""
+    n_steps = -(-len(order) // args.batch_size)
+    sums = None
+    for si, i in enumerate(range(0, len(order), args.batch_size)):
+        prepared = model.prepare([data[j] for j in order[i:i + args.batch_size]])
+        params, opt_state, stats = train_step(params, opt_state, prepared, gen, lr)
+        sums = stats if sums is None else sums + stats
+        if (si + 1) % args.scan_chunk == 0 and si + 1 < n_steps:
+            print(f"  epoch {epoch} step {si + 1}/{n_steps} "
+                  f"[{time.time() - t0:.0f}s] loss sum {float(sums[0]):.4f}",
+                  flush=True)
+    return params, opt_state, sums
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    device = resolve_device("cpu" if args.cpu else "cuda")
+    check_model(args.model)
+    train_data, test_data, ga = load_data(args)
+    if args.small_train:
+        train_data = train_data[:100]
+    print(f"{len(train_data)} train / {len(test_data)} test, "
+          f"nvt={ga.num_vertex_type} max_n={ga.max_n}, on {device}")
+
+    model = VAEModel(args, ga, device)
+    params = model.init(args.seed)
+    opt = make_optimizer(args.lr, args.clip)
+    opt_state = opt.init(params)
+    sched = PlateauScheduler(factor=0.1, patience=10)
+    loss_log = CSVLogger(os.path.join(args.res_dir, "train_loss.txt"),
+                         ["epoch", "loss", "recon", "kld"])
+    name = args.model
+
+    start_epoch = 1
+    if args.load_partial:
+        params, n_ok, n_skip = ckpt.load_partial_state(args.load_partial, params)
+        print(f"partial load from {args.load_partial}: "
+              f"{n_ok} leaves restored, {n_skip} kept from init")
+    path = None
+    if args.continue_from is not None:
+        path = ckpt.checkpoint_name(args.res_dir, name, 0, args.continue_from)
+    elif args.load_latest_model:
+        path = ckpt.find_latest_checkpoint(args.res_dir, name)
+    if path:
+        results, ep, params, opt_state = ckpt.load_checkpoint(path, params,
+                                                              opt_state)
+        if results and "scheduler" in results:
+            sched.load_state_dict(results["scheduler"])
+        start_epoch = ep + 1
+        print(f"resumed from {path}")
+
+    train_step = make_train_step(model, opt)
+    rnd = np.random.default_rng(args.seed)
+    for _ in range(1, start_epoch):        # the finished epochs' draws
+        rnd.permutation(len(train_data))
+    gen = torch.Generator(device=device)
+    for epoch in range(start_epoch, args.epochs + 1):
+        t0 = time.time()
+        order = rnd.permutation(len(train_data))
+        gen.manual_seed(args.seed * 100003 + epoch)
+        params, opt_state, sums = train_epoch(
+            args, model, train_step, params, opt_state, train_data, order, gen,
+            args.lr * sched.scale, epoch, t0)
+        tot, rec, kl = (float(x) for x in sums.cpu())
+        n = len(train_data)
+        print(f"====> Epoch: {epoch} Average loss: {tot / n:.4f} "
+              f"(recon {rec / n:.4f}, kld {kl / n:.4f}) [{time.time() - t0:.1f}s]")
+        loss_log.append([epoch, tot / n, rec / n, kl / n])
+        sched.step(tot / n)
+
+        if epoch % args.save_interval == 0 or epoch == args.epochs:
+            ckpt.create_checkpoint(
+                ckpt.checkpoint_name(args.res_dir, name, 0, epoch), epoch,
+                params, opt_state, {"scheduler": sched.state_dict()})
+            save_latent_representations(args, model, params, train_data,
+                                        test_data, epoch)
+
+    if not args.no_test:
+        nll = test_nll(args, model, params, test_data)
+        with open(os.path.join(args.res_dir, "test_results.txt"), "a") as f:
+            f.write(f"epoch {args.epochs} Test average recon loss: {nll}\n")
+    return params
+
+
+def _batched(graphs, size):
+    for i in range(0, len(graphs), size):
+        yield graphs[i: i + size]
+
+
+@torch.no_grad()
+def extract_latent(args, model, params, data):
+    """(Z [n, nz] float32, Y [n]): mu of every graph, in batches of
+    --infer-batch-size."""
+    Z, Y = [], []
+    for chunk in _batched(data, args.infer_batch_size):
+        Z.append(model.encode_mu(params, model.prepare(chunk)).cpu().numpy())
+        Y.extend(g.y for g in chunk)
+    return np.concatenate(Z, 0), np.asarray(Y)
+
+
+def save_latent_representations(args, model, params, train_data, test_data,
+                                epoch):
+    """.pkl + .mat latent dumps (dvae/train.py:338-355)."""
+    Z_train, Y_train = extract_latent(args, model, params, train_data)
+    Z_test, Y_test = extract_latent(args, model, params, test_data)
+    base = os.path.join(args.res_dir, f"{args.data_name}_latent_epoch{epoch}")
+    with open(base + ".pkl", "wb") as f:
+        pickle.dump((Z_train, Y_train, Z_test, Y_test), f)
+    scipy.io.savemat(base + ".mat", mdict={
+        "Z_train": Z_train, "Z_test": Z_test,
+        "Y_train": Y_train, "Y_test": Y_test,
+    })
+    print(f"saved latent representations to {base}.pkl/.mat")
+
+
+@torch.no_grad()
+def test_nll(args, model, params, test_data):
+    """Held-out teacher-forced reconstruction NLL (dvae/train.py:276-311),
+    without noise."""
+    nll = 0.0
+    for chunk in _batched(test_data, args.infer_batch_size):
+        _, recon, _ = model.loss(params, model.prepare(chunk), None,
+                                 training=False)
+        nll += float(recon)
+    nll /= len(test_data)
+    print(f"Test average recon loss: {nll}")
+    return nll
+
+
+if __name__ == "__main__":
+    main()

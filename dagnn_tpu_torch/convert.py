@@ -4,7 +4,10 @@ The JAX params already use torch layout (Linear w [out, in], GRU w_ih
 [3H, In]), so a conversion is only a renaming: the nested `dagnn_init`
 pytree (dicts and lists) becomes one flat dict keyed by dotted paths —
 "encoder.attr_emb", "aggr.1.0.attn_lin.w", "cells.0.1.w_ih", "head.w" —
-which is the parameter dict every function of this package takes.
+which is the parameter dict every function of this package takes. The
+VAE trees (`dagnn_vae_init`'s "enc.*", "dec.grud.0.w_ih", "fc1.w", ...;
+`dvae_base_init`'s) go the same way; an empty subtree (the identity
+encoder's, gated_sum's emptied enc.aggr) has no leaf to carry.
 """
 
 from __future__ import annotations

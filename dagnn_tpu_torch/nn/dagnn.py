@@ -1054,12 +1054,15 @@ def _node_states(params, cfg, batch, impl, dev):
     return x, h_dirs
 
 
-def dagnn_node_states(params, cfg: DAGNNConfig, batch: DAGBatch):
-    """Run the encoder and every direction pass (the kernels: the fused
-    branch at one direction, or the generic branch); return (x, h_dirs)
-    where h_dirs[d] is [num_layers, N+1, H] in node space. The seam the VAE
-    encoder builds its own readout on (reference dvae/dagnn.py:147-170)."""
-    impl = KERNELS if _fused_applicable(cfg) else SEG_KERNELS
+def dagnn_node_states(params, cfg: DAGNNConfig, batch: DAGBatch, impl=None):
+    """Run the encoder and every direction pass (the fused branch at one
+    direction, or the generic branch); return (x, h_dirs) where h_dirs[d]
+    is [num_layers, N+1, H] in node space. The seam the VAE encoder builds
+    its own readout on (reference dvae/dagnn.py:147-170). impl: None for
+    the kernels (KERNELS or SEG_KERNELS by branch), else as dagnn_forward
+    takes it on the "direction" or "generic" route."""
+    if impl is None:
+        impl = KERNELS if _fused_applicable(cfg) else SEG_KERNELS
     return _node_states(params, cfg, batch, impl, params["head.w"].device)
 
 

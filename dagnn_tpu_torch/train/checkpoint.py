@@ -13,8 +13,8 @@ params are the flat dotted-path dict of CPU tensors, opt_state the
 optimizer's {count, mu, nu} as CPU tensors, and results plain numbers and
 strings. `load_checkpoint` reads it with `torch.load(weights_only=True)`,
 which accepts only tensors, dicts, lists, numbers and strings, so loading
-a file runs no code from it. (`load_partial_state`, the VAE's
-model-surgery load, comes with the VAE stack: ROADMAP queue 1, item 7.)
+a file runs no code from it. `load_partial_state` is the VAE driver's
+model-surgery load (--load-partial) on the same format.
 """
 
 from __future__ import annotations
@@ -84,6 +84,25 @@ def load_checkpoint(path: str, params_template, opt_state_template
     params = _like(payload["params"], params_template, "params")
     opt_state = _like(payload["opt_state"], opt_state_template, "opt_state")
     return payload["results"], payload["epoch"], params, opt_state
+
+
+def load_partial_state(path: str, params_template: Dict[str, torch.Tensor]
+                       ) -> Tuple[Dict[str, torch.Tensor], int, int]:
+    """Model-surgery-tolerant load (reference load_module_state,
+    dvae/util.py:41-63): every dotted key of the template that the
+    checkpoint's params hold with the same shape is restored (in the
+    template's dtype, on its device); every other keeps the template's
+    tensor. Returns (params, n_loaded, n_skipped)."""
+    saved = _load(path)["params"]
+    out, n_loaded = {}, 0
+    for k, t in params_template.items():
+        s = saved.get(k)
+        if isinstance(s, torch.Tensor) and s.shape == t.shape:
+            out[k] = s.to(dtype=t.dtype, device=t.device)
+            n_loaded += 1
+        else:
+            out[k] = t
+    return out, n_loaded, len(params_template) - n_loaded
 
 
 def load_checkpoint_results(path: str):

@@ -1,9 +1,14 @@
-"""Adam with global-norm clipping, as optax computes it.
+"""Adam with global-norm clipping, as optax computes it, and the VAE
+driver's plateau schedule.
 
-Counterpart of dagnn_tpu/train/optim.py make_optimizer: the OGB drivers'
-Adam(lr) + grad-norm clip 0.25 (reference: main_pyg.py:63-64, 297), as the
-optax chain clip_by_global_norm(clip) -> adam(lr). Two details differ from
-torch's own tools and are kept on purpose:
+Counterpart of dagnn_tpu/train/optim.py: make_optimizer is the OGB
+drivers' Adam(lr) + grad-norm clip 0.25 (reference: main_pyg.py:63-64,
+297), as the optax chain clip_by_global_norm(clip) -> adam(lr); its update
+takes an `lr` that replaces the one it was made with, the learning rate a
+driver lowers between epochs (optax's inject_hyperparams).
+PlateauScheduler is ReduceLROnPlateau(factor 0.1, patience 10) of the dvae
+driver (dvae/train.py:193-194). Two details differ from torch's own tools
+and are kept on purpose:
   * the clip is optax's: g if norm < clip else g * clip / norm, with no
     epsilon (torch.nn.utils.clip_grad_norm_ adds 1e-6 to the norm);
   * Adam's bias correction divides the moments (mu / (1 - b1^t),
@@ -20,7 +25,7 @@ import torch
 
 class Optimizer(NamedTuple):
     init: Callable
-    update: Callable   # (grads, state) -> (updates, new_state)
+    update: Callable   # (grads, state[, lr]) -> (updates, new_state)
 
 
 def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -45,7 +50,7 @@ def make_optimizer(lr: float = 1e-3, clip: float = 0.25, b1: float = 0.9,
             "nu": {k: torch.zeros_like(p) for k, p in params.items()},
         }
 
-    def update(grads, state):
+    def update(grads, state, lr=lr):
         if clip and clip > 0:
             grads = clip_by_global_norm(grads, clip)
         count = state["count"] + 1
@@ -63,3 +68,37 @@ def make_optimizer(lr: float = 1e-3, clip: float = 0.25, b1: float = 0.9,
         return updates, {"count": count, "mu": mu, "nu": nu}
 
     return Optimizer(init, update)
+
+
+class PlateauScheduler:
+    """ReduceLROnPlateau(mode='min') on the host: after more than
+    `patience` epochs without a new best metric, scale *= factor. The
+    driver's learning rate is lr * scale. state_dict() holds plain
+    numbers, so a checkpoint's results can carry it."""
+
+    def __init__(self, factor: float = 0.1, patience: int = 10):
+        self.factor = factor
+        self.patience = patience
+        self.best = float("inf")
+        self.bad_epochs = 0
+        self.scale = 1.0
+
+    def step(self, metric: float) -> float:
+        if metric < self.best:
+            self.best = metric
+            self.bad_epochs = 0
+        else:
+            self.bad_epochs += 1
+            if self.bad_epochs > self.patience:
+                self.scale *= self.factor
+                self.bad_epochs = 0
+        return self.scale
+
+    def state_dict(self):
+        return {"best": self.best, "bad_epochs": self.bad_epochs,
+                "scale": self.scale}
+
+    def load_state_dict(self, state):
+        self.best = float(state["best"])
+        self.bad_epochs = int(state["bad_epochs"])
+        self.scale = float(state["scale"])

@@ -13,8 +13,10 @@ and "p", an empty near list, near edges that all read pad slots), K2
 without residual streams (K2r, bitwise K2), K2's GEMM launches alone
 (tensor cores in bf16), K1's two launches alone (the GRU on the tensor
 cores in bf16; the attention with empty and single-slot lists, huge
-masked scores and routed reads) and the segment merge in each of its
-forms; with
+masked scores and routed reads), the segment merge in each of its
+forms, and the NA VAE's shapes (K6 and K5 in f32 at widths 501 and 509 on
+a level of 32 live slots in 256, and one NA train step, kernels against
+plain); with
 and without edge
 attributes, widths that are not multiples of the kernels' 32-wide tiles,
 float32 and bfloat16.
@@ -831,3 +833,108 @@ def test_backward_is_bitwise_repeatable(dev, nd, dt):
     for i in (0, 1, 2):
         assert torch.equal(a[i], b[i]), i
     assert all(torch.equal(a[3][k], b[3][k]) for k in a[3])
+
+
+# ------------------------------------------------ the NA VAE's shapes (f32)
+
+def _na_batch(n_graphs=32):
+    """The NA VAE's first train batch of the repo's ENAS corpus at the
+    scripts' widths (na_train.sh: hs 501, nz 56, batch 32), collated as
+    its driver collates it: every level Kn 256 slots, Ke 1,024 edges, of
+    which one node a graph and its in-edges are live."""
+    import os
+    from dagnn_tpu_torch.cli import train_vae
+    args = train_vae.parse_args(["--max-count", "200"])
+    path = os.path.join(os.path.dirname(__file__), "..", "data",
+                        "final_structures6.txt.gz")
+    from dagnn_tpu_torch.data.na import load_enas
+    train, _, ga = load_enas(path, max_count=200)
+    return args, train[:n_graphs], ga
+
+
+@pytest.mark.parametrize("H", [501, 509])
+def test_vae_level_kernels_match_plain(dev, H):
+    """K6 forward and backward and K5 (the transpose merge, and the sum
+    kinds' segment sum) in f32 at widths 501 and 509, whose 2,004- and
+    2,036-byte rows take K6's one-column path, on the busiest level of the
+    NA batch: Kn 256 slots of which 32 live, Ke 1,024 edges mostly
+    masked, the transpose schedule Kt 1,024 mostly masked."""
+    from dagnn_tpu_torch.ops import row_step as rs
+    from dagnn_tpu_torch.ops import segment
+    from dagnn_tpu_torch.ops import segment_attn as sa
+    from dagnn_tpu_torch.vae.dagnn_vae import DAGNNVAEConfig, na_collate
+    _, graphs, ga = _na_batch()
+    cfg = DAGNNVAEConfig(max_n=ga.max_n, nvt=ga.num_vertex_type)
+    b = na_collate(graphs, cfg)[0].fwd
+    row = int(b.edge_mask.sum(1).argmax())
+    kn, ke = b.node_ids.shape[1], b.edge_dst.shape[1]
+    assert (kn, ke) == (256, 1024) and int(b.node_mask[row].sum()) == 32
+    dst = torch.as_tensor(b.edge_dst[row]).int().to(dev)
+    mask = torch.as_tensor(b.edge_mask[row]).float().to(dev)
+    assert 0 < int(mask.sum()) < ke // 4
+    g = torch.Generator().manual_seed(11)
+    sc = torch.randn(ke, generator=g).to(dev)
+    v = torch.randn(ke, H, generator=g).to(dev)
+    gout = torch.randn(kn + 1, H, generator=g).to(dev)
+    S = kn + 1
+    k = sa.segment_attn_forward(sc, v, dst, mask, S)
+    kb = sa.segment_attn_backward(sc, v, dst, mask, gout, S)
+    torch.cuda.synchronize()
+    assert _err(k, sa.segment_attn_forward_plain(sc, v, dst, mask, S)) <= TOL[torch.float32]
+    for a, p in zip(kb, sa.segment_attn_backward_plain(sc, v, dst, mask, gout, S)):
+        assert _err(a, p) <= TOL[torch.float32]
+    assert torch.equal(sa.segment_attn_forward(sc, v, dst, mask, S), k)
+    tdst = torch.as_tensor(b.tgrad_dst[row]).int().to(dev)
+    tmask = torch.as_tensor(b.tgrad_mask[row]).float().to(dev)
+    kt = tdst.shape[0]
+    assert kt == 1024 and int(tmask.sum()) < kt // 4
+    gg = torch.randn(kn, H, generator=g).to(dev)
+    tg = torch.randn(kt, H, generator=g).to(dev)
+    m = rs.tg_accumulate(gg, tg, tdst, tmask)
+    assert _err(m, rs.tg_accumulate_plain(gg, tg, tdst, tmask)) <= TOL[torch.float32]
+    assert torch.equal(rs.tg_accumulate(gg, tg, tdst, tmask), m)
+    s = segment.merged_segment_sum(v, dst, S, mask, rs.tg_accumulate)
+    assert _err(s, segment.merged_segment_sum(v, dst, S, mask,
+                                              rs.tg_accumulate_plain)) <= TOL[torch.float32]
+
+
+@pytest.mark.parametrize("agg", ["attn_h", "gated_sum"])
+def test_na_train_step_kernels_match_plain(dev, agg):
+    """One f32 NA train step at the scripts' widths (hs 501, nz 56, 2
+    layers, batch 32) with the encoder on the kernels (K6 and K5) and on
+    their plain versions, from one set of weights: loss and gradient norm
+    within 1e-5 relative, every leaf within rtol 5e-4 / atol 5e-5; K6
+    launched 2 x 16 forward and 16 backward (attn_h), K5 16 (the transpose
+    merges) or 48 (gated_sum: also the sums, forward and replayed)."""
+    from dagnn_tpu_torch.cli import train_vae
+    from dagnn_tpu_torch.nn.aggregators import SEG_KERNELS, SEG_PLAIN
+    from dagnn_tpu_torch.ops import row_step as rs
+    from dagnn_tpu_torch.ops import segment_attn as sa
+    args, graphs, ga = _na_batch()
+    args.dagnn_agg = agg
+    model = train_vae.VAEModel(args, ga, dev)
+    params = model.init(0)
+    prepared = model.prepare(graphs)
+
+    def step(impl):
+        p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        total = model.loss(p, prepared, None, training=False, impl=impl)[0]
+        gs = torch.autograd.grad(total, list(p.values()), allow_unused=True)
+        gs = {k: torch.zeros_like(v) if g is None else g for (k, v), g in zip(p.items(), gs)}
+        norm = torch.sqrt(sum((g * g).sum() for g in gs.values()))
+        return float(total.detach()), gs, float(norm)
+
+    rs.reset_launch_counts()
+    sa.reset_launch_counts()
+    kl, kg, kn = step(SEG_KERNELS)
+    n = 2 * 8
+    if agg == "attn_h":
+        assert sa.launch_counts == {"segment_attn_forward": 2 * n,
+                                    "segment_attn_backward": n}
+        assert rs.launch_counts["tg_accumulate"] == n
+    else:
+        assert rs.launch_counts["tg_accumulate"] == 3 * n
+    pl, pg, pn = step(SEG_PLAIN)
+    assert abs(kl - pl) <= 1e-5 * abs(pl) and abs(kn - pn) <= 1e-5 * pn
+    for k in pg:
+        torch.testing.assert_close(kg[k], pg[k], rtol=5e-4, atol=5e-5, msg=k)

@@ -70,6 +70,30 @@ def test_driver_runs_without_jax(tmp_path):
         assert (tmp_path / "r" / f"{name}_train.csv").exists()
 
 
+def test_vae_driver_runs_without_jax(tmp_path):
+    """The VAE driver (DAGNN on the repo's ENAS corpus, and DVAE_BN on the
+    synthetic BN corpus, whose rows bn_score scores) end to end with jax
+    and the JAX package absent."""
+    small = ["--max-count", "20", "--hs", "8", "--nz", "4", "--batch-size", "9",
+             "--epochs", "1", "--save-interval", "1", "--cpu"]
+    code = ("import sys, torch\n"
+            "torch.set_num_threads(1)\n"
+            "for m in ('jax', 'jaxlib', 'optax', 'flax', 'dagnn_tpu'):\n"
+            "    sys.modules[m] = None\n"
+            "from dagnn_tpu_torch.cli import train_vae\n"
+            f"train_vae.main({small!r} + ['--res_dir', 'na'])\n"
+            f"train_vae.main({small!r} + ['--res_dir', 'bn', '--model', 'DVAE_BN',"
+            " '--data-type', 'BN', '--nvt', '8'])\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.rstrip().endswith("ok")
+    for d in ("na", "bn"):
+        assert (tmp_path / d / "final_structures6_latent_epoch1.mat").exists()
+
+
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(REPO)) for p in PKG.rglob("*.py")] + ["chip_smoke.py"]))
 def test_no_jax_package_imports(path):

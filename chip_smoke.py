@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: the flagship TOK train step,
-the TOK and LP training drivers, every aggregator kind and the NA/BN VAE
-driver.
+the TOK and LP training drivers, every aggregator kind, the NA/BN VAE
+driver with every --model, and latent scoring with Bayesian optimisation.
 
 Drives dagnn_tpu_torch (never the JAX package) through the entry points a
 user calls, at the flagship's full width (emb/hidden 300, 160 synthetic
@@ -111,7 +111,11 @@ split form), the merged and unidirectional wavefronts on near/far batches
       leaves printed beside the pool's share of tied features; the bf16
       logits against plain as 18c. Mean pool (no ties; K5 sums every
       node): a bf16 pass at all of phase 5's gates. Launches counted,
-      both bf16 passes timed
+      both bf16 passes timed. Then the max pool's bf16 leaves gated
+      tie-aware: the pool's gradient kept at the (graph, feature) pairs
+      whose plain maximum is one node's and leads by more than twice the
+      largest node-state error, detached elsewhere on both sides; loss
+      and norm at phase 5's gates, each leaf within 0.3 of its own max
   the VAE driver (counts set to 0 before run A, read after run C):
   20. train_vae.main in process at scripts/na_train.sh's settings (DAGNN,
       attn_h, hs 501, nz 56, 2 layers, batch 32; the generic branch) on
@@ -132,6 +136,30 @@ split form), the merged and unidirectional wavefronts on near/far batches
       step gated as 20a
   20c. DVAE and DVAE_BN, two short epochs each: no kernel of the port
       launched, finite falling losses
+  latent scoring and BO (no kernel of the port on this path), on phase
+  20's latents and checkpoints:
+  21a. run_bo.main GP only (2 seeds, M 500, 100 iterations) on run C's
+      latents [900, 56] / [100, 56]: two finite Test_RMSE_ll.txt lines;
+      the seed-0 fit on the card against the same fit on the CPU (mean
+      within 1e-3 of max|mean|, RMSE within 1%); fit and predict seconds
+  21b. run_bo --bo: ENAS on run C's checkpoint (2 rounds of 50
+      candidates, 100 decode attempts each, a 10,000-point grid, 50
+      refinement steps, the surrogate scorer trained on the whole
+      corpus), BN on 20b's DAGNN_BN checkpoint (1 round, BIC):
+      best_arc_scores.txt written, each round's valid count, best score
+      and seconds (GP fit, greedy EI, decode, scoring); summarize.main on
+      each result directory
+  21c. run C's encoder over the whole ENAS corpus (17,118 / 1,902
+      graphs), then the GP at M 500 on those latents: finite; the load,
+      the encode, the fit and the predict timed
+  21d. train_vae.main for SVAE, SVAE_oneshot, SVAE_GraphRNN,
+      SVAE_GraphRNN_BFS, DVAE_GCN, DVAE_fast and DVAE_DeepGMG at
+      na_train.sh's widths on 256 ENAS graphs, 2 epochs: finite falling
+      losses, latents [230, 56] / [26, 56], no kernel of the port
+      launched; per model one f32 step on the card against the CPU's
+      (loss and norm 1e-5, leaves rtol 5e-4 / atol 5e-5; a leaf past that
+      held to the same in float64, card against CPU); run_bo GP only on
+      SVAE's latents
 
 The second-to-last line is the kernel table as JSON, the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero.
@@ -174,6 +202,15 @@ NOISE_TOL = 8.0
 #     direction 0, a nearly cancelling sum (2.7e-6 against leaves of 1e-3
 #     and more); the plain version's index_add_ sums in no fixed order
 STEP_TOL = {"loss": 1e-5, "leaf": 6e-2}
+# phase 19c's tie-aware gate, the bf16 max pool's leaves with the pool's
+# gradient kept only at the decided (graph, feature) pairs: each leaf 0.3
+# of its own max|plain|. Set from the first reading (H100, 700 W): the
+# worst 0.177 on layer 0's edge encoder weight in direction 0, a nearly
+# cancelling leaf (max 3.6e-7, the tree's largest near 1e-3), the next
+# 0.064 (the mean pool's gated pass reads 0.055 on the same attention
+# weight); a routing fault moves a feature's whole gradient to another
+# node, an error of order 1
+TIE_AWARE_LEAF_TOL = 0.3
 # phases 5c, 10e and 11, f32 steps of two routes or forms that compute the
 # same function (the JAX package's own layout test, tests/test_pair.py:
 # 105-112): loss and norm 1e-5 relative; every grad leaf within rtol / atol
@@ -1012,14 +1049,14 @@ def loss_and_grads(params, cfg, batch, impl):
 
 
 def phase_step(label, params, cfg, batch, kernels, plain, group=None,
-               leaves=True):
+               leaves=True, leaf_tol=STEP_TOL["leaf"]):
     """Phases 5 / 5b / 9a / 10a / 10e: the kernel step's parameter grads
     against the plain step's, leaf by leaf on each leaf's own scale (after
     `group`, if given). The plain step in float32 with the same
     bf16-rounded weights marks the elements that are zero in exact
     arithmetic. With leaves=False only the loss and the grad norm are
-    held to their gate; the leaves are printed. Returns the worst leaf's
-    (relative error, name)."""
+    held to their gate; the leaves are printed. leaf_tol: the leaves'
+    limit. Returns the worst leaf's (relative error, name)."""
     from dagnn_tpu_torch import checks
     kl, kg, kn = loss_and_grads(params, cfg, batch, kernels)
     pl, pg, pn = loss_and_grads(params, cfg, batch, plain)
@@ -1039,14 +1076,14 @@ def phase_step(label, params, cfg, batch, kernels, plain, group=None,
         rows.append((rel, ab, scale, nz, k))
     rows.sort(reverse=True)
     print(f"    {len(rows)} grad leaves; the worst, as max_abs_err of max|plain| "
-          f"(tolerance {STEP_TOL['leaf']:g}; exact-zero elements' noise, tolerance "
+          f"(tolerance {leaf_tol:g}; exact-zero elements' noise, tolerance "
           f"{NOISE_TOL:g} x the plain step's):")
     for rel, ab, scale, nz, k in rows[:6]:
         print(f"      {k:28s} {ab:.3e} of {scale:.3e} = {rel:.3e}   noise {nz:.3g}")
     print(f"    worst noise {max(r[3] for r in rows):.3g} "
           f"({max(rows, key=lambda r: r[3])[4]})")
     bad = [r[4] for r in rows
-           if leaves and not (r[0] <= STEP_TOL["leaf"] and r[3] <= NOISE_TOL)]
+           if leaves and not (r[0] <= leaf_tol and r[3] <= NOISE_TOL)]
     check(e_loss <= STEP_TOL["loss"] and e_norm <= STEP_TOL["loss"] and not bad,
           f"kernel step disagrees with plain step on {bad or 'the loss or norm'}")
     return rows[0][0], rows[0][4]
@@ -1681,6 +1718,59 @@ def pool_ties(params, cfg, batch):
     return float(tie.float().mean()), float(near.float().mean()), tuple(h.shape)
 
 
+def decided_pairs(params, cfg, batch):
+    """The max pool's (graph, feature) pairs whose winning node the bf16
+    kernels and the plain version must agree on: a single node holds the
+    plain states' largest value and it beats the second largest by more
+    than twice the largest |kernel - plain| difference of any live node
+    state (the margin rule of 18c's ids). Returns (mask [graph slots, F],
+    that error); pad slots count as decided."""
+    from dagnn_tpu_torch.nn.dagnn import KERNELS, PLAIN, dagnn_node_states
+    from dagnn_tpu_torch.ops import segment
+    states = []
+    with torch.no_grad():
+        for impl in (KERNELS, PLAIN):
+            x, h_dirs = dagnn_node_states(params, cfg, batch, impl)
+            layers = [hd[l] for hd in h_dirs for l in range(cfg.num_layers)]
+            states.append(torch.cat(([x] if cfg.out_wx else []) + layers,
+                                    dim=-1).float())
+        hk, h = states
+        g = int(batch.n_graph)
+        gid = torch.as_tensor(batch.graph_id, device=h.device).long()
+        live = torch.as_tensor(batch.node_mask, device=h.device).bool() & (gid < g)
+        err = float((hk - h)[live].abs().max())
+        m1 = segment.segment_max(h, gid, g + 1, live)[:g]
+        at_max = live[:, None] & (h == m1[gid.clamp(max=g - 1)])
+        n_max = torch.zeros((g + 1, h.shape[1]), device=h.device)
+        n_max.index_add_(0, torch.where(live, gid, g), at_max.float())
+        m2 = segment.segment_max(torch.where(at_max, -torch.inf, h), gid, g + 1,
+                                 live)[:g]
+        decided = torch.ones((batch.num_graph_slots, h.shape[1]), dtype=torch.bool,
+                             device=h.device)
+        decided[:g] = (n_max[:g] == 1) & ((m1 - m2) > 2 * err)
+    return decided, err
+
+
+@contextlib.contextmanager
+def undecided_detached(decided):
+    """The readout's max pool with its output detached at the undecided
+    (graph, feature) pairs: their gradient goes to no node, on the kernel
+    and the plain side alike, so every leaf is comparable. The pooled
+    values, and so the loss, are unchanged."""
+    from dagnn_tpu_torch.nn import dagnn
+    orig = dagnn.pool_nodes
+
+    def pool(h, graph_id, num_graphs, kind, mask, *rest):
+        out = orig(h, graph_id, num_graphs, kind, mask, *rest)
+        return torch.where(decided, out, out.detach()) if kind == "max" else out
+
+    dagnn.pool_nodes = pool
+    try:
+        yield
+    finally:
+        dagnn.pool_nodes = orig
+
+
 def phase_node_space(dev, batch, card):
     """Phase 19c: out_pool_all (the node-space readout) on the flagship's
     attn_h with segment_impl "fused": the per-direction wavefront, K1/K2
@@ -1688,12 +1778,15 @@ def phase_node_space(dev, batch, card):
     node of a graph. With the flagship's max pool: one f32 train pass,
     kernels against plain at CROSS_TOL; one bf16 train pass at phase 5's
     loss and norm gates, its leaves printed beside the max pool's ties
-    and near ties (pool_ties) but not gated, since a tied feature's
-    gradient lands on one node or another; the bf16 logits against plain
+    and near ties (pool_ties), since a tied feature's gradient lands on
+    one node or another; the bf16 logits against plain
     (forward_vs_plain). With a mean pool, which has no ties: one bf16
     train pass at all of phase 5's gates, leaves included; its readout
     sums run K5 over every node of the batch. Launches counted over the
-    train passes."""
+    train passes. Then, uncounted, the tie-aware gate of the max pool's
+    bf16 leaves: the pass again with the pool's gradient kept only at the
+    decided (graph, feature) pairs (decided_pairs): loss and norm at
+    phase 5's gates, every leaf within TIE_AWARE_LEAF_TOL."""
     from dagnn_tpu_torch import flagship
     from dagnn_tpu_torch.nn import dagnn
     from dagnn_tpu_torch.nn.dagnn import KERNELS, PLAIN, dagnn_init
@@ -1718,9 +1811,19 @@ def phase_node_space(dev, batch, card):
           f"{int(batch.n_graph)} graphs, bf16 kernels: {100 * tie:.2f}% of "
           f"(graph, feature) pairs tied, {100 * near:.2f}% within one bf16 "
           f"step; the max pool's worst leaf {worst[1]} at {worst[0]:.3e} "
-          f"(not gated), the mean pool's {worst_mean[1]} at "
+          f"(gated below at the decided pairs), the mean pool's {worst_mean[1]} at "
           f"{worst_mean[0]:.3e} (gate {STEP_TOL['leaf']:g})")
     forward_vs_plain("[19c] bf16", params, cfg, batch)
+    decided, err = decided_pairs(params, cfg, batch)
+    share = float(decided[:int(batch.n_graph)].float().mean())
+    print(f"[19c] tie-aware gate: {100 * share:.2f}% of (graph, feature) pairs "
+          f"decided (one node holds the plain maximum, ahead of the next by "
+          f"more than 2 x {err:.3e}, the largest |kernel - plain| node state); "
+          f"the others' pool gradient detached on both sides")
+    with undecided_detached(decided):
+        worst_decided = phase_step("[19c] max pool, bf16, decided pairs:", params,
+                                   cfg, batch, KERNELS, PLAIN,
+                                   leaf_tol=TIE_AWARE_LEAF_TOL)
     ms = time_pass(lambda: loss_and_grads(params, cfg, batch, KERNELS))
     ms_mean = time_pass(lambda: loss_and_grads(params, cfg_mean, batch, KERNELS))
     print(f"[19c] out_pool_all, fused: bf16 forward and backward {ms:.2f} ms "
@@ -1728,7 +1831,8 @@ def phase_node_space(dev, batch, card):
           f"each) on {card}")
     return dict(launches=lc, pass_ms=ms, pass_ms_mean=ms_mean, cross=cross,
                 bf16_worst_leaf=worst, bf16_worst_leaf_mean=worst_mean,
-                ties=tie, near_ties=near)
+                bf16_worst_leaf_decided=worst_decided, decided_share=share,
+                state_err=err, ties=tie, near_ties=near)
 
 
 # ------------------------------------------------------- the VAE driver
@@ -1879,7 +1983,7 @@ def vae_shapes(host):
             f"{int(host.fwd.node_mask.sum(1).max())}")
 
 
-def phase_vae(dev, card, argv):
+def phase_vae(dev, card, argv, root):
     """Phase 20: the VAE driver through its entry point train_vae.main.
     20: NA (scripts/na_train.sh: DAGNN, attn_h, hs 501, nz 56, batch 32)
     on 1,000 graphs of the repo's ENAS corpus (900 train: 28 steps of 32
@@ -1891,178 +1995,435 @@ def phase_vae(dev, card, argv):
     phase 3c / 3d. 20b: BN (scripts/bn_train.sh: DAGNN_BN,
     bidirectional, batch 128) on 512 synthetic BN graphs, one epoch,
     counted, then gated as 20a. 20c: DVAE and DVAE_BN, two short epochs
-    each: no kernel of the port, finite falling losses."""
+    each: no kernel of the port, finite falling losses. Its runs' files
+    stay in `root` for phase 21."""
     import pickle
-    import shutil
-    import tempfile
     import numpy as np
     from dagnn_tpu_torch.cli import train_vae as tv
     from dagnn_tpu_torch.vae.dagnn_vae import na_collate
-    root = tempfile.mkdtemp(prefix="chip_smoke_vae_")
     out = {}
-    try:
-        d = lambda tag: ["--res_dir", f"{root}/{tag}"]
+    d = lambda tag: ["--res_dir", f"{root}/{tag}"]
+    reset_counts()
+    t0 = time.perf_counter()
+    with vae_probes() as seen:
+        tv.main(NA_FLAGS + ["--epochs", "2"] + d("A"))
+        saved_a = sorted(f for f in os.listdir(f"{root}/A") if f.endswith(".ckpt"))
+        tv.main(NA_FLAGS + ["--epochs", "3"] + d("A"))
+        tv.main(NA_FLAGS + ["--epochs", "3"] + d("C"))
+    wall = time.perf_counter() - t0
+    lc = read_counts()
+    args = tv.parse_args(NA_FLAGS)
+    train, test, ga = tv.load_data(tv.parse_args(NA_FLAGS + d("C")))
+    model = tv.VAEModel(args, ga, dev)
+    passes = vae_passes(args, [2, 1, 3], len(train), len(test))
+    check_passes("[20] runs A, B, C", seen, passes)
+    want = {k: 0 for k in lc}
+    want.update(vae_expect(model, *passes))
+    print(f"[20] {card}: launch counts over runs A, B, C {lc}; expected {want}")
+    check(lc == want, "NA VAE driver: launch counts differ from the passes")
+    check(seen["devices"] == {"cuda"}, f"NA VAE: parameters on {seen['devices']}")
+    rows_a, rows_c = _vae_rows(f"{root}/A"), _vae_rows(f"{root}/C")
+    for tag, rows in (("A+B", rows_a), ("C", rows_c)):
+        for r in rows:
+            print(f"[20] run {tag} epoch {int(r[0])}: loss {r[1]!r} recon "
+                  f"{r[2]!r} kld {r[3]!r}")
+    check(saved_a == ["DAGNN_0_1.ckpt", "DAGNN_0_2.ckpt"],
+          f"NA VAE: run A left {saved_a}")
+    check([r[0] for r in rows_a] == [1, 2, 3] and [r[0] for r in rows_c] == [1, 2, 3],
+          "NA VAE: run B did not resume at epoch 3, or run C did not train 1-3")
+    check(all(math.isfinite(v) for r in rows_a + rows_c for v in r),
+          "NA VAE: a non-finite epoch loss")
+    check(rows_a[1][1] < rows_a[0][1] and rows_c[1][1] < rows_c[0][1],
+          "NA VAE: the loss of epoch 2 is not below epoch 1's")
+    check(rows_a[2] == rows_c[2], f"NA VAE: the resumed epoch 3 {rows_a[2]} "
+          f"differs from the uninterrupted {rows_c[2]}")
+    ca, cc = (torch.load(f"{root}/{t}/DAGNN_0_3.ckpt", weights_only=True)
+              for t in ("A", "C"))
+    check(all(torch.equal(ca["params"][k], cc["params"][k]) for k in cc["params"]),
+          "NA VAE: the resumed run's parameters differ from the uninterrupted")
+    with open(f"{root}/C/test_results.txt") as f:
+        nll = [float(line.rsplit(":", 1)[1]) for line in f]
+    with open(f"{root}/C/final_structures6_latent_epoch3.pkl", "rb") as f:
+        z_tr, y_tr, z_te, y_te = pickle.load(f)
+    print(f"[20] test NLL {nll}; latents Z_train {z_tr.shape}, Z_test "
+          f"{z_te.shape}, finite {bool(np.isfinite(z_tr).all() and np.isfinite(z_te).all())}")
+    check(all(math.isfinite(v) for v in nll), "NA VAE: non-finite test NLL")
+    check(z_tr.shape == (900, 56) and z_te.shape == (100, 56)
+          and os.path.exists(f"{root}/C/final_structures6_latent_epoch3.mat"),
+          "NA VAE: latents missing or of the wrong shape")
+    ep = seen["epochs"]
+    print(f"[20] {card}: epoch train seconds (host clock: collation, copy, "
+          f"launches, no loss read a step) " + " / ".join(f"{e:.3f}" for e in ep)
+          + f"; {len(train)} graphs, {-(-len(train) // args.batch_size)} steps an "
+          "epoch; graphs/s " + " / ".join(f"{len(train) / e:.1f}" for e in ep)
+          + "; latent extraction "
+          + " / ".join(f"{v:.3f}" for v in seen["latent_s"]) + " s, test NLL "
+          + " / ".join(f"{v:.3f}" for v in seen["nll_s"]) + f" s; three runs' wall "
+          f"{wall:.1f} s")
+
+    # 20a, outside the counted runs: the NA loader's batch 0 and an
+    # inference batch, from one set of weights
+    rnd = np.random.default_rng(args.seed)
+    order = rnd.permutation(len(train))
+    graphs = [train[j] for j in order[:32]]
+    params = model.init(0)
+    prepared = model.prepare(graphs)
+    host = na_collate(graphs, model.cfg)[0]
+    print(f"[20a] NA loader's batch 0: {vae_shapes(host)}")
+    infer = model.prepare(train[:128])
+    reset_counts()
+    gates = vae_gates("[20a]", model, params, prepared, infer)
+    opt = tv.make_optimizer(args.lr, args.clip)
+    step = tv.make_train_step(model, opt)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = opt.init(params)
+    p, s, _ = step(params, state, prepared, gen, args.lr)      # warm-up
+    torch.cuda.synchronize()
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    h0 = time.perf_counter()
+    ev0.record()
+    for _ in range(5):
+        p, s, stats = step(p, s, prepared, gen, args.lr)
+    ev1.record()
+    torch.cuda.synchronize()
+    step_host = (time.perf_counter() - h0) / 5 * 1e3
+    step_dev = ev0.elapsed_time(ev1) / 5
+    print(f"[20a] {card}: NA train step {step_host:.2f} ms (host clock, 5 steps "
+          f"after a warm-up, no loss read), {step_dev:.2f} ms by CUDA events; "
+          f"last loss {float(stats[0]):.4f}")
+    prof = None
+    if "--profile" in argv:
+        prof = profile_step("vae_na", lambda a, b, c: step(a, b, c, gen, args.lr),
+                            p, s, prepared, card, trace_dir(argv))
+    print("[20a] K6 forward / backward at the busiest level of the NA batch, H 501")
+    segs = phase_segment_attn(dev, host, "busiest", H=501)
+    print("[20a] K5 at the busiest transpose level of the NA batch, C 501")
+    tgs = phase_tg_accumulate(dev, host, LH=501)
+    keep = ("ms", "windows", "call_ms", "plain_ms", "library_ms", "err", "rel",
+            "bound", "bytes", "ops")
+    shapes = {short(dt): {k: {x: r.get(x) for x in keep}
+                          for k, r in {**segs[dt], **tgs[dt]}.items()}
+              for dt in (torch.bfloat16, torch.float32)}
+    out["na"] = dict(launches=lc, train_passes=seen["train"],
+                     infer_passes=seen["infer"], rows_ab=rows_a, rows_c=rows_c,
+                     test_nll=nll, epoch_s=ep,
+                     graphs_per_s=[len(train) / e for e in ep],
+                     latent_s=seen["latent_s"], nll_s=seen["nll_s"], wall_s=wall,
+                     step_ms=step_host, step_dev_ms=step_dev, profile=prof,
+                     gates=gates, level=segs["level"], kernels=shapes)
+
+    # 20b: BN, one epoch, counted; then gated as 20a
+    reset_counts()
+    with vae_probes() as seen_bn:
+        tv.main(BN_FLAGS + ["--epochs", "1"] + d("BN"))
+    lc_bn = read_counts()
+    args_bn = tv.parse_args(BN_FLAGS + d("BN"))
+    train_bn, test_bn, ga_bn = tv.load_data(args_bn)
+    model_bn = tv.VAEModel(args_bn, ga_bn, dev)
+    passes = vae_passes(args_bn, [1], len(train_bn), len(test_bn))
+    check_passes("[20b] BN run", seen_bn, passes)
+    want = {k: 0 for k in lc_bn}
+    want.update(vae_expect(model_bn, *passes))
+    rows_bn = _vae_rows(f"{root}/BN")
+    print(f"[20b] {card}: BN run, {len(train_bn)} train graphs, epoch "
+          f"{rows_bn[0]}; {seen_bn['epochs'][0]:.3f} s train; launch counts "
+          f"{lc_bn}, expected {want}")
+    check(lc_bn == want, "BN VAE driver: launch counts differ from the passes")
+    check(all(math.isfinite(v) for v in rows_bn[0]), "BN VAE: non-finite loss")
+    bgraphs = train_bn[:128]
+    bhost = na_collate(bgraphs, model_bn.cfg)[0]
+    print(f"[20b] BN loader's batch 0: {vae_shapes(bhost)}")
+    gates_bn = vae_gates("[20b]", model_bn, model_bn.init(0),
+                         model_bn.prepare(bgraphs), model_bn.prepare(bgraphs))
+    out["bn"] = dict(launches=lc_bn, train_passes=seen_bn["train"],
+                     infer_passes=seen_bn["infer"], rows=rows_bn,
+                     epoch_s=seen_bn["epochs"], gates=gates_bn)
+
+    # 20c: the base D-VAEs run no kernel of the port
+    for model_name, flags in (("DVAE", NA_FLAGS), ("DVAE_BN", BN_FLAGS)):
+        tag = model_name.lower()
+        argv_c = (flags + ["--model", model_name, "--max-count", "320",
+                           "--epochs", "2", "--no-test"] + d(tag))
         reset_counts()
+        with vae_probes() as seen_c:
+            tv.main(argv_c)
+        lc_c = read_counts()
+        args_c = tv.parse_args(argv_c)
+        tr_c, te_c, _ = tv.load_data(args_c)
+        check_passes(f"[20c] {model_name}", seen_c,
+                     vae_passes(args_c, [2], len(tr_c), len(te_c)))
+        rows = _vae_rows(f"{root}/{tag}")
+        print(f"[20c] {model_name}: epochs {rows}; train seconds "
+              + " / ".join(f"{e:.3f}" for e in seen_c["epochs"])
+              + f"; launch counts {lc_c}")
+        check(all(v == 0 for v in lc_c.values()),
+              f"{model_name}: a kernel of the port launched")
+        check(all(math.isfinite(v) for r in rows for v in r) and rows[1][1] < rows[0][1],
+              f"{model_name}: losses not finite and falling")
+        out[tag] = dict(launches=lc_c, rows=rows, epoch_s=seen_c["epochs"])
+    return out
+
+
+# ------------------------------------------------ latent scoring and BO
+
+# run_bo at its defaults (the reference's GP: M 500, 100 Adam iterations at
+# lr 5e-4; BO batch 50, 100 decode attempts, a 10,000-point grid, 50
+# refinement steps)
+GP_FLAGS = ["--M", "500", "--gp-iters", "100", "--gp-lr", "5e-4"]
+OTHER_VAES = ("SVAE", "SVAE_oneshot", "SVAE_GraphRNN", "SVAE_GraphRNN_BFS",
+              "DVAE_GCN", "DVAE_fast", "DVAE_DeepGMG")
+
+
+def _widths(flags):
+    """The --hs / --nz pair of a train_vae flag list, for run_bo."""
+    return [x for f in ("--hs", "--nz") for x in (f, flags[flags.index(f) + 1])]
+
+
+def _rmse_rows(res_dir):
+    with open(os.path.join(res_dir, "Test_RMSE_ll.txt")) as f:
+        return [[float(x.split(":")[1]) for x in line.split(",")] for line in f]
+
+
+def _timed(fn):
+    """(fn(), host seconds ended by a synchronize)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_gp(dev, card, root, mat, label="[21a]"):
+    """21a: run_bo.main, GP only, on phase 20's latents (2 seeds, M 500,
+    100 iterations): two finite Test_RMSE_ll.txt lines. Then the seed-0 fit
+    on the card against the same fit on the CPU from the same data: the
+    predictive mean within 1e-3 of the CPU's max|mean|, the test RMSE
+    within 1% of the CPU's; fit and predict seconds."""
+    import numpy as np
+    from dagnn_tpu_torch.cli import run_bo
+    from dagnn_tpu_torch.vae.sparse_gp import fit_sparse_gp, predict
+    res = f"{root}/bo_gp"
+    out = run_bo.main(["--latent", mat, "--seeds", "2", *GP_FLAGS, "--res_dir", res])
+    rows = _rmse_rows(res)
+    print(f"{label} run_bo GP only: Test_RMSE_ll.txt {rows}; float64 refits "
+          f"{[g[3] for g in out['gp']]}")
+    check(len(rows) == 2 and np.isfinite(rows).all(),
+          "run_bo: Test_RMSE_ll.txt lacks two finite lines")
+    X_tr, y_tr, X_te, y_te, _, _ = run_bo.load_latents(mat)
+    fit = lambda d: fit_sparse_gp(X_tr, y_tr, M=500, iters=100, lr=5e-4, seed=0,
+                                  device=d)
+    gp, fit_s = _timed(lambda: fit(dev))
+    (mean, _), pred_s = _timed(lambda: predict(gp, X_te))
+    t0 = time.perf_counter()
+    gp_cpu = fit("cpu")
+    cpu_s = time.perf_counter() - t0
+    mean_cpu = predict(gp_cpu, X_te)[0]
+    mean = mean.cpu()
+    rel = float((mean - mean_cpu).abs().max() / mean_cpu.abs().max())
+    rmse, rmse_cpu = (run_bo.score_gp(g, X_te, y_te)[0] for g in (gp, gp_cpu))
+    print(f"{label} {card}: seed-0 fit of {X_tr.shape} (M 500, 100 iterations) "
+          f"{fit_s:.3f} s, predict {X_te.shape} {pred_s:.4f} s on the card "
+          f"(host clock, synchronized), {cpu_s:.3f} s on the CPU; refit_f64 card "
+          f"{gp.refit_f64} CPU {gp_cpu.refit_f64}; mean vs CPU {rel:.3e} of "
+          f"max|mean| (limit 1e-3), RMSE {rmse:.6f} vs {rmse_cpu:.6f} (limit 1%)")
+    check(rel <= 1e-3 and abs(rmse - rmse_cpu) <= 0.01 * rmse_cpu,
+          "the card's GP disagrees with the CPU's")
+    return dict(rows=rows, fit_s=fit_s, predict_s=pred_s, cpu_fit_s=cpu_s,
+                mean_rel=rel, rmse=rmse, rmse_cpu=rmse_cpu, refit_f64=gp.refit_f64)
+
+
+def phase_bo_rounds(card, root):
+    """21b: run_bo --bo on the card. ENAS: run C's DAGNN checkpoint and
+    latents, 1 seed, 2 rounds of 50 candidates, 100 decode attempts each
+    (5,000 latents decoded a round in one batch), the surrogate scorer
+    trained on the whole corpus. BN: phase 20b's DAGNN_BN checkpoint, 1
+    round, the BIC scorer. Gates: best_arc_scores.txt written, each
+    round's valid count and best score; then summarize.main on each
+    result directory (no --plot)."""
+    from dagnn_tpu_torch.cli import run_bo, summarize
+    out = {}
+    for tag, flags in (
+            ("enas", ["--latent", f"{root}/C/final_structures6_latent_epoch3.mat",
+                      "--checkpoint", f"{root}/C/DAGNN_0_3.ckpt", "--BO_rounds", "2"]
+             + _widths(NA_FLAGS)),
+            ("bn", ["--latent", f"{root}/BN/asia_200k_latent_epoch1.mat",
+                    "--checkpoint", f"{root}/BN/DAGNN_BN_0_1.ckpt", "--data-type",
+                    "BN", "--model", "DAGNN", "--bidirectional", "--BO_rounds", "1"]
+             + _widths(BN_FLAGS))):
+        res = f"{root}/bo_{tag}"
         t0 = time.perf_counter()
-        with vae_probes() as seen:
-            tv.main(NA_FLAGS + ["--epochs", "2"] + d("A"))
-            saved_a = sorted(f for f in os.listdir(f"{root}/A") if f.endswith(".ckpt"))
-            tv.main(NA_FLAGS + ["--epochs", "3"] + d("A"))
-            tv.main(NA_FLAGS + ["--epochs", "3"] + d("C"))
+        r = run_bo.main(flags + ["--bo", "--seeds", "1", *GP_FLAGS, "--res_dir", res])
         wall = time.perf_counter() - t0
+        for rd in r["rounds"]:
+            print(f"[21b] {tag} round {rd['round']} on {card}: {rd['valid']}/"
+                  f"{rd['n']} valid, best {rd['best']}; seconds: GP fit "
+                  f"{rd['fit_s']:.3f}, greedy EI {rd['ei_s']:.3f}, decode and vote "
+                  f"{rd['decode_s']:.3f}, scoring {rd['score_s']:.3f}")
+        check(os.path.exists(f"{res}/best_arc_scores.txt"),
+              f"run_bo {tag}: no best_arc_scores.txt (no valid arc decoded)")
+        check(all(rd["best"] is not None for rd in r["rounds"]),
+              f"run_bo {tag}: a round without a best score")
+        print(f"[21b] summarize {tag}:")
+        summarize.main(["--res_dir", res])
+        out[tag] = dict(rounds=r["rounds"], gp=r["gp"], wall_s=wall,
+                        scorer_quality=r["scorer_quality"])
+    return out
+
+
+def phase_gp_corpus(dev, card, root):
+    """21c: run C's encoder over the whole ENAS corpus (load_enas with the
+    driver's burn-in: 17,100 train / 1,900 test graphs), then the GP at
+    M 500, 100 iterations, on those latents: finite RMSE; the encode, the
+    fit and the predict timed."""
+    import numpy as np
+    import scipy.io
+    from dagnn_tpu_torch.cli import run_bo
+    from dagnn_tpu_torch.cli import train_vae as tv
+    from dagnn_tpu_torch.train import checkpoint as ckpt
+    from dagnn_tpu_torch.vae.sparse_gp import fit_sparse_gp, predict
+    i = NA_FLAGS.index("--max-count")
+    args = tv.parse_args(NA_FLAGS[:i] + NA_FLAGS[i + 2:] + ["--res_dir", f"{root}/corpus"])
+    (train, test, ga), load_s = _timed(lambda: tv.load_data(args))
+    model = tv.VAEModel(args, ga, dev)
+    params = model.init(0)
+    opt = tv.make_optimizer(args.lr, args.clip)
+    _, _, params, _ = ckpt.load_checkpoint(f"{root}/C/DAGNN_0_3.ckpt", params,
+                                           opt.init(params))
+    ((Z_tr, Y_tr), (Z_te, Y_te)), enc_s = _timed(lambda: (
+        tv.extract_latent(args, model, params, train),
+        tv.extract_latent(args, model, params, test)))
+    mat = f"{root}/corpus/latent.mat"
+    scipy.io.savemat(mat, {"Z_train": Z_tr, "Z_test": Z_te, "Y_train": Y_tr,
+                           "Y_test": Y_te})
+    X_tr, y_tr, X_te, y_te, _, _ = run_bo.load_latents(mat)
+    gp, fit_s = _timed(lambda: fit_sparse_gp(X_tr, y_tr, M=500, iters=100, lr=5e-4,
+                                             seed=0, device=dev))
+    (mean, _), pred_s = _timed(lambda: predict(gp, X_te))
+    rmse, ll, r = run_bo.score_gp(gp, X_te, y_te)
+    print(f"[21c] {card}: the corpus ({len(train)} train / {len(test)} test) "
+          f"loaded in {load_s:.2f} s, encoded in {enc_s:.2f} s "
+          f"({(len(train) + len(test)) / enc_s:.1f} graphs/s); GP fit of "
+          f"{X_tr.shape} {fit_s:.3f} s, predict {pred_s:.4f} s (host clock, "
+          f"synchronized); test RMSE {rmse:.4f}, ll {ll:.4f}, Pearson r {r:.4f}, "
+          f"refit_f64 {gp.refit_f64}")
+    check(np.isfinite([rmse, ll, r]).all() and bool(torch.isfinite(mean).all()),
+          "the corpus-scale GP is not finite")
+    return dict(n_train=len(train), n_test=len(test), load_s=load_s, encode_s=enc_s,
+                fit_s=fit_s, predict_s=pred_s, rmse=rmse, ll=ll, pearson=r,
+                refit_f64=gp.refit_f64)
+
+
+def model_step(model, params, prepared):
+    """(loss, {name: grad}, grad norm) of one f32 train pass without noise."""
+    p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    total = model.loss(p, prepared, None, training=False)[0]
+    gs = torch.autograd.grad(total, list(p.values()), allow_unused=True)
+    gs = {k: torch.zeros_like(v) if g is None else g for (k, v), g in zip(p.items(), gs)}
+    norm = torch.sqrt(sum((g.double() ** 2).sum() for g in gs.values()))
+    return float(total.detach()), gs, float(norm)
+
+
+def phase_other_vaes(dev, card, root):
+    """21d: train_vae.main for each of the seven other models at
+    scripts/na_train.sh's widths on 256 ENAS graphs (230 train), 2 epochs:
+    finite losses, epoch 2 below epoch 1, latents [230, 56] / [26, 56], no
+    kernel of the port launched. Per model one f32 train step (noise off)
+    on the card against the CPU's from the same weights and batch (32
+    graphs): loss and norm 1e-5 relative, every leaf rtol 5e-4 / atol
+    5e-5 (CROSS_TOL); a leaf past that (float32 rounding: a cancelling
+    sum in another order, a ReLU input within rounding of 0) is held in
+    float64, card against CPU, to the same rtol / atol. Then run_bo GP
+    only on SVAE's latents."""
+    import pickle
+    import numpy as np
+    from dagnn_tpu_torch.cli import run_bo
+    from dagnn_tpu_torch.cli import train_vae as tv
+    out = {}
+    t = CROSS_TOL
+    for m in OTHER_VAES:
+        tag = m.lower()
+        argv = NA_FLAGS + ["--model", m, "--max-count", "256", "--epochs", "2",
+                           "--res_dir", f"{root}/{tag}"]
+        reset_counts()
+        with vae_probes() as seen:
+            tv.main(argv)
         lc = read_counts()
-        args = tv.parse_args(NA_FLAGS)
-        train, test, ga = tv.load_data(tv.parse_args(NA_FLAGS + d("C")))
-        model = tv.VAEModel(args, ga, dev)
-        passes = vae_passes(args, [2, 1, 3], len(train), len(test))
-        check_passes("[20] runs A, B, C", seen, passes)
-        want = {k: 0 for k in lc}
-        want.update(vae_expect(model, *passes))
-        print(f"[20] {card}: launch counts over runs A, B, C {lc}; expected {want}")
-        check(lc == want, "NA VAE driver: launch counts differ from the passes")
-        check(seen["devices"] == {"cuda"}, f"NA VAE: parameters on {seen['devices']}")
-        rows_a, rows_c = _vae_rows(f"{root}/A"), _vae_rows(f"{root}/C")
-        for tag, rows in (("A+B", rows_a), ("C", rows_c)):
-            for r in rows:
-                print(f"[20] run {tag} epoch {int(r[0])}: loss {r[1]!r} recon "
-                      f"{r[2]!r} kld {r[3]!r}")
-        check(saved_a == ["DAGNN_0_1.ckpt", "DAGNN_0_2.ckpt"],
-              f"NA VAE: run A left {saved_a}")
-        check([r[0] for r in rows_a] == [1, 2, 3] and [r[0] for r in rows_c] == [1, 2, 3],
-              "NA VAE: run B did not resume at epoch 3, or run C did not train 1-3")
-        check(all(math.isfinite(v) for r in rows_a + rows_c for v in r),
-              "NA VAE: a non-finite epoch loss")
-        check(rows_a[1][1] < rows_a[0][1] and rows_c[1][1] < rows_c[0][1],
-              "NA VAE: the loss of epoch 2 is not below epoch 1's")
-        check(rows_a[2] == rows_c[2], f"NA VAE: the resumed epoch 3 {rows_a[2]} "
-              f"differs from the uninterrupted {rows_c[2]}")
-        ca, cc = (torch.load(f"{root}/{t}/DAGNN_0_3.ckpt", weights_only=True)
-                  for t in ("A", "C"))
-        check(all(torch.equal(ca["params"][k], cc["params"][k]) for k in cc["params"]),
-              "NA VAE: the resumed run's parameters differ from the uninterrupted")
-        with open(f"{root}/C/test_results.txt") as f:
-            nll = [float(line.rsplit(":", 1)[1]) for line in f]
-        with open(f"{root}/C/final_structures6_latent_epoch3.pkl", "rb") as f:
-            z_tr, y_tr, z_te, y_te = pickle.load(f)
-        print(f"[20] test NLL {nll}; latents Z_train {z_tr.shape}, Z_test "
-              f"{z_te.shape}, finite {bool(np.isfinite(z_tr).all() and np.isfinite(z_te).all())}")
-        check(all(math.isfinite(v) for v in nll), "NA VAE: non-finite test NLL")
-        check(z_tr.shape == (900, 56) and z_te.shape == (100, 56)
-              and os.path.exists(f"{root}/C/final_structures6_latent_epoch3.mat"),
-              "NA VAE: latents missing or of the wrong shape")
-        ep = seen["epochs"]
-        print(f"[20] {card}: epoch train seconds (host clock: collation, copy, "
-              f"launches, no loss read a step) " + " / ".join(f"{e:.3f}" for e in ep)
-              + f"; {len(train)} graphs, {-(-len(train) // args.batch_size)} steps an "
-              "epoch; graphs/s " + " / ".join(f"{len(train) / e:.1f}" for e in ep)
-              + "; latent extraction "
-              + " / ".join(f"{v:.3f}" for v in seen["latent_s"]) + " s, test NLL "
-              + " / ".join(f"{v:.3f}" for v in seen["nll_s"]) + f" s; three runs' wall "
-              f"{wall:.1f} s")
+        args = tv.parse_args(argv)
+        train, test, ga = tv.load_data(args)
+        check_passes(f"[21d] {m}", seen, vae_passes(args, [2], len(train), len(test)))
+        rows = _vae_rows(f"{root}/{tag}")
+        with open(f"{root}/{tag}/final_structures6_latent_epoch2.pkl", "rb") as f:
+            z_tr, _, z_te, _ = pickle.load(f)
+        print(f"[21d] {m} on {card}: epochs {rows}; train seconds "
+              + " / ".join(f"{e:.3f}" for e in seen["epochs"])
+              + f"; latents {z_tr.shape} / {z_te.shape}; launch counts {lc}")
+        check(all(v == 0 for v in lc.values()), f"{m}: a kernel of the port launched")
+        check(all(math.isfinite(v) for r in rows for v in r) and rows[1][1] < rows[0][1],
+              f"{m}: losses not finite and falling")
+        check(z_tr.shape == (len(train), args.nz) and z_te.shape == (len(test), args.nz)
+              and np.isfinite(z_tr).all(), f"{m}: latents of the wrong shape")
+        # one f32 step, card against CPU, from one set of weights and batch
+        card_m = tv.VAEModel(args, ga, dev)
+        cpu_m = tv.VAEModel(args, ga, torch.device("cpu"))
+        params = card_m.init(0)
+        graphs = train[:args.batch_size]
+        for mod in (card_m, cpu_m):
+            mod.seed_host(args.seed, 1)
+        prep_cpu = cpu_m.prepare(graphs)
+        kl, kg, kn = model_step(card_m, params, card_m.prepare(graphs))
+        pl, pg, pn = model_step(cpu_m, {k: v.cpu() for k, v in params.items()},
+                                prep_cpu)
+        e_loss, e_norm = abs(kl - pl) / abs(pl), abs(kn - pn) / pn
+        ratio = {k: float(((kg[k].cpu() - pg[k]).abs()
+                           / (t["atol"] + t["rtol"] * pg[k].abs())).max()) for k in pg}
+        worst = max(ratio, key=ratio.get)
+        print(f"[21d] {m} f32 step, card vs CPU: loss {kl:.6f} vs {pl:.6f} (rel "
+              f"{e_loss:.2e}), grad norm rel {e_norm:.2e} (tolerance {t['loss']:g}); "
+              f"{len(pg)} leaves, worst {worst} at {ratio[worst]:.3g} of rtol "
+              f"{t['rtol']:g} / atol {t['atol']:g}")
+        # a leaf past rtol / atol is float32 rounding (a cancelling sum in
+        # another order; a ReLU input within rounding of 0, whose sign, and
+        # so a whole gradient element, differs between the devices) when
+        # the same step in float64 agrees there, card against CPU
+        over = [k for k in pg if ratio[k] > 1.0]
+        f64 = {}
+        if over:
+            d64 = lambda x: None if x is None else (
+                x.double() if torch.is_floating_point(x) else x)
+            steps64 = [model_step(mod, {k: v.detach().to(d).double()
+                                        for k, v in params.items()},
+                                  tuple(d64(None if x is None else x.to(d))
+                                        for x in prep_cpu))[1]
+                       for mod, d in ((card_m, dev), (cpu_m, "cpu"))]
+            for k in over:
+                a64, b64 = steps64[0][k].cpu(), steps64[1][k]
+                f64[k] = float(((a64 - b64).abs() / (t["atol"] + t["rtol"] * b64.abs())).max())
+                print(f"[21d] {m} {k}: float32 card vs CPU {ratio[k]:.3g} of rtol / "
+                      f"atol; in float64 {f64[k]:.3g} (limit 1)")
+        check(e_loss <= t["loss"] and e_norm <= t["loss"]
+              and all(r <= 1.0 for r in f64.values()),
+              f"{m}: the card's step disagrees with the CPU's")
+        out[tag] = dict(launches=lc, rows=rows, epoch_s=seen["epochs"],
+                        loss_rel=e_loss, norm_rel=e_norm, worst=(worst, ratio[worst]),
+                        float64_leaves=f64)
+    res = f"{root}/bo_svae"
+    run_bo.main(["--latent", f"{root}/svae/final_structures6_latent_epoch2.mat",
+                 "--seeds", "1", *GP_FLAGS, "--res_dir", res])
+    rows = _rmse_rows(res)
+    print(f"[21d] run_bo GP only on SVAE's latents: {rows}")
+    check(len(rows) == 1 and np.isfinite(rows).all(), "GP on SVAE's latents not finite")
+    out["svae_gp"] = rows
+    return out
 
-        # 20a, outside the counted runs: the NA loader's batch 0 and an
-        # inference batch, from one set of weights
-        rnd = np.random.default_rng(args.seed)
-        order = rnd.permutation(len(train))
-        graphs = [train[j] for j in order[:32]]
-        params = model.init(0)
-        prepared = model.prepare(graphs)
-        host = na_collate(graphs, model.cfg)[0]
-        print(f"[20a] NA loader's batch 0: {vae_shapes(host)}")
-        infer = model.prepare(train[:128])
-        reset_counts()
-        gates = vae_gates("[20a]", model, params, prepared, infer)
-        opt = tv.make_optimizer(args.lr, args.clip)
-        step = tv.make_train_step(model, opt)
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        state = opt.init(params)
-        p, s, _ = step(params, state, prepared, gen, args.lr)      # warm-up
-        torch.cuda.synchronize()
-        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        h0 = time.perf_counter()
-        ev0.record()
-        for _ in range(5):
-            p, s, stats = step(p, s, prepared, gen, args.lr)
-        ev1.record()
-        torch.cuda.synchronize()
-        step_host = (time.perf_counter() - h0) / 5 * 1e3
-        step_dev = ev0.elapsed_time(ev1) / 5
-        print(f"[20a] {card}: NA train step {step_host:.2f} ms (host clock, 5 steps "
-              f"after a warm-up, no loss read), {step_dev:.2f} ms by CUDA events; "
-              f"last loss {float(stats[0]):.4f}")
-        prof = None
-        if "--profile" in argv:
-            prof = profile_step("vae_na", lambda a, b, c: step(a, b, c, gen, args.lr),
-                                p, s, prepared, card, trace_dir(argv))
-        print("[20a] K6 forward / backward at the busiest level of the NA batch, H 501")
-        segs = phase_segment_attn(dev, host, "busiest", H=501)
-        print("[20a] K5 at the busiest transpose level of the NA batch, C 501")
-        tgs = phase_tg_accumulate(dev, host, LH=501)
-        keep = ("ms", "windows", "call_ms", "plain_ms", "library_ms", "err", "rel",
-                "bound", "bytes", "ops")
-        shapes = {short(dt): {k: {x: r.get(x) for x in keep}
-                              for k, r in {**segs[dt], **tgs[dt]}.items()}
-                  for dt in (torch.bfloat16, torch.float32)}
-        out["na"] = dict(launches=lc, train_passes=seen["train"],
-                         infer_passes=seen["infer"], rows_ab=rows_a, rows_c=rows_c,
-                         test_nll=nll, epoch_s=ep,
-                         graphs_per_s=[len(train) / e for e in ep],
-                         latent_s=seen["latent_s"], nll_s=seen["nll_s"], wall_s=wall,
-                         step_ms=step_host, step_dev_ms=step_dev, profile=prof,
-                         gates=gates, level=segs["level"], kernels=shapes)
 
-        # 20b: BN, one epoch, counted; then gated as 20a
-        reset_counts()
-        with vae_probes() as seen_bn:
-            tv.main(BN_FLAGS + ["--epochs", "1"] + d("BN"))
-        lc_bn = read_counts()
-        args_bn = tv.parse_args(BN_FLAGS + d("BN"))
-        train_bn, test_bn, ga_bn = tv.load_data(args_bn)
-        model_bn = tv.VAEModel(args_bn, ga_bn, dev)
-        passes = vae_passes(args_bn, [1], len(train_bn), len(test_bn))
-        check_passes("[20b] BN run", seen_bn, passes)
-        want = {k: 0 for k in lc_bn}
-        want.update(vae_expect(model_bn, *passes))
-        rows_bn = _vae_rows(f"{root}/BN")
-        print(f"[20b] {card}: BN run, {len(train_bn)} train graphs, epoch "
-              f"{rows_bn[0]}; {seen_bn['epochs'][0]:.3f} s train; launch counts "
-              f"{lc_bn}, expected {want}")
-        check(lc_bn == want, "BN VAE driver: launch counts differ from the passes")
-        check(all(math.isfinite(v) for v in rows_bn[0]), "BN VAE: non-finite loss")
-        bgraphs = train_bn[:128]
-        bhost = na_collate(bgraphs, model_bn.cfg)[0]
-        print(f"[20b] BN loader's batch 0: {vae_shapes(bhost)}")
-        gates_bn = vae_gates("[20b]", model_bn, model_bn.init(0),
-                             model_bn.prepare(bgraphs), model_bn.prepare(bgraphs))
-        out["bn"] = dict(launches=lc_bn, train_passes=seen_bn["train"],
-                         infer_passes=seen_bn["infer"], rows=rows_bn,
-                         epoch_s=seen_bn["epochs"], gates=gates_bn)
-
-        # 20c: the base D-VAEs run no kernel of the port
-        for model_name, flags in (("DVAE", NA_FLAGS), ("DVAE_BN", BN_FLAGS)):
-            tag = model_name.lower()
-            argv_c = (flags + ["--model", model_name, "--max-count", "320",
-                               "--epochs", "2", "--no-test"] + d(tag))
-            reset_counts()
-            with vae_probes() as seen_c:
-                tv.main(argv_c)
-            lc_c = read_counts()
-            args_c = tv.parse_args(argv_c)
-            tr_c, te_c, _ = tv.load_data(args_c)
-            check_passes(f"[20c] {model_name}", seen_c,
-                         vae_passes(args_c, [2], len(tr_c), len(te_c)))
-            rows = _vae_rows(f"{root}/{tag}")
-            print(f"[20c] {model_name}: epochs {rows}; train seconds "
-                  + " / ".join(f"{e:.3f}" for e in seen_c["epochs"])
-                  + f"; launch counts {lc_c}")
-            check(all(v == 0 for v in lc_c.values()),
-                  f"{model_name}: a kernel of the port launched")
-            check(all(math.isfinite(v) for r in rows for v in r) and rows[1][1] < rows[0][1],
-                  f"{model_name}: losses not finite and falling")
-            out[tag] = dict(launches=lc_c, rows=rows, epoch_s=seen_c["epochs"])
-        return out
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+def phase_latent_scoring(dev, card, root):
+    """Phase 21, on phase 20's files in `root`: 21a-21d. K1-K7 launch in
+    none of it but 21c's encoder (the DAGNN's K6 inference passes)."""
+    gp = phase_gp(dev, card, root, f"{root}/C/final_structures6_latent_epoch3.mat")
+    bo = phase_bo_rounds(card, root)
+    corpus = phase_gp_corpus(dev, card, root)
+    others = phase_other_vaes(dev, card, root)
+    return dict(gp=gp, bo=bo, corpus=corpus, other_vaes=others)
 
 
 def main(argv):
@@ -2280,7 +2641,19 @@ def main(argv):
     node_space = phase_node_space(dev, batch, card)
     print("[20] the VAE driver (train_vae.main): NA runs A (2 epochs), B (resumed "
           "to 3), C (3 afresh): " + " ".join(NA_FLAGS))
-    vae = phase_vae(dev, card, argv)
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix="chip_smoke_vae_")
+    try:
+        vae = phase_vae(dev, card, argv, root)
+        t0 = time.perf_counter()
+        print("[21] latent scoring and BO (run_bo, summarize) on phase 20's "
+              "latents and checkpoints; the other VAEs (train_vae.main)")
+        scoring = phase_latent_scoring(dev, card, root)
+        scoring["wall_s"] = time.perf_counter() - t0
+        print(f"[21] {card}: phase 21 took {scoring['wall_s']:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     runs = {"merged": merged, "pair": paired, "pallas": pallas,
             "unidirectional": uni, "nearfar_rt": nf_rt, "nearfar_r": nf_r,
             "nearfar_unidirectional": nf_u, "merged_k2r": k2r}
@@ -2330,7 +2703,7 @@ def main(argv):
                 "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
                 "library_ms": r["library_ms"]}
     print(json.dumps({**runs, "tok_driver": driver, "lp_driver": lp, "kinds": kinds,
-                      "node_space": node_space, "vae": vae,
+                      "node_space": node_space, "vae": vae, "latent_scoring": scoring,
                       "split_checks": split, "cross_route": cross,
                       "nearfar_cross_route": nf_cross, "ab_steps": ab,
                       "split_row": {short(k): v for k, v in split_row.items()},

@@ -5,7 +5,11 @@ the same flags: load ENAS or BN graphs (cached), train a DAGNN, DAGNN_BN,
 DVAE or DVAE_BN VAE with Adam, ReduceLROnPlateau(0.1, 10) and gradient
 clipping, checkpoint and extract latent representations every
 --save-interval epochs (.pkl and .mat, which the sparse-GP/BO step reads),
-report the test reconstruction NLL, resume from a checkpoint.
+report the test reconstruction NLL, resume from a checkpoint. Every
+--model of the JAX driver runs: the DAGNN-coupled VAEs (DAGNN, DAGNN_BN),
+the base D-VAEs (DVAE, DVAE_BN), the S-VAEs (SVAE, SVAE_oneshot,
+SVAE_GraphRNN, SVAE_GraphRNN_BFS, over string tensors) and the D-VAE
+variants (DVAE_GCN, DVAE_fast, DVAE_DeepGMG).
 
     python -m dagnn_tpu_torch.cli.train_vae --cpu --max-count 200 \\
         --epochs 2 --hs 16 --nz 6
@@ -13,17 +17,19 @@ report the test reconstruction NLL, resume from a checkpoint.
 It runs on the CUDA device unless --cpu is given, and raises without a
 card (no CPU fallback). Each batch is collated on the host and copied to
 the device once (convert.batch_to_torch); the DAGNN encoders run the
-port's generic wavefront (K6 and K5), the base D-VAEs no kernel of the
-port. The other --model choices raise NotImplementedError naming ROADMAP
-queue 1, item 7b.
+port's generic wavefront (K6 and K5), every other model no kernel of the
+port (plain tensor code, as in JAX, where none of them reaches a Pallas
+kernel).
 
 Where it differs from the JAX driver, on purpose (ROADMAP queue 3):
   * the plateau schedule lowers the learning rate (lr * scale into Adam),
     where the JAX driver scales the gradients, which Adam undoes;
   * a resumed run is the uninterrupted run: the permutation generator is
     fast-forwarded through the finished epochs, the reparameterization
-    noise is seeded from (--seed, epoch), and the scheduler's state rides
-    in the checkpoint's results;
+    noise and the S-VAEs' host generator (the BFS orders of
+    SVAE_GraphRNN_BFS; JAX draws them from one default_rng(0) a process)
+    are seeded from (--seed, epoch), and the scheduler's state rides in
+    the checkpoint's results;
   * --scan-chunk (JAX: optimizer steps fused into one device dispatch) is
     the number of steps between host reads of the epoch's loss sums, which
     stay on the device in between;
@@ -61,8 +67,13 @@ from dagnn_tpu_torch.vae.dagnn_vae import (DAGNNVAEConfig, dagnn_vae_encode,
 from dagnn_tpu_torch.vae.dvae import (DVAEConfig, dvae_base_init,
                                       dvae_encode_sequential, dvae_teacher_loss,
                                       kld, reparameterize, sub_params)
-
-PORTED = ("DAGNN", "DAGNN_BN", "DVAE", "DVAE_BN")
+from dagnn_tpu_torch.vae.dvae_variants import (DeepGMGConfig, DVAEGCNConfig,
+                                               deepgmg_encode, deepgmg_init,
+                                               deepgmg_loss, dvae_fast_init,
+                                               dvae_fast_loss, dvae_gcn_encode,
+                                               dvae_gcn_init, dvae_gcn_loss)
+from dagnn_tpu_torch.vae.svae import (SVAEConfig, graph_to_string_tensor,
+                                      svae_encode, svae_init, svae_loss)
 
 
 def parse_args(argv=None):
@@ -184,51 +195,71 @@ def load_data(args):
 
 # --------------------------------------------------------------- model
 
-def check_model(kind: str):
-    if kind not in PORTED:
-        raise NotImplementedError(
-            f"--model {kind} is not ported yet: ROADMAP queue 1, item 7b")
-
-
 class VAEModel:
-    """One facade over the DAGNN-coupled and base D-VAE variants, on one
-    device."""
+    """One facade over every VAE of the driver, on one device (the JAX
+    driver's VAEModel, dagnn_tpu/cli/train_vae.py:129-226)."""
 
     def __init__(self, args, ga: GraphArgs, device):
-        check_model(args.model)
         self.kind = args.model
         self.device = device
-        if self.kind.startswith("DAGNN"):
+        dims = dict(max_n=ga.max_n, nvt=ga.num_vertex_type, hs=args.hs,
+                    nz=args.nz, bidirectional=args.bidirectional)
+        if self.kind.startswith("SVAE"):
+            self.cfg = SVAEConfig(**dims, oneshot="oneshot" in self.kind,
+                                  graphrnn="GraphRNN" in self.kind,
+                                  bfs="BFS" in self.kind)
+            self.host_rng = np.random.default_rng(0)
+        elif self.kind == "DVAE_GCN":
+            self.cfg = DVAEGCNConfig(**dims)
+        elif self.kind == "DVAE_DeepGMG":
+            self.cfg = DeepGMGConfig(**dims)
+        elif self.kind == "DVAE_fast":
+            self.cfg = DVAEConfig(**dims, num_layers=1, vid=True)
+        elif self.kind.startswith("DAGNN"):
             self.cfg = DAGNNVAEConfig(
-                max_n=ga.max_n, nvt=ga.num_vertex_type, hs=args.hs, nz=args.nz,
-                num_layers=args.dagnn_layers, bidirectional=args.bidirectional,
-                agg=args.dagnn_agg, out_pool_all=bool(args.dagnn_out_pool_all),
+                **dims, num_layers=args.dagnn_layers, agg=args.dagnn_agg,
+                out_pool_all=bool(args.dagnn_out_pool_all),
                 out_pool=args.dagnn_out_pool, dropout=args.dagnn_dropout,
                 bn=self.kind == "DAGNN_BN")
         else:
             self.cfg = DVAEConfig(
-                max_n=ga.max_n, nvt=ga.num_vertex_type, hs=args.hs, nz=args.nz,
-                num_layers=1, bidirectional=args.bidirectional,
-                vid=self.kind == "DVAE", bn=self.kind == "DVAE_BN",
-                dec_agg="gated_sum",
+                **dims, num_layers=1, vid=self.kind == "DVAE",
+                bn=self.kind == "DVAE_BN", dec_agg="gated_sum",
                 pred_source="x" if self.kind == "DVAE_BN" else "h")
 
     def init(self, seed: int):
         """Initial parameters from `seed` (the port's own random stream)."""
-        if self.kind.startswith("DAGNN"):
-            return dagnn_vae_init(seed, self.cfg, device=self.device)
-        return dvae_base_init(seed, self.cfg, device=self.device)
+        if self.kind.startswith("SVAE"):
+            init = svae_init
+        elif self.kind.startswith("DAGNN"):
+            init = dagnn_vae_init
+        else:
+            init = {"DVAE_GCN": dvae_gcn_init, "DVAE_DeepGMG": deepgmg_init,
+                    "DVAE_fast": dvae_fast_init}.get(self.kind, dvae_base_init)
+        return init(seed, self.cfg, device=self.device)
+
+    def seed_host(self, seed: int, epoch: int):
+        """Reseed the host generator the S-VAE codec draws from (the BFS
+        orders) from (seed, epoch), so a resumed epoch draws what the
+        uninterrupted run draws."""
+        if self.kind.startswith("SVAE"):
+            self.host_rng = np.random.default_rng([seed, epoch])
 
     def prepare(self, graphs: List[NAGraph]):
         """(batch or None, types, adj, nv) on the device: the DAGNN
-        encoder's collated batch and the decoder's dense views."""
+        encoder's collated batch and the decoder's dense views; for the
+        S-VAEs (None, string tensors [B, steps, xs], None, zeros)."""
+        dev = lambda a: torch.as_tensor(a).to(self.device)
+        if self.kind.startswith("SVAE"):
+            G = np.stack([graph_to_string_tensor(g, self.cfg, self.host_rng)
+                          for g in graphs])
+            return None, dev(G), None, dev(np.zeros(len(graphs), np.int32))
         if self.kind.startswith("DAGNN"):
             batch, types, adj, nv = na_collate(graphs, self.cfg)
             batch = batch_to_torch(batch, self.device)
         else:
             batch = None
             types, adj, nv = na_dense_views(graphs, self.cfg.max_n)
-        dev = lambda a: torch.as_tensor(a).to(self.device)
         return batch, dev(types), dev(adj), dev(nv)
 
     def loss(self, params, prepared, gen, training=True, impl=None):
@@ -236,9 +267,15 @@ class VAEModel:
         impl: the DAGNN encoder's segment functions (SEG_KERNELS when
         None, or SEG_PLAIN)."""
         batch, types, adj, nv = prepared
+        if self.kind.startswith("SVAE"):
+            return svae_loss(params, self.cfg, types, gen, training)
         if self.kind.startswith("DAGNN"):
             return dagnn_vae_loss(params, self.cfg, batch, types, adj, nv, gen,
                                   training, impl)
+        variant = {"DVAE_GCN": dvae_gcn_loss, "DVAE_DeepGMG": deepgmg_loss,
+                   "DVAE_fast": dvae_fast_loss}.get(self.kind)
+        if variant is not None:
+            return variant(params, self.cfg, types, adj, nv, gen, training)
         mu, logvar = dvae_encode_sequential(params, self.cfg, types, adj, nv)
         z = reparameterize(gen, mu, logvar, self.cfg.eps_scale, training)
         recon, _ = dvae_teacher_loss(sub_params(params, "dec."), self.cfg, z,
@@ -248,9 +285,13 @@ class VAEModel:
 
     def encode_mu(self, params, prepared, impl=None):
         batch, types, adj, nv = prepared
+        if self.kind.startswith("SVAE"):
+            return svae_encode(params, self.cfg, types)[0]
         if self.kind.startswith("DAGNN"):
             return dagnn_vae_encode(params, self.cfg, batch, impl)[0][: len(types)]
-        return dvae_encode_sequential(params, self.cfg, types, adj, nv)[0]
+        encode = {"DVAE_GCN": dvae_gcn_encode,
+                  "DVAE_DeepGMG": deepgmg_encode}.get(self.kind, dvae_encode_sequential)
+        return encode(params, self.cfg, types, adj, nv)[0]
 
 
 def make_train_step(model: VAEModel, opt):
@@ -296,7 +337,6 @@ def train_epoch(args, model, train_step, params, opt_state, data, order,
 def main(argv=None):
     args = parse_args(argv)
     device = resolve_device("cpu" if args.cpu else "cuda")
-    check_model(args.model)
     train_data, test_data, ga = load_data(args)
     if args.small_train:
         train_data = train_data[:100]
@@ -339,6 +379,7 @@ def main(argv=None):
         t0 = time.time()
         order = rnd.permutation(len(train_data))
         gen.manual_seed(args.seed * 100003 + epoch)
+        model.seed_host(args.seed, epoch)
         params, opt_state, sums = train_epoch(
             args, model, train_step, params, opt_state, train_data, order, gen,
             args.lr * sched.scale, epoch, t0)

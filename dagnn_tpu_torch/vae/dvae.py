@@ -366,8 +366,9 @@ def dvae_encode_sequential(params, cfg: DVAEConfig, types, adj, nv):
     dec = p["dec"]
     B = types.shape[0]
     dev = types.device
+    dt = p["fc1"]["w"].dtype        # float32, or float64 for a reference step
     nv = nv.long()
-    types_oh = F.one_hot(types.long(), cfg.nvt).to(torch.float32)
+    types_oh = F.one_hot(types.long(), cfg.nvt).to(dt)
     like = types_oh
 
     def run(direction):
@@ -380,7 +381,7 @@ def dvae_encode_sequential(params, cfg: DVAEConfig, types, adj, nv):
             X = types_oh[:, v]
             active = (v < nv)[:, None]
             if first:
-                H = torch.zeros((B, cfg.hs), dtype=torch.float32, device=dev)
+                H = torch.zeros((B, cfg.hs), dtype=dt, device=dev)
                 first = False
             else:
                 pred_mask = adj[:, v, :] if rev else adj[:, :, v]
@@ -396,7 +397,7 @@ def dvae_encode_sequential(params, cfg: DVAEConfig, types, adj, nv):
     if cfg.bn:
         # BN graph state: sum over inner vertices 1..nv-2 (models_pyg.py:721-729)
         idx = torch.arange(cfg.max_n, device=dev)[None, :]
-        m = ((idx >= 1) & (idx < (nv - 1)[:, None])).to(torch.float32)
+        m = ((idx >= 1) & (idx < (nv - 1)[:, None])).to(dt)
         hg = (_stack(state_f[-1]) * m[..., None]).sum(1)
         if cfg.bidirectional:
             hg_b = (_stack(run("b")[-1]) * m[..., None]).sum(1)

@@ -1,6 +1,7 @@
-"""The port stands alone: it imports with jax absent, none of its modules
-(nor chip_smoke.py) imports the JAX package, and its entry points run on
-the CUDA device unless the caller asks for the CPU."""
+"""The port stands alone: it imports with jax absent (every module, the
+latent scoring and the other VAEs among them), none of its modules (nor
+chip_smoke.py) imports the JAX package, and its entry points run on the
+CUDA device unless the caller asks for the CPU."""
 
 import ast
 import os
@@ -92,6 +93,40 @@ def test_vae_driver_runs_without_jax(tmp_path):
     assert out.stdout.rstrip().endswith("ok")
     for d in ("na", "bn"):
         assert (tmp_path / d / "final_structures6_latent_epoch1.mat").exists()
+
+
+def test_latent_scoring_runs_without_jax(tmp_path):
+    """The latent-scoring entry points and the other VAEs with jax and the
+    JAX package absent: train_vae for an S-VAE and a D-VAE variant, then
+    run_bo (GP only) on the S-VAE's latents and summarize on its result
+    directory. jax is kept out by an import hook that raises, so that no
+    "jax" entry sits in sys.modules (scipy's array-API helpers, which
+    run_bo's statistics reach, look one up there)."""
+    small = ["--max-count", "20", "--hs", "8", "--nz", "4", "--batch-size", "9",
+             "--epochs", "1", "--save-interval", "1", "--cpu", "--no-test"]
+    code = ("import sys, torch, importlib.abc\n"
+            "torch.set_num_threads(1)\n"
+            "class Absent(importlib.abc.MetaPathFinder):\n"
+            "    def find_spec(self, name, path, target=None):\n"
+            "        if name.split('.')[0] in ('jax', 'jaxlib', 'optax', 'flax',"
+            " 'dagnn_tpu'):\n"
+            "            raise ImportError(name)\n"
+            "sys.meta_path.insert(0, Absent())\n"
+            "from dagnn_tpu_torch.cli import run_bo, summarize, train_vae\n"
+            f"train_vae.main({small!r} + ['--res_dir', 's', '--model', 'SVAE_GraphRNN_BFS'])\n"
+            f"train_vae.main({small!r} + ['--res_dir', 'g', '--model', 'DVAE_DeepGMG'])\n"
+            "run_bo.main(['--latent', 's/final_structures6_latent_epoch1.mat',"
+            " '--seeds', '1', '--M', '8', '--gp-iters', '3', '--res_dir', 'bo',"
+            " '--cpu'])\n"
+            "summarize.main(['--res_dir', 'bo'])\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.rstrip().endswith("ok") and "1 seeds" in out.stdout
+    assert (tmp_path / "g" / "final_structures6_latent_epoch1.mat").exists()
+    assert (tmp_path / "bo" / "Test_RMSE_ll.txt").exists()
 
 
 @pytest.mark.parametrize("path", sorted(

@@ -11,7 +11,9 @@ scan), 2 epochs, latents every epoch. Tolerances: the loss file's columns,
 the test NLL and the latents at rtol 5e-4 / atol 5e-5 (the f32 grads
 tolerance: two epochs of Adam steps carry the gradients' rounding
 differences into the weights); scores equal. The port's resumed run is
-held to its uninterrupted one bit for bit.
+held to its uninterrupted one bit for bit (DAGNN, and SVAE_GraphRNN_BFS,
+whose BFS orders come from a host generator seeded per epoch). Every
+other --model trains two epochs on 30 graphs and writes its latents.
 """
 
 import csv
@@ -126,16 +128,30 @@ def test_resume_matches_uninterrupted(tmp_path):
     assert _rows(part)[-1] == _rows(whole)[-1]
 
 
+# per model, a leaf whose shape does not depend on nz (kept by a partial
+# load into a model with a wider latent)
+KEPT = {"SVAE": "grue.w_hh", "SVAE_oneshot": "enc1.w",
+        "SVAE_GraphRNN": "grud_edge.w_hh", "SVAE_GraphRNN_BFS": "grud_edge.w_hh",
+        "DVAE_DeepGMG": "grue.0.w_hh"}
+
+
 @pytest.mark.parametrize("model, flags", [
     ("DAGNN_BN", ["--data-type", "BN", "--nvt", "8", "--bidirectional"]),
     ("DVAE", []),
     ("DVAE_BN", ["--data-type", "BN", "--nvt", "8", "--bidirectional"]),
+    ("SVAE", []),
+    ("SVAE_oneshot", []),
+    ("SVAE_GraphRNN", []),
+    ("SVAE_GraphRNN_BFS", []),
+    ("DVAE_GCN", []),
+    ("DVAE_fast", []),
+    ("DVAE_DeepGMG", []),
 ])
 def test_other_models_train(tmp_path, model, flags):
-    """DAGNN_BN (on the synthetic BN corpus), DVAE and DVAE_BN train on
-    the CPU: finite losses, latents of the expected shape; a run with a
-    wider latent (nz 5) starts from a partial load of that checkpoint and
-    trains."""
+    """Every other --model trains on the CPU (DAGNN_BN and DVAE_BN on the
+    synthetic BN corpus, the rest on the repo's ENAS corpus): finite
+    losses, latents of the expected shape; a run with a wider latent (nz
+    5) starts from a partial load of that checkpoint and trains."""
     d = str(tmp_path / model)
     argv = lambda nz, res: ["--model", model, "--max-count", "30", "--hs", "8",
                             "--nz", str(nz), "--batch-size", "9", "--epochs", "2",
@@ -151,14 +167,30 @@ def test_other_models_train(tmp_path, model, flags):
         "--no-test"])
     assert all(torch.isfinite(v).all() for v in wide.values())
     assert "fc1.w" in saved["params"] and wide["fc1.w"].shape[0] == 5
-    assert saved["params"]["dec.grud.0.w_hh"].shape == wide["dec.grud.0.w_hh"].shape
+    kept = KEPT.get(model, "dec.grud.0.w_hh")
+    assert saved["params"][kept].shape == wide[kept].shape
 
 
-def test_unported_models_raise(tmp_path):
-    for model in ("SVAE", "SVAE_oneshot", "SVAE_GraphRNN", "SVAE_GraphRNN_BFS",
-                  "DVAE_GCN", "DVAE_fast", "DVAE_DeepGMG"):
-        with pytest.raises(NotImplementedError, match="item 7b"):
-            tdriver.main(["--model", model, "--cpu", "--res_dir", str(tmp_path)])
+def test_svae_bfs_resume_matches_uninterrupted(tmp_path):
+    """SVAE_GraphRNN_BFS draws a random BFS order per graph and batch from
+    the model's host generator, which the driver seeds from (--seed,
+    epoch): 3 epochs in one run against 2 and a --load-latest-model run to
+    3 give the same loss rows, latents and parameters bit for bit."""
+    whole, part = str(tmp_path / "whole"), str(tmp_path / "resumed")
+    flags = lambda d, e: ["--model", "SVAE_GraphRNN_BFS", "--max-count", "40",
+                          "--hs", "8", "--nz", "4", "--batch-size", "12",
+                          "--epochs", str(e), "--save-interval", "1", "--cpu",
+                          "--res_dir", d]
+    tdriver.main(flags(whole, 3))
+    tdriver.main(flags(part, 2))
+    tdriver.main(flags(part, 3) + ["--load-latest-model"])
+    assert _rows(part) == _rows(whole)
+    for a, b in zip(_latents(part, 3), _latents(whole, 3)):
+        np.testing.assert_array_equal(a, b)
+    a, b = (torch.load(os.path.join(d, "SVAE_GraphRNN_BFS_0_3.ckpt"),
+                       weights_only=True) for d in (whole, part))
+    for k in a["params"]:
+        assert torch.equal(a["params"][k], b["params"][k]), k
 
 
 def test_no_cpu_fallback(tmp_path):

@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: the flagship TOK train step,
 the TOK and LP training drivers, every aggregator kind, the NA/BN VAE
-driver with every --model, and latent scoring with Bayesian optimisation.
+driver with every --model, latent scoring with Bayesian optimisation, and
+the ogbg-code2 baselines.
 
 Drives dagnn_tpu_torch (never the JAX package) through the entry points a
 user calls, at the flagship's full width (emb/hidden 300, 160 synthetic
@@ -160,14 +161,37 @@ split form), the merged and unidirectional wavefronts on near/far batches
       (loss and norm 1e-5, leaves rtol 5e-4 / atol 5e-5; a leaf past that
       held to the same in float64, card against CPU); run_bo GP only on
       SVAE's latents
+  the baselines (float32, the drivers' defaults: emb 300, GIN/GCN 5
+  layers, GNN2 3, HPoolConfig's with dense_nodes 256, batch 160; phase
+  18's corpus; K5 their only kernel, for their sums onto graphs):
+  22a. main_tok.main --gnn gin-virtual, runs A, B, C as in 18 (counts set
+      to 0 before A, read after C): B's epoch 3 bitwise C's, K5 launched 5
+      times a forward pass (4 virtual-node pools and the readout) and no
+      other kernel, epoch seconds and graphs/s; then the node-level sum
+      of the loader's batch 0 (edges sorted by node once a batch,
+      ops/segment.SortedSegments) against index_add_ (equal within f32,
+      ten repeats bitwise, timed, the sort timed apart), K5 at its
+      graph-level sum against its plain version, and its train step
+      timed with its launches counted
+  22b. main_tok.main for gin, gcn, gcn-virtual, ggnns, ggnn-etype, gat,
+      dgcnn, diffpool, unet, sagpool and asap, one epoch each: finite
+      loss, F1 in [0, 1], K5 at the count of the forward passes; one f32
+      step on the loader's batch 0 card against CPU at 21d's rule; the
+      train step timed and its launches counted
+  22c. main_lp.main --gnn sagpool, one epoch: finite, accuracy in [0, 1]
+  22d. main_basic.main --model all (its own synthetic corpus of 800):
+      the perfect model's F1 1.0 on valid and test, the CSV rows written
+  22e. (--profile) one gin-virtual train step summarised by
+      dagnn_tpu_torch.utils.profiling.summarize_trace
 
 The second-to-last line is the kernel table as JSON, the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero.
 
     python3 chip_smoke.py              # needs one CUDA device
-    python3 chip_smoke.py --profile    # adds a profiled train step per path
-                                       # and one NA VAE step (traces in
-                                       # traces/, or --trace-dir DIR)
+    python3 chip_smoke.py --profile    # adds a profiled train step per path,
+                                       # one NA VAE step and one gin-virtual
+                                       # step (traces in traces/, or
+                                       # --trace-dir DIR)
 """
 
 import argparse
@@ -1204,26 +1228,17 @@ def trace_dir(argv):
 
 
 def profile_step(tag, train_step, params, state, batch, card, out_dir):
-    """Optional (--profile): one train step under torch.profiler. Writes
-    the trace to <out_dir>/step_trace_<tag>.json and prints, from its
-    kernel and memory-op events, the device's busy share of the step's span
-    and the device time by kernel, and K6's summed device time where the
-    step launched it. Returns those readings (None without device
-    events)."""
-    import collections
-    import os
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        train_step(params, state, batch)
-        torch.cuda.synchronize()
-    os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, f"step_trace_{tag}.json")
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
-    dev = [e for e in events
-           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    """Optional (--profile): one train step under torch.profiler, through
+    dagnn_tpu_torch.utils.profiling. Writes the trace to
+    <out_dir>/step_trace_<tag>.json and prints, from its kernel and
+    memory-op events, the device's busy share of the step's span and the
+    device time by kernel (profiling.summarize_trace), and K6's summed
+    device time where the step launched it. Returns those readings (None
+    without device events)."""
+    from dagnn_tpu_torch.utils import profiling
+    path = profiling.profile_step(lambda: train_step(params, state, batch), iters=1,
+                                  logdir=out_dir, name=f"step_trace_{tag}.json")
+    dev = profiling.device_events(path)
     if not dev:
         print(f"[profile {tag}] the trace holds no device events: not measured")
         return None
@@ -1233,12 +1248,10 @@ def profile_step(tag, train_step, params, state, batch, card, out_dir):
     print(f"[profile {tag}] device span {(t1 - t0) / 1e3:.2f} ms, busy "
           f"{busy / 1e3:.2f} ms ({100 * busy / (t1 - t0):.1f}%), "
           f"{len(dev)} device events, on {card}")
-    by = collections.Counter()
-    for e in dev:
-        name = e["name"].replace("void ", "").replace("(anonymous namespace)::", "")
-        by[name.split("<")[0].split("(")[0]] += e["dur"]
-    for name, us in by.most_common(12):
-        print(f"    {us / 1e3:9.3f} ms {100 * us / busy:5.1f}%  {name}")
+    rows = profiling.summarize_trace(path, top=12)
+    for r in rows:
+        print(f"    {r['total_us'] / 1e3:9.3f} ms {100 * r['total_us'] / busy:5.1f}%  "
+              f"{r['name']}")
     k6 = {k: [e["dur"] for e in dev if e["name"].replace("void ", "").startswith(k)]
           for k in ("sa_fwd_kernel", "sa_bwd_kernel")}
     if any(k6.values()):
@@ -1248,7 +1261,7 @@ def profile_step(tag, train_step, params, state, batch, card, out_dir):
             + f"; together {tot / 1e3:.3f} ms of the step's busy {busy / 1e3:.2f} ms "
             f"({100 * tot / busy:.1f}%)")
     return dict(span_ms=(t1 - t0) / 1e3, busy_ms=busy / 1e3, busy_share=busy / (t1 - t0),
-                events=len(dev), top_ms={n: us / 1e3 for n, us in by.most_common(12)},
+                events=len(dev), top_ms={r["name"]: r["total_us"] / 1e3 for r in rows},
                 k6={k: dict(ms=sum(d) / 1e3, launches=len(d)) for k, d in k6.items()})
 
 
@@ -1348,14 +1361,28 @@ def _csv_rows(path):
 def driver_probes():
     """Record, without changing them, what the driver's run hands around:
     the dataset load_dataset returns, the device of each fold's initial
-    parameters, the wall time of each evaluate call, and the route
-    dagnn_forward takes for each batch. Restored on exit."""
+    parameters, the wall time of each evaluate call, the route
+    dagnn_forward takes for each batch, and the forward passes of each
+    model (ogb_driver.MODELS), train and inference apart. Restored on
+    exit."""
     from collections import Counter
     from dagnn_tpu_torch.cli import ogb_driver
     from dagnn_tpu_torch.nn import dagnn
-    seen = dict(data=None, devices=set(), eval_s=[], routes=Counter())
+    seen = dict(data=None, devices=set(), eval_s=[], routes=Counter(),
+                passes=Counter())
     orig = (ogb_driver.load_dataset, ogb_driver.init_params,
             ogb_driver.evaluate, dagnn._route)
+    models = dict(ogb_driver.MODELS)
+
+    def counted(fwd):
+        def run(params, cfg, batch, *a, **k):
+            seen["passes"]["train" if k.get("train") or torch.is_grad_enabled()
+                           else "infer"] += 1
+            return fwd(params, cfg, batch, *a, **k)
+        return run
+
+    for c, (init, fwd) in models.items():
+        ogb_driver.MODELS[c] = (init, counted(fwd))
 
     def load_dataset(*a):
         seen["data"] = orig[0](*a)
@@ -1384,11 +1411,13 @@ def driver_probes():
     finally:
         (ogb_driver.load_dataset, ogb_driver.init_params, ogb_driver.evaluate,
          dagnn._route) = orig
+        ogb_driver.MODELS.update(models)
 
 
-def driver_runs(label, main, task, card, kernels):
+def driver_runs(label, main, task, card, kernels, gnn="dagnn"):
     """Runs A, B, C of a training driver's entry point `main` (main_tok or
-    main_lp) in process on DRIVER_FLAGS, with the launch counts set to 0
+    main_lp) for model `gnn` (--gnn; the run's name {gnn}_{task}) in
+    process on DRIVER_FLAGS, with the launch counts set to 0
     before A and read after C: run A trains 2 epochs with checkpoints; run
     B asks for 3 in A's directories and must resume from A's last
     checkpoint at epoch 3, leaving one checkpoint; run C trains 3 epochs
@@ -1401,21 +1430,23 @@ def driver_runs(label, main, task, card, kernels):
     import shutil
     import tempfile
     root = tempfile.mkdtemp(prefix=f"chip_smoke_{task}_")
-    name = f"dagnn_{task}"
+    name = f"{gnn}_{task}"
+    flags = DRIVER_FLAGS + ["--gnn", gnn]
     dirs = lambda tag: ["--dir_results", f"{root}/{tag}/results",
                         "--dir_save", f"{root}/{tag}/saved"]
     try:
         reset_counts()
         t0 = time.perf_counter()
         with driver_probes() as seen:
-            main(DRIVER_FLAGS + ["--epochs", "2"] + dirs("A"))
+            main(flags + ["--epochs", "2"] + dirs("A"))
             saved_a = sorted(os.listdir(f"{root}/A/saved"))
-            main(DRIVER_FLAGS + ["--epochs", "3"] + dirs("A"))
-            main(DRIVER_FLAGS + ["--epochs", "3", "--checkpointing", "0"] + dirs("C"))
+            main(flags + ["--epochs", "3"] + dirs("A"))
+            main(flags + ["--epochs", "3", "--checkpointing", "0"] + dirs("C"))
         wall = time.perf_counter() - t0
         lc = read_counts()
         print(f"{label} {card}: launch counts over runs A, B, C: {lc}; routes "
-              f"(forward passes by path) {dict(seen['routes'])}")
+              f"(forward passes by path) {dict(seen['routes'])}; forward passes "
+              f"{dict(seen['passes'])}")
         check(all(lc[k] > 0 for k in kernels),
               f"{task} driver: a kernel of {kernels} never launched")
         check(all(v == 0 for k, v in lc.items() if k not in kernels),
@@ -2426,6 +2457,315 @@ def phase_latent_scoring(dev, card, root):
     return dict(gp=gp, bo=bo, corpus=corpus, other_vaes=others)
 
 
+# ------------------------------------------------------------ the baselines
+
+# phase 22: every --gnn the JAX driver accepts but dagnn, at the driver's
+# defaults (emb 300; GIN/GCN 5 layers, GNN2 3, HPoolConfig's defaults with
+# dense_nodes 256; batch 160; float32) on phase 18's corpus
+BASELINES = ("gin", "gcn", "gcn-virtual", "ggnns", "ggnn-etype", "gat", "dgcnn",
+             "diffpool", "unet", "sagpool", "asap")
+
+
+def k5_per_pass(cfg):
+    """K5 launches of one forward pass of a baseline: its sums onto graphs
+    (merged_segment_sum); their backward is a gather, no launch."""
+    from dagnn_tpu_torch.nn.baselines import MPNNConfig
+    from dagnn_tpu_torch.nn.gnn2_models import GNN2Config
+    if isinstance(cfg, MPNNConfig):
+        # the readout (mean, add or attention: one sum; max: none) and one
+        # virtual-node pool per layer but the last
+        return ((cfg.graph_pooling != "max")
+                + (cfg.num_layers - 1 if cfg.virtual_node else 0))
+    if isinstance(cfg, GNN2Config):
+        return 1                                 # the graph sum of the readout
+    return cfg.num_layers if cfg.kind == "sagpool" else 0   # _gmp_gap a layer
+
+
+def baseline_setup(gnn, task, data):
+    """(config, the train loader's batch 0 on the host) of `gnn` at the
+    driver's defaults on phase 18's corpus `data` (load_dataset's)."""
+    from dagnn_tpu_torch.cli import main_lp, main_tok, ogb_driver
+    from dagnn_tpu_torch.data.dataloader import DAGLoader
+    p = main_lp.parser() if task == "lp" else ogb_driver.add_common_args(
+        argparse.ArgumentParser())
+    args = p.parse_args(DRIVER_FLAGS + ["--gnn", gnn])
+    args.num_vocab = len(data[3]) - 2
+    cfg = ogb_driver.build_model_cfg(args, task)
+    loader = DAGLoader(data[0], 160, shuffle=True, seed=1, chunk_size=256,
+                       prefetch=0, schedules=False)
+    return cfg, next(iter(loader))
+
+
+def f64_merge(g, tg, tdst, tmask):
+    """K5's contract in the operands' dtype (index_add_): the graph-level
+    sums of a float64 pass, which K5 (float32 or bfloat16) does not take."""
+    from dagnn_tpu_torch.ops import segment
+    return g + segment.segment_sum(tg, tdst, g.shape[0], tmask)
+
+
+def baseline_step(cfg, params, batch, task="tok", merge=None):
+    """(loss, {name: grad}, grad norm) of one train pass of a baseline
+    (dropout off), on the parameters' device; `merge` replaces K5 (the
+    forward's default) for the graph-level sums."""
+    from dagnn_tpu_torch.cli import ogb_driver
+    from dagnn_tpu_torch.train.losses import class_loss, tok_loss
+    fwd = ogb_driver.MODELS[type(cfg)][1]
+    p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    logits = fwd(p, cfg, batch, **({} if merge is None else {"merge": merge}))
+    dev = logits.device
+    mask = torch.as_tensor(batch.graph_mask, device=dev)
+    loss = (tok_loss(logits, torch.as_tensor(batch.y["y_arr"], device=dev), mask)
+            if task == "tok" else
+            class_loss(logits, torch.as_tensor(batch.y["len_longest_path"], device=dev),
+                       mask))
+    gs = torch.autograd.grad(loss, list(p.values()), allow_unused=True)
+    gs = {k: torch.zeros_like(v) if g is None else g for (k, v), g in zip(p.items(), gs)}
+    norm = torch.sqrt(sum((g.double() ** 2).sum() for g in gs.values()))
+    return float(loss.detach()), gs, float(norm)
+
+
+def card_vs_cpu(label, cfg, params, host):
+    """One f32 train pass on the card against the CPU's from the same
+    weights and host batch, at phase 21d's rule: loss and norm 1e-5
+    relative, every leaf within rtol 5e-4 / atol 5e-5 (CROSS_TOL), a leaf
+    past that held in float64, card against CPU, to the same rtol / atol.
+    Returns the readings."""
+    from dagnn_tpu_torch import convert
+    t = CROSS_TOL
+    bc, bh = convert.batch_to_torch(host, "cuda"), convert.batch_to_torch(host, "cpu")
+    kl, kg, kn = baseline_step(cfg, params, bc)
+    t0 = time.perf_counter()
+    pl, pg, pn = baseline_step(cfg, {k: v.cpu() for k, v in params.items()}, bh)
+    cpu_s = time.perf_counter() - t0
+    e_loss, e_norm = abs(kl - pl) / abs(pl), abs(kn - pn) / pn
+    ratio = {k: float(((kg[k].cpu() - pg[k]).abs()
+                       / (t["atol"] + t["rtol"] * pg[k].abs())).max()) for k in pg}
+    worst = max(ratio, key=ratio.get)
+    print(f"{label} f32 step, card vs CPU: loss {kl:.6f} vs {pl:.6f} (rel {e_loss:.2e}), "
+          f"grad norm rel {e_norm:.2e} (tolerance {t['loss']:g}); {len(pg)} leaves, "
+          f"worst {worst} at {ratio[worst]:.3g} of rtol {t['rtol']:g} / atol "
+          f"{t['atol']:g}; the CPU's pass {cpu_s:.2f} s")
+    over = [k for k in pg if ratio[k] > 1.0]
+    f64 = {}
+    if over:
+        g64 = [baseline_step(cfg, {k: v.to(d).double() for k, v in params.items()},
+                             b, merge=f64_merge)[1] for d, b in (("cuda", bc), ("cpu", bh))]
+        for k in over:
+            a64, b64 = g64[0][k].cpu(), g64[1][k]
+            f64[k] = float(((a64 - b64).abs() / (t["atol"] + t["rtol"] * b64.abs())).max())
+            print(f"{label} {k}: float32 card vs CPU {ratio[k]:.3g} of rtol / atol; "
+                  f"in float64 {f64[k]:.3g} (limit 1)")
+    check(math.isfinite(kl) and e_loss <= t["loss"] and e_norm <= t["loss"]
+          and all(r <= 1.0 for r in f64.values()),
+          f"{label}: the card's step disagrees with the CPU's")
+    return dict(loss_rel=e_loss, norm_rel=e_norm, worst=(worst, ratio[worst]),
+                float64_leaves=f64, cpu_pass_s=cpu_s)
+
+
+def timed_baseline_steps(label, cfg, params, host, card, n=3, task="tok"):
+    """The driver's train step (make_step_fns) on one batch: a warm-up, then
+    n steps timed by CUDA events and the host clock (a loss read a step),
+    launch counts set to 0 before them and read after: K5 at k5_per_pass a
+    step, no other kernel."""
+    from dagnn_tpu_torch import convert
+    from dagnn_tpu_torch.cli import ogb_driver
+    from dagnn_tpu_torch.train.optim import make_optimizer
+    opt = make_optimizer(1e-3, 0.25)
+    train_step, _ = ogb_driver.make_step_fns(cfg, opt, task)
+    b = convert.batch_to_torch(host, "cuda")
+    state = opt.init(params)
+    p, state, loss, _ = train_step(params, state, b)
+    float(loss)
+    reset_counts()
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev0.record()
+    losses = []
+    for _ in range(n):
+        p, state, loss, _ = train_step(p, state, b)
+        losses.append(float(loss))
+    ev1.record()
+    torch.cuda.synchronize()
+    host_s = (time.perf_counter() - t0) / n
+    dev_ms = ev0.elapsed_time(ev1) / n
+    lc = check_counts(label, "train steps", {"tg_accumulate": n * k5_per_pass(cfg)})
+    print(f"{label} {card}: train step {dev_ms:.2f} ms (CUDA events), {host_s * 1e3:.2f} ms "
+          f"(host clock, a loss read a step) on the loader's batch 0 "
+          f"({int(host.n_node)} nodes, {int(host.n_edge)} edges, "
+          f"{int(host.n_graph)} graphs); losses {losses}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(all(math.isfinite(v) for v in losses), f"{label}: a non-finite loss")
+    return dict(step_ms=dev_ms, step_host_s=host_s, step_losses=losses,
+                step_launches=lc)
+
+
+def ordered_sum_vs_index_add(label, host, card, H=300):
+    """The baselines' node-level sum (ops/segment.SortedSegments: sorted by
+    destination once a batch, segment_reduce in that order) against
+    index_add_ on the loader's batch 0 edges ([E, 300] f32 onto the N+1
+    nodes): equal within f32 rounding, bitwise repeatable (index_add_'s
+    repeat printed beside), each timed (CUDA events), the sort timed apart;
+    K5 (merged_segment_sum) at the graph-level sum of the same batch
+    against its plain version, timed beside index_add_."""
+    from dagnn_tpu_torch import convert
+    from dagnn_tpu_torch.ops import row_step, segment
+    b = convert.batch_to_torch(host, "cuda")
+    n1, dst, em = b.x.shape[0], b.edge_dst_flat.long(), b.edge_mask_flat.bool()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    v = torch.randn((dst.shape[0], H), generator=g, device="cuda")
+    seg = segment.SortedSegments(dst, n1, em)
+    differ = lambda fn, ref: sum(not torch.equal(fn(), ref) for _ in range(10))
+    a1, i1 = seg.sum(v), segment.segment_sum(v, dst, n1, em)
+    a_diff = differ(lambda: seg.sum(v), a1)
+    i_diff = differ(lambda: segment.segment_sum(v, dst, n1, em), i1)
+    rel = float((a1 - i1).abs().max() / i1.abs().max())
+    ms = dict(ordered=time_ms(lambda: seg.sum(v), 20),
+              index_add=time_ms(lambda: segment.segment_sum(v, dst, n1, em), 20),
+              sort=time_ms(lambda: segment.SortedSegments(dst, n1, em), 20))
+    print(f"{label} node-level sum [{dst.shape[0]}, {H}] f32 onto {n1} nodes on {card}: "
+          f"ordered {ms['ordered']:.4f} ms, index_add_ {ms['index_add']:.4f} ms, the "
+          f"sort and CSR bounds {ms['sort']:.4f} ms a batch; ordered vs index_add_ "
+          f"{rel:.3g} of max; of 10 repeats, {a_diff} of the ordered sum and {i_diff} "
+          f"of index_add_ differ from their first result")
+    check(a_diff == 0 and rel <= TOL[torch.float32],
+          "the ordered segment sum is not repeatable or disagrees with index_add_")
+    G = host.num_graph_slots
+    gid, nmask = b.graph_id, b.node_mask
+    h = torch.randn((n1, H), generator=g, device="cuda")
+    reset_counts()
+    kern = segment.merged_segment_sum(h, gid, G + 1, nmask, row_step.tg_accumulate)
+    plain = segment.merged_segment_sum(h, gid, G + 1, nmask, row_step.tg_accumulate_plain)
+    k5 = read_counts()["tg_accumulate"]
+    krel = float((kern - plain).abs().max() / plain.abs().max())
+    k_diff = differ(lambda: segment.merged_segment_sum(
+        h, gid, G + 1, nmask, row_step.tg_accumulate), kern)
+    g_ref = segment.segment_sum(h, gid, G + 1, nmask)
+    g_diff = differ(lambda: segment.segment_sum(h, gid, G + 1, nmask), g_ref)
+    kms = dict(k5=time_ms(lambda: row_step.tg_accumulate(
+                   torch.zeros((G + 1, H), device="cuda"), h, gid, nmask), 20),
+               index_add=time_ms(lambda: segment.segment_sum(h, gid, G + 1, nmask), 20))
+    print(f"{label} K5 at the graph-level sum [{n1}, {H}] f32 onto {G + 1} graphs: kernel "
+          f"vs plain {krel:.3g} of max (tolerance {TOL[torch.float32]:g}), {k5} launch; "
+          f"{kms['k5']:.4f} ms, index_add_ {kms['index_add']:.4f} ms; of 10 repeats, "
+          f"{k_diff} of K5 and {g_diff} of index_add_ differ from their first result")
+    check(k5 == 1 and krel <= TOL[torch.float32] and k_diff == 0,
+          "K5 disagrees at the baselines' sum or does not repeat")
+    return dict(ms=ms, rel=rel, repeats_differing=dict(ordered=a_diff, index_add=i_diff,
+                                                       k5=k_diff, graph_index_add=g_diff),
+                k5_rel=krel, k5_ms=kms)
+
+
+def phase_baselines(dev, card, argv):
+    """Phase 22: the ogbg-code2 baselines through the driver's entry points
+    on phase 18's corpus, float32. 22a: main_tok --gnn gin-virtual, runs
+    A, B, C (driver_runs): B's epoch 3 bitwise C's, K5 launched exactly
+    k5_per_pass x the forward passes and no other kernel; epoch rates; the
+    ordered node sum and K5 at the batch's shapes; its train step timed.
+    22b: every other --gnn of BASELINES, one main_tok epoch each (finite
+    loss, F1 in [0, 1], K5 counted as in 22a), one f32 step on the
+    loader's batch 0 card against CPU, the train step timed and its
+    launches counted. 22c: main_lp --gnn sagpool, one epoch. 22d:
+    main_basic --model all: perfect F1 1.0 on valid and test, the CSV rows
+    written. 22e (--profile): one gin-virtual step summarised by
+    utils.profiling.summarize_trace."""
+    import shutil
+    import tempfile
+    from dagnn_tpu_torch.cli import main_basic, main_lp, main_tok, ogb_driver
+    out = {}
+    print("[22a] main_tok --gnn gin-virtual, runs A (2 epochs), B (resumed to 3), "
+          "C (3 afresh): " + " ".join(DRIVER_FLAGS))
+    seen, lc, rows_a, rows_c, secs_a, secs_c, wall, rel = driver_runs(
+        "[22a]", main_tok.main, "tok", card, ("tg_accumulate",), gnn="gin-virtual")
+    data = seen["data"]
+    cfg, host = baseline_setup("gin-virtual", "tok", data)
+    passes = sum(seen["passes"].values())
+    check(lc == {**{k: 0 for k in lc}, "tg_accumulate": k5_per_pass(cfg) * passes},
+          f"gin-virtual driver: launches {lc}, not K5 {k5_per_pass(cfg)} x {passes} passes")
+    rates = epoch_rates("[22a]", seen, secs_a, secs_c, wall, card)
+    sums = ordered_sum_vs_index_add("[22a]", host, card)
+    params = ogb_driver.init_params(cfg, 0, "cuda")
+    step = timed_baseline_steps("[22a] gin-virtual", cfg, params, host, card)
+    out["gin-virtual"] = dict(launches=lc, passes=dict(seen["passes"]), **rates,
+                              resume_loss_rel=rel, rows_ab=rows_a, rows_c=rows_c,
+                              sums=sums, **step)
+    if "--profile" in argv:
+        from dagnn_tpu_torch import convert
+        from dagnn_tpu_torch.train.optim import make_optimizer
+        from dagnn_tpu_torch.utils import profiling
+        opt = make_optimizer(1e-3, 0.25)
+        train_step, _ = ogb_driver.make_step_fns(cfg, opt, "tok")
+        b, state = convert.batch_to_torch(host, "cuda"), opt.init(params)
+        train_step(params, state, b)
+        prof = profile_step("baseline_gin_virtual", train_step, params, state, b, card,
+                            trace_dir(argv))
+        path = os.path.join(trace_dir(argv), "step_trace_baseline_gin_virtual.json")
+        rows = profiling.summarize_trace(path, top=8)
+        print("[22e] utils.profiling.summarize_trace of the gin-virtual step: "
+              + "; ".join(f"{r['name']} {r['total_us']:.1f} us x{r['count']}" for r in rows))
+        out["gin-virtual"]["profile"] = prof
+    root = tempfile.mkdtemp(prefix="chip_smoke_baselines_")
+    try:
+        for gnn in BASELINES:
+            t0 = time.perf_counter()
+            d = ["--dir_results", f"{root}/{gnn}", "--dir_save", f"{root}/{gnn}_s",
+                 "--checkpointing", "0"]
+            reset_counts()
+            with driver_probes() as seen_b:
+                main_tok.main(DRIVER_FLAGS + ["--gnn", gnn, "--epochs", "1"] + d)
+            lc_b = read_counts()
+            cfg_b, host_b = baseline_setup(gnn, "tok", seen_b["data"])
+            passes_b = sum(seen_b["passes"].values())
+            rows = _csv_rows(f"{root}/{gnn}/{gnn}_tok_train.csv")
+            secs = _csv_rows(f"{root}/{gnn}/{gnn}_tok_times.csv")
+            print(f"[22b] {gnn} on {card}: epoch 1 loss {rows[0][2]!r}, F1 train / valid / "
+                  f"test {rows[0][3:]}; train seconds {secs[0][2]:.3f}; forward passes "
+                  f"{dict(seen_b['passes'])}; launch counts {lc_b}")
+            check(len(rows) == 1 and math.isfinite(rows[0][2])
+                  and all(0.0 <= v <= 1.0 for v in rows[0][3:]),
+                  f"{gnn}: the epoch's loss or F1 is out of range")
+            check(lc_b == {**{k: 0 for k in lc_b},
+                           "tg_accumulate": k5_per_pass(cfg_b) * passes_b},
+                  f"{gnn}: launches other than K5 x {k5_per_pass(cfg_b)} a pass")
+            params_b = ogb_driver.init_params(cfg_b, 0, "cuda")
+            torch.cuda.reset_peak_memory_stats()
+            gate = card_vs_cpu(f"[22b] {gnn}", cfg_b, params_b, host_b)
+            step_b = timed_baseline_steps(f"[22b] {gnn}", cfg_b, params_b, host_b, card)
+            out[gnn] = dict(launches=lc_b, passes=dict(seen_b["passes"]), epoch_s=secs[0][2],
+                            rows=rows, **gate, **step_b,
+                            wall_s=time.perf_counter() - t0)
+        reset_counts()
+        with driver_probes() as seen_lp:
+            main_lp.main(DRIVER_FLAGS + ["--gnn", "sagpool", "--epochs", "1",
+                                         "--dir_results", f"{root}/lp", "--dir_save",
+                                         f"{root}/lp_s", "--checkpointing", "0"])
+        lc_lp = read_counts()
+        rows = _csv_rows(f"{root}/lp/sagpool_lp_train.csv")
+        secs = _csv_rows(f"{root}/lp/sagpool_lp_times.csv")
+        print(f"[22c] main_lp --gnn sagpool on {card}: epoch 1 loss {rows[0][2]!r}, accuracy "
+              f"train / valid / test {rows[0][3:]}; train seconds {secs[0][2]:.3f}; "
+              f"launch counts {lc_lp}")
+        check(math.isfinite(rows[0][2]) and all(0.0 <= v <= 1.0 for v in rows[0][3:]),
+              "main_lp sagpool: the loss or accuracy is out of range")
+        check(lc_lp == {**{k: 0 for k in lc_lp},
+                        "tg_accumulate": 3 * sum(seen_lp["passes"].values())},
+              "main_lp sagpool: launches other than K5 x 3 a pass")
+        out["lp_sagpool"] = dict(rows=rows, epoch_s=secs[0][2], launches=lc_lp)
+        t0 = time.perf_counter()
+        res = main_basic.main(DRIVER_FLAGS[:2] + ["--dir_results", f"{root}/basic"])
+        basic_s = time.perf_counter() - t0
+        with open(f"{root}/basic/baselines_basic.csv") as f:
+            lines = f.read().splitlines()
+        print(f"[22d] main_basic --model all: {lines}; {basic_s:.2f} s")
+        check(lines[0] == "model,split,precision,recall,F1" and len(lines) == 7
+              and all(res[("perfect", s)]["F1"] == 1.0 for s in ("valid", "test")),
+              "main_basic: the perfect model's F1 is not 1.0 or the rows are missing")
+        out["basic"] = dict(rows=lines, seconds=basic_s)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2654,6 +2994,12 @@ def main(argv):
         print(f"[21] {card}: phase 21 took {scoring['wall_s']:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    print("[22] the ogbg-code2 baselines (main_tok / main_lp --gnn ..., main_basic) "
+          "at the driver's defaults, float32, on phase 18's corpus")
+    baselines = phase_baselines(dev, card, argv)
+    baselines["wall_s"] = time.perf_counter() - t0
+    print(f"[22] {card}: phase 22 took {baselines['wall_s']:.1f} s")
     runs = {"merged": merged, "pair": paired, "pallas": pallas,
             "unidirectional": uni, "nearfar_rt": nf_rt, "nearfar_r": nf_r,
             "nearfar_unidirectional": nf_u, "merged_k2r": k2r}
@@ -2693,7 +3039,10 @@ def main(argv):
                                              {**runs, "tok_driver": driver,
                                               "lp_driver": lp, "node_space": node_space,
                                               **{f"kind {t}": v for t, v in kinds.items()},
-                                              **{f"vae_{t}": v for t, v in vae.items()}
+                                              **{f"vae_{t}": v for t, v in vae.items()},
+                                              **{f"baseline {t}": v
+                                                 for t, v in baselines.items()
+                                                 if isinstance(v, dict) and "launches" in v}
                                               }.items()
                                              if v["launches"][name]}})
         if kern in vae["na"]["kernels"]["float32"]:
@@ -2704,6 +3053,7 @@ def main(argv):
                 "library_ms": r["library_ms"]}
     print(json.dumps({**runs, "tok_driver": driver, "lp_driver": lp, "kinds": kinds,
                       "node_space": node_space, "vae": vae, "latent_scoring": scoring,
+                      "baselines": baselines,
                       "split_checks": split, "cross_route": cross,
                       "nearfar_cross_route": nf_cross, "ab_steps": ab,
                       "split_row": {short(k): v for k, v in split_row.items()},

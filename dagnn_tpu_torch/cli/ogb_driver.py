@@ -1,12 +1,22 @@
 """Shared ogbg-code2 experiment driver: fold loop, train/eval, checkpoint,
 resume, CSV metrics, early stopping.
 
-Counterpart of dagnn_tpu/cli/ogb_driver.py for the DAGNN model (reference:
+Counterpart of dagnn_tpu/cli/ogb_driver.py (reference:
 ogbg-code/main_pyg.py:39-126 train/eval, :249-343 fold loop with
 checkpoint-resume fast-forward and patience early-stop; main_pyg_lp.py for
 the LP task), with the same flags and defaults. Data comes from a real
 ogbg-code2 raw directory when available, or from the synthetic AST
 generator.
+
+--gnn selects the model as the JAX driver does: dagnn (DAGNNConfig), the
+pooling baselines dgcnn | diffpool | unet | sagpool | asap (HPoolConfig,
+nn/pooling_baselines.py), the gnn2.py family ggnns | ggnn (GGNN_Simple) |
+ggnn-etype (the edge-typed GGNN) | gat (GNN2Config, nn/gnn2_models.py),
+and every other name gin | gcn | gat | ggnn with an optional -virtual
+(MPNNConfig, nn/baselines.py; the gnn2 names above take precedence). The
+baselines run on unleveled batches (DAGLoader(schedules=False)) and
+compute in float32 on the card and the CPU alike, whatever
+--compute_dtype says, as the JAX package's baselines do.
 
 It runs on the CUDA device unless --cpu is given, and raises without a
 card (no CPU fallback). --segment_impl auto is "fused" (the row kernels
@@ -17,10 +27,9 @@ float32 with --cpu, as the JAX driver chooses by backend; "dense" and
 `init_params`; each batch goes to the device with convert.batch_to_torch.
 Dropout (--dagnn_dropout) draws from one torch.Generator per fold on the
 run's device, reseeded at each epoch from --seed, the fold and the epoch,
-so a resumed epoch draws the masks an uninterrupted run draws. The
-baselines (--gnn other than dagnn) raise NotImplementedError naming
-ROADMAP queue 1, item 6. Checkpoints are the port's own format
-(train/checkpoint.py).
+so a resumed epoch draws the masks an uninterrupted run draws; the
+baselines' dropout (--dagnn_dropout, as in JAX) draws from it the same
+way. Checkpoints are the port's own format (train/checkpoint.py).
 
 The train step keeps the JAX driver's nonfinite-step guard: when the loss
 or any gradient is not finite, the update is skipped, parameters and
@@ -43,8 +52,12 @@ from dagnn_tpu_torch.convert import batch_to_torch
 from dagnn_tpu_torch.data import code2
 from dagnn_tpu_torch.data.dataloader import DAGLoader
 from dagnn_tpu_torch.data.synthetic import synthetic_ast_batch
+from dagnn_tpu_torch.nn.baselines import MPNNConfig, mpnn_forward, mpnn_init
 from dagnn_tpu_torch.nn.dagnn import DAGNNConfig, dagnn_forward, dagnn_init
 from dagnn_tpu_torch.nn.encoders import EncoderSpec
+from dagnn_tpu_torch.nn.gnn2_models import GNN2Config, gnn2_forward, gnn2_init
+from dagnn_tpu_torch.nn.pooling_baselines import (HPoolConfig, hpool_forward,
+                                                  hpool_init)
 from dagnn_tpu_torch.train import checkpoint as ckpt
 from dagnn_tpu_torch.train.losses import class_loss, tok_loss
 from dagnn_tpu_torch.train.metrics import RunLogger, summary_report
@@ -113,18 +126,35 @@ def add_common_args(p: argparse.ArgumentParser):
 
 def build_model_cfg(args, task: str, num_nodetypes=98, num_nodeattributes=10030):
     """Model config for TOK/LP (reference init_model, main_pyg.py:370-405):
-    DAGNN only."""
-    if args.gnn != "dagnn":
-        raise NotImplementedError(
-            f"--gnn {args.gnn} is not ported yet: ROADMAP queue 1, item 6 "
-            "(baselines)")
+    --gnn selects dagnn or a baseline, as the JAX driver routes it."""
     enc = EncoderSpec("ast", emb_dim=args.emb_dim,
                       num_nodetypes=num_nodetypes,
                       num_nodeattributes=num_nodeattributes,
                       max_depth=20)
+    heads = dict(num_vocab=args.num_vocab + 2 if task == "tok" else 0,
+                 max_seq_len=args.max_seq_len,
+                 num_class=LP_NUM_CLASSES if task == "lp" else 0)
+    if args.gnn in ("dgcnn", "diffpool", "unet", "sagpool", "asap"):
+        return HPoolConfig(kind=args.gnn, emb_dim=args.emb_dim,
+                           dropout=args.dagnn_dropout, encoder=enc, **heads)
+    if args.gnn in ("ggnns", "ggnn", "ggnn-etype", "gat"):
+        # the gnn2.py family (reference 'ggnns'/'ggnn' = GGNN_Simple,
+        # main_pyg.py:387 / main_pyg_lp.py:361; 'ggnn-etype' = the
+        # edge-typed GGNN of gnn2.py:80, which the JAX driver keeps runnable)
+        kind = {"ggnns": "ggnn_simple", "ggnn": "ggnn_simple",
+                "ggnn-etype": "ggnn", "gat": "gat"}[args.gnn]
+        return GNN2Config(
+            kind=kind, emb_dim=args.emb_dim,
+            num_layers=args.dagnn_layers if args.dagnn_layers > 2 else 3,
+            encoder=enc, **heads)
+    if args.gnn != "dagnn":
+        return MPNNConfig(
+            gnn_type=args.gnn.replace("-virtual", ""),
+            virtual_node="virtual" in args.gnn,
+            num_layers=args.dagnn_layers if args.dagnn_layers > 2 else 5,
+            emb_dim=args.emb_dim, dropout=args.dagnn_dropout, encoder=enc,
+            **heads)
     return DAGNNConfig(
-        num_vocab=args.num_vocab + 2 if task == "tok" else 0,
-        max_seq_len=args.max_seq_len,
         emb_dim=args.emb_dim,
         hidden_dim=args.emb_dim,
         num_rels=2,
@@ -136,10 +166,10 @@ def build_model_cfg(args, task: str, num_nodetypes=98, num_nodeattributes=10030)
         out_pool_all=bool(args.dagnn_out_pool_all),
         out_pool=args.dagnn_out_pool,
         dropout=args.dagnn_dropout,
-        num_class=LP_NUM_CLASSES if task == "lp" else 0,
         encoder=enc,
         segment_impl=_impl_for(args),
         compute_dtype=_dtype_for(args),
+        **heads,
     )
 
 
@@ -176,11 +206,13 @@ def load_dataset(args, task: str):
             print(f"real ogbg-code2 unavailable: {e}\n"
                   f"-> falling back to synthetic AST data")
     n = args.synthetic or 300
+    # getattr defaults: drivers with reduced flag surfaces (main_basic)
+    # share this loader
     graphs = synthetic_ast_batch(
         args.seed, n,
-        mean_nodes=args.synthetic_mean_nodes,
-        targets=args.synthetic_targets,
-        num_attrs=args.synthetic_num_attrs,
+        mean_nodes=getattr(args, "synthetic_mean_nodes", 60),
+        targets=getattr(args, "synthetic_targets", "random"),
+        num_attrs=getattr(args, "synthetic_num_attrs", 10030),
         vocab=args.num_vocab + 2,
         seq_len=args.max_seq_len)
     for g in graphs:
@@ -214,20 +246,25 @@ def _split_and_convert(args, raws, split):
     return tr, va, te, idx2vocab
 
 
+# each model config's (init, forward)
+MODELS = {DAGNNConfig: (dagnn_init, dagnn_forward),
+          MPNNConfig: (mpnn_init, mpnn_forward),
+          GNN2Config: (gnn2_init, gnn2_forward),
+          HPoolConfig: (hpool_init, hpool_forward)}
+
+
 def make_step_fns(cfg, opt, task: str = "tok"):
-    """(train_step, predict) for a DAGNN config on the TOK or LP task.
+    """(train_step, predict) for a model config (DAGNNConfig or a
+    baseline's, see MODELS) on the TOK or LP task.
 
     train_step(params, opt_state, batch, rng=None) ->
         (params, opt_state, loss, finite); rng: a torch.Generator on the
         parameters' device, for dropout
     predict(params, batch) -> argmax ids ([G, S] tokens, or [G] classes)"""
-    if not isinstance(cfg, DAGNNConfig):
-        raise NotImplementedError(
-            "only DAGNN is ported: the baselines are ROADMAP queue 1, item 6")
+    fwd = MODELS[type(cfg)][1]
 
     def loss_fn(params, batch, rng):
-        logits = dagnn_forward(params, cfg, batch, rng=rng,
-                               train=cfg.dropout > 0)
+        logits = fwd(params, cfg, batch, rng=rng, train=cfg.dropout > 0)
         dev = logits.device
         mask = torch.as_tensor(batch.graph_mask, device=dev)
         if task == "tok":
@@ -263,7 +300,7 @@ def make_step_fns(cfg, opt, task: str = "tok"):
 
     @torch.no_grad()
     def predict(params, batch):
-        logits = dagnn_forward(params, cfg, batch)
+        logits = fwd(params, cfg, batch)
         return torch.argmax(logits, dim=-1)
 
     return train_step, predict
@@ -271,7 +308,7 @@ def make_step_fns(cfg, opt, task: str = "tok"):
 
 def init_params(cfg, seed, device):
     """One fold's initial parameters (the port's own random stream)."""
-    return dagnn_init(seed, cfg, device=device)
+    return MODELS[type(cfg)][0](seed, cfg, device=device)
 
 
 def evaluate(predict, params, loader, task: str, idx2vocab, device) -> float:
@@ -344,7 +381,8 @@ def run(args, task: str):
 
         mk_loader = lambda gs, sh, seed: DAGLoader(
             gs, args.batch_size, shuffle=sh, seed=seed,
-            chunk_size=args.chunk_size, prefetch=args.prefetch)
+            chunk_size=args.chunk_size, prefetch=args.prefetch,
+            schedules=isinstance(cfg, DAGNNConfig))
         valid_loader = mk_loader(valid, False, 0)
         test_loader = mk_loader(test, False, 0)
         # the JAX driver's deliberate deviation from the reference: the

@@ -1,12 +1,14 @@
 """Batch loader: bucketed collation with background prefetch.
 
-A copy of dagnn_tpu/data/dataloader.py for one device and the DAGNN
-model, with the original's defaults as constants (leveled schedules, the
-last short batch kept, edge budget 1.5x the chunk, critical-path row
-packing). The JAX package's data-parallel split (n_shards > 1,
+A copy of dagnn_tpu/data/dataloader.py for one device, with the
+original's defaults as constants (the last short batch kept, edge budget
+1.5x the chunk, critical-path row packing). schedules=True (DAGNN) levels
+every batch; schedules=False (the baselines, whose 4-way augmented graphs
+may be cyclic) buckets by node, edge and graph counts alone (max_levels 1,
+no edge budget, no stagger) and collates with build_schedules=False, as
+the original does. The JAX package's data-parallel split (n_shards > 1,
 `split_by_nodes` / `stack_batches` of its parallel/dp.py) waits for the
-port's data-parallel path and raises NotImplementedError; the baselines'
-unleveled batches wait for them (ROADMAP queue 1, item 6). An error in
+port's data-parallel path and raises NotImplementedError. An error in
 the prefetch thread is raised in the consumer, where the original ends
 the epoch early without one (ROADMAP queue 3). The original replaces the
 reference's torch DataLoader + device-balanced Collater
@@ -55,6 +57,7 @@ class DAGLoader:
         chunk_size: Optional[int] = 256,
         n_shards: int = 1,
         prefetch: int = 2,
+        schedules: bool = True,
     ):
         if n_shards != 1:
             raise NotImplementedError(
@@ -68,11 +71,12 @@ class DAGLoader:
         # row split policy (see dag/schedule.py): 1.5x the node chunk is the
         # empirical sweet spot on the TOK workload (362k vs 270k edges/s at
         # chunk 256) — narrower budgets trade too much scan length
-        self.edge_budget = (chunk_size * 3 // 2) if chunk_size else 0
+        self.edge_budget = (chunk_size * 3 // 2) if (chunk_size and schedules) else 0
         # row layout: 2 = critical-path packing (schedule.pack_rows, the
         # production default — depth-floor row counts at ~0.95 fill)
-        self.stagger = 2 if chunk_size else 0
+        self.stagger = 2 if (chunk_size and schedules) else 0
         self.prefetch = prefetch
+        self.schedules = schedules
         self._pad: Optional[PadConfig] = None
 
     def _epoch_batches(self) -> List[List[DAGGraph]]:
@@ -90,9 +94,18 @@ class DAGLoader:
         shapes stabilize across epochs."""
         worst = None
         for s in batches:
-            c = PadConfig.for_graphs(s, chunk_size=self.chunk_size,
-                                     edge_budget=self.edge_budget,
-                                     stagger=self.stagger)
+            if self.schedules:
+                c = PadConfig.for_graphs(s, chunk_size=self.chunk_size,
+                                         edge_budget=self.edge_budget,
+                                         stagger=self.stagger)
+            else:
+                # cyclic baseline graphs: counts only, no leveling
+                c = PadConfig(
+                    max_nodes=sum(g.num_nodes for g in s),
+                    max_edges=max(1, sum(g.num_edges for g in s)),
+                    max_graphs=len(s), max_levels=1,
+                    nodes_per_level=1, edges_per_level=1,
+                )
             if worst is None:
                 worst = c
             else:
@@ -124,12 +137,17 @@ class DAGLoader:
         self._pad = worst
         return worst
 
+    def _collate(self, graphs: List[DAGGraph], pad: PadConfig) -> DAGBatch:
+        if self.schedules:
+            return collate(graphs, pad)
+        return collate(graphs, pad, build_schedules=False)
+
     def __iter__(self) -> Iterator[DAGBatch]:
         batches = self._epoch_batches()
         pad = self._ensure_pad(batches)
         if self.prefetch <= 0:
             for b in batches:
-                yield collate(b, pad)
+                yield self._collate(b, pad)
             return
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = object()
@@ -138,7 +156,7 @@ class DAGLoader:
         def worker():
             try:
                 for b in batches:
-                    q.put(collate(b, pad))
+                    q.put(self._collate(b, pad))
             except BaseException as e:  # handed to the consumer below
                 failed.append(e)
             finally:

@@ -21,6 +21,17 @@ autograd Function over K5's contract (on the card row_step.tg_accumulate:
 a fixed float32 order, one rounding, no atomics, so a step repeats bit for
 bit). segment_max stays scatter_reduce("amax") on the card too: the JAX
 package computes it in XLA, and a max does not depend on the order.
+
+The baselines (nn/baselines.py, nn/gnn2_models.py, nn/pooling_baselines.py)
+sum messages over the flat edge set onto every node: tens of thousands of
+segments, where K5's slot-per-block scan of the whole key list does not
+fit, and where index_add_'s float atomics would make a step differ from
+run to run. SortedSegments sorts the edges by segment once per batch
+(stable, the invalid ones into a drop segment), keeps the CSR offsets, and
+sums each segment's rows in that fixed order (torch.segment_reduce, a
+sequential loop per segment and column): the same step gives the same bits
+on every run. Its softmax takes its max by scatter_reduce("amax") and its
+denominators through the same ordered sum.
 """
 
 from __future__ import annotations
@@ -68,19 +79,30 @@ def segment_softmax(scores: torch.Tensor, segment_ids: torch.Tensor,
     the others' normalisation."""
     valid = valid_edges(segment_ids, num_segments, mask)
     ids = _ids(segment_ids, valid, num_segments)
-    neg = torch.finfo(scores.dtype).min
-    masked = torch.where(valid, scores, torch.full((), neg, dtype=scores.dtype,
-                                                   device=scores.device))
-    seg_max = torch.full((num_segments + 1,), neg, dtype=scores.dtype,
-                         device=scores.device)
-    seg_max = seg_max.scatter_reduce(0, ids, masked, "amax", include_self=True)
-    seg_max = torch.where(seg_max <= neg, 0.0, seg_max)   # empty segments
-    # a select, not a product with the mask: an invalid edge never reaches
-    # exp(), so no inf * 0 turns into a NaN
-    expd = torch.where(valid, torch.exp(masked - seg_max[ids]), 0.0)
+    expd = _shifted_exp(scores, valid, ids, num_segments)
     denom = torch.zeros((num_segments + 1,), dtype=scores.dtype,
                         device=scores.device).index_add_(0, ids, expd)
     return expd / (denom[ids] + SOFTMAX_EPS)
+
+
+def _shifted_exp(scores, valid, ids, num_segments):
+    """exp(score - its segment's max) of each valid edge, 0 elsewhere:
+    the numerators of a segment softmax of scores [E] or [E, H] (ids: the
+    edges' segments, the drop segment num_segments for invalid ones). An
+    empty segment's max is 0."""
+    col = valid.reshape((-1,) + (1,) * (scores.dim() - 1))
+    neg = torch.finfo(scores.dtype).min
+    masked = torch.where(col, scores, torch.full((), neg, dtype=scores.dtype,
+                                                 device=scores.device))
+    seg_max = torch.full((num_segments + 1,) + tuple(scores.shape[1:]), neg,
+                         dtype=scores.dtype, device=scores.device)
+    seg_max = seg_max.scatter_reduce(
+        0, ids.reshape(col.shape).expand_as(scores), masked, "amax",
+        include_self=True)
+    seg_max = torch.where(seg_max <= neg, 0.0, seg_max)   # empty segments
+    # a select, not a product with the mask: an invalid edge never reaches
+    # exp(), so no inf * 0 turns into a NaN
+    return torch.where(col, torch.exp(masked - seg_max[ids]), 0.0)
 
 
 def edge_softmax_aggregate(scores: torch.Tensor, values: torch.Tensor,
@@ -148,3 +170,73 @@ def merged_segment_sum(values: torch.Tensor, segment_ids: torch.Tensor,
     values' dtype."""
     return _MergedSegmentSum.apply(values, segment_ids, mask, num_segments,
                                    merge)
+
+
+def segment_count(segment_ids: torch.Tensor, num_segments: int,
+                  mask: Optional[torch.Tensor] = None,
+                  dtype=torch.float32) -> torch.Tensor:
+    """[num_segments] count of the edges in each segment, as `dtype`.
+    Counts are whole numbers, exact in any summation order (below 2^24 in
+    float32), so index_add_ gives the same bits on every run."""
+    valid = valid_edges(segment_ids, num_segments, mask)
+    out = torch.zeros((num_segments + 1,), dtype=dtype,
+                      device=segment_ids.device)
+    out.index_add_(0, _ids(segment_ids, valid, num_segments), valid.to(dtype))
+    return out[:num_segments]
+
+
+class SortedSegments:
+    """The edges of one segment key (a destination or source node id),
+    sorted by segment once per batch, for deterministic segment sums.
+
+    An edge belongs to its segment when `mask` is set and its id lies in
+    [0, num_segments); the others are sorted into the drop segment
+    num_segments. perm is the stable sort, offsets [num_segments + 2] the
+    CSR bounds (searchsorted: no host sync)."""
+
+    def __init__(self, segment_ids: torch.Tensor, num_segments: int,
+                 mask: Optional[torch.Tensor] = None):
+        self.num_segments = num_segments
+        self.valid = valid_edges(segment_ids, num_segments, mask)
+        self.ids = _ids(segment_ids, self.valid, num_segments)
+        self.perm = torch.argsort(self.ids, stable=True)
+        bounds = torch.arange(num_segments + 2, device=self.ids.device)
+        self.offsets = torch.searchsorted(self.ids[self.perm], bounds)
+
+    def sum(self, values: torch.Tensor,
+            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """segment_sum of values [E, ...] into [num_segments, ...], each
+        segment's rows added in the sorted order. `mask` (a subset of the
+        edges' own) zeroes further rows first: adding an exact 0 leaves
+        every partial sum as it was."""
+        if mask is not None:
+            col = mask.reshape((-1,) + (1,) * (values.dim() - 1)) > 0
+            values = torch.where(col, values, torch.zeros(
+                (), dtype=values.dtype, device=values.device))
+        out = torch.segment_reduce(values[self.perm], "sum",
+                                   offsets=self.offsets, axis=0, unsafe=True)
+        return out[: self.num_segments]
+
+    def softmax(self, scores: torch.Tensor) -> torch.Tensor:
+        """segment_softmax of scores [E] or [E, H] over this key: the max
+        by scatter_reduce("amax"), the denominators by the ordered sum.
+        Edges outside any segment get weight 0."""
+        expd = _shifted_exp(scores, self.valid, self.ids, self.num_segments)
+        denom = torch.segment_reduce(expd[self.perm], "sum",
+                                     offsets=self.offsets, axis=0, unsafe=True)
+        return expd / (denom[self.ids] + SOFTMAX_EPS)
+
+
+def merged_segment_softmax(scores: torch.Tensor, segment_ids: torch.Tensor,
+                           num_segments: int, mask: torch.Tensor,
+                           merge) -> torch.Tensor:
+    """segment_softmax of scores [E] whose denominators are summed through
+    `merge` (K5's contract, as merged_segment_sum): the graph-level
+    softmax of the attention readout."""
+    valid = valid_edges(segment_ids, num_segments, mask)
+    ids = _ids(segment_ids, valid, num_segments)
+    expd = _shifted_exp(scores, valid, ids, num_segments)
+    denom = merged_segment_sum(expd[:, None], segment_ids, num_segments,
+                               mask, merge)[:, 0]
+    denom = torch.cat([denom, denom.new_zeros(1)])
+    return expd / (denom[ids] + SOFTMAX_EPS)

@@ -187,12 +187,16 @@ def test_resume_matches_jax(tmp_path, jax_weights):
 
 
 def test_unported_flags_raise(tmp_path):
-    """The baselines wait for ROADMAP queue 1, item 6."""
-    args = _args(tdriver, ["--synthetic", "20", "--emb_dim", "8", "--num_vocab",
-                           "6", "--epochs", "1", "--folds", "1", "--cpu",
-                           "--gnn", "gin"], tmp_path, "port")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tdriver.run(args, "tok")
+    """The baselines are ported (ROADMAP queue 1, item 6): --gnn gin trains
+    one epoch on unleveled batches. A --gnn name the JAX driver cannot
+    build either (an unknown convolution) raises ValueError, as there."""
+    argv = ["--synthetic", "20", "--emb_dim", "8", "--num_vocab", "6",
+            "--epochs", "1", "--folds", "1", "--cpu"]
+    res = tdriver.run(_args(tdriver, argv + ["--gnn", "gin"], tmp_path, "port"), "tok")
+    assert len(res) == 1 and 0.0 <= res[0]["valid"] <= 1.0
+    for driver, tag in ((jdriver, "jax"), (tdriver, "port")):
+        with pytest.raises(ValueError, match="gru"):
+            driver.run(_args(driver, argv + ["--gnn", "gru"], tmp_path, tag), "tok")
 
 
 def _kept(shape):

@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: the flagship TOK train step,
 the TOK and LP training drivers, every aggregator kind, the NA/BN VAE
-driver with every --model, latent scoring with Bayesian optimisation, and
-the ogbg-code2 baselines.
+driver with every --model, latent scoring with Bayesian optimisation, the
+ogbg-code2 baselines, and the parallel layer (data-parallel and
+edge-partitioned ranks sharing the card).
 
 Drives dagnn_tpu_torch (never the JAX package) through the entry points a
 user calls, at the flagship's full width (emb/hidden 300, 160 synthetic
@@ -183,6 +184,31 @@ split form), the merged and unidirectional wavefronts on near/far batches
       the perfect model's F1 1.0 on valid and test, the CSV rows written
   22e. (--profile) one gin-virtual train step summarised by
       dagnn_tpu_torch.utils.profiling.summarize_trace
+  the parallel layer (dagnn_tpu_torch/parallel; D ranks started on this
+  one card with the spawn start method, gloo with every collective staged
+  on the host, since NCCL takes one rank a card; its numbers measure the
+  code path, not scaling):
+  23a. cli.dryrun at 2 and 4 ranks (two processes at once): the JAX dry
+      run's checks (a finite DP loss; the replicated-state EP forward
+      within 1e-3 of the single-rank states; at 4 ranks the (dp 2, ep 2)
+      step's loss within 1e-3 of the mean of the two batches' single-rank
+      losses)
+  23b. data parallel, 2 ranks, bf16, the merged path (K1/K2) on phase 4's
+      batch split by node count (flagship.pad_for(n_shards=2)): the
+      averaged loss, norm and leaves against one process's mean of the two
+      shards' (the same kernels; phase 5's gates), parameters bitwise
+      equal across the ranks after 3 steps, each rank's K1/K2 launches the
+      rows of its shard's pass and no other kernel; the same step at
+      world size 1 over NCCL bitwise equal to the single-process step
+  23c. edge partitioned, 2 and 4 ranks, segment_impl="pallas" (K6, K5),
+      scan rows 64 x D wide: one f32 step against the single-rank f32
+      generic step (loss and norm 1e-5, leaves rtol 5e-4 / atol 5e-5,
+      exact zeros to the noise bound), one bf16 step at phase 5's gates,
+      every rank's K6 forward / backward and K5 launches as the plan
+      derives them (per row of each direction: K6f 2 x layers, K6b
+      layers, K5 3); the plan's seconds (and its greedy stage-row loop's),
+      the wire accounting and a bf16 step's time
+  23d. cli.bench_scaling --devices 2 at its defaults, its JSON line
 
 The second-to-last line is the kernel table as JSON, the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero.
@@ -205,6 +231,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 # tolerances, as max|kernel - plain| on the output's or weight grad's own
@@ -2766,6 +2793,336 @@ def phase_baselines(dev, card, argv):
     return out
 
 
+# --------------------------------------------- the parallel layer (phase 23)
+
+SHARED = "ranks share one card"
+
+
+def _leaf_gate(label, got, want, truth, tol, what):
+    """got / want gradient dicts of numpy arrays: each leaf within `tol`
+    (STEP_TOL's relative leaf gate, or CROSS_TOL's rtol / atol), the
+    elements that are zero in exact arithmetic (|truth| <= checks.ZERO x
+    the tree's max) within NOISE_TOL of want's noise. Returns the worst."""
+    from dagnn_tpu_torch import checks
+    tmax = checks.tree_max(truth)
+    rows = []
+    for k in want:
+        a, b, t = (np.asarray(x[k], np.float32) for x in (got, want, truth))
+        rel, ab, scale, noise = checks.grad_err(a, b, t, tmax)
+        if "rtol" in tol:
+            live = np.abs(t) > checks.ZERO * tmax
+            ratio = float((np.abs(a - b)[live] / (tol["atol"] + tol["rtol"] * np.abs(b)[live])
+                           ).max(initial=0.0))
+            ok = ratio <= 1.0 and noise <= NOISE_TOL
+            rows.append((ratio, noise, ok, k))
+        else:
+            rows.append((rel, noise, rel <= tol["leaf"] and noise <= NOISE_TOL, k))
+    rows.sort(reverse=True)
+    worst = rows[0]
+    gate = (f"rtol {tol['rtol']:g} / atol {tol['atol']:g}" if "rtol" in tol
+            else f"{tol['leaf']:g} of max|ref|")
+    print(f"{label} {what}: {len(rows)} leaves, worst {worst[3]} {worst[0]:.3g} "
+          f"(gate {gate}), worst noise {max(r[1] for r in rows):.3g} "
+          f"(gate {NOISE_TOL:g})")
+    bad = [r[3] for r in rows if not r[2]]
+    check(not bad, f"{what}: leaves past the gate: {bad}")
+    return {"worst": worst[3], "value": worst[0], "noise": max(r[1] for r in rows)}
+
+
+def _scalar_gate(label, what, got, want, tol=STEP_TOL["loss"]):
+    rel = abs(got - want) / abs(want)
+    print(f"{label} {what}: {got:.7f} vs {want:.7f} (rel {rel:.2e}, gate {tol:g})")
+    check(rel <= tol, f"{what}: {got} vs {want}")
+    return rel
+
+
+def _norm(grads):
+    return float(np.sqrt(sum(float((np.asarray(g, np.float64) ** 2).sum())
+                             for g in grads.values())))
+
+
+def _np_grads(g):
+    return {k: v.detach().float().cpu().numpy() for k, v in g.items()}
+
+
+def nccl_world_one(label, dev, cfg, params, graphs):
+    """The DP step at world size 1 over NCCL (gloo for a CPU rehearsal) in
+    this process: one step bitwise equal to the single-process step
+    (loss_and_grads, the optimizer's update, params + updates)."""
+    import tempfile
+    import torch.distributed as dist
+    from dagnn_tpu_torch import flagship
+    from dagnn_tpu_torch.parallel import comm
+    from dagnn_tpu_torch.parallel.dp import collate_sharded, make_dp_train_step
+    from dagnn_tpu_torch.parallel.jobs import loss_of
+    from dagnn_tpu_torch.parallel.mesh import make_mesh
+    from dagnn_tpu_torch.nn.dagnn import KERNELS, dagnn_forward
+    from dagnn_tpu_torch.train.optim import make_optimizer
+    store = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"file://{store}/store", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(None, ("dp",))
+        head = loss_of("tok")
+
+        def loss_fn(p, b, rng):
+            return head(dagnn_forward(p, cfg, b),
+                        {k: torch.as_tensor(v, device=dev) for k, v in b.y.items()},
+                        torch.as_tensor(b.graph_mask, device=dev))
+
+        opt = make_optimizer()
+        step = make_dp_train_step(loss_fn, opt, mesh.groups["dp"])
+        batch = step.shard(collate_sharded(graphs, 1, flagship.pad_for(graphs)), dev)
+        route = comm.route(mesh.groups["dp"])
+        comm.reset_issued()
+        p1, _, loss1 = step(params, opt.init(params), batch)
+        issued = dict(comm.issued)
+        print(f"{label} {backend}, world size 1: the step's collectives by route "
+              f"{issued} (its one all-reduce of the flat gradient buffer)")
+        check(issued == {**{k: 0 for k in issued}, route: 1},
+              f"the world-size-1 step issued {issued}, not one {route} collective")
+        l0, g0, _ = loss_and_grads(params, cfg, batch, KERNELS)
+        _, g1 = step.grads(params, batch)
+        diff = [k for k in g0 if not torch.equal(g0[k], g1[k])]
+        print(f"{label} the world-size-1 DP gradients bitwise the single "
+              f"process's: {not diff} {diff[:4]}")
+        with torch.no_grad():
+            u, _ = opt.update(g0, opt.init(params))
+            p0 = {k: params[k] + u[k] for k in params}
+        same = all(torch.equal(p1[k], p0[k]) for k in params)
+        print(f"{label} {backend}, world size 1 ({route} route): one DP step, loss "
+              f"{float(loss1):.7f} vs {l0:.7f}; parameters bitwise equal to the "
+              f"single-process step: {same}")
+        check(same and float(loss1) == l0, "the NCCL world-size-1 step differs "
+              "from the single-process step")
+    finally:
+        dist.destroy_process_group()
+    return {"route": route, "bitwise": same, "issued": issued}
+
+
+def _ep_counts(rows, nl):
+    """One EP train pass's launches on a rank: per row of each direction, K6
+    forward once a layer and once more in the replay, K6 backward once a
+    layer, K5 three times (own columns, halo blocks, returned blocks)."""
+    r = sum(rows)
+    return {"segment_attn_forward": 2 * nl * r, "segment_attn_backward": nl * r,
+            "tg_accumulate": 3 * r}
+
+
+def _ep_probe(D, res, counted):
+    """23c's kernels against their plain versions at the EP rank's own
+    shapes: every K6 forward / backward and K5 call of each rank's probe
+    pass (jobs.ep_job's checks.KernelProbe, run after the launches were
+    read) beside the plain version on the same card tensors, at phase 3's
+    tolerance TOL, each call on its own max|plain| floored at checks.ZERO
+    x the pass's largest (KernelProbe). The probe holds as many calls as
+    the counted pass launched, and computes the same gradients bit for
+    bit."""
+    from dagnn_tpu_torch import checks
+    names = ("segment_attn_forward", "segment_attn_backward", "tg_accumulate")
+    worst = {}
+    for j, dt in ((-2, torch.float32), (-1, torch.bfloat16)):
+        for r in res:
+            pr = r[j]["probe"]
+            check(pr["grads_digest"] == r[j]["grads_digest"],
+                  f"D={D} rank {r[j]['rank']}: the probe pass computed other gradients")
+            for name in names:
+                if counted:
+                    check(pr[name]["calls"] == r[j]["counts"][name],
+                          f"D={D} {name}: the probe held {pr[name]['calls']} calls, "
+                          f"the pass launched {r[j]['counts'][name]}")
+        for name in names:
+            worst[(short(dt), name)] = checks.worst_call([r[j]["probe"][name] for r in res])
+        for name in names:
+            p = worst[(short(dt), name)]
+            print(f"[23c] D={D} {short(dt)} {name} on the EP ranks vs plain, every "
+                  f"call ({p['calls']} a rank, {p['shapes']} shapes): max_abs_err "
+                  f"{p['max_abs_err']:.3e}; the worst call on its max|plain| (floor "
+                  f"{checks.ZERO:g} x the pass's largest, {p['floor']:.3e}): shape "
+                  f"{p['shape']} output {p['output']}, {p['err']:.3e} of "
+                  f"{p['scale']:.3e} = {p['rel']:.3e} (tolerance {TOL[dt]:g})")
+            check(p["rel"] <= TOL[dt], f"D={D} {short(dt)} {name}: the kernel "
+                  f"disagrees with plain at the EP shapes ({p['rel']:.3e})")
+    return {f"{dt} {name}": {k: p[k] for k in ("rel", "err", "scale", "floor", "shape",
+                                                "output", "max_abs_err")}
+            for (dt, name), p in worst.items()}
+
+
+def phase_parallel(dev, card, graphs, params, cfg, bench_argv=()):
+    """Phase 23: the parallel layer at cfg's widths (the flagship's) on
+    `graphs` (phase 4's batch), D ranks on this one card (gloo: the host
+    route). On a CPU device it rehearses the same calls with gloo ranks on
+    the CPU (`bench_argv`: bench_scaling's size flags for it)."""
+    from dagnn_tpu_torch import flagship
+    from dagnn_tpu_torch.cli import bench_scaling
+    from dagnn_tpu_torch.convert import batch_to_torch
+    from dagnn_tpu_torch.dag.batch import collate
+    from dagnn_tpu_torch.nn.dagnn import KERNELS, PLAIN, SEG_PLAIN
+    from dagnn_tpu_torch.parallel import jobs
+    from dagnn_tpu_torch.parallel.dp import collate_sharded, shard_of
+    from dagnn_tpu_torch.parallel.mesh import default_backend, spawn
+    out, device = {}, dev.type
+    cpu = ["--cpu"] if device == "cpu" else []
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t_all = time.perf_counter()
+    # both dry runs at once, as a user starts them (python -m ...), each
+    # its own ranks and store; every process ended before this returns
+    runs = {n: subprocess.Popen(
+        [sys.executable, "-m", "dagnn_tpu_torch.cli.dryrun", "--ranks", str(n),
+         "--timeout", "300", *cpu], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, cwd=os.path.dirname(os.path.abspath(__file__))) for n in (2, 4)}
+    try:
+        logs = {n: p.communicate(timeout=600)[0] for n, p in runs.items()}
+    finally:
+        for p in runs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for n, log in logs.items():
+        backend = default_backend(n, device)
+        print(f"[23a] cli.dryrun --ranks {n} ({backend}: {SHARED}), exit "
+              f"{runs[n].returncode}:")
+        print("\n".join("    " + ln for ln in log.strip().splitlines()[-12:]))
+        passes = sum(ln.startswith("dryrun") and " ok" in ln for ln in log.splitlines())
+        check(runs[n].returncode == 0 and passes == (3 if n >= 4 else 2)
+              and f"dryrun({n}, {backend})" in log,
+              f"cli.dryrun --ranks {n}: {passes} checks passed")
+        print(f"[23a] {passes} of the JAX dry run's checks passed at {n} ranks")
+        out[f"dryrun_{n}"] = passes
+    print(f"[23a] both dry runs took {time.perf_counter() - t_all:.1f} s")
+
+    cfg_p = dataclasses.replace(cfg, segment_impl="pallas")
+    cfg_p32 = dataclasses.replace(cfg_p, compute_dtype="float32")
+    nl = cfg.num_layers
+    pnp = {k: v.detach().cpu().numpy() for k, v in params.items()}
+    stacked = collate_sharded(graphs, 2, flagship.pad_for(graphs, n_shards=2))
+    ep_batches = {}
+    for D in (2, 4):
+        chunk = 64 * D
+        ep_batches[D] = collate(graphs, dataclasses.replace(
+            flagship.pad_for(graphs, chunk=chunk), nodes_per_level=chunk))
+    ep_jobs = lambda D: [
+        (jobs.ep_job, dict(cfg=cfg_p32, params_np=pnp, batches=[ep_batches[D]],
+                           mesh_shape=(1, D), probe=True)),
+        (jobs.ep_job, dict(cfg=cfg_p, params_np=pnp, batches=[ep_batches[D]],
+                           mesh_shape=(1, D), steps=1, probe=True))]
+    t0 = time.perf_counter()
+    res2 = spawn(jobs.run_jobs, 2, "gloo", device, timeout=900, args=(
+        [(jobs.dp_job, dict(cfg=cfg, params_np=pnp, stacked=stacked, steps=3))]
+        + ep_jobs(2),))
+    t_spawn2 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res4 = spawn(jobs.run_jobs, 4, "gloo", device, timeout=900, args=(ep_jobs(4),))
+    t_spawn4 = time.perf_counter() - t0
+
+    # 23b: data parallel, 2 ranks, bf16, the merged path
+    dp = [r[0] for r in res2]
+    print(f"[23b] DP, 2 ranks ({dp[0]['route']} route, {SHARED}), bf16 merged path, "
+          f"split_by_nodes of phase 4's batch: rows {dp[0]['rows']} a shard; step "
+          f"s {' / '.join(f'{s:.4f}' for s in dp[0]['step_s'])} (rank 0), losses "
+          f"{dp[0]['losses']}")
+    shards = [batch_to_torch(shard_of(stacked, i), dev) for i in range(2)]
+    ref = [loss_and_grads(params, cfg, b, KERNELS) for b in shards]
+    ref_l = (ref[0][0] + ref[1][0]) / 2
+    ref_g = {k: (ref[0][1][k].float() + ref[1][1][k].float()) / 2 for k in ref[0][1]}
+    plain = [loss_and_grads(params, cfg, b, PLAIN) for b in shards]
+    plain_l = (plain[0][0] + plain[1][0]) / 2
+    plain_g = {k: (plain[0][1][k].float() + plain[1][1][k].float()) / 2 for k in ref_g}
+    truth = [loss_and_grads({k: v.to(torch.bfloat16).float() for k, v in params.items()},
+                            dataclasses.replace(cfg, compute_dtype="float32"), b, PLAIN)
+             for b in shards]
+    truth_g = _np_grads({k: (truth[0][1][k] + truth[1][1][k]) / 2 for k in ref_g})
+    _scalar_gate("[23b]", "averaged loss vs one process's mean of the two shards",
+                 dp[0]["loss"], ref_l)
+    _scalar_gate("[23b]", "averaged grad norm vs the mean's", _norm(dp[0]["grads"]),
+                 _norm(_np_grads(ref_g)))
+    _leaf_gate("[23b]", dp[0]["grads"], _np_grads(ref_g), truth_g, STEP_TOL,
+               "averaged grads vs one process's mean")
+    # the kernels at the shards' shapes against their plain versions: the
+    # same mean computed with the plain step (phase 5's gates)
+    sh = shards[0].fwd
+    print(f"[23b] a shard's merged rows: Kn {sh.node_ids.shape[1]}, Ke "
+          f"{sh.edge_dst.shape[1]}, Kt {sh.tgrad_dst.shape[1]}")
+    _scalar_gate("[23b]", "averaged loss vs the plain step's mean of the two shards",
+                 dp[0]["loss"], plain_l)
+    _scalar_gate("[23b]", "averaged grad norm vs the plain mean's",
+                 _norm(dp[0]["grads"]), _norm(_np_grads(plain_g)))
+    dp_leaf = _leaf_gate("[23b]", dp[0]["grads"], _np_grads(plain_g), truth_g, STEP_TOL,
+                         "averaged grads (K1/K2) vs the plain step's mean")
+    same = dp[0]["params_digest"] == dp[1]["params_digest"]
+    print(f"[23b] parameters after 3 steps bitwise equal across the ranks: {same}")
+    check(same and dp[0]["losses"] == dp[1]["losses"], "the DP ranks diverged")
+    L = dp[0]["rows"]
+    counted = device == "cuda"        # a CPU rehearsal launches no kernel
+    for r in dp:
+        want = {**{k: 0 for k in r["counts"]},
+                **({"row_forward": L, "row_backward": L} if counted else {})}
+        print(f"[23b] rank {r['rank']} launch counts (the grads pass) {r['counts']}, "
+              f"expected {want}")
+        check(r["counts"] == want, "DP rank launches differ from its shard's rows")
+    out["dp"] = dict(loss=dp[0]["loss"], step_s=dp[0]["step_s"], leaf=dp_leaf,
+                     rows=L, launches=dp[0]["counts"])
+
+    # 23c: edge partitioned, 2 and 4 ranks, the generic branch (K6, K5)
+    out["ep"] = {}
+    for D, res in ((2, res2), (4, res4)):
+        f32, bf = res[0][-2], res[0][-1]
+        b = batch_to_torch(ep_batches[D], dev)
+        # the single-rank step through the plain versions of K6 and K5
+        l32, g32, _ = loss_and_grads(params, cfg_p32, b, SEG_PLAIN)
+        l16, g16, _ = loss_and_grads(params, cfg_p, b, SEG_PLAIN)
+        _, t16, _ = loss_and_grads({k: v.to(torch.bfloat16).float()
+                                    for k, v in params.items()}, cfg_p32, b, SEG_PLAIN)
+        g32, g16, t16 = _np_grads(g32), _np_grads(g16), _np_grads(t16)
+        st = f32["statics"][0]
+        print(f"[23c] EP, {D} ranks ({f32['route']} route, {SHARED}), chunk {64 * D}: "
+              f"rows {f32['rows']}, w {st['own_w']}, halo {st['halo']}, urgent "
+              f"{st['has_urgent']}, deferred {st['has_deferred']} ({f32['deferred']} "
+              f"deferred entries, direction 0); plan {bf['plan_s']:.3f} s, of it the "
+              f"greedy stage-row loop {bf['greedy_s']:.3f} s; wire {bf['wire']}")
+        _scalar_gate("[23c]", f"D={D} f32 loss vs the single-rank plain step",
+                     f32["loss"], l32)
+        _scalar_gate("[23c]", f"D={D} f32 grad norm", _norm(f32["grads"]), _norm(g32))
+        leaf32 = _leaf_gate("[23c]", f32["grads"], g32, g32, CROSS_TOL,
+                            f"D={D} f32 grads vs the single-rank plain step")
+        _scalar_gate("[23c]", f"D={D} bf16 loss vs the single-rank plain step",
+                     bf["loss"], l16)
+        _scalar_gate("[23c]", f"D={D} bf16 grad norm", _norm(bf["grads"]), _norm(g16))
+        leaf16 = _leaf_gate("[23c]", bf["grads"], g16, t16, STEP_TOL,
+                            f"D={D} bf16 grads vs the single-rank plain step")
+        probe = _ep_probe(D, res, counted)
+        for r in res:
+            for j in (-2, -1):
+                want = {**{k: 0 for k in r[j]["counts"]},
+                        **(_ep_counts(r[j]["rows"], nl) if counted else {})}
+                check(r[j]["counts"] == want,
+                      f"EP rank {r[j]['rank']} launches {r[j]['counts']}, want {want}")
+        check(all(r[j]["grads_digest"] == res[0][j]["grads_digest"]
+                  for r in res for j in (-2, -1)), "EP ranks hold other gradients")
+        print(f"[23c] every rank's launch counts of each grads pass as the plan "
+              f"derives them: {res[0][-1]['counts']}; every rank holds the same "
+              f"summed gradients (bitwise)")
+        print(f"[23c] D={D} bf16 train step {bf['step_s'][0]:.3f} s (rank 0, "
+              f"{SHARED})")
+        out["ep"][D] = dict(loss32=f32["loss"], loss16=bf["loss"], leaf32=leaf32,
+                            leaf16=leaf16, rows=f32["rows"], plan_s=bf["plan_s"],
+                            greedy_s=bf["greedy_s"], deferred=f32["deferred"],
+                            wire=bf["wire"], step_s=bf["step_s"],
+                            launches=res[0][-1]["counts"], probe=probe)
+    print(f"[23b/c] spawns: 2 ranks {t_spawn2:.1f} s, 4 ranks {t_spawn4:.1f} s")
+
+    t0 = time.perf_counter()
+    print(f"[23d] cli.bench_scaling --devices 2 at its defaults ({SHARED}):")
+    out["bench_scaling"] = bench_scaling.main(["--devices", "2", *cpu, *bench_argv])
+    print(f"[23d] took {time.perf_counter() - t0:.1f} s")
+    out["dp"]["nccl"] = nccl_world_one("[23b]", dev, cfg, params, graphs)
+    out["wall_s"] = time.perf_counter() - t_all
+    print(f"[23] {card}: phase 23 took {out['wall_s']:.1f} s")
+    return out
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3000,6 +3357,10 @@ def main(argv):
     baselines = phase_baselines(dev, card, argv)
     baselines["wall_s"] = time.perf_counter() - t0
     print(f"[22] {card}: phase 22 took {baselines['wall_s']:.1f} s")
+    print("[23] the parallel layer (cli.dryrun, data-parallel and edge-partitioned "
+          "steps, cli.bench_scaling) at the flagship's widths on phase 4's batch, "
+          "ranks on this one card")
+    parallel = phase_parallel(dev, card, graphs, params, cfg)
     runs = {"merged": merged, "pair": paired, "pallas": pallas,
             "unidirectional": uni, "nearfar_rt": nf_rt, "nearfar_r": nf_r,
             "nearfar_unidirectional": nf_u, "merged_k2r": k2r}
@@ -3042,9 +3403,15 @@ def main(argv):
                                               **{f"vae_{t}": v for t, v in vae.items()},
                                               **{f"baseline {t}": v
                                                  for t, v in baselines.items()
-                                                 if isinstance(v, dict) and "launches" in v}
-                                              }.items()
+                                                 if isinstance(v, dict) and "launches" in v},
+                                              "dp_rank": parallel["dp"],
+                                              "ep_rank": parallel["ep"][2]}.items()
                                              if v["launches"][name]}})
+        ep_err = [parallel["ep"][D]["probe"].get(f"bfloat16 {name}") for D in (2, 4)]
+        if ep_err[0]:
+            # every call of the EP ranks' pass at its own shapes (23c)
+            kernels[-1]["max_abs_err_by_path"] = {
+                "ep_rank": max(e["max_abs_err"] for e in ep_err)}
         if kern in vae["na"]["kernels"]["float32"]:
             r = vae["na"]["kernels"]["float32"][kern]
             kernels[-1]["vae_na_f32"] = {
@@ -3053,7 +3420,7 @@ def main(argv):
                 "library_ms": r["library_ms"]}
     print(json.dumps({**runs, "tok_driver": driver, "lp_driver": lp, "kinds": kinds,
                       "node_space": node_space, "vae": vae, "latent_scoring": scoring,
-                      "baselines": baselines,
+                      "baselines": baselines, "parallel": parallel,
                       "split_checks": split, "cross_route": cross,
                       "nearfar_cross_route": nf_cross, "ab_steps": ab,
                       "split_row": {short(k): v for k, v in split_row.items()},

@@ -68,6 +68,22 @@ def params_to_numpy(params: Dict[str, torch.Tensor]):
                            for k, v in params.items()})
 
 
+def tree_map(fn, *trees):
+    """fn over the leaves of equal-structured trees (NamedTuples, dicts,
+    tuples and lists; None stays None), as jax.tree.map maps them: the
+    walk every batch conversion and stack of this package takes."""
+    t = trees[0]
+    if t is None:
+        return None
+    if isinstance(t, dict):
+        return {k: tree_map(fn, *[x[k] for x in trees]) for k in t}
+    if isinstance(t, tuple) and hasattr(t, "_fields"):
+        return type(t)(*[tree_map(fn, *xs) for xs in zip(*trees)])
+    if isinstance(t, (tuple, list)):
+        return type(t)(tree_map(fn, *xs) for xs in zip(*trees))
+    return fn(*trees)
+
+
 def batch_to_torch(batch, device="cuda"):
     """A collated DAGBatch with every numpy array moved to `device` as a
     tensor (schedules and extras included). Done once per batch, as the
@@ -79,10 +95,6 @@ def batch_to_torch(batch, device="cuda"):
             if a.dtype == np.uint32:
                 a = a.astype(np.int64)
             return torch.as_tensor(a).to(dev)
-        if isinstance(a, dict):
-            return {k: conv(v) for k, v in a.items()}
-        if isinstance(a, tuple) and hasattr(a, "_fields"):
-            return type(a)(*[conv(v) for v in a])
         return a
 
-    return conv(batch)
+    return tree_map(conv, batch)

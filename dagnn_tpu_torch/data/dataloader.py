@@ -1,14 +1,15 @@
 """Batch loader: bucketed collation with background prefetch.
 
-A copy of dagnn_tpu/data/dataloader.py for one device, with the
-original's defaults as constants (the last short batch kept, edge budget
-1.5x the chunk, critical-path row packing). schedules=True (DAGNN) levels
-every batch; schedules=False (the baselines, whose 4-way augmented graphs
-may be cyclic) buckets by node, edge and graph counts alone (max_levels 1,
-no edge budget, no stagger) and collates with build_schedules=False, as
-the original does. The JAX package's data-parallel split (n_shards > 1,
-`split_by_nodes` / `stack_batches` of its parallel/dp.py) waits for the
-port's data-parallel path and raises NotImplementedError. An error in
+A copy of dagnn_tpu/data/dataloader.py, with the original's defaults as
+constants (the last short batch kept, edge budget 1.5x the chunk,
+critical-path row packing). schedules=True (DAGNN) levels every batch;
+schedules=False (the baselines, whose 4-way augmented graphs may be
+cyclic) buckets by node, edge and graph counts alone (max_levels 1, no
+edge budget, no stagger) and collates with build_schedules=False, as the
+original does. n_shards > 1 (data parallel, parallel/dp.py) splits each
+batch by node count (split_by_nodes), buckets every shard into the one
+PadConfig and yields the shards stacked on a leading axis
+(stack_batches), as the original does. An error in
 the prefetch thread is raised in the consumer, where the original ends
 the epoch early without one (ROADMAP queue 3). The original replaces the
 reference's torch DataLoader + device-balanced Collater
@@ -31,6 +32,7 @@ from typing import Iterator, List, Optional, Sequence
 import numpy as np
 
 from dagnn_tpu_torch.dag.batch import DAGBatch, DAGGraph, PadConfig, collate
+from dagnn_tpu_torch.parallel.dp import split_by_nodes, stack_batches
 
 
 def _round_cfg(cfg: PadConfig, mult: int = 64) -> PadConfig:
@@ -59,10 +61,6 @@ class DAGLoader:
         prefetch: int = 2,
         schedules: bool = True,
     ):
-        if n_shards != 1:
-            raise NotImplementedError(
-                "n_shards > 1 (data-parallel batches) is not ported yet: "
-                "ROADMAP queue 1, item 9 (parallel)")
         self.graphs = list(graphs)
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -75,6 +73,7 @@ class DAGLoader:
         # row layout: 2 = critical-path packing (schedule.pack_rows, the
         # production default — depth-floor row counts at ~0.95 fill)
         self.stagger = 2 if (chunk_size and schedules) else 0
+        self.n_shards = n_shards
         self.prefetch = prefetch
         self.schedules = schedules
         self._pad: Optional[PadConfig] = None
@@ -90,10 +89,13 @@ class DAGLoader:
         return out
 
     def _ensure_pad(self, batches: List[List[DAGGraph]]) -> PadConfig:
-        """One bucket for the epoch: exact max over batches, rounded so
-        shapes stabilize across epochs."""
+        """One bucket for the epoch: exact max over batches (per shard),
+        rounded so shapes stabilize across epochs."""
         worst = None
-        for s in batches:
+        shards = [s for b in batches for s in
+                  (split_by_nodes(b, self.n_shards) if self.n_shards > 1 else [b])
+                  if s]
+        for s in shards:
             if self.schedules:
                 c = PadConfig.for_graphs(s, chunk_size=self.chunk_size,
                                          edge_budget=self.edge_budget,
@@ -137,10 +139,16 @@ class DAGLoader:
         self._pad = worst
         return worst
 
-    def _collate(self, graphs: List[DAGGraph], pad: PadConfig) -> DAGBatch:
+    def _collate_one(self, graphs: List[DAGGraph], pad: PadConfig) -> DAGBatch:
         if self.schedules:
             return collate(graphs, pad)
         return collate(graphs, pad, build_schedules=False)
+
+    def _collate(self, graphs: List[DAGGraph], pad: PadConfig) -> DAGBatch:
+        if self.n_shards > 1:
+            return stack_batches([self._collate_one(s, pad) for s in
+                                  split_by_nodes(graphs, self.n_shards)])
+        return self._collate_one(graphs, pad)
 
     def __iter__(self) -> Iterator[DAGBatch]:
         batches = self._epoch_batches()

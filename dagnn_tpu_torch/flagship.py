@@ -42,16 +42,29 @@ def flagship_cfg(emb: int = 300, hidden: int = 300, vocab: int = VOCAB,
 
 
 def pad_for(graphs, chunk: int = 256, edge_budget: int = 512,
-            stagger: int = 2, pair: int = 0) -> PadConfig:
+            stagger: int = 2, pair: int = 0, n_shards: int = 1) -> PadConfig:
     """Bucket config: exact batch statistics at a fixed scan-row chunk
     width, stagger (critical-path) packing on, edge-heavy levels split
-    into extra rows of about edge_budget edges. pair > 0 adds a pair plan
-    (PadConfig.pair; 2 is the JAX bench's default, the pair-affine row
-    packer) and rounds max_levels up to even, as a pair plan needs (the
-    JAX bench does the same, bench.py:146-152). (The JAX package's
-    n_shards headroom waits for the port's data-parallel path.)"""
+    into extra rows of about edge_budget edges. n_shards > 1 (one bucket
+    for every data-parallel shard of parallel/dp.split_by_nodes) divides
+    the counts across the shards with headroom, since a shard's maxima can
+    exceed total / shards (the JAX package's `__graft_entry__._pad_for`).
+    pair > 0 adds a pair plan (PadConfig.pair; 2 is the JAX bench's
+    default, the pair-affine row packer) and rounds max_levels up to even,
+    as a pair plan needs (the JAX bench does the same, bench.py:146-152)."""
     pad = PadConfig.for_graphs(graphs, chunk_size=chunk,
                                edge_budget=edge_budget, stagger=stagger)
+    if n_shards > 1:
+        r = lambda v: int(v * 1.3) + 16
+        pad = dataclasses.replace(
+            pad,
+            max_nodes=r(pad.max_nodes / n_shards),
+            max_edges=r(pad.max_edges / n_shards),
+            max_graphs=max(1, len(graphs) // n_shards) + 2,
+            max_levels=pad.max_levels + 8,
+            edges_per_level=r(pad.edges_per_level),
+            tgrad_per_level=r(pad.tgrad_per_level) if pad.tgrad_per_level else 0,
+        )
     if pair:
         pad = dataclasses.replace(pad, pair=pair,
                                   max_levels=pad.max_levels + pad.max_levels % 2)

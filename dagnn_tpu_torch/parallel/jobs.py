@@ -1,0 +1,226 @@
+"""Rank-side procedures that mesh.spawn runs: a data-parallel or an
+edge-partitioned step on host data, returning numpy.
+
+Each job takes the rank's device first (spawn passes it), then host
+inputs: a config, the parameters as a flat dict of numpy arrays (the
+port's dotted keys), collated host batches. It builds its mesh from the
+default process group, moves its share of the batch to its device, and
+returns a dict of numpy arrays and numbers: the loss and the raw
+gradients of the step's averaged or summed reduction (rank 0's; every
+rank's digest of them), the kernel launch counts of the gradient pass,
+and, when asked for steps, the losses, the step times and a digest of the
+parameters after them. cli/dryrun.py,
+cli/bench_scaling.py, chip_smoke.py and the CPU tests run them.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import time
+
+import numpy as np
+import torch
+
+from dagnn_tpu_torch.parallel import comm
+from dagnn_tpu_torch.parallel.mesh import make_hybrid_mesh, make_mesh
+
+
+def _counted():
+    from dagnn_tpu_torch.ops import pair_step, row_step, segment_attn
+    return (row_step, pair_step, segment_attn)
+
+
+def reset_counts():
+    for m in _counted():
+        m.reset_launch_counts()
+
+
+def read_counts() -> dict:
+    """Every kernel wrapper's launch count."""
+    return {k: v for m in _counted() for k, v in m.launch_counts.items()}
+
+
+def _params(params_np, dev):
+    return {k: torch.as_tensor(np.asarray(v)).to(dev) for k, v in params_np.items()}
+
+
+def _np(tree: dict) -> dict:
+    return {k: v.detach().float().cpu().numpy() for k, v in tree.items()}
+
+
+def digest(tree: dict) -> str:
+    """A hash of a dict of tensors' bits (key order and values): ranks
+    compare it instead of sending the tensors."""
+    h = hashlib.sha256()
+    for k, v in tree.items():
+        h.update(k.encode())
+        h.update(v.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _grads_out(grads: dict, rank: int) -> dict:
+    """Rank 0's gradients as numpy; every rank's digest of them."""
+    return {"grads": _np(grads) if rank == 0 else None, "grads_digest": digest(grads)}
+
+
+def loss_of(task: str):
+    """loss_head(logits, y, graph_mask) of the TOK or LP task."""
+    from dagnn_tpu_torch.train.losses import class_loss, tok_loss
+    if task == "tok":
+        return lambda logits, y, gm: tok_loss(logits, y["y_arr"], gm)
+    return lambda logits, y, gm: class_loss(logits, y["len_longest_path"], gm)
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _run_steps(step, params, opt, inputs, steps, dev):
+    """`steps` optimizer steps; (params, losses, seconds of each step)."""
+    state, losses, secs = opt.init(params), [], []
+    for _ in range(steps):
+        _sync(dev)
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, inputs)
+        _sync(dev)
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    return params, losses, secs
+
+
+def dp_job(dev, cfg, params_np, stacked, steps: int = 0):
+    """make_dp_train_step (the TOK loss, the drivers' Adam) over every
+    rank, on this rank's shard of the stacked host batch: the averaged
+    (loss, grads) and the launches of that pass; then `steps` steps."""
+    from dagnn_tpu_torch.nn.dagnn import dagnn_forward
+    from dagnn_tpu_torch.parallel.dp import make_dp_train_step
+    from dagnn_tpu_torch.train.optim import make_optimizer
+    mesh = make_mesh(None, ("dp",))
+    head = loss_of("tok")
+
+    def loss_fn(p, b, rng):
+        logits = dagnn_forward(p, cfg, b, rng=rng, train=cfg.dropout > 0)
+        dv = logits.device
+        return head(logits, {k: torch.as_tensor(v, device=dv) for k, v in b.y.items()},
+                    torch.as_tensor(b.graph_mask, device=dv))
+
+    opt = make_optimizer()
+    step = make_dp_train_step(loss_fn, opt, mesh.groups["dp"])
+    batch = step.shard(stacked, dev)
+    params = _params(params_np, dev)
+    reset_counts()
+    loss, grads = step.grads(params, batch)
+    _sync(dev)
+    rank = comm.rank(mesh.group)
+    out = {"loss": float(loss), **_grads_out(grads, rank), "counts": read_counts(),
+           "rows": int(batch.fwd.node_ids.shape[0]), "rank": rank,
+           "route": comm.route(mesh.groups["dp"])}
+    if steps:
+        params, out["losses"], out["step_s"] = _run_steps(
+            step, params, opt, batch, steps, dev)
+        out["params_digest"] = digest(params)
+    return out
+
+
+def ep_plans(batch, n_ep: int):
+    """Both directions' sharded-state plans of a host batch, with the
+    seconds they took and those of the deferred entries' greedy stage-row
+    loop among them."""
+    from dagnn_tpu_torch.parallel import edge_partition as ep
+    times = {"stage_rows_s": 0.0}
+    t0 = time.perf_counter()
+    plans = (ep.partition_schedule_sharded(batch.fwd, n_ep, times=times),
+             ep.partition_schedule_sharded(batch.rev, n_ep, times=times))
+    return plans, time.perf_counter() - t0, times["stage_rows_s"]
+
+
+def ep_job(dev, cfg, params_np, batches, mesh_shape, dp_axis: bool = False,
+           steps: int = 0, probe: bool = False):
+    """make_ep_train_step on the (dp, ep) mesh `mesh_shape`: dp group i
+    trains batches[i] (one host batch for every group when dp_axis is
+    False: then each dp group is an independent copy of one ep run and
+    nothing is averaged over dp), edge-partitioned over ep. Returns the
+    (loss, grads) of the step's reduction (the TOK loss, the drivers'
+    Adam), the launches of that pass, the plan's seconds and wire
+    accounting. With probe, one more pass through a checks.KernelProbe
+    holds every K6 / K5 call of the rank against its plain version
+    (after the launches are read); then `steps` steps."""
+    from dagnn_tpu_torch.checks import KernelProbe
+    from dagnn_tpu_torch.parallel import edge_partition as ep
+    from dagnn_tpu_torch.train.optim import make_optimizer
+    n_dp, n_ep = mesh_shape
+    mesh = make_hybrid_mesh(n_dp, n_ep)
+    batch = batches[mesh.coords["dp"]] if dp_axis else batches[0]
+    plans, plan_s, greedy_s = ep_plans(batch, n_ep)
+    aux = ep.ep_readout_aux(batch, [e for e, _ in plans], cfg)
+    opt = make_optimizer()
+    step = ep.make_ep_train_step(cfg, mesh, loss_of("tok"), opt, "ep",
+                                 "dp" if dp_axis else None)
+    inputs = step.shard(batch, plans, aux, dev)
+    params = _params(params_np, dev)
+    reset_counts()
+    loss, grads = step.grads(params, inputs)
+    _sync(dev)
+    eps_f, st_f = plans[0]
+    rank = comm.rank(mesh.group)
+    out = {"loss": float(loss), **_grads_out(grads, rank), "counts": read_counts(),
+           "rows": [st.rows for _, st in plans], "plan_s": plan_s,
+           "greedy_s": greedy_s, "deferred": int(eps_f.d_send_mask.sum()),
+           "wire": ep.ep_wire_stats(eps_f, cfg.hidden_dim,
+                                    2 if cfg.compute_dtype == "bfloat16" else 4),
+           "statics": [dict(vars(st)) for _, st in plans],
+           "route": comm.route(mesh.groups["ep"]), "rank": rank}
+    if probe:
+        kp = KernelProbe()
+        _, pg = ep.make_ep_train_step(cfg, mesh, loss_of("tok"), opt, "ep",
+                                      "dp" if dp_axis else None,
+                                      kp.impl()).grads(params, inputs)
+        out["probe"] = {**kp.report(), "grads_digest": digest(pg)}
+    if steps:
+        params, out["losses"], out["step_s"] = _run_steps(
+            step, params, opt, inputs, steps, dev)
+        out["params_digest"] = digest(params)
+    return out
+
+
+def ep_forward_job(dev, cfg, params_np, batch, mesh_shape):
+    """Scheme 1 (replicated states) over the 'ep' groups of the (dp, ep)
+    mesh `mesh_shape` (each dp group a copy): direction 0's node states
+    [nl, N+1, H] of the host batch."""
+    from dagnn_tpu_torch.nn.dagnn import _encode
+    from dagnn_tpu_torch.parallel import edge_partition as ep
+    mesh = make_hybrid_mesh(*mesh_shape)
+    params = _params(params_np, dev)
+    fwd = ep.make_ep_forward(cfg, mesh.groups["ep"])
+    with torch.no_grad():
+        x = _encode(params, cfg, batch, dev)
+        h = fwd(params, x, batch.edge_attr,
+                ep.partition_schedule(batch.fwd, mesh_shape[1]))
+    return {"states": h.float().cpu().numpy(), "route": comm.route(mesh.groups["ep"])}
+
+
+def mesh_probe_job(dev, mesh_shape):
+    """The (dp, ep) mesh's coordinates and its collectives on small
+    tensors: a sum over ep and a gather over dp of x = rank + 1 with their
+    backward through 3 * sum + <gathered, (1, 10)>, and an exchange of
+    per-peer bf16 blocks [1, Dp, 3, 1] holding 10 * rank + j."""
+    mesh = make_hybrid_mesh(*mesh_shape)
+    me = torch.distributed.get_rank()
+    x = torch.tensor([float(me + 1)], device=dev, requires_grad=True)
+    s = comm.sum_over_ranks(x * 1.0, mesh.groups["ep"])
+    gathered = comm.gather_over_ranks(x * 1.0, mesh.groups["dp"])
+    w = torch.tensor([[1.0], [10.0]], device=dev)[:mesh_shape[0]]
+    (s * 3.0 + (gathered * w).sum()).backward()
+    n_ep = mesh_shape[1]
+    blk = (torch.arange(n_ep * 3, device=dev, dtype=torch.float32).reshape(1, n_ep, 3, 1)
+           % 3 + 10 * me).to(torch.bfloat16)
+    return {"coords": mesh.coords, "sum": float(s), "grad": float(x.grad),
+            "gathered": gathered.detach().reshape(-1).tolist(),
+            "exchange": comm.exchange(blk, mesh.groups["ep"]).float().reshape(-1).tolist(),
+            "route": comm.route(mesh.groups["ep"])}
+
+
+def run_jobs(dev, jobs):
+    """Several jobs in one process group, in order: [(fn, kwargs), ...]."""
+    return [fn(dev, **kw) for fn, kw in jobs]

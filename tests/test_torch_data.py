@@ -149,8 +149,14 @@ def test_dagloader_matches_original(seed, prefetch):
 
 
 def test_dagloader_refusals():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tloader.DAGLoader([], 8, n_shards=2)
+    """n_shards > 1 is taken (no refusal): each batch comes as its
+    node-balanced shards stacked on a leading axis
+    (tests/test_torch_parallel.py holds them to the original's)."""
+    tloader.DAGLoader([], 8, n_shards=2)
+    graphs = tsyn.synthetic_ast_batch(7, 16, mean_nodes=20, vocab=20, seq_len=5)
+    batches = list(tloader.DAGLoader(graphs, 8, chunk_size=32, n_shards=2))
+    assert len(batches) == 2
+    assert all(b.graph_mask.shape[0] == 2 and b.x.shape[0] == 2 for b in batches)
 
 
 def test_dagloader_prefetch_error_raised(monkeypatch):

@@ -1,7 +1,7 @@
 """The port stands alone: it imports with jax absent (every module, the
-latent scoring and the other VAEs among them), none of its modules (nor
-chip_smoke.py) imports the JAX package, and its entry points run on the
-CUDA device unless the caller asks for the CPU."""
+latent scoring, the other VAEs and the parallel layer among them), none
+of its modules (nor chip_smoke.py) imports the JAX package, and its entry
+points run on the CUDA device unless the caller asks for the CPU."""
 
 import ast
 import os
@@ -127,6 +127,32 @@ def test_latent_scoring_runs_without_jax(tmp_path):
     assert out.stdout.rstrip().endswith("ok") and "1 seeds" in out.stdout
     assert (tmp_path / "g" / "final_structures6_latent_epoch1.mat").exists()
     assert (tmp_path / "bo" / "Test_RMSE_ll.txt").exists()
+
+
+def test_parallel_runs_without_jax(tmp_path):
+    """The dry run's ranks (data parallel, both edge-partitioned schemes)
+    with jax and the JAX package absent from the parent, whose modules the
+    spawned ranks import again."""
+    code = ("import sys, torch, importlib.abc\n"
+            "torch.set_num_threads(1)\n"
+            "class Absent(importlib.abc.MetaPathFinder):\n"
+            "    def find_spec(self, name, path, target=None):\n"
+            "        if name.split('.')[0] in ('jax', 'jaxlib', 'optax', 'flax',"
+            " 'dagnn_tpu'):\n"
+            "            raise ImportError(name)\n"
+            "sys.meta_path.insert(0, Absent())\n"
+            "from dagnn_tpu_torch.cli import dryrun\n"
+            "if __name__ == '__main__':\n"
+            "    dryrun.main(['--ranks', '2', '--cpu', '--timeout', '120'])\n"
+            "    print('ok')\n")
+    script = tmp_path / "run.py"
+    script.write_text(code)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, str(script)], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.rstrip().endswith("ok")
+    assert "edge-partitioned pass ok" in out.stdout
 
 
 @pytest.mark.parametrize("path", sorted(

@@ -1,8 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: the flagship TOK train step,
 the TOK and LP training drivers, every aggregator kind, the NA/BN VAE
 driver with every --model, latent scoring with Bayesian optimisation, the
-ogbg-code2 baselines, and the parallel layer (data-parallel and
-edge-partitioned ranks sharing the card).
+ogbg-code2 baselines, the parallel layer (data-parallel and
+edge-partitioned ranks sharing the card), and the bench with the tools.
 
 Drives dagnn_tpu_torch (never the JAX package) through the entry points a
 user calls, at the flagship's full width (emb/hidden 300, 160 synthetic
@@ -209,6 +209,29 @@ split form), the merged and unidirectional wavefronts on near/far batches
       layers, K5 3); the plan's seconds (and its greedy stage-row loop's),
       the wire accounting and a bf16 step's time
   23d. cli.bench_scaling --devices 2 at its defaults, its JSON line
+  the bench and the tools (dagnn_tpu_torch/bench.py, dagnn_tpu_torch/
+  scripts/), in process; launch counts set to 0 before each bench run and
+  read after it:
+  24a. bench.main --roofline on the pair default and with --nopair: one
+      metric line and one roofline line, a finite positive edges/s,
+      model_tflops equal to roofline.model_flops of the same batch, mfu in
+      (0, 1.05], the device's busy share in (0, 1], K3/K4 P (K1/K2 L) per
+      train step and no other kernel; the edges/s beside phase 6 / 6b's
+      (information); then DAGNN_BENCH_STEPS=17: one group of 17 steps
+      timed
+  24b. scripts.microbench_row_kernel: each width's (H 300, 384, 256) K1/K2
+      call against the plain versions at phase 3's bf16 gates, then its
+      main (82 calls from one CUDA graph, and eager)
+  24c. scripts.microbench_pair_kernel: its pair step's K3/K4 and merged
+      row's K1/K2 against the plain versions, then its main
+  24d. scripts.ep_decompose: the plan statistics against a direct call of
+      the planner; DP x1 and EP x1 in a world-size-1 NCCL group, EP x1's
+      K6 / K5 launches as its plan's rows derive them, DP x1's K1/K2 only,
+      each profile's categories within 2% of its device time
+  24e. scripts.rehearse_preprocess --graphs 20000 (host work, its own
+      process, run beside 24b-24d): every stage reported
+  24f. scripts.bn_ceiling --seeds 1 on the synthetic BN rows: finite RMSE,
+      ll and Pearson r
 
 The second-to-last line is the kernel table as JSON, the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero.
@@ -233,6 +256,13 @@ import time
 
 import numpy as np
 import torch
+
+from dagnn_tpu_torch.ops import read_launch_counts as read_counts
+from dagnn_tpu_torch.ops import reset_launch_counts as reset_counts
+# each launch's bytes and operations, and its bound at the H100's peaks
+from dagnn_tpu_torch.roofline import (bound_ms, kernel_costs, recompute_costs,
+                                      segment_costs, tg_costs)
+from dagnn_tpu_torch.utils.timing import time_ms, timings
 
 # tolerances, as max|kernel - plain| on the output's or weight grad's own
 # max|plain| (dagnn_tpu_torch.checks):
@@ -266,11 +296,6 @@ TIE_AWARE_LEAF_TOL = 0.3
 # same function (the JAX package's own layout test, tests/test_pair.py:
 # 105-112): loss and norm 1e-5 relative; every grad leaf within rtol / atol
 CROSS_TOL = {"loss": 1e-5, "rtol": 5e-4, "atol": 5e-5}
-PEAK_BYTES = 3.35e12                     # H100 SXM HBM3, bytes/s
-PEAK_OPS = {torch.bfloat16: 989e12,      # dense tensor-core bf16
-            torch.float32: 67e12}        # float32 outside the tensor cores
-# K5 and K6 do their arithmetic in float32 on the CUDA cores whatever the
-# operands' type, so their operations are bounded at the float32 rate
 FLAGSHIP = dict(kn=256, ke=512, kt=512, H=300, emb=300, nl=2, R=2, nd=2)
 WIDTH = dict(H=300, emb=300, nl=2, R=2)
 
@@ -291,38 +316,10 @@ def gpu_line():
     return out.stdout.strip().splitlines()[0] if out.stdout.strip() else "unknown"
 
 
-def time_ms(fn, reps):
-    """Mean device time of fn() in ms (CUDA events around reps calls)."""
-    fn()
-    torch.cuda.synchronize()
-    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
-
-
-def timings(fn, reps=50):
-    """A call's time two ways, each the median of three windows of `reps`
-    calls: `ms` on the device alone (the calls captured in one CUDA graph,
-    the graph replayed, so the host's issue time between launches drops
-    out) and `call_ms` per eager call (host issue included: what a caller
-    that launches one call after another waits). The windows beside."""
-    call = [time_ms(fn, reps) for _ in range(3)]
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()                                  # warm-up on a side stream
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    dev = [time_ms(graph.replay, 1) / reps for _ in range(3)]
-    return dict(ms=sorted(dev)[1], windows=dev, call_ms=sorted(call)[1],
-                call_windows=call)
+def sync():
+    """Wait for the card (a CPU rehearsal has none to wait for)."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
 
 
 def fmt_windows(w):
@@ -442,155 +439,73 @@ def pair_inputs(dt, dev, plan, kn, p, seed=1, H=300, emb=300, nl=2, R=2):
     return (True, H, nl), _to_dev(d, dt, dev), weights
 
 
-def kernel_costs(static, d, weights, dt):
-    """(forward bytes, forward ops, backward bytes, backward ops) of one row
-    (K1/K2) or pair (K3/K4) call: each input read once, each output written
-    once; operations counted on this call's valid edges."""
-    has_ea, H, nl = static
-    es = torch.tensor([], dtype=dt).element_size()
-    kn2, emb = d["xin"].shape
-    ke2 = d["edst"].shape[0]
-    R = d["ea"].shape[1]
-    ne = int((d["emask"] > 0).sum())
-    nt = int((d["tmask"] > 0).sum())
-    nb = lambda t: t.numel() * t.element_size()
-    wsum = lambda names: sum(nb(weights[k]) for k in names)
-    fwd_w = [k for k in weights if k.split("_", 1)[1] in
-             ("wq", "wk", "b", "we", "be", "w_ih", "w_hh", "b_ih", "b_hh")]
-    bwd_w = [k for k in weights if k.split("_", 1)[1] in
-             ("wqr", "wkr", "we", "be", "w_ih", "w_hh", "b_hh")]
-    idx = sum(nb(d[k]) for k in ("edst", "emask", "nmask", "nsrc") if k in d)
-    # K7: the previous row's outputs (read by the near edges)
-    row_in = nb(d["xin"]) + nb(d["vals"]) + nb(d["ea"]) + idx \
-        + (nb(d["prev_out"]) if "prev_out" in d else 0)
-    out1 = kn2 * nl * H * es + ke2 * nl * 4 + kn2 * 4 * nl * H * es
-    f_bytes = row_in + wsum(fwd_w) + out1
-    gemm = 0
-    attn = 0
-    for l in range(nl):
-        din = emb if l == 0 else H
-        gemm += 2 * kn2 * 3 * H * (din + H)                  # gates
-        attn += kn2 * din * 2 + ne * H * (2 * R + 2 + 2 + 2)   # q/k scores, agg
-    f_ops = gemm + attn
-    res = ke2 * nl * 4 + kn2 * 4 * nl * H * es
-    # K7: the next row's near grads in, this row's out (near_g_out)
-    near = 2 * nb(d["near_g"]) if "near_g" in d else 0
-    b_in = row_in + wsum(bwd_w) + nb(d["g"]) + nb(d["tg"]) + nb(d["tdst"]) \
-        + nb(d["tmask"]) + res
-    dw = sum(weights[k].numel() * 4 for k in weights
-             if k.split("_", 1)[1] in ("wq", "wk", "b", "we", "be", "w_ih",
-                                       "w_hh", "b_ih", "b_hh"))
-    b_out = nb(d["xin"]) + nb(d["vals"]) + nb(d["ea"]) + dw
-    b_bytes = b_in + b_out + near
-    b_ops = nt * nl * H
-    if "near_g" in d:       # K7's near-grad sums (a merged row: Kn = kn2 / 2)
-        b_ops += int((d["nsrc"] < kn2 // 2).sum()) * nl * H
-    for l in range(nl):
-        din = emb if l == 0 else H
-        b_ops += 2 * kn2 * 3 * H * (2 * din + 2 * H) + 2 * kn2 * H * H
-        b_ops += ne * H * (4 * R + 12) + kn2 * din * 4
-    return f_bytes, f_ops, b_bytes, b_ops
-
-
-def recompute_costs(static, d, weights, dt):
-    """(bytes, ops) of one K2r call: K2's inputs and outputs without the
-    residual streams, plus the forward weights K2 does not read; K1's and
-    K2's operations."""
-    has_ea, H, nl = static
-    f_bytes, f_ops, b_bytes, b_ops = kernel_costs(static, d, weights, dt)
-    es = torch.tensor([], dtype=dt).element_size()
-    kn2, ke2 = d["xin"].shape[0], d["edst"].shape[0]
-    res = ke2 * nl * 4 + kn2 * 4 * nl * H * es
-    fwd_only = sum(weights[k].numel() * weights[k].element_size() for k in weights
-                   if k.split("_", 1)[1] in ("wq", "wk", "b", "b_ih"))
-    return b_bytes - res + fwd_only, f_ops + b_ops
-
-
-def segment_costs(ke, ne, ns, S, H, es):
-    """(forward bytes, forward ops, backward bytes, backward ops) of one K6
-    call at es bytes an element. Read once: dst and mask of all ke edges,
-    the scores and value rows of the ne valid edges only (the masked ones
-    do not enter the function), and in the backward the cotangent rows of
-    the ns slots that have a valid edge. Written once: the full output
-    [S, H] (forward), d_scores [ke] and d_values [ke, H] (backward).
-    Operations on the ne valid edges (the weighted sum; the dot, the value
-    grads and the score grad)."""
-    in_b = ke * 8 + ne * es + ne * H * es
-    return (in_b + S * H * es, ne * (2 * H + 5),
-            in_b + ns * H * es + ke * es + ke * H * es, ne * (3 * H + 8))
-
-
-def tg_costs(kn, kt, nt, c, es):
-    """(bytes, ops) of one K5 call: g read and the output written [Kn, C],
-    tdst and tmask of all kt rows, the tg rows of the nt valid transpose
-    edges only; an add per element of g and of each valid tg row."""
-    return 2 * kn * c * es + nt * c * es + kt * 8, (nt + kn) * c
-
-
-def bound_ms(nbytes, ops, dt):
-    tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_OPS[dt] * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
-
-
-def phase_kernels(spec):
-    """Phases 3 / 3b: a forward kernel and its backward against their plain
-    versions on one call's inputs (spec["inputs"](dt)), in bf16 and f32.
-    Forward outputs on their own max|plain|; backward outputs and weight
-    grads on their own max|plain| with the elements that are zero in exact
-    arithmetic (the float32 plain run on the same inputs tells them apart)
-    held to the noise bound. Times (`timings`): on the device and per eager
-    call, each the median of three windows of 50 launches; the plain
-    version's mean of 5 eager calls."""
+def hold_kernels(spec, dt):
+    """A forward kernel and its backward against their plain versions on
+    one call's inputs (spec["inputs"](dt)): forward outputs on their own
+    max|plain|; backward outputs and weight grads on their own max|plain|
+    with the elements that are zero in exact arithmetic (the float32 plain
+    run on the same inputs tells them apart) held to the noise bound.
+    Returns (static, inputs, weights, the plain forward's residuals, the
+    forward and backward as fn(impl, ...), the worst error by kernel)."""
     from dagnn_tpu_torch import checks
     kf_name, kb_name = spec["names"]
     # keyword arguments of the forward and the backward, from the inputs
     fkw = spec.get("fkw", lambda d: spec["kw"])
     bkw = spec.get("bkw", lambda d: spec["kw"])
+    st, d, w = spec["inputs"](dt)
+    fwd = lambda fn, d, w, emit: fn(*spec["fargs"](st, d, w), emit_res=emit,
+                                    **fkw(d))
+    bwd = lambda fn, d, w, res: fn(*spec["bargs"](st, d, w, res), **bkw(d))
+    kf = fwd(spec["fwd"], d, w, True)
+    pf = fwd(spec["fwd_plain"], d, w, True)
+    sync()
+    errs, noise = {}, {}
+    for name, a, b in zip(("out", "alpha32", "nres"), kf, pf):
+        errs[f"{kf_name}.{name}"] = checks.rel_err(a, b)
+    # the backward on identical inputs: the plain forward's residuals
+    res = (pf[1], pf[2])
+    kb = bwd(spec["bwd"], d, w, res)
+    pb = bwd(spec["bwd_plain"], d, w, res)
+    sync()
+    fd, fw = checks.to_f32(d), checks.to_f32(w)
+    truth = bwd(spec["bwd_plain"], fd, fw,
+                fwd(spec["fwd_plain"], fd, fw, True)[1:])
+    # outputs: dx, dvals, dea and (K7) near_g_out; kb[3] the weight grads
+    outs = [(n, i) for n, i in (("dx", 0), ("dvals", 1), ("dea", 2),
+                                ("near_g_out", 4)) if i < len(pb)]
+    leaves = [(n, kb[i], pb[i], truth[i], checks.tree_max({n: truth[i]}))
+              for n, i in outs]
+    tmax = checks.tree_max(truth[3])
+    leaves += [(f"dw[{k}]", kb[3][k], pb[3][k], truth[3][k], tmax) for k in pb[3]]
+    for n, a, b, t, m in leaves:
+        rel, ab, scale, nz = checks.grad_err(a, b, t, m)
+        errs[f"{kb_name}.{n}"] = (rel, ab, scale)
+        noise[f"{kb_name}.{n}"] = nz
+    tol = TOL[dt]
+    worst = {}
+    for k, (rel, ab, scale) in errs.items():
+        kern = k.split(".")[0]
+        worst[kern] = max(worst.get(kern, (0, 0, 0, "")), (rel, ab, scale, k))
+    for kern, (rel, ab, scale, k) in sorted(worst.items()):
+        print(f"  {kern} {short(dt)}: worst {k} max_abs_err {ab:.3e} of "
+              f"max|plain| {scale:.3e}, rel {rel:.3e} (tolerance {tol:g})")
+    nk = max(noise, key=noise.get)
+    print(f"  {kb_name} {short(dt)}: exact-zero elements, worst {nk} "
+          f"{noise[nk]:.3g} x the plain version's noise (tolerance {NOISE_TOL:g})")
+    bad = [k for k, (rel, ab, scale) in errs.items() if not rel <= tol]
+    bad += [k for k, v in noise.items() if not v <= NOISE_TOL]
+    check(not bad, f"{dt}: kernel disagrees with plain on {bad}")
+    return st, d, w, res, fwd, bwd, worst
+
+
+def phase_kernels(spec):
+    """Phases 3 / 3b: hold_kernels in bf16 and f32, then times (`timings`):
+    on the device and per eager call, each the median of three windows of
+    50 launches; the plain version's mean of 5 eager calls."""
+    kf_name, kb_name = spec["names"]
     results = {}
     for dt in (torch.bfloat16, torch.float32):
-        st, d, w = spec["inputs"](dt)
-        fwd = lambda fn, d, w, emit: fn(*spec["fargs"](st, d, w), emit_res=emit,
-                                        **fkw(d))
-        bwd = lambda fn, d, w, res: fn(*spec["bargs"](st, d, w, res), **bkw(d))
-        kf = fwd(spec["fwd"], d, w, True)
-        pf = fwd(spec["fwd_plain"], d, w, True)
-        torch.cuda.synchronize()
-        errs, noise = {}, {}
-        for name, a, b in zip(("out", "alpha32", "nres"), kf, pf):
-            errs[f"{kf_name}.{name}"] = checks.rel_err(a, b)
-        # the backward on identical inputs: the plain forward's residuals
-        res = (pf[1], pf[2])
-        kb = bwd(spec["bwd"], d, w, res)
-        pb = bwd(spec["bwd_plain"], d, w, res)
-        torch.cuda.synchronize()
-        fd, fw = checks.to_f32(d), checks.to_f32(w)
-        truth = bwd(spec["bwd_plain"], fd, fw,
-                    fwd(spec["fwd_plain"], fd, fw, True)[1:])
-        # outputs: dx, dvals, dea and (K7) near_g_out; kb[3] the weight grads
-        outs = [(n, i) for n, i in (("dx", 0), ("dvals", 1), ("dea", 2),
-                                    ("near_g_out", 4)) if i < len(pb)]
-        leaves = [(n, kb[i], pb[i], truth[i], checks.tree_max({n: truth[i]}))
-                  for n, i in outs]
-        tmax = checks.tree_max(truth[3])
-        leaves += [(f"dw[{k}]", kb[3][k], pb[3][k], truth[3][k], tmax) for k in pb[3]]
-        for n, a, b, t, m in leaves:
-            rel, ab, scale, nz = checks.grad_err(a, b, t, m)
-            errs[f"{kb_name}.{n}"] = (rel, ab, scale)
-            noise[f"{kb_name}.{n}"] = nz
-        tol = TOL[dt]
-        worst = {}
-        for k, (rel, ab, scale) in errs.items():
-            kern = k.split(".")[0]
-            worst[kern] = max(worst.get(kern, (0, 0, 0, "")), (rel, ab, scale, k))
-        for kern, (rel, ab, scale, k) in sorted(worst.items()):
-            print(f"  {kern} {short(dt)}: worst {k} max_abs_err {ab:.3e} of "
-                  f"max|plain| {scale:.3e}, rel {rel:.3e} (tolerance {tol:g})")
-        nk = max(noise, key=noise.get)
-        print(f"  {kb_name} {short(dt)}: exact-zero elements, worst {nk} "
-              f"{noise[nk]:.3g} x the plain version's noise (tolerance {NOISE_TOL:g})")
-        bad = [k for k, (rel, ab, scale) in errs.items() if not rel <= tol]
-        bad += [k for k, v in noise.items() if not v <= NOISE_TOL]
-        check(not bad, f"{dt}: kernel disagrees with plain on {bad}")
+        st, d, w, res, fwd, bwd, worst = hold_kernels(spec, dt)
         ft = timings(lambda: fwd(spec["fwd"], d, w, True))
         pf_ms = time_ms(lambda: fwd(spec["fwd_plain"], d, w, True), 5)
         bt = timings(lambda: bwd(spec["bwd"], d, w, res))
@@ -1266,15 +1181,14 @@ def profile_step(tag, train_step, params, state, batch, card, out_dir):
     path = profiling.profile_step(lambda: train_step(params, state, batch), iters=1,
                                   logdir=out_dir, name=f"step_trace_{tag}.json")
     dev = profiling.device_events(path)
-    if not dev:
+    occ = profiling.device_busy(dev)
+    if occ is None:
         print(f"[profile {tag}] the trace holds no device events: not measured")
         return None
-    t0 = min(e["ts"] for e in dev)
-    t1 = max(e["ts"] + e["dur"] for e in dev)
-    busy = sum(e["dur"] for e in dev)
-    print(f"[profile {tag}] device span {(t1 - t0) / 1e3:.2f} ms, busy "
-          f"{busy / 1e3:.2f} ms ({100 * busy / (t1 - t0):.1f}%), "
-          f"{len(dev)} device events, on {card}")
+    span, busy = occ["span_us"], occ["busy_us"]
+    print(f"[profile {tag}] device span {span / 1e3:.2f} ms, busy "
+          f"{busy / 1e3:.2f} ms ({100 * occ['share']:.1f}%), "
+          f"{occ['events']} device events, on {card}")
     rows = profiling.summarize_trace(path, top=12)
     for r in rows:
         print(f"    {r['total_us'] / 1e3:9.3f} ms {100 * r['total_us'] / busy:5.1f}%  "
@@ -1287,23 +1201,9 @@ def profile_step(tag, train_step, params, state, batch, card, out_dir):
             f"{k} {sum(d) / 1e3:.3f} ms in {len(d)} launches" for k, d in k6.items())
             + f"; together {tot / 1e3:.3f} ms of the step's busy {busy / 1e3:.2f} ms "
             f"({100 * tot / busy:.1f}%)")
-    return dict(span_ms=(t1 - t0) / 1e3, busy_ms=busy / 1e3, busy_share=busy / (t1 - t0),
-                events=len(dev), top_ms={r["name"]: r["total_us"] / 1e3 for r in rows},
+    return dict(span_ms=span / 1e3, busy_ms=busy / 1e3, busy_share=occ["share"],
+                events=occ["events"], top_ms={r["name"]: r["total_us"] / 1e3 for r in rows},
                 k6={k: dict(ms=sum(d) / 1e3, launches=len(d)) for k, d in k6.items()})
-
-
-def _counted_modules():
-    from dagnn_tpu_torch.ops import pair_step, row_step, segment_attn
-    return (row_step, pair_step, segment_attn)
-
-
-def reset_counts():
-    for m in _counted_modules():
-        m.reset_launch_counts()
-
-
-def read_counts():
-    return {k: v for m in _counted_modules() for k, v in m.launch_counts.items()}
 
 
 def check_counts(label, tag, expect):
@@ -3123,6 +3023,247 @@ def phase_parallel(dev, card, graphs, params, cfg, bench_argv=()):
     return out
 
 
+# ----------------------------------------- the bench and the tools (phase 24)
+
+def _bench_run(label, argv, env=None):
+    """dagnn_tpu_torch.bench.main(argv) in process (env set around it), its
+    standard output echoed; returns (its result, the JSON lines it printed,
+    the launch counts of the run)."""
+    import io
+    from dagnn_tpu_torch import bench
+    reset_counts()
+    old = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            res = bench.main(argv)
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    lc = read_counts()
+    text = buf.getvalue()
+    print("\n".join(f"{label} {ln}" for ln in text.strip().splitlines()))
+    return res, [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")], lc
+
+
+def phase_bench(dev, card, eps_events):
+    """24a: python -m dagnn_tpu_torch.bench --roofline on the pair default
+    and with --nopair. eps_events: phase 6 / 6b's edges/s (CUDA events) by
+    path, or None."""
+    from dagnn_tpu_torch import bench, flagship, roofline
+    from dagnn_tpu_torch.dag.batch import collate
+    from dagnn_tpu_torch.data.synthetic import synthetic_ast_batch
+    cpu = ["--cpu"] if dev.type == "cpu" else []
+    counted = dev.type == "cuda"
+    cfg = flagship.flagship_cfg(emb=bench.WIDTH, hidden=bench.WIDTH)
+    graphs = synthetic_ast_batch(0, bench.GRAPHS, mean_nodes=bench.MEAN_NODES)
+    out = {}
+    for tag, argv, pair, names in (
+            ("pair", [], 2, ("pair_forward", "pair_backward")),
+            ("merged", ["--nopair"], 0, ("row_forward", "row_backward"))):
+        host = collate(graphs, flagship.pad_for(graphs, pair=pair))
+        steps = host.pair.edst.shape[0] if pair else host.fwd.node_ids.shape[0]
+        t0 = time.perf_counter()
+        res, lines, lc = _bench_run(f"[24a] {tag}:", ["--roofline", *argv, *cpu])
+        secs = time.perf_counter() - t0
+        check([ln.get("metric") for ln in lines] == ["edges_per_s_per_chip_fwdbwd",
+                                                     "roofline"],
+              f"bench {tag}: printed {len(lines)} JSON lines, not the metric and "
+              f"the roofline line")
+        m, r = lines
+        check(math.isfinite(m["value"]) and m["value"] > 0, f"bench {tag}: {m['value']}")
+        model = roofline.model_flops(cfg, host) / 1e12
+        check(r["model_tflops"] == model, f"bench {tag}: model_tflops "
+              f"{r['model_tflops']} is not roofline.model_flops's {model}")
+        passes = res["passes"]
+        want = {**{k: 0 for k in lc},
+                **({names[0]: steps * passes, names[1]: steps * passes} if counted else {})}
+        print(f"[24a] {tag}: launch counts {lc}, expected {want} ({passes} train "
+              f"steps of {steps} scan steps)")
+        check(lc == want, f"bench {tag}: launch counts differ from its steps")
+        if counted:
+            check(0 < r["mfu"] <= 1.05 and 0 < r["device_busy_share"] <= 1,
+                  f"bench {tag}: mfu {r['mfu']}, busy share {r['device_busy_share']}")
+            ref = (eps_events or {}).get(tag)
+            print(f"[24a] {tag}: {m['value']:.1f} edges/s on the host clock, "
+                  f"{r['us_per_step']:.1f} us a scan step, mfu {r['mfu']:.5f}, "
+                  f"executed {r['executed_tflops']:.4f} TFLOP a step, busy share "
+                  f"{r['device_busy_share']:.3f}"
+                  + (f"; against phase 6{'b' if pair else ''}'s {ref:.1f} (CUDA events): "
+                     f"{m['value'] / ref:.3f}x (information, not a gate)" if ref else "")
+                  + f"; on {card}; the run took {secs:.1f} s")
+        out[tag] = dict(metric=m, roofline=r, launches=lc, passes=passes, seconds=secs)
+    return out
+
+
+def phase_bench_17(dev):
+    """24a's last run: DAGNN_BENCH_STEPS=17 on the pair default times one
+    group of 17 steps (the JAX bench's 16 // 17 times none)."""
+    from dagnn_tpu_torch import bench, flagship
+    from dagnn_tpu_torch.dag.batch import collate
+    from dagnn_tpu_torch.data.synthetic import synthetic_ast_batch
+    counted = dev.type == "cuda"
+    graphs = synthetic_ast_batch(0, bench.GRAPHS, mean_nodes=bench.MEAN_NODES)
+    res, lines, lc = _bench_run("[24a] 17 steps:", [] if counted else ["--cpu"],
+                                env={"DAGNN_BENCH_STEPS": "17"})
+    steps = collate(graphs, flagship.pad_for(graphs, pair=2)).pair.edst.shape[0]
+    print(f"[24a] DAGNN_BENCH_STEPS=17: {res['iters']} group of {res['n_chain']} steps "
+          f"timed (the JAX bench times 16 // 17 = 0), {lines[0]['value']:.1f} edges/s")
+    check(len(lines) == 1 and (res["iters"], res["n_chain"]) == (1, 17)
+          and lines[0]["value"] > 0, "DAGNN_BENCH_STEPS=17 timed no group")
+    check(lc == {**{k: 0 for k in lc}, **({"pair_forward": 34 * steps,
+                                           "pair_backward": 34 * steps} if counted else {})},
+          f"bench at 17 steps: launch counts {lc}")
+    return dict(metric=lines[0], launches=lc, iters=res["iters"])
+
+
+def _row_spec_at(dev, st_d_w):
+    """row_spec's calls on the given (static, inputs, weights) builder."""
+    return {**row_spec(dev), "inputs": st_d_w}
+
+
+def _pair_spec_at(blocks, st_d_w):
+    """pair_spec's calls on the given block table and inputs builder."""
+    import types
+    return {**pair_spec(None, types.SimpleNamespace(blocks=blocks), 0, 0),
+            "inputs": st_d_w}
+
+
+def phase_microbenches(dev):
+    """24b / 24c: each width's K1/K2 call of the row microbench, and the
+    pair microbench's K3/K4 pair step and merged K1/K2 row, held against
+    their plain versions at phase 3's gates (bf16) before anything is
+    timed; then both microbenches' main (device times from CUDA graphs,
+    eager per call)."""
+    from dagnn_tpu_torch.scripts import microbench_pair_kernel as mp
+    from dagnn_tpu_torch.scripts import microbench_row_kernel as mr
+    cpu = ["--cpu"] if dev.type == "cpu" else []
+    out = {}
+    for label, h in mr.WIDTHS:
+        print(f"[24b] {label}: K1/K2 against their plain versions at the row "
+              f"microbench's shapes")
+        hold_kernels(_row_spec_at(dev, lambda dt, h=h: mr.make_inputs(
+            h, h, dtype=dt, device=dev)), torch.bfloat16)
+    out["row"] = mr.main(cpu)
+    inp = mp.make_inputs(int(os.environ.get("PAIR", "2")), dev)
+    st, d, w, blocks, P, i = inp["pair"]
+    print(f"[24c] pair step {i} of {P}: K3/K4 against their plain versions")
+    hold_kernels(_pair_spec_at(blocks, lambda dt: (st, d, w)), torch.bfloat16)
+    stm, dm, wm, L, r = inp["merged"]
+    print(f"[24c] merged row {r} of {L}: K1/K2 against their plain versions")
+    hold_kernels(_row_spec_at(dev, lambda dt: (stm, dm, wm)), torch.bfloat16)
+    out["pair"] = mp.main(cpu)
+    return out
+
+
+def phase_ep_decompose(dev, card):
+    """24d: scripts.ep_decompose (DP x1 and EP x1 in a world-size-1
+    group): its plan statistics against a direct call of the port's
+    planner, EP x1's K6 / K5 launches against the plan's rows, DP x1's
+    only K1/K2, and each profile's categories against its total."""
+    from dagnn_tpu_torch import flagship
+    from dagnn_tpu_torch.dag.batch import collate
+    from dagnn_tpu_torch.data.synthetic import synthetic_ast_batch
+    from dagnn_tpu_torch.parallel.edge_partition import partition_schedule_sharded
+    from dagnn_tpu_torch.scripts import ep_decompose as ed
+    out = ed.main(["--cpu"] if dev.type == "cpu" else [])
+    graphs = synthetic_ast_batch(0, ed.GRAPHS, mean_nodes=ed.MEAN_NODES)
+    for d in ed.DEVICES:
+        chunk = max(64, 64 * d)
+        b = collate(graphs, dataclasses.replace(flagship.pad_for(graphs, chunk=chunk),
+                                                nodes_per_level=chunk))
+        eps, st = partition_schedule_sharded(b.fwd, d)
+        want = (st.rows, st.own_w, st.halo, eps.e_dst.shape[-1], eps.t_mask.shape[-1],
+                eps.x_send_col.shape[-1], eps.d_send_col.shape[-1], eps.u_send_col.shape[-1])
+        check(tuple(out["plan_by_D"][d].values()) == want,
+              f"ep_decompose's plan at D={d} differs from the planner's {want}")
+    print(f"[24d] plan statistics at D = {list(ed.DEVICES)} equal the planner's")
+    if dev.type != "cuda":
+        return out
+    nl = flagship.flagship_cfg().num_layers
+    want = {k: v * ed.STEPS for k, v in _ep_counts(out["ep1_rows"], nl).items()}
+    print(f"[24d] EP x1 launches over {ed.STEPS} steps {out['ep1_launches']}, from the "
+          f"plan's rows {out['ep1_rows']}: {want}")
+    check(out["ep1_launches"] == want, "EP x1's K6 / K5 launches differ from the plan")
+    dl = out["dp1_launches"]
+    check(set(dl) == {"row_forward", "row_backward"} and dl["row_forward"] == dl[
+        "row_backward"] and dl["row_forward"] % ed.STEPS == 0,
+          f"DP x1 launched {dl}, not K1/K2 once a row")
+    for tag in ("dp1", "ep1"):
+        p = out[f"{tag}_profile"]
+        tot = sum(p["categories_us"].values())
+        print(f"[24d] {tag}: {out[tag + '_ms']:.2f} ms a step, "
+              f"{out[tag + '_edges_per_s']:.1f} edges/s, busy share {p['busy_share']:.3f}, "
+              f"{p['events_per_step']:.0f} device events a step; device us a step by "
+              f"category " + ", ".join(f"{k} {v:.1f}" for k, v in p["categories_us"].items())
+              + f" (sum {tot:.1f} of {p['total_us']:.1f}); the largest kernels: "
+              + "; ".join(f"{c}: " + ", ".join(f"{k} {v:.1f}" for k, v in top.items())
+                          for c, top in p["top_us"].items())
+              + f"; on {card}")
+        check(abs(tot - p["total_us"]) <= 0.02 * p["total_us"],
+              f"{tag}: categories sum to {tot}, the profile's total {p['total_us']}")
+    return out
+
+
+def phase_tools(dev, card, eps_events=None, rehearsal_graphs=20000):
+    """Phase 24: the bench (24a), the two microbenches (24b, 24c),
+    ep_decompose (24d), the preprocessing rehearsal at rehearsal_graphs
+    (24e; host work, in a process of its own started before 24b and read
+    after 24d) and bn_ceiling (24f). On a CPU device it rehearses the same
+    calls with --cpu (the tools' module sizes set small by the caller)."""
+    import tempfile
+    from dagnn_tpu_torch.scripts import bn_ceiling
+    t_all = time.perf_counter()
+    out = {"bench": phase_bench(dev, card, eps_events)}
+    # the rehearsal (host work) runs beside everything after the timed
+    # bench runs, whose host-bound steps it would slow
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    report = os.path.join(tmp, "REPORT.md")
+    reh = subprocess.Popen(
+        [sys.executable, "-m", "dagnn_tpu_torch.scripts.rehearse_preprocess",
+         "--graphs", str(rehearsal_graphs), "--root", tmp, "--out", report],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        out["bench"]["steps17"] = phase_bench_17(dev)
+        for tag, run in (("microbench", phase_microbenches),
+                         ("ep_decompose", lambda dev: phase_ep_decompose(dev, card))):
+            t0 = time.perf_counter()
+            out[tag] = run(dev)
+            out[tag]["seconds"] = time.perf_counter() - t0
+            print(f"[24] {tag} took {out[tag]['seconds']:.1f} s")
+        t0 = time.perf_counter()
+        log = reh.communicate(timeout=900)[0]
+        print(f"[24e] waited {time.perf_counter() - t0:.1f} s for the rehearsal")
+    finally:
+        if reh.poll() is None:
+            reh.kill()
+            reh.wait()
+    print("\n".join("[24e] " + ln for ln in log.strip().splitlines()))
+    check(reh.returncode == 0 and os.path.exists(report),
+          f"rehearse_preprocess --graphs {rehearsal_graphs} exited {reh.returncode}")
+    with open(report) as f:
+        out["rehearsal"] = [ln for ln in f.read().splitlines() if ln.startswith("| ")]
+    check(len(out["rehearsal"]) == 8, "the rehearsal's report lacks a stage")
+    t0 = time.perf_counter()
+    scores = bn_ceiling.main(["--seeds", "1", "--out", os.path.join(tmp, "ceiling.txt"),
+                              *(["--cpu"] if dev.type == "cpu" else [])])
+    print(f"[24f] bn_ceiling on the synthetic BN rows: {scores[0]} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    check(all(math.isfinite(scores[0][k]) for k in ("rmse", "ll", "pearson_r")),
+          "bn_ceiling: a non-finite score")
+    out["bn_ceiling"] = scores[0]
+    import shutil
+    shutil.rmtree(tmp, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_all
+    print(f"[24] {card}: phase 24 took {out['wall_s']:.1f} s")
+    return out
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3135,6 +3276,7 @@ def main(argv):
                                           SPLIT_KERNELS, SPLIT_PLAIN, dagnn_init)
     from dagnn_tpu_torch.ops import build, row_step, segment_attn
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -3361,6 +3503,11 @@ def main(argv):
           "steps, cli.bench_scaling) at the flagship's widths on phase 4's batch, "
           "ranks on this one card")
     parallel = phase_parallel(dev, card, graphs, params, cfg)
+    print("[24] the bench (python -m dagnn_tpu_torch.bench) and the tools of "
+          "dagnn_tpu_torch/scripts/ in process: the row and pair microbenches, "
+          "ep_decompose, rehearse_preprocess --graphs 20000, bn_ceiling")
+    tools = phase_tools(dev, card, {"merged": merged["edges_per_s"],
+                                    "pair": paired["edges_per_s"]})
     runs = {"merged": merged, "pair": paired, "pallas": pallas,
             "unidirectional": uni, "nearfar_rt": nf_rt, "nearfar_r": nf_r,
             "nearfar_unidirectional": nf_u, "merged_k2r": k2r}
@@ -3405,8 +3552,15 @@ def main(argv):
                                                  for t, v in baselines.items()
                                                  if isinstance(v, dict) and "launches" in v},
                                               "dp_rank": parallel["dp"],
-                                              "ep_rank": parallel["ep"][2]}.items()
-                                             if v["launches"][name]}})
+                                              "ep_rank": parallel["ep"][2],
+                                              "bench_pair": tools["bench"]["pair"],
+                                              "bench_merged": tools["bench"]["merged"],
+                                              "bench_17_steps": tools["bench"]["steps17"],
+                                              "ep_decompose_dp1": {"launches": tools[
+                                                  "ep_decompose"]["dp1_launches"]},
+                                              "ep_decompose_ep1": {"launches": tools[
+                                                  "ep_decompose"]["ep1_launches"]}}.items()
+                                             if v["launches"].get(name)}})
         ep_err = [parallel["ep"][D]["probe"].get(f"bfloat16 {name}") for D in (2, 4)]
         if ep_err[0]:
             # every call of the EP ranks' pass at its own shapes (23c)
@@ -3420,7 +3574,7 @@ def main(argv):
                 "library_ms": r["library_ms"]}
     print(json.dumps({**runs, "tok_driver": driver, "lp_driver": lp, "kinds": kinds,
                       "node_space": node_space, "vae": vae, "latent_scoring": scoring,
-                      "baselines": baselines, "parallel": parallel,
+                      "baselines": baselines, "parallel": parallel, "tools": tools,
                       "split_checks": split, "cross_route": cross,
                       "nearfar_cross_route": nf_cross, "ab_steps": ab,
                       "split_row": {short(k): v for k, v in split_row.items()},
@@ -3435,6 +3589,7 @@ def main(argv):
                       "f32_kernels": {**rows[torch.float32], **pairs[torch.float32],
                                       **segs[torch.float32], **tgs[torch.float32],
                                       **nfk[torch.float32], **k2r_row[torch.float32]}}))
+    print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s on {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

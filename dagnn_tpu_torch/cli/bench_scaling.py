@@ -57,22 +57,17 @@ def _time_steps(step, params, opt, inputs, iters, dev):
     return (time.perf_counter() - t0) / iters
 
 
-def bench_job(dev, cfg, params_np, graphs, iters):
-    """One rank's part: the DP step on its shard and the EP step on its
-    slice of the one batch, each timed (seconds a step), with the EP
-    plan's seconds and wire accounting."""
+def dp_setup(dev, cfg, graphs, opt):
+    """The DP train step over the world's ranks and this rank's shard of
+    `graphs` (split by node count, one bucket for every shard), on `dev`:
+    (step, batch, route)."""
     from dagnn_tpu_torch import flagship
-    from dagnn_tpu_torch.dag.batch import collate
     from dagnn_tpu_torch.nn.dagnn import dagnn_forward
     from dagnn_tpu_torch.parallel import comm
-    from dagnn_tpu_torch.parallel import edge_partition as ep
     from dagnn_tpu_torch.parallel.dp import collate_sharded, make_dp_train_step
-    from dagnn_tpu_torch.parallel.jobs import ep_plans, loss_of
+    from dagnn_tpu_torch.parallel.jobs import loss_of
     from dagnn_tpu_torch.parallel.mesh import make_mesh
-    from dagnn_tpu_torch.train.optim import make_optimizer
-    d = torch.distributed.get_world_size()
-    params = {k: torch.as_tensor(v).to(dev) for k, v in params_np.items()}
-    opt, head = make_optimizer(), loss_of("tok")
+    d, head = torch.distributed.get_world_size(), loss_of("tok")
 
     def loss_fn(p, b, rng):
         return head(dagnn_forward(p, cfg, b),
@@ -82,19 +77,45 @@ def bench_job(dev, cfg, params_np, graphs, iters):
     dp_mesh = make_mesh(None, ("dp",))
     step = make_dp_train_step(loss_fn, opt, dp_mesh.groups["dp"])
     batch = step.shard(collate_sharded(graphs, d, flagship.pad_for(graphs, n_shards=d)), dev)
-    out = {"dp_s": _time_steps(step, params, opt, batch, iters, dev),
-           "route": comm.route(dp_mesh.groups["dp"])}
+    return step, batch, comm.route(dp_mesh.groups["dp"])
 
+
+def ep_setup(dev, cfg, graphs, opt):
+    """The EP train step over the world's ranks (one batch of `graphs`,
+    scan rows 64 x D wide) and this rank's inputs on `dev`: (step,
+    inputs, {plan_s, greedy_s, wire, rows: each direction's plan rows})."""
+    from dagnn_tpu_torch import flagship
+    from dagnn_tpu_torch.dag.batch import collate
+    from dagnn_tpu_torch.parallel import edge_partition as ep
+    from dagnn_tpu_torch.parallel.jobs import ep_plans, loss_of
+    from dagnn_tpu_torch.parallel.mesh import make_mesh
+    d = torch.distributed.get_world_size()
     chunk = max(64, 64 * d)
     pad1 = dataclasses.replace(flagship.pad_for(graphs, chunk=chunk),
                                nodes_per_level=chunk)
     batch = collate(graphs, pad1)
-    plans, out["plan_s"], out["greedy_s"] = ep_plans(batch, d)
-    out["wire"] = ep.ep_wire_stats(plans[0][0], cfg.hidden_dim)
+    info = {}
+    plans, info["plan_s"], info["greedy_s"] = ep_plans(batch, d)
+    info["wire"] = ep.ep_wire_stats(plans[0][0], cfg.hidden_dim)
+    info["rows"] = [st.rows for _, st in plans]
     ep_mesh = make_mesh(None, ("ep",))
-    estep = ep.make_ep_train_step(cfg, ep_mesh, head, opt)
+    estep = ep.make_ep_train_step(cfg, ep_mesh, loss_of("tok"), opt)
     inputs = estep.shard(batch, plans, ep.ep_readout_aux(batch, [e for e, _ in plans], cfg),
                          dev)
+    return estep, inputs, info
+
+
+def bench_job(dev, cfg, params_np, graphs, iters):
+    """One rank's part: the DP step on its shard and the EP step on its
+    slice of the one batch, each timed (seconds a step), with the EP
+    plan's seconds and wire accounting."""
+    from dagnn_tpu_torch.train.optim import make_optimizer
+    params = {k: torch.as_tensor(v).to(dev) for k, v in params_np.items()}
+    opt = make_optimizer()
+    step, batch, route = dp_setup(dev, cfg, graphs, opt)
+    out = {"dp_s": _time_steps(step, params, opt, batch, iters, dev), "route": route}
+    estep, inputs, info = ep_setup(dev, cfg, graphs, opt)
+    out.update(plan_s=info["plan_s"], greedy_s=info["greedy_s"], wire=info["wire"])
     out["ep_s"] = _time_steps(estep, params, opt, inputs, iters, dev)
     return out
 

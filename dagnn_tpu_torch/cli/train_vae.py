@@ -57,7 +57,7 @@ import torch
 from dagnn_tpu_torch import resolve_device
 from dagnn_tpu_torch.convert import batch_to_torch
 from dagnn_tpu_torch.data.na import (GraphArgs, NAGraph, load_bn, load_enas,
-                                     parse_bn_row, synthetic_bn_rows)
+                                     synthetic_bn_corpus)
 from dagnn_tpu_torch.train import checkpoint as ckpt
 from dagnn_tpu_torch.train.metrics import CSVLogger
 from dagnn_tpu_torch.train.optim import PlateauScheduler, make_optimizer
@@ -171,18 +171,8 @@ def load_data(args):
     else:
         # asia_200k.txt is absent from the reference checkout: a synthetic
         # corpus in the same format
-        import ast
-        gs = []
-        for r in synthetic_bn_rows(args.max_count or 2000, n_types=args.nvt,
-                                   seed=args.seed):
-            row, y = ast.literal_eval(r)
-            g = parse_bn_row(row)
-            g.y = y
-            gs.append(g)
-        cut = int(len(gs) * 0.9)
-        tr, te = gs[:cut], gs[cut:]
-        ga = GraphArgs(num_vertex_type=args.nvt + 2,
-                       max_n=max(g.num_nodes for g in gs))
+        tr, te, ga = synthetic_bn_corpus(args.max_count or 2000, n_types=args.nvt,
+                                         seed=args.seed)
     arrays = {"key": np.array(_corpus_key(args)),
               "graph_args": np.array([ga.num_vertex_type, ga.max_n,
                                       ga.start_type, ga.end_type,

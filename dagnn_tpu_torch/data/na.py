@@ -243,6 +243,22 @@ def synthetic_bn_rows(num: int, n: int = 8, n_types: int = 8, seed: int = 0,
     return rows
 
 
+def synthetic_bn_corpus(num: int, n_types: int = 8, seed: int = 0
+                        ) -> Tuple[List[NAGraph], List[NAGraph], GraphArgs]:
+    """`num` synthetic_bn_rows parsed into BN graphs with their scores,
+    split 90/10 in row order: the corpus train_vae --data-type BN uses when
+    no BN file is given."""
+    gs = []
+    for r in synthetic_bn_rows(num, n_types=n_types, seed=seed):
+        row, y = ast.literal_eval(r)
+        g = parse_bn_row(row)
+        g.y = y
+        gs.append(g)
+    cut = int(len(gs) * 0.9)
+    return gs[:cut], gs[cut:], GraphArgs(num_vertex_type=n_types + 2,
+                                         max_n=max(g.num_nodes for g in gs))
+
+
 # --- validity checkers (dvae/util.py:599-649) ---
 
 def is_valid_dag(g: NAGraph, start_type=START_TYPE, end_type=END_TYPE) -> bool:

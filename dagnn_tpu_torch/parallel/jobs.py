@@ -21,23 +21,10 @@ import time
 import numpy as np
 import torch
 
+from dagnn_tpu_torch.ops import read_launch_counts as read_counts
+from dagnn_tpu_torch.ops import reset_launch_counts as reset_counts
 from dagnn_tpu_torch.parallel import comm
 from dagnn_tpu_torch.parallel.mesh import make_hybrid_mesh, make_mesh
-
-
-def _counted():
-    from dagnn_tpu_torch.ops import pair_step, row_step, segment_attn
-    return (row_step, pair_step, segment_attn)
-
-
-def reset_counts():
-    for m in _counted():
-        m.reset_launch_counts()
-
-
-def read_counts() -> dict:
-    """Every kernel wrapper's launch count."""
-    return {k: v for m in _counted() for k, v in m.launch_counts.items()}
 
 
 def _params(params_np, dev):

@@ -73,6 +73,20 @@ def device_events(path: str, categories=DEVICE_CATEGORIES) -> List[Dict]:
     return [e for e in load_events(path) if e.get("cat") in categories]
 
 
+def device_busy(dev: List[Dict]) -> Optional[Dict]:
+    """The device's busy time over a trace's span, from its device events
+    (device_events(path)): their summed durations and the span from the
+    first's start to the last's end, in µs, their ratio, and the event
+    count. None without device events (a CPU trace)."""
+    if not dev:
+        return None
+    t0 = min(e["ts"] for e in dev)
+    t1 = max(e["ts"] + e["dur"] for e in dev)
+    busy = sum(e["dur"] for e in dev)
+    return dict(span_us=t1 - t0, busy_us=busy, share=busy / (t1 - t0),
+                events=len(dev))
+
+
 def short_name(name: str) -> str:
     """A kernel's demangled signature cut to its name."""
     name = name.replace("void ", "").replace("(anonymous namespace)::", "")

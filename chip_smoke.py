@@ -208,7 +208,8 @@ split form), the merged and unidirectional wavefronts on near/far batches
       derives them (per row of each direction: K6f 2 x layers, K6b
       layers, K5 3); the plan's seconds (and its greedy stage-row loop's),
       the wire accounting and a bf16 step's time
-  23d. cli.bench_scaling --devices 2 at its defaults, its JSON line
+  23d. cli.bench_scaling --devices 2 --iters 3 (its defaults' workload,
+      3 timed steps), its JSON line
   the bench and the tools (dagnn_tpu_torch/bench.py, dagnn_tpu_torch/
   scripts/), in process; launch counts set to 0 before each bench run and
   read after it:
@@ -232,6 +233,40 @@ split form), the merged and unidirectional wavefronts on near/far batches
       process, run beside 24b-24d): every stage reported
   24f. scripts.bn_ceiling --seeds 1 on the synthetic BN rows: finite RMSE,
       ll and Pearson r
+
+  the captured steps (dagnn_tpu_torch/train/graphs.py: one CUDA graph
+  replay a step, as the JAX package's jitted steps; phases 4-24 above run
+  through them wherever the driver's make_step_fns, train_vae or the bench
+  capture, each replay counted as the launches of its capture):
+  25a. the flagship TOK step at full width (emb/hidden 300, 2 layers, bf16)
+      on three batches of 160 synthetic ASTs in one bucket, merged (K1/K2)
+      and pair (K3/K4): 5 steps over batches 0, 1, 2, 0, 1 captured and
+      twice eager from the same weights; bit for bit where the eager runs
+      repeat bit for bit, else phase 5's gates; launch counts equal; one
+      capture per distinct key (the merged bucket one; pair blocks are
+      widths of each batch's plan, part of the key); the step on batch 0
+      eager against captured in turns (CUDA events and host clock); what
+      a replay launches, read from the graph itself (its kernel, copy and
+      set nodes by name: graphs.graph_nodes, CUDAGraph.debug_dump), against
+      the profiler's device events of one eager step on the graph's input
+      buffers (census_pair: kernels name by name equal, copies the eager
+      step's plus the write-back; up to three eager traces, failing when
+      none equals the graph's nodes)
+  25b. the same for the flagship on the generic branch
+      (segment_impl="pallas": K6, K5) on 25a's merged batches, and for LP
+      at main_lp's defaults (gated_sum, the generic branch, K5), with one
+      eager run held bit for bit; the graph's K5 and K6 nodes against the
+      eager step's wrapper counts (wrapper_nodes; no profiler census: it
+      drops events of traces this long)
+  25c. train_vae.main at phase 20's NA flags, 2 epochs, the plateau drop
+      forced after epoch 1, captured against all eager: the loss file and
+      the parameters bit for bit, one capture; epoch 1 equal to phase 20's
+      run C's, epoch 2 not (the new learning rate reached the replays);
+      at 20b's BN flags one epoch the same; each VAE's train step eager
+      against captured in turns, its graph's K5 and K6 nodes against the
+      eager step's wrapper counts
+  25d. the bench (pair) with the graph and with --eager in turns
+      (graph, eager, eager, graph)
 
 The second-to-last line is the kernel table as JSON, the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero.
@@ -1245,12 +1280,14 @@ def phase_ab(label, a, b, steppers, n_steps=5):
 def drive_path(tag, labels, cfg, params, batch, expect, kernels, plain, card,
                argv, group=None, steppers=None):
     """One path through its entry points, launch counts set to 0 before and
-    read after: the step check, the timed steps, a predict (and with
-    --profile one profiled step). expect(train passes, forward passes) gives
-    the launches each wrapper of the path must have made; every other
-    wrapper must have launched nothing. `steppers` (a dict) keeps the
+    read after: the step check, the timed steps (one captured train step,
+    train/graphs.py), a predict (and with --profile one profiled step).
+    expect(train passes, forward passes) gives the launches each wrapper of
+    the path must have made; every other wrapper must have launched
+    nothing. `steppers` (a dict) keeps the
     path's warm train step, weights, state and batch for phase 17."""
     from dagnn_tpu_torch.cli.ogb_driver import make_step_fns
+    from dagnn_tpu_torch.nn import dagnn
     from dagnn_tpu_torch.train.optim import make_optimizer
     train_passes = fwd_passes = 0
     reset_counts()
@@ -1266,7 +1303,6 @@ def drive_path(tag, labels, cfg, params, batch, expect, kernels, plain, card,
         train_passes += 1
     lc = check_counts(labels[3], f"{tag} path", expect(train_passes, fwd_passes))
     if steppers is not None:
-        from dagnn_tpu_torch.nn import dagnn
         steppers[tag] = (train_step, p, state, batch, dagnn._NO_RES_STREAM)
     return dict(edges_per_s=eps, step_ms=ms, losses=losses, launches=lc)
 
@@ -1285,13 +1321,47 @@ def _csv_rows(path):
 
 
 @contextlib.contextmanager
+def replay_passes(count):
+    """Within the block, count the passes that captured steps
+    (dagnn_tpu_torch/train/graphs.py) stand for: count("train") once a
+    replay of a step that writes its state, count("infer") once a replay
+    of one that does not. Yields a function that is true while a capture's
+    set-up runs (its warm-up calls and the capture itself), whose Python
+    passes are no passes of the run. Restored on exit."""
+    from dagnn_tpu_torch.train import graphs
+    C = graphs.CapturedStep
+    orig = (C.__call__, C._capture)
+    setup = [0]
+
+    def capture(self, *a, **k):
+        setup[0] += 1
+        try:
+            return orig[1](self, *a, **k)
+        finally:
+            setup[0] -= 1
+
+    def call(self, *a, **k):
+        out = orig[0](self, *a, **k)
+        if self.last_graph() is not None:
+            count("train" if self.writes_state else "infer")
+        return out
+
+    C.__call__, C._capture = call, capture
+    try:
+        yield lambda: setup[0] > 0
+    finally:
+        C.__call__, C._capture = orig
+
+
+@contextlib.contextmanager
 def driver_probes():
     """Record, without changing them, what the driver's run hands around:
     the dataset load_dataset returns, the device of each fold's initial
     parameters, the wall time of each evaluate call, the route
-    dagnn_forward takes for each batch, and the forward passes of each
-    model (ogb_driver.MODELS), train and inference apart. Restored on
-    exit."""
+    dagnn_forward takes for each batch (the captured steps' keys read it
+    too), and the forward passes of each model (ogb_driver.MODELS), train
+    and inference apart, a captured step's replay counted as the pass it
+    stands for (replay_passes). Restored on exit."""
     from collections import Counter
     from dagnn_tpu_torch.cli import ogb_driver
     from dagnn_tpu_torch.nn import dagnn
@@ -1303,8 +1373,9 @@ def driver_probes():
 
     def counted(fwd):
         def run(params, cfg, batch, *a, **k):
-            seen["passes"]["train" if k.get("train") or torch.is_grad_enabled()
-                           else "infer"] += 1
+            if not in_setup():
+                seen["passes"]["train" if k.get("train") or torch.is_grad_enabled()
+                               else "infer"] += 1
             return fwd(params, cfg, batch, *a, **k)
         return run
 
@@ -1334,7 +1405,8 @@ def driver_probes():
     (ogb_driver.load_dataset, ogb_driver.init_params, ogb_driver.evaluate,
      dagnn._route) = (load_dataset, init_params, evaluate, route)
     try:
-        yield seen
+        with replay_passes(lambda kind: seen["passes"].update([kind])) as in_setup:
+            yield seen
     finally:
         (ogb_driver.load_dataset, ogb_driver.init_params, ogb_driver.evaluate,
          dagnn._route) = orig
@@ -1811,7 +1883,8 @@ BN_FLAGS = ["--data-name", "asia_200k", "--data-type", "BN", "--model",
 def vae_probes():
     """Record, without changing them, what the VAE driver's runs do: the
     devices of the initial parameters, the train and inference passes of
-    the model (VAEModel.loss with and without training, encode_mu), and
+    the model (VAEModel.loss with and without training, encode_mu; a
+    captured step's replay counted as its train pass, replay_passes), and
     the host seconds of each epoch's train loop (ended by a synchronize;
     the driver reads the sums right after), of each latent extraction and
     of each test NLL. Restored on exit."""
@@ -1828,7 +1901,8 @@ def vae_probes():
         return params
 
     def loss(self, params, prepared, gen, training=True, impl=None):
-        seen["train" if training else "infer"] += 1
+        if not in_setup():
+            seen["train" if training else "infer"] += 1
         return orig[1](self, params, prepared, gen, training, impl)
 
     def encode_mu(self, *a, **k):
@@ -1848,8 +1922,13 @@ def vae_probes():
     tv.train_epoch = timed(3, "epochs")
     tv.save_latent_representations = timed(4, "latent_s")
     tv.test_nll = timed(5, "nll_s")
+
+    def bump(kind):
+        seen[kind] += 1
+
     try:
-        yield seen
+        with replay_passes(bump) as in_setup:
+            yield seen
     finally:
         (M.init, M.loss, M.encode_mu, tv.train_epoch,
          tv.save_latent_representations, tv.test_nll) = orig
@@ -3014,8 +3093,9 @@ def phase_parallel(dev, card, graphs, params, cfg, bench_argv=()):
     print(f"[23b/c] spawns: 2 ranks {t_spawn2:.1f} s, 4 ranks {t_spawn4:.1f} s")
 
     t0 = time.perf_counter()
-    print(f"[23d] cli.bench_scaling --devices 2 at its defaults ({SHARED}):")
-    out["bench_scaling"] = bench_scaling.main(["--devices", "2", *cpu, *bench_argv])
+    print(f"[23d] cli.bench_scaling --devices 2 --iters 3 ({SHARED}):")
+    out["bench_scaling"] = bench_scaling.main(["--devices", "2", "--iters", "3", *cpu,
+                                               *bench_argv])
     print(f"[23d] took {time.perf_counter() - t0:.1f} s")
     out["dp"]["nccl"] = nccl_world_one("[23b]", dev, cfg, params, graphs)
     out["wall_s"] = time.perf_counter() - t_all
@@ -3264,6 +3344,510 @@ def phase_tools(dev, card, eps_events=None, rehearsal_graphs=20000):
     return out
 
 
+# ------------------------------------------------- the captured steps
+
+def bucket_hosts(graphs, n, pair, task="tok"):
+    """n host batches of 160 of `graphs` in one bucket, as the drivers make
+    them: the PadConfig the fieldwise max of each group's flagship.pad_for,
+    as the loader's bucket is the max over an epoch's batches, with the
+    output slots a graph left to each batch (the loader leaves them too),
+    then each batch's output-slot lists widened to the widest
+    (convert.widen_out_slots, as ogb_driver.run does with the loader's
+    out_per_graph); for LP each graph's longest-path class set as
+    load_dataset sets it."""
+    from dagnn_tpu_torch import convert, flagship
+    from dagnn_tpu_torch.cli.ogb_driver import LP_NUM_CLASSES
+    from dagnn_tpu_torch.dag.batch import PadConfig, collate
+    groups = [graphs[i * 160:(i + 1) * 160] for i in range(n)]
+    if task == "lp":
+        for g in graphs[:n * 160]:
+            g.y["len_longest_path"] = np.asarray(
+                min(g.len_longest_path, LP_NUM_CLASSES - 1), np.int32)
+    pads = [flagship.pad_for(g, pair=pair) for g in groups]
+    pad = PadConfig(*[max(v) for v in zip(*map(dataclasses.astuple, pads))])
+    pad = dataclasses.replace(pad, out_per_graph=0)
+    widest = max(p.out_per_graph for p in pads)
+    return [convert.widen_out_slots(collate(g, pad), widest) for g in groups]
+
+
+def _same(a, b):
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def _kind(name, cat="kernel"):
+    """A device event's or graph node's kind for the census: "memcpy" /
+    "memset" for a copy or a set (the trace's gpu_memcpy and gpu_memset
+    events, a graph's copy and set nodes), "direct_copy" for a copy kernel,
+    else the kernel's function name (graphs.kernel_name: the profiler's
+    demangled signature and a graph node's mangled symbol read alike)."""
+    from dagnn_tpu_torch.train.graphs import kernel_name
+    if cat == "gpu_memset" or name == "memset":
+        return "memset"
+    if cat == "gpu_memcpy" or name == "memcpy":
+        return "memcpy"
+    if "direct_copy_kernel" in name:
+        return "direct_copy"
+    return kernel_name(name)
+
+
+def _is_copy(kind):
+    return kind in ("memcpy", "memset", "direct_copy")
+
+
+# spin kernels (torch.cuda._sleep, about 57 us each) on each side of a
+# censused call: the profiler loses device events at a trace's edge now
+# and then (7 of an eager step's in one run, the same 7 in three traces;
+# 4-5 of these 128 in the next), so the losses fall on these
+PAD, PAD_CYCLES = 64, 100_000
+
+
+def kernel_census(tag, fn, out_dir):
+    """The device events (_kind: launches) of one call of fn, from a
+    torch.profiler trace (utils/profiling.py), PAD spin kernels and a
+    synchronise before it and PAD after it (left out of the census,
+    their count returned), and the call's device busy share. None when
+    the trace holds no device events."""
+    from collections import Counter
+    from dagnn_tpu_torch.utils import profiling
+
+    def padded():
+        for _ in range(PAD):
+            torch.cuda._sleep(PAD_CYCLES)
+        torch.cuda.synchronize()
+        fn()
+        for _ in range(PAD):
+            torch.cuda._sleep(PAD_CYCLES)
+
+    path = profiling.profile_step(padded, iters=1, logdir=out_dir,
+                                  name=f"census_{tag}.json")
+    dev = profiling.device_events(path)
+    kinds = [_kind(e["name"], e.get("cat")) for e in dev]
+    own = [e for e, k in zip(dev, kinds) if k != "spin_kernel"]
+    if not own:
+        return None, None, 0
+    return (Counter(k for k in kinds if k != "spin_kernel"),
+            profiling.device_busy(own), len(dev) - len(own))
+
+
+# The kernel each launch of these wrappers runs, once a call (K5, K6)
+ONE_KERNEL = {"tg_accumulate": "seg_merge_kernel",
+              "segment_attn_forward": "sa_fwd_kernel",
+              "segment_attn_backward": "sa_bwd_kernel"}
+
+
+def node_kinds(nodes):
+    """A graph's nodes (graphs.graph_nodes) by _kind."""
+    from collections import Counter
+    out = Counter()
+    for name, v in nodes.items():
+        out[_kind(name)] += v
+    return out
+
+
+def wrapper_nodes(label, k_e, nodes):
+    """What a replay launches, read from the graph (its nodes, `nodes` by
+    _kind), against the wrappers' launches of one eager step (`k_e`): on
+    a path where no row or pair wrapper ran (the generic branch, the
+    VAEs), the graph's seg_merge_kernel, sa_fwd_kernel and sa_bwd_kernel
+    nodes number the eager step's K5, K6 forward and K6 backward launches
+    (one kernel a call). Where a row or pair wrapper ran (its K2 launches
+    seg_merge_kernel too), the census (census_pair) holds every kernel by
+    name instead. Returns the graph's counts by wrapper, or None there."""
+    ours = ("attn_fwd_kernel", "gru_fwd_kernel", "seg_merge_kernel",
+            "rebuild_kernel", "gru_bwd_elem_kernel", "gemm_nn_kernel",
+            "attn_bwd_kernel", "wgrad_kernel", "small_reduce_kernel",
+            "sa_fwd_kernel", "sa_bwd_kernel")
+    print(f"{label} the graph's nodes: {sum(v for k, v in nodes.items() if not _is_copy(k))} "
+          f"kernels, {sum(v for k, v in nodes.items() if _is_copy(k))} copies and "
+          f"sets; the port's kernels among them: "
+          + ", ".join(f"{k} {nodes[k]}" for k in ours if nodes.get(k)))
+    if any(k.startswith(("row_", "pair_")) and v for k, v in k_e.items()):
+        return None
+    got = {w: nodes.get(n, 0) for w, n in ONE_KERNEL.items()}
+    want = {w: k_e.get(w, 0) for w in ONE_KERNEL}
+    print(f"{label} a replay's K5/K6 launches from the graph's nodes {got}, the "
+          f"eager step's wrapper counts {want}")
+    check(got == want and any(want.values()),
+          f"{label}: the graph's K5/K6 nodes differ from the eager step's launches")
+    return got
+
+
+def census_pair(label, eager, nodes, n_state, out_dir, tries=3):
+    """The device events of an eager step (`eager`, run on the graph's own
+    input buffers, so that both read the same tensors and pick the same
+    kernel variants), from the profiler, against the nodes of the graph
+    (`nodes` by _kind, read from the graph itself: what a replay
+    launches): the kernels equal name by name, the copies and sets the
+    eager step's plus one a state leaf (`n_state`: the replay's in-place
+    write-back). The profiler drops an event now and then, so the eager
+    step is traced between spin kernels (kernel_census) up to `tries`
+    times: the census holds when one trace equals the graph's nodes, and
+    fails when none does."""
+    compute_g = {n: v for n, v in nodes.items() if not _is_copy(n)}
+    copies_g = sum(v for n, v in nodes.items() if _is_copy(n))
+    seen = []
+    for t in range(tries):
+        census, busy, spins = kernel_census(f"{label[1:-1]}_eager{t}", eager,
+                                            out_dir)
+        check(census is not None, f"{label}: the profiler saw no device events")
+        compute = {n: v for n, v in census.items() if not _is_copy(n)}
+        copies = sum(v for n, v in census.items() if _is_copy(n))
+        seen.append(sum(census.values()))
+        equal = compute == compute_g and copies_g == copies + n_state
+        print(f"{label} census, eager trace {t + 1}: {seen[-1]} device events "
+              f"(busy {round(100 * busy['share'], 1)}% of its span; {spins} of "
+              f"{2 * PAD} padding spin kernels seen), "
+              f"{sum(compute.values())} kernels in {len(compute)} names, "
+              f"{copies} copies and sets; the graph's nodes: "
+              f"{sum(compute_g.values())} kernels in {len(compute_g)} names, "
+              f"{copies_g} copies and sets ({n_state} state leaves written "
+              f"back): {'equal' if equal else 'not equal'}")
+        if equal:
+            break
+        diff = {k: (compute.get(k, 0), compute_g.get(k, 0))
+                for k in set(compute) | set(compute_g)
+                if compute.get(k, 0) != compute_g.get(k, 0)}
+        print(f"{label} kernels that differ (eager, graph): "
+              + "; ".join(f"{k[:160]}: {v}" for k, v in diff.items()))
+    check(equal, f"{label}: no eager trace of {tries} equals the graph's nodes")
+    return dict(eager_events=seen, traces=len(seen), equal=equal,
+                graph_kernels=sum(compute_g.values()), graph_copies=copies_g,
+                state_leaves=n_state, busy_share_eager=busy["share"])
+
+
+def timed_turns(label, fns, n=5):
+    """Each of the two step functions `fns` (tag: fn) n times in turns (a,
+    b, b, a), timed by CUDA events and the host clock around each run of
+    n (ms a step): the two compared in one process, as phase 17 does."""
+    (a, fa), (b, fb) = fns.items()
+    times = {a: [], b: []}
+    for tag in (a, b, b, a):
+        torch.cuda.synchronize()
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+        h0 = time.perf_counter()
+        ev0.record()
+        for _ in range(n):
+            fns[tag]()
+        ev1.record()
+        torch.cuda.synchronize()
+        times[tag].append((ev0.elapsed_time(ev1) / n,
+                           (time.perf_counter() - h0) / n * 1e3))
+    mean = {t: sum(v[0] for v in times[t]) / 2 for t in times}
+    print(f"{label} {a} " + " / ".join(f"{e:.2f} ({h:.2f} host)" for e, h in times[a])
+          + f" ms, {b} " + " / ".join(f"{e:.2f} ({h:.2f} host)" for e, h in times[b])
+          + f" ms a step (CUDA events, order a b b a): {a}/{b} {mean[a] / mean[b]:.3f}x")
+    return {t: [{"ms": e, "host_ms": h} for e, h in v] for t, v in times.items()} | {
+        "ratio": mean[a] / mean[b]}
+
+
+def graph_vs_eager(label, cfg, params, hosts, task, kernels, card, out_dir,
+                   dev, order=(0, 1, 2, 0, 1), n_turns=5, eager_runs=2):
+    """25a / 25b: 5 train steps over three batches of one bucket (`hosts`,
+    host arrays, in `order`) from the same parameters, through the
+    driver's captured train step and `eager_runs` times through its eager
+    one (make_step_fns(capture=False)). Where two eager runs agree bit for
+    bit, the captured run must equal them bit for bit (losses, every
+    parameter and optimizer leaf, the predicted ids); elsewhere the losses
+    are held to phase 5's loss gate and each leaf's change to its leaf
+    gate. With one eager run (the generic branch, whose eager steps take
+    0.4-1.6 s) the captured run must equal it bit for bit. The wrappers'
+    launch counts of the runs must be equal (each replay counted as its
+    capture's), and a capture made each time the key changes from one step
+    to the next (one graph is kept: one capture for the merged bucket; a
+    pair plan's block widths are the batch's own, so each pair batch is a
+    key of its own). Then the step on batch 0 (on the card) timed, eager
+    against captured in turns (n_turns steps a turn), and what a replay
+    launches read from the graph itself (its nodes, graphs.graph_nodes):
+    against the wrappers' launches of an eager step on every path
+    (wrapper_nodes), and on the fused paths against the profiler's
+    device events of an eager step on the graph's input buffers, kernel
+    by kernel (census_pair)."""
+    from dagnn_tpu_torch import checks, convert
+    from dagnn_tpu_torch.cli.ogb_driver import make_step_fns, step_key
+    from dagnn_tpu_torch.train import graphs
+    from dagnn_tpu_torch.train.optim import make_optimizer
+    t_start = time.perf_counter()
+    opt = make_optimizer(1e-3, 0.25)
+    runs = {}
+    torch.cuda.reset_peak_memory_stats()
+    tags = (("graph", True), ("eager", False), ("eager2", False))
+    for tag, capture in tags[:1 + eager_runs]:
+        train_step, predict = make_step_fns(cfg, opt, task, capture=capture)
+        if capture:
+            train_step.captured.debug = True       # keep the graphs' nodes
+        p, s = params, opt.init(params)
+        losses = []
+        reset_counts()
+        t0 = time.perf_counter()
+        for i in order:
+            p, s, loss, _ = train_step(p, s, hosts[i])
+            losses.append(float(loss))
+        secs = time.perf_counter() - t0
+        lc = read_counts()
+        runs[tag] = dict(losses=losses, counts=lc, secs=secs,
+                         p={k: v.clone() for k, v in p.items()},
+                         s=convert.flatten_tree(convert.tree_map(torch.clone, s)),
+                         ids=predict(p, hosts[0]), step=train_step, predict=predict)
+    g, e = runs["graph"], runs["eager"]
+    e2 = runs.get("eager2")
+    repeat = e2 is not None and (e["losses"] == e2["losses"] and _same(e["p"], e2["p"])
+                                 and _same(e["s"], e2["s"]))
+    same = (g["losses"] == e["losses"] and _same(g["p"], e["p"])
+            and _same(g["s"], e["s"]) and torch.equal(g["ids"], e["ids"]))
+    seq = [step_key("train", cfg, hosts[i]) for i in order]
+    keys = set(seq)
+    # one graph kept (the driver's one bucket an epoch): a step whose key
+    # is not the previous step's captures anew
+    switches = sum(1 for i, k in enumerate(seq) if i == 0 or k != seq[i - 1])
+    cap = g["step"].captured
+    print(f"{label} {len(order)} steps over batches {list(order)} of one bucket "
+          f"({len(keys)} distinct key(s)): captured losses "
+          f"{' '.join(f'{v:.6f}' for v in g['losses'])}, eager "
+          f"{' '.join(f'{v:.6f}' for v in e['losses'])}; eager repeats bit for "
+          f"bit: {repeat if e2 is not None else 'not run (one eager run)'}; "
+          f"captured equals eager bit for bit: {same}; "
+          f"{cap.captures} capture(s), {cap.replays} replays; wall {g['secs']:.2f} s "
+          f"captured (captures included), {e['secs']:.2f} s eager")
+    worst = None
+    if repeat or e2 is None:
+        check(same, f"{label}: the captured steps differ from the eager steps"
+              + (", which repeat bit for bit" if repeat else ""))
+    else:
+        e_loss = max(abs(a - b) / abs(b) for a, b in zip(g["losses"], e["losses"]))
+        rel = {k: checks.rel_err(g["p"][k] - params[k], e["p"][k] - params[k])[0]
+               for k in e["p"]}
+        worst = max(rel, key=rel.get)
+        print(f"{label} the eager steps do not repeat bit for bit: losses within "
+              f"{e_loss:.2e} (gate {STEP_TOL['loss']:g}), worst parameter change "
+              f"{worst} at {rel[worst]:.3e} of its max (gate {STEP_TOL['leaf']:g})")
+        check(e_loss <= STEP_TOL["loss"] and rel[worst] <= STEP_TOL["leaf"],
+              f"{label}: the captured steps leave the gates of the eager steps")
+    print(f"{label} launch counts over the {len(order)} steps: captured "
+          f"{g['counts']}, eager {e['counts']}")
+    check(g["counts"] == e["counts"] and all(g["counts"][k] > 0 for k in kernels),
+          f"{label}: the replays' launch counts differ from the eager steps'")
+    check(cap.captures == switches and cap.replays == len(order),
+          f"{label}: {cap.captures} captures for {switches} changes of key")
+    peak = torch.cuda.max_memory_allocated() / 1e6
+    # the step on batch 0, eager against captured in turns, on the card
+    b0 = convert.batch_to_torch(hosts[0], dev)
+    eg, gr = e["step"], g["step"]
+    pe, se = dict(e["p"]), opt.init(params)
+    pg, sg, _, _ = gr(dict(g["p"]), opt.init(params), b0)
+    eg(pe, se, b0)
+    turns = timed_turns(f"{label} step on batch 0, eager against captured:", {
+        "eager": lambda: eg(pe, se, b0), "graph": lambda: gr(pg, sg, b0)},
+        n=n_turns)
+    # what a replay of batch 0's graph launches, from the graph itself
+    staged = cap.graphs[next(reversed(cap.graphs))]
+    nodes = node_kinds(graphs.graph_nodes(staged.graph))
+    reset_counts()
+    eg(pe, se, b0)
+    k_e = {k: v for k, v in read_counts().items() if v}
+    print(f"{label} the wrappers' launches of an eager step {k_e}; peak cuda "
+          f"memory of the steps {peak:.1f} MB on {card}")
+    from_graph = wrapper_nodes(label, k_e, nodes)
+    census = None if seq[0][1] == "generic" else census_pair(
+        label, lambda: eg(pe, se, staged.inputs[0]), nodes,
+        len(convert.flatten_tree(pg)) + len(convert.flatten_tree(sg)), out_dir)
+    print(f"{label} took {time.perf_counter() - t_start:.1f} s")
+    return dict(repeat=repeat if e2 is not None else None, bitwise=same,
+                worst=worst, keys=len(keys), key_changes=switches,
+                captures=cap.captures, replays=cap.replays, losses=g["losses"],
+                launches=g["counts"], eager_step_launches=k_e,
+                graph_nodes=dict(nodes), k5_k6_from_graph=from_graph,
+                turns=turns, census=census, peak_mb=peak)
+
+
+class _DropAfterEpoch1:
+    """A plateau scheduler whose learning rate drops to 0.1x after epoch 1,
+    whatever the loss (25c)."""
+
+    def __init__(self, factor=0.1, patience=10):
+        from dagnn_tpu_torch.train.optim import PlateauScheduler
+        self._s = PlateauScheduler(factor, patience)
+
+    def __getattr__(self, k):
+        return getattr(self._s, k)
+
+    def step(self, metric):
+        self._s.scale = self._s.factor
+        return self._s.scale
+
+
+def vae_graph_vs_eager(label, flags, root, epochs, drop=False):
+    """Two train_vae.main runs of `flags` for `epochs` epochs, the train step
+    captured (the default) and all eager (train_vae.CAPTURED emptied), with
+    the plateau drop forced after epoch 1 when `drop`: the loss files and
+    the last checkpoint's parameters bit for bit equal. Returns the rows,
+    each run's epoch seconds and the captured run's captures and
+    replays."""
+    from dagnn_tpu_torch.cli import train_vae as tv
+    out = {}
+    made = []
+    orig = (tv.CAPTURED, tv.PlateauScheduler, tv.make_captured_step)
+
+    def record(step):
+        made.append(orig[2](step))
+        return made[-1]
+
+    try:
+        tv.make_captured_step = record
+        if drop:
+            tv.PlateauScheduler = _DropAfterEpoch1
+        for tag, captured in (("graph", orig[0]), ("eager", ())):
+            tv.CAPTURED = captured
+            d = f"{root}/{label[1:-1]}_{tag}"
+            with vae_probes() as seen:
+                tv.main(flags + ["--epochs", str(epochs), "--no-test",
+                                 "--save-interval", "100", "--res_dir", d])
+            model = tv.parse_args(flags).model
+            out[tag] = dict(rows=_vae_rows(d), epoch_s=seen["epochs"],
+                            params=torch.load(f"{d}/{model}_0_{epochs}.ckpt",
+                                              weights_only=True)["params"])
+    finally:
+        tv.CAPTURED, tv.PlateauScheduler, tv.make_captured_step = orig
+    g, e = out["graph"], out["eager"]
+    cap = made[0] if made else None
+    print(f"{label} {' '.join(flags[:6])}: captured epochs {g['rows']}, eager "
+          f"{e['rows']}; epoch seconds captured "
+          + " / ".join(f"{v:.3f}" for v in g["epoch_s"]) + ", eager "
+          + " / ".join(f"{v:.3f}" for v in e["epoch_s"])
+          + (f"; {cap.captures} capture(s), {cap.replays} replays" if cap else ""))
+    check(g["rows"] == e["rows"], f"{label}: the captured epochs' losses differ "
+          "from the eager epochs'")
+    check(_same(g["params"], e["params"]), f"{label}: the captured run's parameters "
+          "differ from the eager run's")
+    check(cap is not None and cap.captures == 1,
+          f"{label}: not one capture for the run's one bucket")
+    return dict(rows=g["rows"], epoch_s=g["epoch_s"], eager_epoch_s=e["epoch_s"],
+                captures=cap.captures, replays=cap.replays)
+
+
+def vae_step_turns(label, flags, dev):
+    """The VAE's train step on its loader's batch 0, eager against one
+    replay of the captured step, in turns of 3; and what a replay launches,
+    read from the graph, against the eager step's K5/K6 launches
+    (wrapper_nodes)."""
+    from dagnn_tpu_torch import convert
+    from dagnn_tpu_torch.cli import train_vae as tv
+    from dagnn_tpu_torch.train import graphs
+    import tempfile
+    args = tv.parse_args(flags + ["--res_dir", tempfile.mkdtemp(prefix="vae_turns_")])
+    train, _, ga = tv.load_data(args)
+    model = tv.VAEModel(args, ga, dev)
+    params = model.init(0)
+    opt = tv.make_optimizer(args.lr, args.clip)
+    step = tv.make_train_step(model, opt)
+    captured = tv.make_captured_step(step)
+    captured.debug = True                       # keep the graph's nodes
+    host = model.prepare_host(train[:args.batch_size])
+    prepared = convert.batch_to_torch(host, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rate = np.asarray(args.lr, np.float32)
+    inputs = (host, rate, gen)
+    key = ("vae", model.kind, convert.batch_key(inputs))
+    state = [(params, opt.init(params), torch.zeros(3, device=dev))]
+
+    def replay():
+        state[0] = captured(key, state[0], inputs, (gen,))[0]
+
+    replay()
+    reset_counts()
+    step(params, opt.init(params), prepared, gen, args.lr)
+    k_e = {k: v for k, v in read_counts().items() if v}
+    print(f"{label} the wrappers' launches of an eager step {k_e}")
+    from_graph = wrapper_nodes(label, k_e, node_kinds(
+        graphs.graph_nodes(captured.last_graph())))
+    pe, se = params, opt.init(params)
+    turns = timed_turns(f"{label} train step, eager against captured:",
+                        {"eager": lambda: step(pe, se, prepared, gen, args.lr),
+                         "graph": replay}, n=3)
+    return dict(turns=turns, eager_step_launches=k_e, k5_k6_from_graph=from_graph)
+
+
+def phase_graphs(dev, card, argv, na_rows_c, na_epoch_s):
+    """Phase 25: the captured steps (dagnn_tpu_torch/train/graphs.py)
+    against the eager steps. 25a: the flagship TOK step, merged (K1/K2)
+    and pair (K3/K4), at full width on three batches of 160 synthetic
+    ASTs in one bucket (graph_vs_eager). 25b: the same for the flagship on
+    the generic branch (K6, K5) and for LP there (K5). 25c: train_vae at
+    phase 20's NA flags (2 epochs, the plateau drop forced after epoch 1)
+    and at 20b's BN flags (1 epoch), captured against eager
+    (vae_graph_vs_eager); the NA run's
+    epoch 1 equal to phase 20's run C's, its epoch 2 not (the drop reached
+    the replays); each VAE's step timed eager against captured. 25d: the
+    bench (pair) with the graph and with --eager, in turns."""
+    import shutil
+    import tempfile
+    from dagnn_tpu_torch import flagship
+    from dagnn_tpu_torch.cli import main_lp, ogb_driver
+    from dagnn_tpu_torch.data.synthetic import synthetic_ast_batch
+    from dagnn_tpu_torch.nn.dagnn import dagnn_init
+    out = {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_graphs_")
+    try:
+        graphs = synthetic_ast_batch(0, 480, mean_nodes=125)
+        cfg = flagship.flagship_cfg()
+        params = dagnn_init(0, cfg, device=dev)
+        for tag, pair, kern in (("merged", 0, ("row_forward", "row_backward")),
+                                ("pair", 2, ("pair_forward", "pair_backward"))):
+            t0 = time.perf_counter()
+            hosts = bucket_hosts(graphs, 3, pair)
+            print(f"[25a] {tag}: three batches of one bucket "
+                  f"({loader_shapes(hosts[0])}), collated in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            out[tag] = graph_vs_eager(f"[25a {tag}]", cfg, params, hosts, "tok",
+                                      kern, card, root, dev)
+            if not pair:
+                merged_hosts = hosts
+        # the flagship on the generic branch (K6, K5) on the merged batches
+        out["pallas"] = graph_vs_eager(
+            "[25b pallas]", flagship.flagship_cfg(segment_impl="pallas"), params,
+            merged_hosts, "tok",
+            ("segment_attn_forward", "segment_attn_backward", "tg_accumulate"),
+            card, root, dev, order=(0, 1, 2), n_turns=2, eager_runs=1)
+        args = main_lp.parser().parse_args(DRIVER_FLAGS)
+        cfg_lp = ogb_driver.build_model_cfg(args, "lp")
+        hosts = bucket_hosts(graphs, 3, 0, task="lp")
+        print(f"[25b] LP at main_lp's defaults (agg {cfg_lp.agg}, bidirectional "
+              f"{cfg_lp.bidirectional}, {cfg_lp.compute_dtype}; the generic branch)")
+        out["lp"] = graph_vs_eager("[25b lp]", cfg_lp,
+                                   ogb_driver.init_params(cfg_lp, 0, dev), hosts,
+                                   "lp", ("tg_accumulate",), card, root, dev,
+                                   order=(0, 1, 2), n_turns=2, eager_runs=1)
+        t0 = time.perf_counter()
+        na = vae_graph_vs_eager("[25c na]", NA_FLAGS, root, 2, drop=True)
+        check(na["rows"][0] == na_rows_c[0] and na["rows"][1] != na_rows_c[1],
+              "25c: the forced plateau drop did not reach the replayed steps "
+              f"(epochs {na['rows']}, phase 20's run C {na_rows_c[:2]})")
+        print(f"[25c na] epoch 1 equals phase 20's run C's {na_rows_c[0]}, epoch 2 "
+              f"differs from its {na_rows_c[1]} (the drop reached the replays); "
+              f"phase 20's epoch seconds (captured) "
+              + " / ".join(f"{v:.3f}" for v in na_epoch_s))
+        na["step"] = vae_step_turns("[25c na]", NA_FLAGS, dev)
+        bn = vae_graph_vs_eager("[25c bn]", BN_FLAGS, root, 1)
+        bn["step"] = vae_step_turns("[25c bn]", BN_FLAGS, dev)
+        out["vae_na"], out["vae_bn"] = na, bn
+        print(f"[25c] {card}: {time.perf_counter() - t0:.1f} s; peak cuda memory "
+              f"{torch.cuda.max_memory_allocated() / 1e6:.1f} MB")
+        t0 = time.perf_counter()
+        bench = {}
+        for tag, extra in (("graph", []), ("eager", ["--eager"]),
+                           ("eager", ["--eager"]), ("graph", [])):
+            res, lines, _ = _bench_run(f"[25d] {tag}:", extra)
+            check(lines[0]["step"] == tag, f"25d: the bench ran {lines[0]['step']}")
+            bench.setdefault(tag, []).append(lines[0]["value"])
+        print(f"[25d] bench (pair) edges/s, in turns graph, eager, eager, graph: "
+              f"graph {bench['graph']}, eager {bench['eager']} on {card}; "
+              f"{time.perf_counter() - t0:.1f} s")
+        out["bench"] = bench
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3508,6 +4092,13 @@ def main(argv):
           "ep_decompose, rehearse_preprocess --graphs 20000, bn_ceiling")
     tools = phase_tools(dev, card, {"merged": merged["edges_per_s"],
                                     "pair": paired["edges_per_s"]})
+    t0 = time.perf_counter()
+    print("[25] the captured steps (dagnn_tpu_torch/train/graphs.py) against the "
+          "eager steps: the flagship TOK step (merged, pair), LP, the NA and BN "
+          "VAEs, the bench")
+    captured = phase_graphs(dev, card, argv, vae["na"]["rows_c"], vae["na"]["epoch_s"])
+    captured["wall_s"] = time.perf_counter() - t0
+    print(f"[25] {card}: phase 25 took {captured['wall_s']:.1f} s")
     runs = {"merged": merged, "pair": paired, "pallas": pallas,
             "unidirectional": uni, "nearfar_rt": nf_rt, "nearfar_r": nf_r,
             "nearfar_unidirectional": nf_u, "merged_k2r": k2r}
@@ -3556,6 +4147,8 @@ def main(argv):
                                               "bench_pair": tools["bench"]["pair"],
                                               "bench_merged": tools["bench"]["merged"],
                                               "bench_17_steps": tools["bench"]["steps17"],
+                                              **{f"graph {t}": captured[t] for t in
+                                                 ("merged", "pair", "pallas", "lp")},
                                               "ep_decompose_dp1": {"launches": tools[
                                                   "ep_decompose"]["dp1_launches"]},
                                               "ep_decompose_ep1": {"launches": tools[
@@ -3575,6 +4168,7 @@ def main(argv):
     print(json.dumps({**runs, "tok_driver": driver, "lp_driver": lp, "kinds": kinds,
                       "node_space": node_space, "vae": vae, "latent_scoring": scoring,
                       "baselines": baselines, "parallel": parallel, "tools": tools,
+                      "captured_steps": captured,
                       "split_checks": split, "cross_route": cross,
                       "nearfar_cross_route": nf_cross, "ab_steps": ab,
                       "split_row": {short(k): v for k, v in split_row.items()},

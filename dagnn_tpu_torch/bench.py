@@ -14,15 +14,21 @@ in csrc/wavefront.cu; --pairN a plan of N), --nopair the direction-merged
 rows (K1/K2). Timing: DAGNN_BENCH_STEPS steps a group (default 2), one
 warm-up group, then max(1, 16 // steps) groups between two
 torch.cuda.synchronize() calls (the JAX bench's 16 // steps times no
-group above 16 steps).
+group above 16 steps). A group is one captured step (train/graphs.py):
+its steps chained in one CUDA graph, replayed once a group after the
+batch is copied into its buffers, as the JAX bench jits them into one
+program (bench.py:171-190); the warm-up group captures it. --eager runs
+each step launch by launch instead. The metric line's "step" says which
+("graph" or "eager").
 
 --roofline adds a second line: roofline.roofline's accounting of one step
 (model and executed TFLOP, mfu against the card's bf16 peak, the HBM
 estimate, rows and scan steps and the time each takes) and the device's
-busy share of one profiled step after the timed window. The card's peaks
+busy share of one profiled group after the timed window (a replay, or
+the eager steps), its launches counted per step. The card's peaks
 come from roofline.PEAKS; a card without an entry raises.
 
-    python -m dagnn_tpu_torch.bench [--nopair | --pairN] [--roofline]
+    python -m dagnn_tpu_torch.bench [--nopair | --pairN] [--roofline] [--eager]
     python -m dagnn_tpu_torch.bench --cpu     # the plain versions, no card
 
 Without a card and without --cpu it raises. On the CPU no kernel launches
@@ -48,8 +54,9 @@ WIDTH = 300        # emb and hidden
 
 
 def parse_args(argv):
-    """(pair plan size, 0 for the merged rows; --roofline; --cpu)."""
-    pair, roofline, cpu = 2, False, False
+    """(pair plan size, 0 for the merged rows; --roofline; --cpu;
+    --eager)."""
+    pair, roofline, cpu, eager = 2, False, False, False
     for a in argv:
         if a == "--nopair":
             pair = 0
@@ -59,23 +66,27 @@ def parse_args(argv):
             roofline = True
         elif a == "--cpu":
             cpu = True
+        elif a == "--eager":
+            eager = True
         else:
-            raise SystemExit(f"usage: python -m dagnn_tpu_torch.bench "
-                             f"[--nopair | --pairN] [--roofline] [--cpu]; got {a!r}")
-    return pair, roofline, cpu
+            raise SystemExit(f"usage: python -m dagnn_tpu_torch.bench [--nopair | "
+                             f"--pairN] [--roofline] [--cpu] [--eager]; got {a!r}")
+    return pair, roofline, cpu, eager
 
 
 def main(argv=None) -> dict:
     """Run the bench; print its line(s). Returns {"metric": line 1,
     "roofline": line 2 or None, "passes": train steps run, "n_chain",
-    "iters"}."""
-    pair, want_roofline, cpu = parse_args(sys.argv[1:] if argv is None else argv)
+    "iters", "captured": the CapturedStep (None with --eager)}."""
+    pair, want_roofline, cpu, eager = parse_args(
+        sys.argv[1:] if argv is None else argv)
     from dagnn_tpu_torch import convert, flagship, resolve_device, roofline
     from dagnn_tpu_torch.cli.ogb_driver import make_step_fns
     from dagnn_tpu_torch.dag.batch import collate
     from dagnn_tpu_torch.data.synthetic import synthetic_ast_batch
     from dagnn_tpu_torch.nn.dagnn import dagnn_init
     from dagnn_tpu_torch.ops import read_launch_counts
+    from dagnn_tpu_torch.train.graphs import CapturedStep
     from dagnn_tpu_torch.train.optim import make_optimizer
     from dagnn_tpu_torch.utils import profiling
 
@@ -94,12 +105,22 @@ def main(argv=None) -> dict:
     batch = convert.batch_to_torch(host, dev)
     params = dagnn_init(torch.Generator().manual_seed(0), cfg, device=dev)
     opt = make_optimizer(lr=1e-3, clip=0.25)
-    train_step, _ = make_step_fns(cfg, opt, "tok")
+    train_step, _ = make_step_fns(cfg, opt, "tok", capture=False)
     state = opt.init(params)
 
-    def group(p, s):
+    def chain(st, b):
+        p, s = st
         for _ in range(n_chain):
-            p, s, loss, _ = train_step(p, s, batch)
+            p, s, loss, _ = train_step(p, s, b)
+        return (p, s), loss
+
+    captured = None if eager else CapturedStep(chain)
+
+    def group(p, s):
+        if captured is None:
+            (p, s), loss = chain((p, s), batch)
+        else:
+            (p, s), loss = captured(("bench", n_chain), (p, s), batch)
         return p, s, loss
 
     params, state, loss = group(params, state)     # warm-up (and kernel build)
@@ -115,21 +136,23 @@ def main(argv=None) -> dict:
     eps = n_edges * n_chain * iters / dt
     line = {"metric": "edges_per_s_per_chip_fwdbwd", "value": eps,
             "unit": "edges/s", "vs_baseline": eps / BASELINE_EDGES_PER_S,
-            "device": card}
+            "device": card, "step": "eager" if eager else "graph"}
     print(json.dumps(line))
     out = {"metric": line, "roofline": None, "passes": n_chain * (iters + 1),
-           "n_chain": n_chain, "iters": iters}
+           "n_chain": n_chain, "iters": iters, "captured": captured}
     if want_roofline:
-        # one more step under the profiler: its kernel launches (the
-        # wrappers' counts before and after) and the device's busy share
+        # one more group under the profiler: its kernel launches a step
+        # (the counts before and after, over n_chain) and the device's
+        # busy share
         before = read_launch_counts()
         with tempfile.TemporaryDirectory(prefix="dagnn_bench_") as tmp:
-            path = profiling.profile_step(lambda: train_step(params, state, batch),
+            path = profiling.profile_step(lambda: group(params, state),
                                           iters=1, logdir=tmp, name="bench_step.json")
             busy = profiling.device_busy(profiling.device_events(path))
-        out["passes"] += 1
+        out["passes"] += n_chain
         after = read_launch_counts()
-        launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        launches = {k: (after[k] - before[k]) // n_chain for k in after
+                    if after[k] != before[k]}
         n_params = sum(v.numel() for v in params.values())
         r = roofline.roofline(cfg, host, dt / iters / n_chain, n_params, card_peaks,
                               launches or None, busy and busy["share"])

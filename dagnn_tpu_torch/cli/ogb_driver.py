@@ -24,7 +24,12 @@ where the config takes them, the generic branch otherwise: LP's gated_sum
 default runs there) and --compute_dtype auto is bfloat16 on the card,
 float32 with --cpu, as the JAX driver chooses by backend; "dense" and
 "scatter" run the generic branch. Each fold's parameters come from
-`init_params`; each batch goes to the device with convert.batch_to_torch.
+`init_params`. A DAGNN model's train step and predict are captured steps
+(make_step_fns, train/graphs.py): each host batch, its output-slot lists
+widened to the loader's widest (convert.widen_out_slots, so that a bucket
+has one shape), is copied into the graph's buffers and the graph
+replayed, one dispatch a step as the JAX driver's jitted step; the
+baselines' steps run eagerly on the batch copied to the device.
 Dropout (--dagnn_dropout) draws from one torch.Generator per fold on the
 run's device, reseeded at each epoch from --seed, the fold and the epoch,
 so a resumed epoch draws the masks an uninterrupted run draws; the
@@ -47,18 +52,19 @@ import time
 import numpy as np
 import torch
 
-from dagnn_tpu_torch import resolve_device
+from dagnn_tpu_torch import convert, resolve_device
 from dagnn_tpu_torch.convert import batch_to_torch
 from dagnn_tpu_torch.data import code2
 from dagnn_tpu_torch.data.dataloader import DAGLoader
 from dagnn_tpu_torch.data.synthetic import synthetic_ast_batch
+from dagnn_tpu_torch.nn import dagnn
 from dagnn_tpu_torch.nn.baselines import MPNNConfig, mpnn_forward, mpnn_init
 from dagnn_tpu_torch.nn.dagnn import DAGNNConfig, dagnn_forward, dagnn_init
 from dagnn_tpu_torch.nn.encoders import EncoderSpec
 from dagnn_tpu_torch.nn.gnn2_models import GNN2Config, gnn2_forward, gnn2_init
 from dagnn_tpu_torch.nn.pooling_baselines import (HPoolConfig, hpool_forward,
                                                   hpool_init)
-from dagnn_tpu_torch.train import checkpoint as ckpt
+from dagnn_tpu_torch.train import checkpoint as ckpt, graphs
 from dagnn_tpu_torch.train.losses import class_loss, tok_loss
 from dagnn_tpu_torch.train.metrics import RunLogger, summary_report
 from dagnn_tpu_torch.train.optim import make_optimizer
@@ -253,14 +259,27 @@ MODELS = {DAGNNConfig: (dagnn_init, dagnn_forward),
           HPoolConfig: (hpool_init, hpool_forward)}
 
 
-def make_step_fns(cfg, opt, task: str = "tok"):
+def make_step_fns(cfg, opt, task: str = "tok", capture: bool = True):
     """(train_step, predict) for a model config (DAGNNConfig or a
     baseline's, see MODELS) on the TOK or LP task.
 
     train_step(params, opt_state, batch, rng=None) ->
         (params, opt_state, loss, finite); rng: a torch.Generator on the
         parameters' device, for dropout
-    predict(params, batch) -> argmax ids ([G, S] tokens, or [G] classes)"""
+    predict(params, batch) -> argmax ids ([G, S] tokens, or [G] classes)
+
+    `batch` is a collated batch, its arrays on the host (numpy) or on the
+    parameters' device. For a DAGNNConfig both functions are captured
+    steps (train/graphs.py), as the JAX driver jits them: on the card one
+    CUDA graph replay a step for each bucket of batch shapes, the state
+    written in place into the persistent buffers the train step returns
+    (a later call overwrites what an earlier one returned); predict keeps
+    a graph for each of the driver's three evaluation buckets. The
+    baselines (MPNNConfig, GNN2Config, HPoolConfig) stay eager, by the
+    rule CAPTURED below, and so does every config with capture=False (the
+    bench's --eager, and its chained steps, which it captures as one
+    group): each call issues its launches from Python and returns new
+    tensors."""
     fwd = MODELS[type(cfg)][1]
 
     def loss_fn(params, batch, rng):
@@ -273,7 +292,7 @@ def make_step_fns(cfg, opt, task: str = "tok"):
         return class_loss(logits, torch.as_tensor(
             batch.y["len_longest_path"], device=dev), mask)
 
-    def train_step(params, opt_state, batch, rng=None):
+    def step(params, opt_state, batch, rng=None):
         p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
         loss = loss_fn(p, batch, rng)
         gs = torch.autograd.grad(loss, list(p.values()), allow_unused=True)
@@ -299,11 +318,54 @@ def make_step_fns(cfg, opt, task: str = "tok"):
         return params_out, state_out, loss, finite
 
     @torch.no_grad()
-    def predict(params, batch):
+    def infer(params, batch):
         logits = fwd(params, cfg, batch)
         return torch.argmax(logits, dim=-1)
 
+    if not (capture and isinstance(cfg, CAPTURED)):
+        on = lambda params, batch: batch_to_torch(
+            batch, next(iter(params.values())).device)
+        return ((lambda params, opt_state, batch, rng=None:
+                 step(params, opt_state, on(params, batch), rng)),
+                lambda params, batch: infer(params, on(params, batch)))
+
+    def train_fn(state, inputs):
+        batch, rng = inputs
+        params, opt_state, loss, finite = step(*state, batch, rng)
+        return (params, opt_state), (loss, finite)
+
+    captured_train = graphs.CapturedStep(train_fn)
+    captured_predict = graphs.CapturedStep(
+        lambda params, batch: (None, infer(params, batch)),
+        writes_state=False, keep=3)
+
+    def train_step(params, opt_state, batch, rng=None):
+        gens = () if rng is None else (rng,)
+        (params, opt_state), (loss, finite) = captured_train(
+            step_key("train", cfg, batch), (params, opt_state), (batch, rng),
+            gens)
+        return params, opt_state, loss, finite
+
+    def predict(params, batch):
+        return captured_predict(step_key("predict", cfg, batch), params,
+                                batch)[1]
+
+    train_step.captured, predict.captured = captured_train, captured_predict
     return train_step, predict
+
+
+# The configs whose steps are captured (train/graphs.py): DAGNN's, every
+# wavefront. The baselines' steps stay eager (ROADMAP queue 1).
+CAPTURED = (DAGNNConfig,)
+
+
+def step_key(what, cfg, batch):
+    """A captured DAGNN step's key: what it is, the route and impl the
+    batch takes (dagnn._route; the merged path's form follows
+    DAGNN_NO_RES_STREAM, read at each call) and the batch's shapes and
+    host values (convert.batch_key)."""
+    route, impl = dagnn._route(cfg, batch, None)
+    return (what, route, impl, dagnn._NO_RES_STREAM, convert.batch_key(batch))
 
 
 def init_params(cfg, seed, device):
@@ -311,12 +373,13 @@ def init_params(cfg, seed, device):
     return MODELS[type(cfg)][0](seed, cfg, device=device)
 
 
-def evaluate(predict, params, loader, task: str, idx2vocab, device) -> float:
+def evaluate(predict, params, loader, task: str, idx2vocab) -> float:
     """Greedy decode + metric (main_pyg.py:69-88 / main_pyg_lp.py:77-110)."""
     refs, preds = [], []
     yt, yp = [], []
     for batch in loader:
-        out = predict(params, batch_to_torch(batch, device)).cpu().numpy()
+        batch = convert.widen_out_slots(batch, loader.out_per_graph)
+        out = predict(params, batch).cpu().numpy()
         g = int(batch.n_graph)
         if task == "tok":
             for i in range(g):
@@ -398,8 +461,10 @@ def run(args, task: str):
             loader = mk_loader(train, True, args.seed + fold * 1000 + epoch)
             gen.manual_seed(args.seed + fold * 1000 + epoch)
             for batch in loader:
+                # host arrays: a captured step copies them into its buffers
                 params, opt_state, loss, finite = train_step(
-                    params, opt_state, batch_to_torch(batch, device), gen)
+                    params, opt_state,
+                    convert.widen_out_slots(batch, loader.out_per_graph), gen)
                 lv = float(loss)
                 if np.isfinite(lv):
                     losses.append(lv)
@@ -409,10 +474,9 @@ def run(args, task: str):
                 print(f"  nonfinite-grad steps skipped: {skipped}")
             train_time = time.time() - t0
 
-            m_tr = evaluate(predict, params, train_eval_loader, task, idx2vocab,
-                            device)
-            m_va = evaluate(predict, params, valid_loader, task, idx2vocab, device)
-            m_te = evaluate(predict, params, test_loader, task, idx2vocab, device)
+            m_tr = evaluate(predict, params, train_eval_loader, task, idx2vocab)
+            m_va = evaluate(predict, params, valid_loader, task, idx2vocab)
+            m_te = evaluate(predict, params, test_loader, task, idx2vocab)
             mloss = float(np.mean(losses)) if losses else 0.0
             logger.log_epoch(fold, epoch, mloss, m_tr, m_va, m_te, train_time)
             print(f"fold {fold} epoch {epoch}: loss {mloss:.4f} "

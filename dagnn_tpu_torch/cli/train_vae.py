@@ -15,24 +15,30 @@ variants (DVAE_GCN, DVAE_fast, DVAE_DeepGMG).
         --epochs 2 --hs 16 --nz 6
 
 It runs on the CUDA device unless --cpu is given, and raises without a
-card (no CPU fallback). Each batch is collated on the host and copied to
-the device once (convert.batch_to_torch); the DAGNN encoders run the
-port's generic wavefront (K6 and K5), every other model no kernel of the
-port (plain tensor code, as in JAX, where none of them reaches a Pallas
-kernel).
+card (no CPU fallback). Each batch is collated on the host; the DAGNN
+encoders run the port's generic wavefront (K6 and K5), every other model
+no kernel of the port (plain tensor code, as in JAX, where none of them
+reaches a Pallas kernel).
+
+--scan-chunk is the JAX driver's: the full batches of an epoch go in
+chunks of --scan-chunk, each chunk's batches prepared on the host, then
+run as one replay of the captured train step each (train/graphs.py: one
+CUDA graph, its inputs copied in from pinned memory, the loss sums kept on
+the device inside the graph), the host reading the sums once a chunk;
+the short tail batch runs the eager step, as JAX's single-step path. The
+models captured are DAGNN, DAGNN_BN, DVAE and DVAE_BN (CAPTURED); the
+S-VAEs, DVAE_GCN, DVAE_fast and DVAE_DeepGMG run every step eagerly.
 
 Where it differs from the JAX driver, on purpose (ROADMAP queue 3):
-  * the plateau schedule lowers the learning rate (lr * scale into Adam),
-    where the JAX driver scales the gradients, which Adam undoes;
+  * the plateau schedule lowers the learning rate (lr * scale into Adam,
+    staged into the captured step as a tensor), where the JAX driver
+    scales the gradients, which Adam undoes;
   * a resumed run is the uninterrupted run: the permutation generator is
     fast-forwarded through the finished epochs, the reparameterization
     noise and the S-VAEs' host generator (the BFS orders of
     SVAE_GraphRNN_BFS; JAX draws them from one default_rng(0) a process)
     are seeded from (--seed, epoch), and the scheduler's state rides in
     the checkpoint's results;
-  * --scan-chunk (JAX: optimizer steps fused into one device dispatch) is
-    the number of steps between host reads of the epoch's loss sums, which
-    stay on the device in between;
   * the corpus cache is the port's own file, `<res_dir>/<data-name>_torch.npz`
     of plain arrays (the JAX driver's `<data-name>.pkl` pickles its
     NAGraph objects and is not read here); it records the flags that built
@@ -55,10 +61,10 @@ import scipy.io
 import torch
 
 from dagnn_tpu_torch import resolve_device
-from dagnn_tpu_torch.convert import batch_to_torch
+from dagnn_tpu_torch import convert
 from dagnn_tpu_torch.data.na import (GraphArgs, NAGraph, load_bn, load_enas,
                                      synthetic_bn_corpus)
-from dagnn_tpu_torch.train import checkpoint as ckpt
+from dagnn_tpu_torch.train import checkpoint as ckpt, graphs
 from dagnn_tpu_torch.train.metrics import CSVLogger
 from dagnn_tpu_torch.train.optim import PlateauScheduler, make_optimizer
 from dagnn_tpu_torch.vae.dagnn_vae import (DAGNNVAEConfig, dagnn_vae_encode,
@@ -114,7 +120,8 @@ def parse_args(argv=None):
     p.add_argument("--no-test", action="store_true")
     p.add_argument("--small-train", action="store_true")
     p.add_argument("--scan-chunk", type=int, default=128,
-                   help="train steps between host reads of the loss sums")
+                   help="full batches a chunk: prepared together, one "
+                        "captured-step replay each, the loss sums read once")
     p.add_argument("--max-count", type=int, default=None)
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU (smoke/debug runs)")
@@ -235,22 +242,25 @@ class VAEModel:
         if self.kind.startswith("SVAE"):
             self.host_rng = np.random.default_rng([seed, epoch])
 
-    def prepare(self, graphs: List[NAGraph]):
-        """(batch or None, types, adj, nv) on the device: the DAGNN
-        encoder's collated batch and the decoder's dense views; for the
+    def prepare_host(self, graphs: List[NAGraph]):
+        """(batch or None, types, adj, nv) as host arrays: the DAGNN
+        encoder's collated batch (its output-slot lists, which the VAE
+        reads nowhere, widened to a graph's nodes, so that every batch of
+        one size has one shape) and the decoder's dense views; for the
         S-VAEs (None, string tensors [B, steps, xs], None, zeros)."""
-        dev = lambda a: torch.as_tensor(a).to(self.device)
         if self.kind.startswith("SVAE"):
             G = np.stack([graph_to_string_tensor(g, self.cfg, self.host_rng)
                           for g in graphs])
-            return None, dev(G), None, dev(np.zeros(len(graphs), np.int32))
+            return None, G, None, np.zeros(len(graphs), np.int32)
         if self.kind.startswith("DAGNN"):
             batch, types, adj, nv = na_collate(graphs, self.cfg)
-            batch = batch_to_torch(batch, self.device)
-        else:
-            batch = None
-            types, adj, nv = na_dense_views(graphs, self.cfg.max_n)
-        return batch, dev(types), dev(adj), dev(nv)
+            return (convert.widen_out_slots(batch, self.cfg.num_nodes), types,
+                    adj, nv)
+        return (None, *na_dense_views(graphs, self.cfg.max_n))
+
+    def prepare(self, graphs: List[NAGraph]):
+        """prepare_host's arrays on the device."""
+        return convert.batch_to_torch(self.prepare_host(graphs), self.device)
 
     def loss(self, params, prepared, gen, training=True, impl=None):
         """(total, recon, kld); gen draws the reparameterization noise.
@@ -305,22 +315,65 @@ def make_train_step(model: VAEModel, opt):
     return train_step
 
 
-def train_epoch(args, model, train_step, params, opt_state, data, order,
-                gen, lr, epoch, t0):
-    """One epoch's batches in `order` (the reference's exact batches,
-    dvae/train.py:228-235, the tail one short). The loss sums stay on the
-    device; the host reads them every --scan-chunk steps for the progress
-    line. Returns (params, opt_state, [total, recon, kld] sums)."""
-    n_steps = -(-len(order) // args.batch_size)
-    sums = None
-    for si, i in enumerate(range(0, len(order), args.batch_size)):
-        prepared = model.prepare([data[j] for j in order[i:i + args.batch_size]])
+# The --model values whose train step is captured (train/graphs.py): the
+# DAGNN VAEs and the base D-VAEs (scripts/na_train.sh, bn_train.sh). The
+# S-VAEs, DVAE_GCN, DVAE_fast and DVAE_DeepGMG stay eager (ROADMAP queue 1).
+CAPTURED = ("DAGNN", "DAGNN_BN", "DVAE", "DVAE_BN")
+
+
+def make_captured_step(train_step):
+    """train_step as a captured step: its state (params, opt_state, the
+    epoch's [total, recon, kld] sums, which the graph adds each step's
+    into), its inputs (prepare_host's arrays, lr as a 0-d float32 array,
+    the noise generator)."""
+
+    def fn(state, inputs):
+        params, opt_state, sums = state
+        prepared, lr, gen = inputs
         params, opt_state, stats = train_step(params, opt_state, prepared, gen, lr)
-        sums = stats if sums is None else sums + stats
-        if (si + 1) % args.scan_chunk == 0 and si + 1 < n_steps:
-            print(f"  epoch {epoch} step {si + 1}/{n_steps} "
-                  f"[{time.time() - t0:.0f}s] loss sum {float(sums[0]):.4f}",
-                  flush=True)
+        return (params, opt_state, sums + stats), None
+
+    return graphs.CapturedStep(fn)
+
+
+def train_epoch(args, model, train_step, params, opt_state, data, order,
+                gen, lr, epoch, t0, captured=None):
+    """One epoch's batches in `order` (the reference's exact batches,
+    dvae/train.py:228-235, the tail one short), as the JAX driver runs
+    them: the full batches in chunks of --scan-chunk, each chunk's batches
+    prepared on the host and then stepped (one replay of `captured` each,
+    or the eager train_step without it), the loss sums read once a chunk
+    for the progress line; the tail batch by the eager train_step. The
+    sums stay on the device. Returns (params, opt_state, [total, recon,
+    kld] sums)."""
+    bs = args.batch_size
+    starts = range(0, len(order), bs)
+    full = [i for i in starts if i + bs <= len(order)]
+    tail = [i for i in starts if i + bs > len(order)]
+    K = max(1, min(args.scan_chunk, len(full)))
+    sums = torch.zeros(3, device=model.device)
+    rate = np.asarray(lr, np.float32)
+    batch_of = lambda i: [data[j] for j in order[i:i + bs]]
+    for c in range(0, len(full), K):
+        chunk = [model.prepare_host(batch_of(i)) for i in full[c:c + K]]
+        for host in chunk:
+            if captured is None:
+                params, opt_state, stats = train_step(
+                    params, opt_state, convert.batch_to_torch(host, model.device),
+                    gen, lr)
+                sums = sums + stats
+            else:
+                inputs = (host, rate, gen)
+                (params, opt_state, sums), _ = captured(
+                    ("vae", model.kind, convert.batch_key(inputs)),
+                    (params, opt_state, sums), inputs, (gen,))
+        print(f"  epoch {epoch} step {c + len(chunk)}/{len(starts)} "
+              f"[{time.time() - t0:.0f}s] loss sum {float(sums[0]):.4f}",
+              flush=True)
+    for i in tail:
+        params, opt_state, stats = train_step(
+            params, opt_state, model.prepare(batch_of(i)), gen, lr)
+        sums = sums + stats
     return params, opt_state, sums
 
 
@@ -361,6 +414,7 @@ def main(argv=None):
         print(f"resumed from {path}")
 
     train_step = make_train_step(model, opt)
+    captured = make_captured_step(train_step) if model.kind in CAPTURED else None
     rnd = np.random.default_rng(args.seed)
     for _ in range(1, start_epoch):        # the finished epochs' draws
         rnd.permutation(len(train_data))
@@ -372,7 +426,7 @@ def main(argv=None):
         model.seed_host(args.seed, epoch)
         params, opt_state, sums = train_epoch(
             args, model, train_step, params, opt_state, train_data, order, gen,
-            args.lr * sched.scale, epoch, t0)
+            args.lr * sched.scale, epoch, t0, captured)
         tot, rec, kl = (float(x) for x in sums.cpu())
         n = len(train_data)
         print(f"====> Epoch: {epoch} Average loss: {tot / n:.4f} "

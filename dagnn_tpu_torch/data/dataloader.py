@@ -77,6 +77,10 @@ class DAGLoader:
         self.prefetch = prefetch
         self.schedules = schedules
         self._pad: Optional[PadConfig] = None
+        # the widest per-graph output-slot list of the batches bucketed so
+        # far (PadConfig.out_per_graph of each, which the bucket leaves to
+        # the batch): convert.widen_out_slots gives every batch this width
+        self.out_per_graph = 1
 
     def _epoch_batches(self) -> List[List[DAGGraph]]:
         idx = np.arange(len(self.graphs))
@@ -100,6 +104,7 @@ class DAGLoader:
                 c = PadConfig.for_graphs(s, chunk_size=self.chunk_size,
                                          edge_budget=self.edge_budget,
                                          stagger=self.stagger)
+                self.out_per_graph = max(self.out_per_graph, c.out_per_graph)
             else:
                 # cyclic baseline graphs: counts only, no leveling
                 c = PadConfig(

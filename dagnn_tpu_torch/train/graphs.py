@@ -1,0 +1,270 @@
+"""Captured steps: one dispatch a step, as the JAX package's jitted steps.
+
+The JAX drivers `jax.jit` their train step and their predict, the VAE
+driver fuses --scan-chunk optimizer steps into one dispatch (`lax.scan`),
+and the bench chains DAGNN_BENCH_STEPS steps into one program. The port's
+counterpart of a compiled program is a CUDA graph: CapturedStep captures a
+step once for each key (a bucket of batch shapes) and replays it for each
+step of that key, so that the host issues one replay where it issued every
+kernel and every glue op of the step. The computation does not change: the
+same launches run in the same order on the same inputs.
+
+A step is a function fn(state, inputs) -> (new_state, outputs) of trees
+of tensors. CapturedStep holds:
+  * static input buffers (convert.static_buffers), into which each call
+    first copies its batch (convert.batch_to_torch(..., out=)): the learning
+    rate too, as a 0-d tensor, so that a plateau drop reaches the replay;
+  * with writes_state (a train step), the state: parameters and optimizer
+    state, cloned from the first call's and written in place inside the
+    graph, so that a replay never hands back memory of the graph's pool
+    that the next replay overwrites. A call with other state tensors
+    copies them in (a checkpoint loaded, a new fold). Without
+    writes_state (predict) the state is read where it lies, and its
+    tensors are part of the key;
+  * one graph per key, at most `keep` of them (the least recently used
+    is freed, and with it its private memory pool). The key is the
+    caller's (route, impl, convert.batch_key of the batch: every shape,
+    dtype and host value the step bakes into a launch) and the
+    generators the step draws from.
+
+Before a capture the step runs WARMUP times on a side stream, with its
+results dropped (the kernel libraries build and load there, the cuBLAS
+handles of that stream are made), and the generators' states are put back
+after the warm-up: the replay then draws what the eager step draws from
+the same seed (CUDAGraph.register_generator_state). A capture that fails
+raises; nothing falls back to the eager step.
+
+Launch counts: a replay runs no kernel wrapper, so the counts the wrappers
+made while the graph was captured are recorded, the set-up's own counts
+(warm-up and capture) taken back, and each replay adds the recorded counts
+(ops.count_replay): ops.read_launch_counts reads as if each replay had
+been an eager step. The warm-up's launches are set-up, as a capture is,
+and are not counted. What a replay really launches is read from the graph
+itself: with `debug` set before a capture, graph_nodes lists the graph's
+kernel, copy and set nodes by name (CUDAGraph.debug_dump).
+
+On CPU tensors nothing is captured: each call stages its inputs into the
+static buffers the same way and calls the step on them directly.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import tempfile
+import warnings
+from collections import Counter, OrderedDict
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from dagnn_tpu_torch import convert, ops
+
+# eager calls of a step on a side stream before its capture
+WARMUP = 2
+
+
+def _leaves(tree):
+    out = []
+    convert.tree_map(lambda t: out.append(t), tree)
+    return [t for t in out if isinstance(t, torch.Tensor)]
+
+
+def _device(tree):
+    leaves = _leaves(tree)
+    if not leaves:
+        raise ValueError("CapturedStep: the state holds no tensor")
+    return leaves[0].device
+
+
+class _Graph(NamedTuple):
+    inputs: object            # the static input buffers
+    graph: Optional[object]   # torch.cuda.CUDAGraph; None on the CPU
+    outputs: object           # the captured step's outputs (graph pool)
+    counts: dict              # the launches one replay stands for
+    state: object             # the state it reads (keeps it alive)
+
+
+class CapturedStep:
+    """fn(state, inputs) -> (new_state, outputs) replayed from one CUDA
+    graph per key. Call it as step(key, state, inputs, generators) ->
+    (state, outputs): `state` the step's state (with writes_state its
+    persistent buffers, returned updated in place), `outputs` copies of
+    the step's outputs."""
+
+    def __init__(self, fn: Callable, *, writes_state: bool = True,
+                 keep: int = 1, debug: bool = False):
+        self.fn = fn
+        self.writes_state = writes_state
+        self.keep = keep
+        self.debug = debug         # keep each graph's nodes (graph_nodes)
+        self.state = None
+        self.graphs: "OrderedDict[tuple, _Graph]" = OrderedDict()
+        self.captures = 0          # graphs captured (staged sets on the CPU)
+        self.replays = 0           # calls served by a graph (by a direct
+        #                            call of the staged step on the CPU)
+
+    def __call__(self, key, state, inputs, generators=()):
+        state = self._bind(state)
+        gens = tuple(generators)
+        full = (key, gens)
+        if not self.writes_state:
+            full += (tuple(id(t) for t in _leaves(state)),)
+        g = self.graphs.get(full)
+        if g is None:
+            g = self._capture(full, state, inputs, gens)
+        else:
+            self.graphs.move_to_end(full)
+            convert.batch_to_torch(inputs, out=g.inputs)
+        if g.graph is None:
+            outputs = self._body(state, g.inputs)
+        else:
+            g.graph.replay()
+            ops.count_replay(g.counts)
+            outputs = g.outputs
+        self.replays += 1
+        return state, convert.tree_map(torch.clone, outputs)
+
+    def _bind(self, state):
+        """The state the graph reads: with writes_state the persistent
+        buffers, cloned from the first call's state; a state whose tensors
+        are not those buffers is copied into them."""
+        if not self.writes_state:
+            return state
+        if self.state is None:
+            self.state = convert.tree_map(lambda t: t.detach().clone(), state)
+        elif state is not self.state:
+            mine, theirs = _leaves(self.state), _leaves(state)
+            if len(mine) != len(theirs) or any(m is not t for m, t in
+                                               zip(mine, theirs)):
+                if convert.batch_key(state) != convert.batch_key(self.state):
+                    raise ValueError("CapturedStep: the state's structure, "
+                                     "shapes or dtypes differ from the "
+                                     "captured state's")
+                with torch.no_grad():
+                    for m, t in zip(mine, theirs):
+                        if m is not t:
+                            m.copy_(t)
+        return self.state
+
+    def _body(self, state, inputs):
+        new_state, outputs = self.fn(state, inputs)
+        if self.writes_state:
+            with torch.no_grad():
+                convert.tree_map(lambda dst, src: dst.copy_(src), state,
+                                 new_state)
+        return outputs
+
+    def _capture(self, key, state, inputs, gens):
+        while len(self.graphs) >= self.keep:
+            self.graphs.popitem(last=False)        # frees its graph and pool
+        dev = _device(state)
+        static = convert.static_buffers(inputs, dev)
+        self.captures += 1
+        if dev.type != "cuda":
+            g = _Graph(static, None, None, {}, state)
+            self.graphs[key] = g
+            return g
+        own = ops.wrapper_counts()
+        rng = [gen.get_state() for gen in gens]
+        main = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP):
+                self.fn(state, static)
+        main.wait_stream(side)
+        for gen, s in zip(gens, rng):
+            gen.set_state(s)
+        # debug: the cudaGraph_t is kept beside its instantiation, for
+        # graph_nodes to read
+        graph = torch.cuda.CUDAGraph(keep_graph=self.debug)
+        if self.debug:
+            graph.enable_debug_mode()
+        for gen in gens:
+            graph.register_generator_state(gen)
+        before = ops.wrapper_counts()
+        try:
+            with torch.cuda.graph(graph, stream=side):
+                outputs = self._body(state, static)
+        except RuntimeError as e:
+            raise RuntimeError(f"CapturedStep: the capture of {key[0]!r} "
+                               f"failed: {e}") from e
+        if self.debug:
+            graph.instantiate()
+        after = ops.wrapper_counts()
+        counts = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        ops.restore_wrapper_counts(own)
+        for gen, s in zip(gens, rng):
+            gen.set_state(s)
+        g = _Graph(static, graph, outputs, counts, state)
+        self.graphs[key] = g
+        return g
+
+    def last_graph(self):
+        """The torch.cuda.CUDAGraph of the key called last (None on the
+        CPU)."""
+        return self.graphs[next(reversed(self.graphs))].graph
+
+
+def kernel_name(name: str) -> str:
+    """A kernel's unqualified function name, from its mangled symbol (as a
+    graph's nodes name it) or its demangled signature (as the profiler
+    does): "_ZN2at6native18elementwise_kernelILi128E..." and "void
+    at::native::elementwise_kernel<128, ...>(...)" both give
+    "elementwise_kernel". A name that is neither is returned as it is."""
+    if name.startswith("_Z"):
+        s, last = name[2:].lstrip("L"), None
+        nested = s.startswith("N")
+        s = s[1:].lstrip("rVKRO") if nested else s
+        while s:
+            if s.startswith("St"):
+                s = s[2:]
+                continue
+            m = re.match(r"(\d+)", s)
+            if not m:
+                break
+            n, s = int(m.group(1)), s[m.end():]
+            last, s = s[:n], s[n:]
+            if not nested:
+                break
+        return last or name
+    name = name.replace("(anonymous namespace)::", "")
+    if name.startswith("void "):
+        name = name[5:]
+    return name.split("<")[0].split("(")[0].split("::")[-1]
+
+
+_NODE = re.compile(r'"graph_\d+_node_\d+"\s*\[[^\n]*?label="((?:[^"\\]|\\.)*)"')
+
+
+def graph_nodes(graph) -> Counter:
+    """A captured graph's nodes by kind, from CUDAGraph.debug_dump (the
+    graph must have been made with keep_graph=True and captured with
+    enable_debug_mode, as CapturedStep does with debug set): "memcpy" and
+    "memset" for its copy and set nodes, a kernel node by its function's
+    symbol as the dump gives it (kernel_name cuts it to the name), any
+    other node by its type in lower case."""
+    fd, path = tempfile.mkstemp(suffix=".dot")
+    os.close(fd)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")       # debug_dump's own notice
+            graph.debug_dump(path)
+        with open(path) as f:
+            text = f.read()
+    finally:
+        os.remove(path)
+    out = Counter()
+    for label in _NODE.findall(text):
+        kind = re.search(r"[A-Z][A-Z_]{2,}", label)
+        kind = kind.group(0) if kind else "?"
+        if kind == "KERNEL":
+            m = re.search(r"([^\s|{}]+?)\s*(?:\\?<){3}", label)
+            out[m.group(1) if m else "?kernel"] += 1
+        else:
+            out[kind.lower()] += 1
+    if not out:
+        raise ValueError("graph_nodes: the dump holds no node (was the graph "
+                         "kept and captured in debug mode?)")
+    return out

@@ -5,7 +5,10 @@ Counterpart of dagnn_tpu/train/optim.py: make_optimizer is the OGB
 drivers' Adam(lr) + grad-norm clip 0.25 (reference: main_pyg.py:63-64,
 297), as the optax chain clip_by_global_norm(clip) -> adam(lr); its update
 takes an `lr` that replaces the one it was made with, the learning rate a
-driver lowers between epochs (optax's inject_hyperparams).
+driver lowers between epochs (optax's inject_hyperparams): a float, or a
+0-d float32 tensor on the gradients' device, which a captured step
+(train/graphs.py) stages before each replay, where a float would be
+frozen into the graph at its capture. The two give the same bits.
 PlateauScheduler is ReduceLROnPlateau(factor 0.1, patience 10) of the dvae
 driver (dvae/train.py:193-194). Two details differ from torch's own tools
 and are kept on purpose:

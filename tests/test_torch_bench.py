@@ -137,8 +137,10 @@ def test_main_prints_the_metric_and_roofline_lines(monkeypatch, capsys):
     lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
              if ln.startswith("{")]
     assert [ln["metric"] for ln in lines] == ["edges_per_s_per_chip_fwdbwd", "roofline"]
-    assert set(lines[0]) == {"metric", "value", "unit", "vs_baseline", "device"}
+    assert set(lines[0]) == {"metric", "value", "unit", "vs_baseline", "device",
+                             "step"}
     assert lines[0]["unit"] == "edges/s" and lines[0]["device"] == "cpu"
+    assert lines[0]["step"] == "graph"
     assert np.isfinite(lines[0]["value"]) and lines[0]["value"] > 0
     assert lines[0]["vs_baseline"] == pytest.approx(lines[0]["value"] / 1e6)
     keys = {"model_tflops", "executed_tflops", "mfu", "executed_vs_peak", "hbm_gb_est",
@@ -150,7 +152,21 @@ def test_main_prints_the_metric_and_roofline_lines(monkeypatch, capsys):
               "executed_tflops"):
         assert lines[1][k] is None
     assert lines[1]["seq_steps"] * 2 == lines[1]["seq_rows"] // 2   # pair of 2
-    assert out["passes"] == 2 * (8 + 1) + 1 and out["metric"] == lines[0]
+    # 8 timed groups of 2 steps after the warm-up group, then one profiled
+    # group (a replay of the captured chain: 2 steps)
+    assert out["passes"] == 2 * (8 + 1) + 2 and out["metric"] == lines[0]
+    # the warm-up group captured the chain (staged on the CPU), every
+    # group after it replayed it
+    assert (out["captured"].captures, out["captured"].replays) == (1, 10)
+
+
+def test_eager_bench_steps_launch_by_launch(monkeypatch, capsys):
+    """--eager: each step issued from Python, launch by launch; no captured step."""
+    _small(monkeypatch)
+    out = bench.main(["--cpu", "--nopair", "--eager"])
+    line = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert line["step"] == "eager" and line["value"] > 0
+    assert out["captured"] is None and out["passes"] == 2 * (8 + 1)
 
 
 def test_more_than_16_steps_times_one_group(monkeypatch, capsys):

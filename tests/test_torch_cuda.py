@@ -33,6 +33,7 @@ inputs) hold rounding noise: the kernel's may be at most 8 times the plain
 version's.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -938,3 +939,164 @@ def test_na_train_step_kernels_match_plain(dev, agg):
     assert abs(kl - pl) <= 1e-5 * abs(pl) and abs(kn - pn) <= 1e-5 * pn
     for k in pg:
         torch.testing.assert_close(kg[k], pg[k], rtol=5e-4, atol=5e-5, msg=k)
+
+
+# ----------------------------- captured steps (train/graphs.py) on the card
+
+def _bucket(dev, task="tok", dropout=0.0):
+    """A small odd config (emb / hidden 45, bf16) and three host batches of
+    one loader bucket (their output slots widened to the loader's): the
+    flagship's merged route (TOK) or main_lp's generic branch (LP:
+    gated_sum, one direction, K5)."""
+    import dataclasses
+    from dagnn_tpu_torch import convert, flagship
+    from dagnn_tpu_torch.data.dataloader import DAGLoader
+    from dagnn_tpu_torch.data.synthetic import synthetic_ast_batch
+    from dagnn_tpu_torch.nn.dagnn import dagnn_init
+    graphs = synthetic_ast_batch(5, 30, mean_nodes=17, vocab=23, seq_len=3,
+                                 num_attrs=40)
+    cfg = flagship.flagship_cfg(emb=45, hidden=45, vocab=23, seq=3, num_attrs=40)
+    if task == "lp":
+        for g in graphs:
+            g.y["len_longest_path"] = np.asarray(min(g.len_longest_path, 6), np.int32)
+        cfg = dataclasses.replace(cfg, agg="gated_sum", bidirectional=False,
+                                  num_vocab=0, num_class=7)
+    cfg = dataclasses.replace(cfg, dropout=dropout)
+    loader = DAGLoader(graphs, 10, shuffle=True, seed=2, chunk_size=16, prefetch=0)
+    hosts = [convert.widen_out_slots(b, loader.out_per_graph) for b in loader]
+    return cfg, dagnn_init(0, cfg, device=dev), hosts
+
+
+def _five_steps(cfg, params, hosts, task, capture, gen=None, seed=0):
+    from dagnn_tpu_torch.cli.ogb_driver import make_step_fns
+    from dagnn_tpu_torch.train.optim import make_optimizer
+    opt = make_optimizer(1e-3, 0.25)
+    train_step, predict = make_step_fns(cfg, opt, task, capture=capture)
+    p, s = params, opt.init(params)
+    if gen is not None:
+        gen.manual_seed(seed)
+    losses = []
+    for i in (0, 1, 2, 0, 1):
+        p, s, loss, _ = train_step(p, s, hosts[i], gen)
+        losses.append(float(loss))
+    return (losses, {k: v.clone() for k, v in p.items()},
+            predict(p, hosts[0]), train_step)
+
+
+@pytest.mark.parametrize("task", ["tok", "lp"])
+def test_captured_steps_equal_eager_steps(dev, task):
+    """Five steps over three batches of one bucket (0, 1, 2, 0, 1), the
+    driver's captured train step against its eager one: the eager steps
+    repeat bit for bit on these paths (no atomics), so the replays must
+    equal them bit for bit, losses, parameters and predicted ids; one
+    capture, five replays."""
+    cfg, params, hosts = _bucket(dev, task)
+    assert len(hosts) == 3
+    e1, e2 = (_five_steps(cfg, params, hosts, task, False) for _ in range(2))
+    assert e1[0] == e2[0] and all(torch.equal(e1[1][k], e2[1][k]) for k in e1[1])
+    g = _five_steps(cfg, params, hosts, task, True)
+    assert g[0] == e1[0]
+    for k in e1[1]:
+        assert torch.equal(g[1][k], e1[1][k]), k
+    assert torch.equal(g[2], e1[2])
+    cap = g[3].captured
+    assert (cap.captures, cap.replays) == (1, 5)
+    assert all(v.graph is not None for v in cap.graphs.values())
+
+
+def test_dropout_masks_under_a_reseeded_generator(dev):
+    """Dropout draws from the driver's generator: the replays after
+    manual_seed(s) draw what the eager steps draw after manual_seed(s),
+    and a second reseed to s draws the same masks again."""
+    cfg, params, hosts = _bucket(dev, dropout=0.3)
+    gen = torch.Generator(device=dev)
+    eager = _five_steps(cfg, params, hosts, "tok", False, gen, seed=11)
+    graph = _five_steps(cfg, params, hosts, "tok", True, gen, seed=11)
+    again = _five_steps(cfg, params, hosts, "tok", True, gen, seed=11)
+    other = _five_steps(cfg, params, hosts, "tok", True, gen, seed=12)
+    assert graph[0] == eager[0] == again[0]
+    assert other[0] != graph[0]
+    for k in eager[1]:
+        assert torch.equal(graph[1][k], eager[1][k]), k
+
+
+def test_replays_count_their_capture_launches(dev):
+    """read_launch_counts: each replay adds the launches its capture
+    issued; the set-up (warm-up and capture) adds nothing; the wrappers'
+    own counts do not move on a replay."""
+    from dagnn_tpu_torch import ops
+    from dagnn_tpu_torch.cli.ogb_driver import make_step_fns
+    from dagnn_tpu_torch.train.optim import make_optimizer
+    cfg, params, hosts = _bucket(dev)
+    opt = make_optimizer(1e-3, 0.25)
+    eager, _ = make_step_fns(cfg, opt, "tok", capture=False)
+    graph, _ = make_step_fns(cfg, opt, "tok")
+    ops.reset_launch_counts()
+    eager(params, opt.init(params), hosts[0])
+    one = {k: v for k, v in ops.read_launch_counts().items() if v}
+    assert set(one) == {"row_forward", "row_backward"}
+    ops.reset_launch_counts()
+    p, s, _, _ = graph(params, opt.init(params), hosts[0])
+    own = ops.wrapper_counts()
+    for _ in range(2):
+        p, s, _, _ = graph(p, s, hosts[1])
+    assert ops.wrapper_counts() == own == {k: 0 for k in own}
+    counts = ops.read_launch_counts()
+    assert counts == {k: 3 * one.get(k, 0) for k in counts}
+
+
+def test_graph_nodes_hold_what_a_replay_launches(dev):
+    """graphs.graph_nodes reads a captured LP step's nodes from the graph
+    itself (debug mode): its K5 kernel (seg_merge_kernel) once for each
+    tg_accumulate launch of the eager step, and a copy node for each state
+    leaf written back in place."""
+    from dagnn_tpu_torch import convert, ops
+    from dagnn_tpu_torch.cli.ogb_driver import make_step_fns
+    from dagnn_tpu_torch.train import graphs
+    from dagnn_tpu_torch.train.optim import make_optimizer
+    cfg, params, hosts = _bucket(dev, "lp")
+    opt = make_optimizer(1e-3, 0.25)
+    eager, _ = make_step_fns(cfg, opt, "lp", capture=False)
+    graph, _ = make_step_fns(cfg, opt, "lp")
+    graph.captured.debug = True
+    ops.reset_launch_counts()
+    eager(params, opt.init(params), hosts[0])
+    one = {k: v for k, v in ops.read_launch_counts().items() if v}
+    assert set(one) == {"tg_accumulate"}
+    p, s, _, _ = graph(params, opt.init(params), hosts[0])
+    nodes = graphs.graph_nodes(graph.captured.last_graph())
+    by_name = {}
+    for k, v in nodes.items():
+        by_name[graphs.kernel_name(k)] = by_name.get(graphs.kernel_name(k), 0) + v
+    assert by_name.get("seg_merge_kernel") == one["tg_accumulate"]
+    n_state = len(convert.flatten_tree(p)) + len(convert.flatten_tree(s))
+    assert nodes.get("memcpy", 0) >= n_state
+
+
+def test_captured_vae_step_equals_eager_step(dev):
+    """The NA VAE's captured train step (hs 45, nz 6, attn_h; K6 and K5)
+    over three batches of 8 graphs, the learning rate changed every call,
+    against the eager step from the same weights and noise seed: bit for
+    bit, parameters and loss sums."""
+    from dagnn_tpu_torch import convert
+    from dagnn_tpu_torch.cli import train_vae
+    from dagnn_tpu_torch.train.optim import make_optimizer
+    args, graphs, ga = _na_batch(24)
+    args.hs, args.nz = 45, 6
+    model = train_vae.VAEModel(args, ga, dev)
+    params = model.init(0)
+    opt = make_optimizer(1e-3, 0.25)
+    step = train_vae.make_train_step(model, opt)
+    captured = train_vae.make_captured_step(step)
+    hosts = [model.prepare_host(graphs[i:i + 8]) for i in (0, 8, 16)]
+    gc, ge = (torch.Generator(device=dev).manual_seed(3) for _ in range(2))
+    st = (params, opt.init(params), torch.zeros(3, device=dev))
+    pe, se, sums = params, opt.init(params), torch.zeros(3, device=dev)
+    for host, lr in zip(hosts, (1e-3, 1e-4, 2e-3)):
+        inputs = (host, np.asarray(lr, np.float32), gc)
+        st, _ = captured(("vae", convert.batch_key(inputs)), st, inputs, (gc,))
+        pe, se, stats = step(pe, se, convert.batch_to_torch(host, dev), ge, lr)
+        sums = sums + stats
+        assert all(torch.equal(st[0][k], pe[k]) for k in pe), lr
+        assert torch.equal(st[2], sums)
+    assert (captured.captures, captured.replays) == (1, 3)

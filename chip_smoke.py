@@ -267,6 +267,30 @@ split form), the merged and unidirectional wavefronts on near/far batches
       eager step's wrapper counts
   25d. the bench (pair) with the graph and with --eager in turns
       (graph, eager, eager, graph)
+  every other model of the drivers captured (phases 21d and 22 above
+  replay their steps too, each replay counted as its capture's launches):
+  26a. each baseline (gin, gin-virtual, gcn, gcn-virtual, ggnns,
+      ggnn-etype, gat, dgcnn, diffpool, unet, sagpool, asap) at the
+      driver's defaults (float32, batch 160) on three batches of one
+      bucket of its loader on phase 22's corpus: 3 train steps captured
+      and eager from the same weights, bit for bit after each (the loss,
+      finite, every parameter and Adam leaf), predict after them bit for
+      bit, the launches equal (K5 at k5_per_pass a step), the graph's
+      seg_merge nodes equal to k5_per_pass, one capture; the step on
+      batch 0 eager against captured in turns; K5 at the baselines' graph
+      sum against its plain version, from a CUDA graph, with its bound and
+      index_add_; ASAP's master query (both fixed-shape forms) timed at the
+      driver's shapes with the memory it takes
+  26b. SVAE, SVAE_oneshot, SVAE_GraphRNN, SVAE_GraphRNN_BFS, DVAE_GCN,
+      DVAE_fast and DVAE_DeepGMG: train_vae.main at 21d's flags, 21d's
+      captured first epoch against one epoch all eager
+      (train_vae.CAPTURED emptied): the loss sums and the parameters bit
+      for bit, one capture; epoch seconds each way; the step on batch 0
+      eager against captured in turns, no kernel of the port in the graph
+  26c. on gin-virtual, ggnn-etype, asap, SVAE_GraphRNN and DVAE_DeepGMG:
+      the graph's kernels against the profiler's trace of the step run
+      eagerly on the graph's buffers, name for name (census_pair, padded
+      with spin kernels), and a replay's busy share
 
 The second-to-last line is the kernel table as JSON, the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero.
@@ -2382,8 +2406,13 @@ def phase_other_vaes(dev, card, root):
         argv = NA_FLAGS + ["--model", m, "--max-count", "256", "--epochs", "2",
                            "--res_dir", f"{root}/{tag}"]
         reset_counts()
-        with vae_probes() as seen:
-            tv.main(argv)
+        made, make = [], tv.make_captured_step
+        tv.make_captured_step = lambda step: made.append(make(step)) or made[-1]
+        try:
+            with vae_probes() as seen:
+                tv.main(argv)
+        finally:
+            tv.make_captured_step = make
         lc = read_counts()
         args = tv.parse_args(argv)
         train, test, ga = tv.load_data(args)
@@ -2440,9 +2469,15 @@ def phase_other_vaes(dev, card, root):
         check(e_loss <= t["loss"] and e_norm <= t["loss"]
               and all(r <= 1.0 for r in f64.values()),
               f"{m}: the card's step disagrees with the CPU's")
+        # the captured run's first epoch, which 26b holds an all-eager epoch to
+        first = dict(rows=rows[:1], epoch_s=seen["epochs"][:1],
+                     params=torch.load(f"{root}/{tag}/{m}_0_1.ckpt",
+                                       weights_only=True)["params"],
+                     captures=made[0].captures if made else 0,
+                     replays=made[0].replays if made else 0)
         out[tag] = dict(launches=lc, rows=rows, epoch_s=seen["epochs"],
                         loss_rel=e_loss, norm_rel=e_norm, worst=(worst, ratio[worst]),
-                        float64_leaves=f64)
+                        float64_leaves=f64, first_epoch=first)
     res = f"{root}/bo_svae"
     run_bo.main(["--latent", f"{root}/svae/final_structures6_latent_epoch2.mat",
                  "--seeds", "1", *GP_FLAGS, "--res_dir", res])
@@ -2487,19 +2522,31 @@ def k5_per_pass(cfg):
     return cfg.num_layers if cfg.kind == "sagpool" else 0   # _gmp_gap a layer
 
 
-def baseline_setup(gnn, task, data):
-    """(config, the train loader's batch 0 on the host) of `gnn` at the
-    driver's defaults on phase 18's corpus `data` (load_dataset's)."""
-    from dagnn_tpu_torch.cli import main_lp, main_tok, ogb_driver
-    from dagnn_tpu_torch.data.dataloader import DAGLoader
+def baseline_cfg(gnn, task, data):
+    """The config of `gnn` at the driver's defaults on phase 18's corpus
+    `data` (load_dataset's)."""
+    from dagnn_tpu_torch.cli import main_lp, ogb_driver
     p = main_lp.parser() if task == "lp" else ogb_driver.add_common_args(
         argparse.ArgumentParser())
     args = p.parse_args(DRIVER_FLAGS + ["--gnn", gnn])
     args.num_vocab = len(data[3]) - 2
-    cfg = ogb_driver.build_model_cfg(args, task)
+    return ogb_driver.build_model_cfg(args, task)
+
+
+def baseline_hosts(data, n=1):
+    """The first n host batches of the driver's train loader for the
+    baselines (DAGLoader(schedules=False), batch 160, one bucket for the
+    epoch) on `data`."""
+    from dagnn_tpu_torch.data.dataloader import DAGLoader
     loader = DAGLoader(data[0], 160, shuffle=True, seed=1, chunk_size=256,
                        prefetch=0, schedules=False)
-    return cfg, next(iter(loader))
+    return [b for b, _ in zip(loader, range(n))]
+
+
+def baseline_setup(gnn, task, data):
+    """(config, the train loader's batch 0 on the host) of `gnn` at the
+    driver's defaults on phase 18's corpus `data` (load_dataset's)."""
+    return baseline_cfg(gnn, task, data), baseline_hosts(data)[0]
 
 
 def f64_merge(g, tg, tdst, tmask):
@@ -3676,15 +3723,17 @@ class _DropAfterEpoch1:
         return self._s.scale
 
 
-def vae_graph_vs_eager(label, flags, root, epochs, drop=False):
+def vae_graph_vs_eager(label, flags, root, epochs, drop=False, graph=None):
     """Two train_vae.main runs of `flags` for `epochs` epochs, the train step
     captured (the default) and all eager (train_vae.CAPTURED emptied), with
     the plateau drop forced after epoch 1 when `drop`: the loss files and
-    the last checkpoint's parameters bit for bit equal. Returns the rows,
+    the last checkpoint's parameters bit for bit equal. `graph`: the
+    captured run's rows, epoch seconds, parameters, captures and replays,
+    taken from a run made before (no captured run here). Returns the rows,
     each run's epoch seconds and the captured run's captures and
     replays."""
     from dagnn_tpu_torch.cli import train_vae as tv
-    out = {}
+    out = {} if graph is None else {"graph": graph}
     made = []
     orig = (tv.CAPTURED, tv.PlateauScheduler, tv.make_captured_step)
 
@@ -3697,6 +3746,8 @@ def vae_graph_vs_eager(label, flags, root, epochs, drop=False):
         if drop:
             tv.PlateauScheduler = _DropAfterEpoch1
         for tag, captured in (("graph", orig[0]), ("eager", ())):
+            if tag in out:
+                continue
             tv.CAPTURED = captured
             d = f"{root}/{label[1:-1]}_{tag}"
             with vae_probes() as seen:
@@ -3706,23 +3757,24 @@ def vae_graph_vs_eager(label, flags, root, epochs, drop=False):
             out[tag] = dict(rows=_vae_rows(d), epoch_s=seen["epochs"],
                             params=torch.load(f"{d}/{model}_0_{epochs}.ckpt",
                                               weights_only=True)["params"])
+            if captured:
+                out[tag].update(captures=made[0].captures if made else 0,
+                                replays=made[0].replays if made else 0)
     finally:
         tv.CAPTURED, tv.PlateauScheduler, tv.make_captured_step = orig
     g, e = out["graph"], out["eager"]
-    cap = made[0] if made else None
     print(f"{label} {' '.join(flags[:6])}: captured epochs {g['rows']}, eager "
           f"{e['rows']}; epoch seconds captured "
           + " / ".join(f"{v:.3f}" for v in g["epoch_s"]) + ", eager "
           + " / ".join(f"{v:.3f}" for v in e["epoch_s"])
-          + (f"; {cap.captures} capture(s), {cap.replays} replays" if cap else ""))
+          + f"; {g['captures']} capture(s), {g['replays']} replays")
     check(g["rows"] == e["rows"], f"{label}: the captured epochs' losses differ "
           "from the eager epochs'")
     check(_same(g["params"], e["params"]), f"{label}: the captured run's parameters "
           "differ from the eager run's")
-    check(cap is not None and cap.captures == 1,
-          f"{label}: not one capture for the run's one bucket")
+    check(g["captures"] == 1, f"{label}: not one capture for the run's one bucket")
     return dict(rows=g["rows"], epoch_s=g["epoch_s"], eager_epoch_s=e["epoch_s"],
-                captures=cap.captures, replays=cap.replays)
+                captures=g["captures"], replays=g["replays"])
 
 
 def vae_step_turns(label, flags, dev):
@@ -3843,6 +3895,384 @@ def phase_graphs(dev, card, argv, na_rows_c, na_epoch_s):
               f"graph {bench['graph']}, eager {bench['eager']} on {card}; "
               f"{time.perf_counter() - t0:.1f} s")
         out["bench"] = bench
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+# ----------------------- every other model of the drivers captured (phase 26)
+
+# 26a: every --gnn the JAX driver accepts but dagnn; 26b: OTHER_VAES; 26c:
+# the graph-node census on one model of each family
+CAPTURED_BASELINES = ("gin", "gin-virtual") + BASELINES[1:]
+CENSUS_MODELS = ("gin-virtual", "ggnn-etype", "asap", "SVAE_GraphRNN",
+                 "DVAE_DeepGMG")
+# steps a turn of 26a's (26b's) timed steps, in turns a b b a, cut to fit
+# the phase's time
+TURN_STEPS, VAE_TURN_STEPS = 3, 1
+
+
+def _equal_or_nan(a, b):
+    return torch.equal(a, b) or bool((a.isnan() & b.isnan()).all())
+
+
+def replay_busy(label, fn, out_dir):
+    """The device's busy share over one call of fn (one replay of a
+    captured step: its input copies and the graph), from a profiler trace
+    (utils/profiling.device_busy)."""
+    from dagnn_tpu_torch.utils import profiling
+    fn()
+    path = profiling.profile_step(fn, iters=1, logdir=out_dir,
+                                  name=f"replay_{label[1:-1]}.json")
+    busy = profiling.device_busy(profiling.device_events(path))
+    check(busy is not None, f"{label}: the profiler saw no device events")
+    print(f"{label} one replay: {busy['events']} device events, busy "
+          f"{100 * busy['share']:.1f}% of their span ({busy['span_us'] / 1e3:.2f} ms)")
+    return busy
+
+
+def baseline_graph_vs_eager(label, cfg, hosts, dev, out_dir, census):
+    """26a (and 26c with `census`): the driver's train step and predict for
+    a baseline config, captured (make_step_fns) and eager
+    (capture=False), from the same weights over the three host batches of
+    one bucket `hosts`: after every step the loss, `finite`, every
+    parameter and every Adam leaf bit for bit; predict on batch 0 after
+    the last step bit for bit; the wrappers' launches of the runs equal,
+    K5 at k5_per_pass a step; the graph's seg_merge nodes (graph_nodes,
+    debug) equal to k5_per_pass, as its capture's counts; one capture,
+    three replays. Then TURN_STEPS steps of each on batch 0 in turns; with
+    `census`, the graph's kernels against the profiler's trace of the
+    step run eagerly on the graph's buffers, name for name (census_pair)."""
+    from dagnn_tpu_torch import convert
+    from dagnn_tpu_torch.cli import ogb_driver
+    from dagnn_tpu_torch.train import graphs
+    from dagnn_tpu_torch.train.optim import make_optimizer
+    t0 = time.perf_counter()
+    opt = make_optimizer(1e-3, 0.25)
+    params = ogb_driver.init_params(cfg, 0, dev)
+    k5 = k5_per_pass(cfg)
+    runs = {}
+    for tag, capture in (("graph", True), ("eager", False)):
+        train_step, predict = ogb_driver.make_step_fns(cfg, opt, "tok",
+                                                       capture=capture)
+        if capture:
+            train_step.captured.debug = True       # keep the graph's nodes
+        p, s = params, opt.init(params)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        seen = []
+        reset_counts()
+        for h in hosts:
+            p, s, loss, finite = train_step(p, s, h, gen)
+            seen.append(dict(loss=loss.clone(), finite=finite.clone(),
+                             p={k: v.clone() for k, v in p.items()},
+                             s=convert.flatten_tree(convert.tree_map(torch.clone, s))))
+        runs[tag] = dict(steps=seen, counts=read_counts(), ids=predict(p, hosts[0]),
+                         step=train_step, p=p, s=s, gen=gen)
+    g, e = runs["graph"], runs["eager"]
+    same = [_equal_or_nan(a["loss"], b["loss"]) and torch.equal(a["finite"], b["finite"])
+            and _same(a["p"], b["p"]) and _same(a["s"], b["s"])
+            for a, b in zip(g["steps"], e["steps"])]
+    ids_same = torch.equal(g["ids"], e["ids"])
+    cap = g["step"].captured
+    staged = cap.graphs[next(reversed(cap.graphs))]
+    nodes = node_kinds(graphs.graph_nodes(staged.graph))
+    seg = nodes.get("seg_merge_kernel", 0)
+    losses = [float(x["loss"]) for x in g["steps"]]
+    print(f"{label} {len(hosts)} steps over the batches of one bucket, captured "
+          f"against eager: losses {' '.join(f'{v:.6f}' for v in losses)}; bit for "
+          f"bit (loss, finite, {len(g['p'])} parameters, {len(g['steps'][0]['s'])} "
+          f"Adam leaves) at each step: {same}; predict bit for bit: {ids_same}; "
+          f"{cap.captures} capture(s), {cap.replays} replays; launches captured "
+          f"{g['counts']}, eager {e['counts']}; the graph's nodes: "
+          f"{sum(v for k, v in nodes.items() if not _is_copy(k))} kernels, "
+          f"{sum(v for k, v in nodes.items() if _is_copy(k))} copies and sets, "
+          f"seg_merge_kernel {seg} (k5_per_pass {k5}; its capture counted "
+          f"{staged.counts})")
+    check(all(same) and ids_same, f"{label}: the captured steps differ from the "
+          "eager steps")
+    check(all(bool(x["finite"]) for x in g["steps"]), f"{label}: a non-finite step")
+    check(g["counts"] == e["counts"]
+          and g["counts"].get("tg_accumulate", 0) == len(hosts) * k5
+          and all(v == 0 for k, v in g["counts"].items() if k != "tg_accumulate"),
+          f"{label}: the replays' launches differ from K5 x {k5} a step")
+    check(seg == k5 and staged.counts == ({"tg_accumulate": k5} if k5 else {}),
+          f"{label}: the graph's seg_merge nodes ({seg}) differ from K5's count {k5}")
+    check(cap.captures == 1 and cap.replays == len(hosts),
+          f"{label}: {cap.captures} captures for one bucket")
+    b0 = convert.batch_to_torch(hosts[0], dev)
+    eg, gr, gen = e["step"], g["step"], g["gen"]
+    pe, se, pg, sg = params, opt.init(params), g["p"], g["s"]
+    turns = timed_turns(f"{label} train step on batch 0, eager against captured:", {
+        "eager": lambda: eg(pe, se, b0, gen), "graph": lambda: gr(pg, sg, b0, gen)},
+        n=TURN_STEPS)
+    check(cap.captures == 1, f"{label}: the timed steps captured anew")
+    out = dict(bitwise=all(same) and ids_same, losses=losses, launches=g["counts"],
+               graph_seg_merge=seg, k5_per_pass=k5, captures=cap.captures,
+               replays=cap.replays, turns=turns,
+               graph_kernels=sum(v for k, v in nodes.items() if not _is_copy(k)))
+    if census:
+        out["census"] = census_pair(label, lambda: cap.fn(cap.state, staged.inputs),
+                                    nodes, len(graphs._leaves(cap.state)), out_dir)
+        out["replay_busy"] = replay_busy(label, lambda: gr(pg, sg, b0, gen), out_dir)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def vae_captured_step(label, model_name, dev, root, census):
+    """26b (and 26c with `census`): a VAE's train step at 21d's flags on its
+    batch 0, eager (as the driver's tail step runs it) against one replay
+    of the captured step, VAE_TURN_STEPS steps a turn; the graph launches no
+    kernel of the port (its capture counted none, no seg_merge or sa
+    node); with `census`, the graph's kernels against the profiler's
+    trace of the captured function run eagerly on the graph's buffers,
+    name for name (census_pair)."""
+    from dagnn_tpu_torch import convert
+    from dagnn_tpu_torch.cli import train_vae as tv
+    from dagnn_tpu_torch.train import graphs
+    flags = NA_FLAGS + ["--model", model_name, "--max-count", "256"]
+    args = tv.parse_args(flags + ["--res_dir", f"{root}/{model_name}_step"])
+    train, _, ga = tv.load_data(args)
+    model = tv.VAEModel(args, ga, dev)
+    params = model.init(0)
+    opt = tv.make_optimizer(args.lr, args.clip)
+    step = tv.make_train_step(model, opt)
+    captured = tv.make_captured_step(step)
+    captured.debug = True                       # keep the graph's nodes
+    model.seed_host(args.seed, 1)
+    host = model.prepare_host(train[:args.batch_size])
+    prepared = convert.batch_to_torch(host, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    inputs = (host, np.asarray(args.lr, np.float32), gen)
+    key = ("vae", model.kind, convert.batch_key(inputs))
+    state = [(params, opt.init(params), torch.zeros(3, device=dev))]
+
+    def replay():
+        state[0] = captured(key, state[0], inputs, (gen,))[0]
+
+    replay()
+    staged = captured.graphs[key, (gen,)]
+    nodes = node_kinds(graphs.graph_nodes(staged.graph))
+    ours = {k: v for k, v in nodes.items() if k in ONE_KERNEL.values()}
+    print(f"{label} the graph's nodes: "
+          f"{sum(v for k, v in nodes.items() if not _is_copy(k))} kernels, "
+          f"{sum(v for k, v in nodes.items() if _is_copy(k))} copies and sets; "
+          f"the port's kernels among them {ours}, its capture counted {staged.counts}")
+    check(not ours and not staged.counts, f"{label}: the graph launches a kernel "
+          "of the port")
+    pe, se = params, opt.init(params)
+    turns = timed_turns(f"{label} train step on batch 0, eager against captured:",
+                        {"eager": lambda: step(pe, se, prepared, gen, args.lr),
+                         "graph": replay}, n=VAE_TURN_STEPS)
+    out = dict(turns=turns, graph_kernels=sum(v for k, v in nodes.items()
+                                              if not _is_copy(k)))
+    if census:
+        out["census"] = census_pair(
+            label, lambda: captured.fn(captured.state, staged.inputs), nodes,
+            len(graphs._leaves(captured.state)), root)
+        out["replay_busy"] = replay_busy(label, replay, root)
+    return out
+
+
+def k5_at_baseline_sum(label, host, dev, card, H=300):
+    """K5 at the baselines' graph-level sum (the loader's batch 0: [N+1,
+    H] f32 node rows onto its G+1 graph slots, the pad nodes masked)
+    against its plain version, timed as phase 3d (50 calls from one CUDA
+    graph, median of three windows; eager calls beside), with its bound
+    (roofline.tg_costs) and index_add_ into a scratch row timed the same
+    way."""
+    from dagnn_tpu_torch import checks, convert
+    from dagnn_tpu_torch.ops import row_step
+    b = convert.batch_to_torch(host, dev)
+    n1, G = b.x.shape[0], host.num_graph_slots
+    gid, nmask = b.graph_id, b.node_mask
+    g = torch.Generator(device=dev).manual_seed(0)
+    h = torch.randn((n1, H), generator=g, device=dev)
+    zero = torch.zeros((G + 1, H), device=dev)
+    kern = row_step.tg_accumulate(zero, h, gid, nmask)
+    plain = row_step.tg_accumulate_plain(zero, h, gid, nmask)
+    idx = torch.where(nmask.bool(), gid.long(), G + 1)
+    gpad = torch.zeros((G + 2, H), device=dev)
+    lib = gpad.index_add(0, idx, h)[:G + 1]
+    rel, ab, _ = checks.rel_err(kern, plain)
+    nt = int(nmask.sum())
+    nb, ops = tg_costs(G + 1, n1, nt, H, 4)
+    lib_t = timings(lambda: gpad.index_add(0, idx, h))
+    r = dict(timings(lambda: row_step.tg_accumulate(zero, h, gid, nmask)), err=ab,
+             rel=rel, lib_rel=checks.rel_err(lib, plain)[0], bytes=nb, ops=ops,
+             plain_ms=time_ms(lambda: row_step.tg_accumulate_plain(zero, h, gid, nmask), 5),
+             library_ms=lib_t["ms"], library_call_ms=lib_t["call_ms"],
+             bound=bound_ms(nb, ops, torch.float32), shape=[n1, H], graphs=G + 1,
+             valid_rows=nt)
+    print(f"{label} K5 at the baselines' graph sum [{n1}, {H}] f32 ({nt} valid rows) "
+          f"onto {G + 1} graph slots on {card}: {r['ms']:.4f} ms from a CUDA graph "
+          f"(windows {fmt_windows(r['windows'])}; eager {r['call_ms']:.4f}), plain "
+          f"{r['plain_ms']:.4f} ms, index_add_ {r['library_ms']:.4f} ms (eager "
+          f"{r['library_call_ms']:.4f}); bound {r['bound'][0]:.5f} ms ({r['bound'][1]}: "
+          f"{nb / 1e6:.3f} MB, {ops / 1e6:.3f} MFLOP); kernel vs plain {rel:.3g} of "
+          f"max (tolerance {TOL[torch.float32]:g}), index_add_ vs plain "
+          f"{r['lib_rel']:.3g}")
+    check(rel <= TOL[torch.float32], f"{label}: K5 disagrees with plain at the "
+          "baselines' graph sum")
+    return r
+
+
+class _NonzeroMasterQuery(torch.autograd.Function):
+    """ASAP's master query in its former form, the reference
+    master_query_cost holds the fixed-shape forms to: a scatter max over
+    E's nonzero (g, i, j) (a host sync: it cannot be captured), each tied
+    pair's power-of-two share, an ordered sum onto the sources."""
+
+    @staticmethod
+    def forward(ctx, h, E):
+        G, n, d = h.shape
+        g, i, j = E.transpose(1, 2).nonzero(as_tuple=True)
+        dest, src = g * n + i, g * n + j
+        vals = h.reshape(G * n, d)[src]
+        m = torch.full((G * n, d), torch.finfo(h.dtype).min, dtype=h.dtype,
+                       device=h.device)
+        m = m.scatter_reduce(0, dest[:, None].expand_as(vals), vals, "amax",
+                             include_self=True)
+        ctx.save_for_backward(h, dest, src, vals, m)
+        return m.reshape(G, n, d)
+
+    @staticmethod
+    def backward(ctx, gout):
+        from dagnn_tpu_torch.nn.pooling_baselines import _pow2_neg
+        from dagnn_tpu_torch.ops.segment import SortedSegments
+        h, dest, src, vals, m = ctx.saved_tensors
+        G, n, d = h.shape
+        tie = (vals == m[dest]).to(torch.int32)
+        c = torch.cumsum(tie, 0)
+        lo = torch.searchsorted(dest, dest)
+        hi = torch.searchsorted(dest, dest, right=True)
+        cz = torch.cat([torch.zeros((1, d), dtype=c.dtype, device=c.device), c])
+        before, after = cz[:-1] - cz[lo], cz[hi] - cz[:-1] - tie
+        w = _pow2_neg(after + (before > 0).to(torch.int32)) * tie.float()
+        contrib = w * gout.reshape(G * n, d)[dest]
+        return SortedSegments(src, G * n).sum(contrib).reshape(G, n, d), None
+
+
+def master_query_cost(label, cfg, host, dev, card):
+    """ASAP's master query (nn/pooling_baselines.master_query) at the
+    driver's shapes: A~ of the loader's batch 0 (its dense per-graph
+    adjacency plus self loops, [G, n, n] at dense_nodes n) and random ReLU
+    states [G, n, asap_hidden], in both fixed-shape forms: over the
+    candidate pairs of the batch's edges and self loops (the first pool's,
+    the driver's path) and over blocks of sources (a later pool's). Each
+    held to the form they replaced (_NonzeroMasterQuery: the forward bit
+    for bit, the gradient within CROSS_TOL's rtol / atol, bit for bit
+    printed); forward and forward + backward of each timed (CUDA events,
+    mean of 3; the former form eager, its nonzero a host sync); the memory
+    each fixed form takes beyond its inputs (peak allocated)."""
+    from dagnn_tpu_torch import convert
+    from dagnn_tpu_torch.nn import pooling_baselines as pb
+    from dagnn_tpu_torch.nn.baselines import FlatEdges
+    b = convert.batch_to_torch(host, dev)
+    G, n, d = host.num_graph_slots, cfg.dense_nodes, cfg.asap_hidden
+    nmask, gid = b.node_mask.bool(), b.graph_id.long()
+    x = torch.zeros((b.x.shape[0], 1), device=dev)
+    _, dmask, pos, ok = pb._dense_from_batch(x, gid, G, nmask, n)
+    e = FlatEdges(b, b.x.shape[0])
+    adj = pb._dense_adj(e, gid, pos, ok, G, n, torch.float32)
+    E = (adj + torch.eye(n, device=dev)[None] * dmask[..., None]) > 0
+    pairs = pb._edge_pairs(e, gid, pos, ok, G, n)
+    g = torch.Generator(device=dev).manual_seed(0)
+    h = torch.relu(torch.randn((G, n, d), generator=g, device=dev)).requires_grad_(True)
+    ct = torch.randn((G, n, d), generator=g, device=dev)
+    forms = {"pairs": lambda: pb._PairsMasterQuery.apply(h, E, *pairs),
+             "blocks": lambda: pb._MasterQuery.apply(h, E),
+             "former": lambda: _NonzeroMasterQuery.apply(h, E)}
+    grad = lambda fn: torch.autograd.grad((fn() * ct).sum(), h)[0]
+
+    def fwd(fn):
+        with torch.no_grad():
+            fn()
+
+    want, g_want = forms["former"](), grad(forms["former"])
+    r = dict(shape=[G, n, d], sources=int(E.sum()), candidates=int(pairs[0].shape[0]),
+             source_blocks=len(pb._source_blocks(G, n, d)))
+    for tag, fn in forms.items():
+        t = dict(fwd_ms=time_ms(lambda: fwd(fn), 3),
+                 fwd_bwd_ms=time_ms(lambda: grad(fn), 3))
+        if tag != "former":
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            got, g_got = fn(), grad(fn)
+            torch.cuda.synchronize()
+            t.update(extra_bytes=torch.cuda.max_memory_allocated() - base,
+                     forward_equal=torch.equal(got, want),
+                     grad_equal=torch.equal(g_got, g_want),
+                     grad_ratio=float(((g_got - g_want).abs() / (
+                         CROSS_TOL["atol"] + CROSS_TOL["rtol"] * g_want.abs())).max()))
+            del got, g_got
+        r[tag] = t
+    print(f"{label} ASAP's master query at [{G}, {n}, {d}] ({r['sources']} (source, "
+          f"destination) pairs of A~ in {G * n * n}) on {card}: "
+          + "; ".join(f"{tag} forward {t['fwd_ms']:.3f} ms, forward + backward "
+                      f"{t['fwd_bwd_ms']:.3f} ms" for tag, t in r.items()
+                      if isinstance(t, dict))
+          + f" (pairs: {r['candidates']} candidates; blocks: {r['source_blocks']} of "
+          f"{pb.MASTER_QUERY_BLOCK_BYTES / 2**20:.0f} MiB; former: nonzero, eager); "
+          + "; ".join(f"{tag} {r[tag]['extra_bytes'] / 2**30:.3f} GiB beyond its inputs "
+                      f"at the peak, against the former form: forward bit for bit "
+                      f"{r[tag]['forward_equal']}, gradient bit for bit "
+                      f"{r[tag]['grad_equal']}, at {r[tag]['grad_ratio']:.3g} of rtol "
+                      f"{CROSS_TOL['rtol']:g} / atol {CROSS_TOL['atol']:g}"
+                      for tag in ("pairs", "blocks")))
+    check(all(r[t]["forward_equal"] and r[t]["grad_ratio"] <= 1.0
+              for t in ("pairs", "blocks")),
+          f"{label}: a fixed-shape master query disagrees with the form it replaced")
+    return r
+
+
+def phase_captured_models(dev, card, argv, first_epochs):
+    """Phase 26: the captured steps of every model of the drivers but
+    DAGNN. 26a: each baseline of CAPTURED_BASELINES at the driver's
+    defaults (float32, batch 160) on phase 22's corpus, three batches of
+    one bucket (baseline_graph_vs_eager); K5 at the baselines' graph sum
+    timed from a CUDA graph (k5_at_baseline_sum); ASAP's master query
+    (master_query_cost). 26b: each of OTHER_VAES, train_vae at 21d's
+    flags, 21d's captured first epoch (`first_epochs`, by model) against
+    one epoch all eager (vae_graph_vs_eager: the loss sums and the
+    parameters bit for bit, epoch seconds each way), and its step eager
+    against captured (vae_captured_step). 26c: the census on
+    CENSUS_MODELS."""
+    import shutil
+    import tempfile
+    from dagnn_tpu_torch.cli import ogb_driver
+    out = dict(baselines={}, vaes={})
+    args = ogb_driver.add_common_args(argparse.ArgumentParser()).parse_args(
+        DRIVER_FLAGS)
+    data = ogb_driver.load_dataset(args, "tok")
+    hosts = baseline_hosts(data, 3)
+    print(f"[26a] three batches of one bucket of the baselines' loader on phase 22's "
+          f"corpus: {int(hosts[0].x.shape[0])} node rows, "
+          f"{int(hosts[0].edge_src_flat.shape[0])} edge rows, "
+          f"{hosts[0].num_graph_slots} graph slots; real nodes "
+          f"{[int(h.n_node) for h in hosts]}")
+    root = tempfile.mkdtemp(prefix="chip_smoke_captured_models_")
+    try:
+        out["k5"] = k5_at_baseline_sum("[26a]", hosts[0], dev, card)
+        out["master_query"] = master_query_cost(
+            "[26a]", baseline_cfg("asap", "tok", data), hosts[0], dev, card)
+        for gnn in CAPTURED_BASELINES:
+            cfg = baseline_cfg(gnn, "tok", data)
+            tag = "[26c" if gnn in CENSUS_MODELS else "[26a"
+            out["baselines"][gnn] = r = baseline_graph_vs_eager(
+                f"{tag} {gnn}]", cfg, hosts, dev, root, gnn in CENSUS_MODELS)
+            print(f"{tag} {gnn}] took {r['wall_s']:.1f} s")
+        for m in OTHER_VAES:
+            t0 = time.perf_counter()
+            flags = NA_FLAGS + ["--model", m, "--max-count", "256"]
+            epoch = vae_graph_vs_eager(f"[26b {m}]", flags, root, 1,
+                                       graph=first_epochs[m])
+            tag = "[26c" if m in CENSUS_MODELS else "[26b"
+            epoch["step"] = vae_captured_step(f"{tag} {m}]", m, dev, root,
+                                              m in CENSUS_MODELS)
+            epoch["wall_s"] = time.perf_counter() - t0
+            out["vaes"][m] = epoch
+            print(f"{tag} {m}] took {epoch['wall_s']:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return out
@@ -4074,6 +4504,8 @@ def main(argv):
               "latents and checkpoints; the other VAEs (train_vae.main)")
         scoring = phase_latent_scoring(dev, card, root)
         scoring["wall_s"] = time.perf_counter() - t0
+        first_epochs = {m: scoring["other_vaes"][m.lower()].pop("first_epoch")
+                        for m in OTHER_VAES}
         print(f"[21] {card}: phase 21 took {scoring['wall_s']:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -4099,6 +4531,12 @@ def main(argv):
     captured = phase_graphs(dev, card, argv, vae["na"]["rows_c"], vae["na"]["epoch_s"])
     captured["wall_s"] = time.perf_counter() - t0
     print(f"[25] {card}: phase 25 took {captured['wall_s']:.1f} s")
+    t0 = time.perf_counter()
+    print("[26] the captured steps of every other model of the drivers: each "
+          "baseline's train step and predict, each other VAE's train step")
+    others = phase_captured_models(dev, card, argv, first_epochs)
+    others["wall_s"] = time.perf_counter() - t0
+    print(f"[26] {card}: phase 26 took {others['wall_s']:.1f} s")
     runs = {"merged": merged, "pair": paired, "pallas": pallas,
             "unidirectional": uni, "nearfar_rt": nf_rt, "nearfar_r": nf_r,
             "nearfar_unidirectional": nf_u, "merged_k2r": k2r}
@@ -4149,6 +4587,8 @@ def main(argv):
                                               "bench_17_steps": tools["bench"]["steps17"],
                                               **{f"graph {t}": captured[t] for t in
                                                  ("merged", "pair", "pallas", "lp")},
+                                              **{f"graph baseline {t}": v for t, v in
+                                                 others["baselines"].items()},
                                               "ep_decompose_dp1": {"launches": tools[
                                                   "ep_decompose"]["dp1_launches"]},
                                               "ep_decompose_ep1": {"launches": tools[
@@ -4159,6 +4599,12 @@ def main(argv):
             # every call of the EP ranks' pass at its own shapes (23c)
             kernels[-1]["max_abs_err_by_path"] = {
                 "ep_rank": max(e["max_abs_err"] for e in ep_err)}
+        if kern == "K5":
+            r = others["k5"]
+            kernels[-1]["baseline_graph_sum_f32"] = {
+                "ms": r["ms"], "plain_ms": r["plain_ms"], "max_abs_err": r["err"],
+                "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                "library_ms": r["library_ms"]}
         if kern in vae["na"]["kernels"]["float32"]:
             r = vae["na"]["kernels"]["float32"][kern]
             kernels[-1]["vae_na_f32"] = {
@@ -4168,7 +4614,7 @@ def main(argv):
     print(json.dumps({**runs, "tok_driver": driver, "lp_driver": lp, "kinds": kinds,
                       "node_space": node_space, "vae": vae, "latent_scoring": scoring,
                       "baselines": baselines, "parallel": parallel, "tools": tools,
-                      "captured_steps": captured,
+                      "captured_steps": captured, "captured_models": others,
                       "split_checks": split, "cross_route": cross,
                       "nearfar_cross_route": nf_cross, "ab_steps": ab,
                       "split_row": {short(k): v for k, v in split_row.items()},

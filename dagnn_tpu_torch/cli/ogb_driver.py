@@ -24,12 +24,12 @@ where the config takes them, the generic branch otherwise: LP's gated_sum
 default runs there) and --compute_dtype auto is bfloat16 on the card,
 float32 with --cpu, as the JAX driver chooses by backend; "dense" and
 "scatter" run the generic branch. Each fold's parameters come from
-`init_params`. A DAGNN model's train step and predict are captured steps
+`init_params`. Every model's train step and predict are captured steps
 (make_step_fns, train/graphs.py): each host batch, its output-slot lists
 widened to the loader's widest (convert.widen_out_slots, so that a bucket
-has one shape), is copied into the graph's buffers and the graph
-replayed, one dispatch a step as the JAX driver's jitted step; the
-baselines' steps run eagerly on the batch copied to the device.
+has one shape; the baselines' unleveled batches have none), is copied
+into the graph's buffers and the graph replayed, one dispatch a step as
+the JAX driver's jitted step.
 Dropout (--dagnn_dropout) draws from one torch.Generator per fold on the
 run's device, reseeded at each epoch from --seed, the fold and the epoch,
 so a resumed epoch draws the masks an uninterrupted run draws; the
@@ -269,17 +269,15 @@ def make_step_fns(cfg, opt, task: str = "tok", capture: bool = True):
     predict(params, batch) -> argmax ids ([G, S] tokens, or [G] classes)
 
     `batch` is a collated batch, its arrays on the host (numpy) or on the
-    parameters' device. For a DAGNNConfig both functions are captured
-    steps (train/graphs.py), as the JAX driver jits them: on the card one
-    CUDA graph replay a step for each bucket of batch shapes, the state
-    written in place into the persistent buffers the train step returns
-    (a later call overwrites what an earlier one returned); predict keeps
-    a graph for each of the driver's three evaluation buckets. The
-    baselines (MPNNConfig, GNN2Config, HPoolConfig) stay eager, by the
-    rule CAPTURED below, and so does every config with capture=False (the
-    bench's --eager, and its chained steps, which it captures as one
-    group): each call issues its launches from Python and returns new
-    tensors."""
+    parameters' device. For every config of CAPTURED both functions are
+    captured steps (train/graphs.py), as the JAX driver jits them: on the
+    card one CUDA graph replay a step for each bucket of batch shapes, the
+    state written in place into the persistent buffers the train step
+    returns (a later call overwrites what an earlier one returned);
+    predict keeps a graph for each of the driver's three evaluation
+    buckets. With capture=False (the bench's --eager, and its chained
+    steps, which it captures as one group) each call issues its launches
+    from Python and returns new tensors."""
     fwd = MODELS[type(cfg)][1]
 
     def loss_fn(params, batch, rng):
@@ -354,16 +352,20 @@ def make_step_fns(cfg, opt, task: str = "tok", capture: bool = True):
     return train_step, predict
 
 
-# The configs whose steps are captured (train/graphs.py): DAGNN's, every
-# wavefront. The baselines' steps stay eager (ROADMAP queue 1).
-CAPTURED = (DAGNNConfig,)
+# The configs whose steps are captured (train/graphs.py): every model of
+# MODELS, DAGNN on each wavefront and every baseline.
+CAPTURED = (DAGNNConfig, MPNNConfig, GNN2Config, HPoolConfig)
 
 
 def step_key(what, cfg, batch):
-    """A captured DAGNN step's key: what it is, the route and impl the
-    batch takes (dagnn._route; the merged path's form follows
-    DAGNN_NO_RES_STREAM, read at each call) and the batch's shapes and
-    host values (convert.batch_key)."""
+    """A captured step's key: what it is and the batch's shapes and host
+    values (convert.batch_key); for a DAGNN, the route and impl the batch
+    takes (dagnn._route; the merged path's form follows
+    DAGNN_NO_RES_STREAM, read at each call), for a baseline its config's
+    type (a baseline's forward bakes no host value of the batch into a
+    launch: every count it needs is computed on the device)."""
+    if not isinstance(cfg, DAGNNConfig):
+        return (what, type(cfg).__name__, convert.batch_key(batch))
     route, impl = dagnn._route(cfg, batch, None)
     return (what, route, impl, dagnn._NO_RES_STREAM, convert.batch_key(batch))
 

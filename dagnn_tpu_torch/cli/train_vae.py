@@ -25,9 +25,9 @@ chunks of --scan-chunk, each chunk's batches prepared on the host, then
 run as one replay of the captured train step each (train/graphs.py: one
 CUDA graph, its inputs copied in from pinned memory, the loss sums kept on
 the device inside the graph), the host reading the sums once a chunk;
-the short tail batch runs the eager step, as JAX's single-step path. The
-models captured are DAGNN, DAGNN_BN, DVAE and DVAE_BN (CAPTURED); the
-S-VAEs, DVAE_GCN, DVAE_fast and DVAE_DeepGMG run every step eagerly.
+the short tail batch runs the eager step, as JAX's single-step path.
+Every --model's step is captured (CAPTURED), as JAX's step_scan runs
+every model.
 
 Where it differs from the JAX driver, on purpose (ROADMAP queue 3):
   * the plateau schedule lowers the learning rate (lr * scale into Adam,
@@ -315,10 +315,12 @@ def make_train_step(model: VAEModel, opt):
     return train_step
 
 
-# The --model values whose train step is captured (train/graphs.py): the
-# DAGNN VAEs and the base D-VAEs (scripts/na_train.sh, bn_train.sh). The
-# S-VAEs, DVAE_GCN, DVAE_fast and DVAE_DeepGMG stay eager (ROADMAP queue 1).
-CAPTURED = ("DAGNN", "DAGNN_BN", "DVAE", "DVAE_BN")
+# The --model values whose train step is captured (train/graphs.py): all
+# of them, the DAGNN VAEs, the base D-VAEs, the S-VAEs and the D-VAE
+# variants.
+CAPTURED = ("DAGNN", "DAGNN_BN", "DVAE", "DVAE_BN", "SVAE", "SVAE_oneshot",
+            "SVAE_GraphRNN", "SVAE_GraphRNN_BFS", "DVAE_GCN", "DVAE_fast",
+            "DVAE_DeepGMG")
 
 
 def make_captured_step(train_step):

@@ -34,10 +34,19 @@ What the port takes care of, beside the JAX package's semantics:
   follows jnp.maximum's tie rule, half to each side of a tie at every
   step, so of the sources tied at the max (ReLU zeros tie all the time)
   the last takes 1/2, the one before 1/4, ..., and the first as much as
-  the second. The port computes both over the support of A~ alone (its
-  nonzero (g, i, j) in order: a scatter max, then those powers of two,
-  exact), never the [G, j, i, d] candidates of the scan (12.6 GB at G
-  160, n 256, d 300).
+  the second. The port computes both at fixed shapes (no host sync: a
+  CUDA graph captures it), never over the [G, j, i, d] candidates of the
+  scan (12.6 GB at G 160, n 256, d 300). The first pool's A~ is the
+  batch's edges and the self loops, so the port lists those (graph,
+  source, destination) slots, a list whose length is a shape of the
+  batch, keeps the pairs of A~ among them once each, sorted, and takes a
+  scatter max over them, then each tied pair's power of two (exact) from
+  the ties before and after it, summed onto the sources in a fixed order
+  (_PairsMasterQuery). A later pool's A~ (S^T A~ S) is dense: there the
+  max runs over blocks of sources, [G, j-block, i, d] at a time, and the
+  backward counts each destination's ties over the blocks, then walks
+  the sources in order, carrying the share of the cotangent a tie takes
+  and whether a tie came before (_MasterQuery).
 - DiffPool's BatchNorm statistics include the padding rows of the dense
   batch (gnn2.py:543-549), so dense_nodes (256) stays a static width.
 """
@@ -258,6 +267,18 @@ def _dense_adj(e: FlatEdges, gid, pos, ok, G, nmax, dtype):
     adj = torch.zeros((G + 1, nmax, nmax), dtype=dtype, device=gid.device)
     adj = adj.index_put((g, ps, pd), em.to(dtype), accumulate=True)
     return adj[:G]
+
+
+def _edge_pairs(e: FlatEdges, gid, pos, ok, G, nmax):
+    """The (graph, source, destination, valid) dense slots [E + G*nmax] of
+    the batch's edges and of every self loop: they hold every pair of an
+    adjacency made by _dense_adj plus the identity (ASAP's first A~), in
+    a list whose length is a shape of the batch."""
+    diag = torch.arange(G * nmax, device=gid.device)
+    return (torch.cat([gid[e.src], diag // nmax]),
+            torch.cat([pos[e.src], diag % nmax]),
+            torch.cat([pos[e.dst], diag % nmax]),
+            torch.cat([e.em & ok[e.src] & ok[e.dst], diag >= 0]))
 
 
 def _dense_topk(score, dmask, ratio):
@@ -549,6 +570,7 @@ def hpool_forward(params, cfg: HPoolConfig, batch: DAGBatch,
             cnt = torch.clamp(keep.sum(1).to(h.dtype), min=1.0)
             return (h * keep[..., None].to(h.dtype)).sum(1) / cnt[:, None]
 
+        pairs = _edge_pairs(e, gid, pos, ok, G, nm)
         h = torch.relu(gconv(P["conv1"], dx, adj, dmask, False))
         keep = dmask
         gs = [meanpool(h, keep)]
@@ -559,7 +581,8 @@ def hpool_forward(params, cfg: HPoolConfig, batch: DAGBatch,
             h = torch.relu(gconv(P["convs"][i], h, adj, keep, weighted))
             gs.append(meanpool(h, keep))
             if i % 2 == 0 and i < n_convs - 1:
-                h, adj, keep = _asap_pool_dense(P["pools"][pool_i], cfg, h, adj, keep)
+                h, adj, keep = _asap_pool_dense(P["pools"][pool_i], cfg, h, adj,
+                                                keep, pairs if pool_i == 0 else None)
                 pool_i += 1
                 weighted = True
         out = drop(torch.relu(linear(P["lin1"], torch.cat(gs, -1))))
@@ -577,50 +600,119 @@ def _pow2_neg(k):
     return bits.view(torch.float32)
 
 
+# the bytes of one [G, j-block, i, d] float32 block of the master query's
+# candidates: about 256 MB, 5 sources a block at G 160, n 256, d 300
+MASTER_QUERY_BLOCK_BYTES = 1 << 28
+
+
+def _source_blocks(G, n, d):
+    """The master query's source blocks [j0, j1), MASTER_QUERY_BLOCK_BYTES
+    of float32 candidates each (at least one source)."""
+    jb = max(1, min(n, MASTER_QUERY_BLOCK_BYTES // max(1, 4 * G * n * d)))
+    return [(j0, min(n, j0 + jb)) for j0 in range(0, n, jb)]
+
+
 class _MasterQuery(torch.autograd.Function):
     """max over the sources j with E[g, j, i] of h[g, j] (finfo.min where i
-    has none), with the gradient of JAX's running jnp.maximum over j."""
+    has none), with the gradient of JAX's running jnp.maximum over j: the
+    max and the tie counts over blocks of sources (_source_blocks), the
+    shares source by source."""
 
     @staticmethod
     def forward(ctx, h, E):
         G, n, d = h.shape
-        g, i, j = E.transpose(1, 2).nonzero(as_tuple=True)   # by (g, i), then j
-        dest, src = g * n + i, g * n + j
-        vals = h.reshape(G * n, d)[src]
-        m = torch.full((G * n, d), torch.finfo(h.dtype).min, dtype=h.dtype,
-                       device=h.device)
-        m = m.scatter_reduce(0, dest[:, None].expand_as(vals), vals, "amax",
-                             include_self=True)
-        ctx.save_for_backward(h, dest, src, vals, m)
-        return m.reshape(G, n, d)
+        neg = torch.finfo(h.dtype).min
+        m = torch.full((G, n, d), neg, dtype=h.dtype, device=h.device)
+        for j0, j1 in _source_blocks(G, n, d):
+            cand = torch.where(E[:, j0:j1, :, None], h[:, j0:j1, None, :], neg)
+            m = torch.maximum(m, cand.amax(1))
+        ctx.save_for_backward(h, E, m)
+        return m
 
     @staticmethod
     def backward(ctx, gout):
-        h, dest, src, vals, m = ctx.saved_tensors
+        h, E, m = ctx.saved_tensors
         G, n, d = h.shape
-        tie = (vals == m[dest]).to(torch.int32)                # [nnz, d]
-        # ties of the same destination before and after each pair, in j order
+        # tie[g, j, i, d]: source j of destination i reaches its max
+        tie = lambda j0, j1: E[:, j0:j1, :, None] & (h[:, j0:j1, None, :]
+                                                     == m[:, None])
+        total = torch.zeros((G, n, d), dtype=torch.int32, device=h.device)
+        for j0, j1 in _source_blocks(G, n, d):
+            total += tie(j0, j1).sum(1, dtype=torch.int32)
+        # the T sources tied at a max, in j order, take 2^-(T-1), 2^-(T-1),
+        # 2^-(T-2), ..., 2^-1 of its cotangent (T = 1: all of it): the
+        # share starts at 2^-(T-1) and doubles at each tie after the first
+        share = gout * _pow2_neg(torch.clamp(total - 1, min=0)).to(gout.dtype)
+        seen = torch.zeros((G, n, d), dtype=torch.bool, device=h.device)
+        dh = torch.empty_like(h)
+        for j in range(n):
+            t = tie(j, j + 1)[:, 0]
+            dh[:, j] = torch.where(t, share, 0.0).sum(1)
+            share = torch.where(t & seen, share + share, share)
+            seen = seen | t
+        return dh, None
+
+
+class _PairsMasterQuery(torch.autograd.Function):
+    """_MasterQuery over a bounded list of candidate pairs (graph, source,
+    destination) that holds every pair of E (a list of a fixed length,
+    the rest of it invalid or repeated): the pairs of E among them sorted
+    by (graph, destination, source), a scatter max, then each tied pair's
+    share of its destination's cotangent (the ties before and after it in
+    source order, from a cumsum and the destinations' bounds) summed onto
+    the sources in that order (ops/segment.SortedSegments)."""
+
+    @staticmethod
+    def forward(ctx, h, E, g, j, i, valid):
+        G, n, d = h.shape
+        g, j, i = g.clamp(0, G - 1), j.clamp(0, n - 1), i.clamp(0, n - 1)
+        end = G * n * n                          # the invalid pairs' key
+        key = torch.where(valid & E[g, j, i], (g * n + i) * n + j, end)
+        key = torch.sort(key, stable=True)[0]
+        first = torch.cat([key.new_ones(1, dtype=torch.bool), key[1:] != key[:-1]])
+        keep = first & (key < end)               # E's pairs, each once
+        dest = key // n                          # g * n + i; G * n: none
+        src = torch.where(keep, key // (n * n) * n + key % n, 0)
+        vals = h.reshape(G * n, d)[src]
+        m = torch.full((G * n + 1, d), torch.finfo(h.dtype).min, dtype=h.dtype,
+                       device=h.device)
+        into = torch.where(keep, dest, G * n)[:, None].expand_as(vals)
+        m = m.scatter_reduce(0, into, vals, "amax", include_self=True)
+        ctx.save_for_backward(h, dest, src, keep, vals, m)
+        return m[:G * n].reshape(G, n, d)
+
+    @staticmethod
+    def backward(ctx, gout):
+        h, dest, src, keep, vals, m = ctx.saved_tensors
+        G, n, d = h.shape
+        tie = (keep[:, None] & (vals == m[dest])).to(torch.int32)
         c = torch.cumsum(tie, 0)
         lo = torch.searchsorted(dest, dest)
         hi = torch.searchsorted(dest, dest, right=True)
-        zero = torch.zeros((1, d), dtype=c.dtype, device=c.device)
-        cz = torch.cat([zero, c])
+        cz = torch.cat([torch.zeros((1, d), dtype=c.dtype, device=c.device), c])
         before, after = cz[:-1] - cz[lo], cz[hi] - cz[:-1] - tie
         w = _pow2_neg(after + (before > 0).to(torch.int32)) * tie.to(torch.float32)
-        contrib = w.to(gout.dtype) * gout.reshape(G * n, d)[dest]
-        dh = SortedSegments(src, G * n).sum(contrib)
-        return dh.reshape(G, n, d), None
+        g = torch.cat([gout.reshape(G * n, d), gout.new_zeros((1, d))])
+        contrib = w.to(gout.dtype) * g[dest]
+        dh = SortedSegments(src, G * n, keep).sum(contrib)
+        return dh.reshape(G, n, d), None, None, None, None, None
 
 
-def master_query(h, E):
+def master_query(h, E, pairs=None):
     """ASAP's master query [G, i, d]: the max of h[g, j] over the sources j
     with E[g, j, i] (self loops included), 0 where i has none; the
-    gradient that of JAX's running jnp.maximum over j (_MasterQuery)."""
-    xq = _MasterQuery.apply(h, E)
+    gradient that of JAX's running jnp.maximum over j. `pairs`: candidate
+    (graph, source, destination, valid) lists [K] holding every pair of E
+    (_PairsMasterQuery: K pairs' work); without them, blocks of sources
+    over the dense [G, j, i, d] (_MasterQuery)."""
+    if pairs is None:
+        xq = _MasterQuery.apply(h, E)
+    else:
+        xq = _PairsMasterQuery.apply(h, E, *pairs)
     return torch.where(E.any(1)[..., None], xq, 0.0)
 
 
-def _asap_pool_dense(pp, cfg: HPoolConfig, h, adj, keep):
+def _asap_pool_dense(pp, cfg: HPoolConfig, h, adj, keep, pairs=None):
     """ASAPooling (PyG 1.6.3, GNN=None, add_self_loops=False) on the dense
     per-graph adjacency:
 
@@ -628,6 +720,8 @@ def _asap_pool_dense(pp, cfg: HPoolConfig, h, adj, keep):
       alpha_ij = softmax_i(LeakyReLU(att([x_q_i, x_j]), 0.2)) over A~ edges;
       cluster x_i = sum_j alpha_ij x_j; fitness = sigmoid(LEConv(x, A~));
       keep top-ratio, scale by fitness; A_pool = S^T A~ S, diag removed.
+
+    `pairs`: candidate pairs holding A~'s support, for the master query.
     """
     G, nm, d = h.shape
     m = keep.to(h.dtype)
@@ -636,7 +730,7 @@ def _asap_pool_dense(pp, cfg: HPoolConfig, h, adj, keep):
     A = A + eye * m[:, :, None]
     E = A > 0
     neg = torch.finfo(h.dtype).min
-    xq = linear(pp["lin"], master_query(h, E))
+    xq = linear(pp["lin"], master_query(h, E, pairs))
 
     # attention scores per (j -> i) pair over A~'s support
     aw, ab = pp["att"]["w"], pp["att"]["b"]

@@ -207,12 +207,27 @@ class CapturedStep:
         return self.graphs[next(reversed(self.graphs))].graph
 
 
+def _enclosing(text: str, close: str, open_: str) -> int:
+    """The index of the `open_` that matches the `close` ending `text`."""
+    depth = 0
+    for i in range(len(text) - 1, -1, -1):
+        if text[i] == close:
+            depth += 1
+        elif text[i] == open_:
+            depth -= 1
+            if depth == 0:
+                return i
+    return 0
+
+
 def kernel_name(name: str) -> str:
     """A kernel's unqualified function name, from its mangled symbol (as a
     graph's nodes name it) or its demangled signature (as the profiler
     does): "_ZN2at6native18elementwise_kernelILi128E..." and "void
     at::native::elementwise_kernel<128, ...>(...)" both give
-    "elementwise_kernel". A name that is neither is returned as it is."""
+    "elementwise_kernel"; a signature's return type is skipped whatever it
+    is ("std::enable_if<...>::type ns::kernel<...>(...)" gives "kernel").
+    A name that is neither is returned as it is."""
     if name.startswith("_Z"):
         s, last = name[2:].lstrip("L"), None
         nested = s.startswith("N")
@@ -230,9 +245,16 @@ def kernel_name(name: str) -> str:
                 break
         return last or name
     name = name.replace("(anonymous namespace)::", "")
-    if name.startswith("void "):
-        name = name[5:]
-    return name.split("<")[0].split("(")[0].split("::")[-1]
+    if name.endswith(")"):                  # the parameter list
+        name = name[:_enclosing(name, ")", "(")].rstrip()
+    if name.endswith(">"):                  # the function's template arguments
+        name = name[:_enclosing(name, ">", "<")]
+    depth, start = 0, 0                     # past the return type
+    for i, c in enumerate(name):
+        depth += (c == "<") - (c == ">")
+        if c == " " and depth == 0:
+            start = i + 1
+    return name[start:].split("::")[-1]
 
 
 _NODE = re.compile(r'"graph_\d+_node_\d+"\s*\[[^\n]*?label="((?:[^"\\]|\\.)*)"')

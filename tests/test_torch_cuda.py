@@ -1100,3 +1100,103 @@ def test_captured_vae_step_equals_eager_step(dev):
         assert all(torch.equal(st[0][k], pe[k]) for k in pe), lr
         assert torch.equal(st[2], sums)
     assert (captured.captures, captured.replays) == (1, 3)
+
+
+# ------------------------ captured steps of the other models on the card
+
+def _baseline_bucket(dev, gnn="gin-virtual", dropout=0.3):
+    """A baseline's config at a small odd width (emb 45, dropout on) and
+    three host batches of one unleveled loader bucket (odd graph sizes)."""
+    import argparse
+    from dagnn_tpu_torch.cli import ogb_driver
+    from dagnn_tpu_torch.data.dataloader import DAGLoader
+    from dagnn_tpu_torch.data.synthetic import synthetic_ast_batch
+    graphs = synthetic_ast_batch(7, 27, mean_nodes=19, vocab=23, seq_len=3,
+                                 num_attrs=40)
+    args = ogb_driver.add_common_args(argparse.ArgumentParser()).parse_args(
+        ["--gnn", gnn, "--emb_dim", "45", "--num_vocab", "21", "--max_seq_len",
+         "3", "--dagnn_dropout", str(dropout)])
+    cfg = ogb_driver.build_model_cfg(args, "tok", num_nodeattributes=40)
+    loader = DAGLoader(graphs, 9, shuffle=True, seed=2, chunk_size=0,
+                       prefetch=0, schedules=False)
+    return cfg, ogb_driver.init_params(cfg, 0, dev), list(loader)
+
+
+def test_captured_mpnn_step_equals_eager_step(dev):
+    """gin-virtual (emb 45, dropout 0.3) over three batches of one bucket:
+    the driver's captured train step against its eager one from the same
+    weights and generator seed, bit for bit (losses, parameters, Adam
+    state, predicted ids); the graph's K5 nodes (seg_merge_kernel) those
+    of the eager step's launches; one capture, three replays."""
+    from dagnn_tpu_torch import convert, ops
+    from dagnn_tpu_torch.cli.ogb_driver import make_step_fns
+    from dagnn_tpu_torch.train import graphs
+    from dagnn_tpu_torch.train.optim import make_optimizer
+    cfg, params, hosts = _baseline_bucket(dev)
+    assert len(hosts) == 3
+    opt = make_optimizer(1e-3, 0.25)
+    runs = {}
+    for capture in (True, False):
+        train_step, predict = make_step_fns(cfg, opt, "tok", capture=capture)
+        if capture:
+            train_step.captured.debug = True
+        p, s = params, opt.init(params)
+        gen = torch.Generator(device=dev).manual_seed(4)
+        seen = []
+        ops.reset_launch_counts()
+        for h in hosts:
+            p, s, loss, _ = train_step(p, s, h, gen)
+            seen.append((float(loss), {k: v.clone() for k, v in p.items()},
+                         convert.flatten_tree(convert.tree_map(torch.clone, s))))
+        runs[capture] = (seen, ops.read_launch_counts(), predict(p, hosts[0]),
+                         train_step)
+    (g, gc, gi, gs), (e, ec, ei, _) = runs[True], runs[False]
+    for i, (a, b) in enumerate(zip(g, e)):
+        assert a[0] == b[0], i
+        for k in b[1]:
+            assert torch.equal(a[1][k], b[1][k]), (i, k)
+        for k in b[2]:
+            assert torch.equal(a[2][k], b[2][k]), (i, k)
+    assert torch.equal(gi, ei)
+    assert gc == ec and ec["tg_accumulate"] > 0
+    cap = gs.captured
+    assert (cap.captures, cap.replays) == (1, 3)
+    nodes = graphs.graph_nodes(cap.last_graph())
+    seg = sum(v for k, v in nodes.items()
+              if graphs.kernel_name(k) == "seg_merge_kernel")
+    assert 3 * seg == ec["tg_accumulate"]
+
+
+def test_captured_svae_step_equals_eager_step(dev):
+    """SVAE_GraphRNN (hs 45, nz 7; the graph-level and edge-level GRUs)
+    over three batches of 8 ENAS graphs, the learning rate changed every
+    call: the captured train step against the eager one from the same
+    weights and noise seed, bit for bit (parameters, loss sums); no kernel
+    of the port in the graph."""
+    from dagnn_tpu_torch import convert
+    from dagnn_tpu_torch.cli import train_vae
+    from dagnn_tpu_torch.train import graphs
+    from dagnn_tpu_torch.train.optim import make_optimizer
+    args, gs, ga = _na_batch(24)
+    args.model, args.hs, args.nz = "SVAE_GraphRNN", 45, 7
+    model = train_vae.VAEModel(args, ga, dev)
+    params = model.init(0)
+    opt = make_optimizer(1e-3, 0.25)
+    step = train_vae.make_train_step(model, opt)
+    captured = train_vae.make_captured_step(step)
+    captured.debug = True
+    hosts = [model.prepare_host(gs[i:i + 8]) for i in (0, 8, 16)]
+    gc, ge = (torch.Generator(device=dev).manual_seed(3) for _ in range(2))
+    st = (params, opt.init(params), torch.zeros(3, device=dev))
+    pe, se, sums = params, opt.init(params), torch.zeros(3, device=dev)
+    for host, lr in zip(hosts, (1e-3, 1e-4, 2e-3)):
+        inputs = (host, np.asarray(lr, np.float32), gc)
+        st, _ = captured(("vae", convert.batch_key(inputs)), st, inputs, (gc,))
+        pe, se, stats = step(pe, se, convert.batch_to_torch(host, dev), ge,
+                             torch.tensor(lr, device=dev))
+        sums = sums + stats
+        assert all(torch.equal(st[0][k], pe[k]) for k in pe), lr
+        assert torch.equal(st[2], sums)
+    assert (captured.captures, captured.replays) == (1, 3)
+    names = {graphs.kernel_name(k) for k in graphs.graph_nodes(captured.last_graph())}
+    assert not names & {"seg_merge_kernel", "sa_fwd_kernel", "sa_bwd_kernel"}

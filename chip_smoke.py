@@ -207,9 +207,18 @@ split form), the merged and unidirectional wavefronts on near/far batches
       every rank's K6 forward / backward and K5 launches as the plan
       derives them (per row of each direction: K6f 2 x layers, K6b
       layers, K5 3); the plan's seconds (and its greedy stage-row loop's),
-      the wire accounting and a bf16 step's time
-  23d. cli.bench_scaling --devices 2 --iters 3 (its defaults' workload,
-      3 timed steps), its JSON line
+      the wire accounting; the bf16 step in the overlapped order (the default: the deferred exchange waited
+      on after the row's outputs, before the gather only in the rows that
+      read it at its delivery) against the synchronous order: forward
+      buffers, loss and gradient digests bitwise equal on every rank, the
+      same collectives issued (at 2 ranks from the trace section's turns
+      and forward passes); scripts.ep_overlap_report's plan section on
+      both batches (its flagged rows those the ranks used) and, on the
+      2-rank spawn, its trace section: both orders' bf16 steps in turns a
+      b b a (CUDA events), one profiled forward pass each, every deferred
+      exchange's wait where its order puts it
+  23d. cli.bench_scaling --devices 2 --iters 1 (its defaults' workload,
+      1 timed step), its JSON line
   the bench and the tools (dagnn_tpu_torch/bench.py, dagnn_tpu_torch/
   scripts/), in process; launch counts set to 0 before each bench run and
   read after it:
@@ -2988,6 +2997,7 @@ def phase_parallel(dev, card, graphs, params, cfg, bench_argv=()):
     from dagnn_tpu_torch.parallel import jobs
     from dagnn_tpu_torch.parallel.dp import collate_sharded, shard_of
     from dagnn_tpu_torch.parallel.mesh import default_backend, spawn
+    from dagnn_tpu_torch.scripts import ep_overlap_report as overlap
     out, device = {}, dev.type
     cpu = ["--cpu"] if device == "cpu" else []
     if device == "cuda":
@@ -3033,11 +3043,13 @@ def phase_parallel(dev, card, graphs, params, cfg, bench_argv=()):
         (jobs.ep_job, dict(cfg=cfg_p32, params_np=pnp, batches=[ep_batches[D]],
                            mesh_shape=(1, D), probe=True)),
         (jobs.ep_job, dict(cfg=cfg_p, params_np=pnp, batches=[ep_batches[D]],
-                           mesh_shape=(1, D), steps=1, probe=True))]
+                           mesh_shape=(1, D), probe=True, orders=D == 4))]
     t0 = time.perf_counter()
     res2 = spawn(jobs.run_jobs, 2, "gloo", device, timeout=900, args=(
         [(jobs.dp_job, dict(cfg=cfg, params_np=pnp, stacked=stacked, steps=3))]
-        + ep_jobs(2),))
+        + ep_jobs(2) + [(overlap.trace_job, dict(
+            cfg=cfg_p, params_np=pnp, batch=ep_batches[2], mesh_shape=(1, 2),
+            warmup=False, backward=False))],))
     t_spawn2 = time.perf_counter() - t0
     t0 = time.perf_counter()
     res4 = spawn(jobs.run_jobs, 4, "gloo", device, timeout=900, args=(ep_jobs(4),))
@@ -3093,7 +3105,10 @@ def phase_parallel(dev, card, graphs, params, cfg, bench_argv=()):
 
     # 23c: edge partitioned, 2 and 4 ranks, the generic branch (K6, K5)
     out["ep"] = {}
-    for D, res in ((2, res2), (4, res4)):
+    # the overlap report's trace section on the 2-rank spawn (bf16, D = 2):
+    # both orders' steps in turns and a profiled forward pass of each
+    traces = [r[-1] for r in res2]
+    for D, res in ((2, [r[:-1] for r in res2]), (4, res4)):
         f32, bf = res[0][-2], res[0][-1]
         b = batch_to_torch(ep_batches[D], dev)
         # the single-rank step through the plain versions of K6 and K5
@@ -3130,18 +3145,53 @@ def phase_parallel(dev, card, graphs, params, cfg, bench_argv=()):
         print(f"[23c] every rank's launch counts of each grads pass as the plan "
               f"derives them: {res[0][-1]['counts']}; every rank holds the same "
               f"summed gradients (bitwise)")
-        print(f"[23c] D={D} bf16 train step {bf['step_s'][0]:.3f} s (rank 0, "
-              f"{SHARED})")
+        plan = overlap.plan_section(jobs.ep_plans(ep_batches[D], D)[0], cfg.hidden_dim)
+        print("\n".join(f"    {ln}" for ln in overlap.plan_lines(plan)[2:] if ln))
+        wait_rows = [len(plan[d]["wait_rows"]) for d in ("fwd", "rev")]
+        check(all(r[-1]["read_rows"] == wait_rows for r in res),
+              f"D={D}: the ranks' rows that wait before their gather "
+              f"{[r[-1]['read_rows'] for r in res]}, the report's {wait_rows}")
+        orders = ([{o: t[o] for o in ("overlap", "sync")} for t in traces] if D == 2
+                  else [r[-1]["orders"] for r in res])
+        same = all(o["overlap"][k] == o["sync"][k] for o in orders
+                   for k in ("buffers_digest", "loss", "grads_digest", "issued"))
+        print(f"[23c] D={D} bf16, overlapped order against the synchronous one "
+              f"({wait_rows} rows of (fwd, rev) wait before their gather, the rest "
+              f"after their outputs): forward buffers, loss and gradients bitwise "
+              f"equal and the same collectives issued ({orders[0]['sync']['issued']}) "
+              f"on every rank: {same}")
+        check(same, f"D={D}: the overlapped EP step differs from the synchronous order")
         out["ep"][D] = dict(loss32=f32["loss"], loss16=bf["loss"], leaf32=leaf32,
                             leaf16=leaf16, rows=f32["rows"], plan_s=bf["plan_s"],
                             greedy_s=bf["greedy_s"], deferred=f32["deferred"],
-                            wire=bf["wire"], step_s=bf["step_s"],
-                            launches=res[0][-1]["counts"], probe=probe)
+                            wire=bf["wire"],
+                            launches=res[0][-1]["counts"], probe=probe,
+                            wait_rows=wait_rows, orders_bitwise=same,
+                            plan=plan)
+    where = card if device == "cuda" else "the CPU (no device time)"
+    print("\n".join(f"    {ln}" for ln in overlap.trace_lines(traces, where) if ln))
+    bad = overlap.check_trace(traces)
+    summ = [overlap.trace_summary(t) for t in traces]
+    n_ex = sum(out["ep"][2]["plan"][d]["exchanges"] for d in ("fwd", "rev"))
+    check(not bad and all(s[o]["exchanges"] == n_ex for s in summ
+                          for o in ("overlap", "sync")),
+          f"the trace's deferred exchanges: misplaced waits {bad[:6]}, counts "
+          f"{[(s['overlap']['exchanges'], s['sync']['exchanges']) for s in summ]} "
+          f"against {n_ex}")
+    o, sy = summ[0]["overlap"], summ[0]["sync"]
+    print(f"[23c] D=2 trace of a forward pass (rank 0): {n_ex} deferred exchanges in "
+          f"each order, every wait where its order puts it ({o['before']} before the "
+          f"gather, "
+          f"{o['after']} after the outputs overlapped; {sy['before']} before, "
+          f"synchronous); bf16 step s in turns: overlapped "
+          f"{' / '.join(f'{x:.4f}' for x in o['step_s'])}, synchronous "
+          f"{' / '.join(f'{x:.4f}' for x in sy['step_s'])} ({SHARED})")
+    out["ep"]["trace"] = summ
     print(f"[23b/c] spawns: 2 ranks {t_spawn2:.1f} s, 4 ranks {t_spawn4:.1f} s")
 
     t0 = time.perf_counter()
-    print(f"[23d] cli.bench_scaling --devices 2 --iters 3 ({SHARED}):")
-    out["bench_scaling"] = bench_scaling.main(["--devices", "2", "--iters", "3", *cpu,
+    print(f"[23d] cli.bench_scaling --devices 2 --iters 1 ({SHARED}):")
+    out["bench_scaling"] = bench_scaling.main(["--devices", "2", "--iters", "1", *cpu,
                                                *bench_argv])
     print(f"[23d] took {time.perf_counter() - t0:.1f} s")
     out["dp"]["nccl"] = nccl_world_one("[23b]", dev, cfg, params, graphs)

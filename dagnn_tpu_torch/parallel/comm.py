@@ -19,7 +19,8 @@ int16, and bf16 only in recent versions); sums run in the tensor's own
 type (float32 on every path that sums).
 
 `issued` counts the collectives handed to torch.distributed, by route.
-exchange and all_gather_stack are the identity at group size 1 and issue
+exchange (and exchange_async, the same all_to_all issued now and waited
+on later) and all_gather_stack are the identity at group size 1 and issue
 none there; all_reduce_sum issues its collective at every size, so a
 one-rank NCCL group still runs the device route.
 """
@@ -65,16 +66,43 @@ def _from_wire(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return t.view(like.dtype).to(like.device)
 
 
+class Exchange:
+    """An all_to_all in flight (exchange_async). It holds its send and
+    receive tensors until wait(), which returns what exchange returns.
+    On the device route wait() makes the current stream wait for the
+    collective and returns at once; on the host route it blocks until the
+    collective is done, then copies the result to the block's device. A
+    failed collective raises from wait()."""
+
+    def __init__(self, block: torch.Tensor, group):
+        self.block, self.work = block, None
+        if size(group) == 1:
+            return
+        self.send = _to_wire(block.movedim(1, 0), group)      # [Dp, L, B, H]
+        self.recv = torch.empty_like(self.send)
+        self.work = dist.all_to_all_single(self.recv, self.send, group=group,
+                                           async_op=True)
+
+    def wait(self) -> torch.Tensor:
+        if self.work is not None:
+            self.work.wait()
+            self.block = _from_wire(self.recv, self.block).movedim(0, 1)
+            self.send = self.recv = self.work = None
+        return self.block
+
+
+def exchange_async(block: torch.Tensor, group) -> Exchange:
+    """exchange, issued now and read at Exchange.wait(): counted in
+    `issued` when it is issued; at group size 1 it issues nothing and
+    wait() returns the block itself."""
+    return Exchange(block, group)
+
+
 def exchange(block: torch.Tensor, group) -> torch.Tensor:
     """all_to_all of a per-peer block [L, Dp, B, H] along dim 1: entry p of
     the result is the block peer p addressed to this rank. The identity at
     group size 1 (the JAX package's _exchange)."""
-    if size(group) == 1:
-        return block
-    send = _to_wire(block.movedim(1, 0), group)      # [Dp, L, B, H]
-    recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=group)
-    return _from_wire(recv, block).movedim(0, 1)
+    return exchange_async(block, group).wait()
 
 
 def all_gather_stack(t: torch.Tensor, group) -> torch.Tensor:

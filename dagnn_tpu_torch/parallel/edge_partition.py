@@ -18,10 +18,14 @@ torch over torch.distributed (parallel/comm.py) where JAX has shard_map:
    SHARDED states + halo. Rank d owns a contiguous w-slot slice of every
    row; its buffer [R*w own | Hs halo | 1 garbage] holds its own slices
    and the remote slots its edges read. Per row (_EPPlan.forward): the
-   DEFERRED entries staged one row earlier are delivered through the
-   recv plan shifted by one row; the row's outputs; the URGENT (span-1)
-   entries exchanged; the next deferred block staged from the buffer.
-   Each exchange is an all_to_all of per-peer blocks (comm.exchange). The
+   row's outputs; the URGENT (span-1) entries exchanged; the DEFERRED
+   entries staged one row earlier delivered through the recv plan shifted
+   by one row; the next deferred block staged from the buffer and its
+   exchange issued (comm.exchange_async), so it runs under the next row's
+   compute. Where a row reads a deferred entry at the row it is delivered
+   (deferred_reads: the planner may stage an entry at the row just before
+   its first reader), that row waits for the exchange before its gather
+   instead. Each exchange is an all_to_all of per-peer blocks. The
    backward (_EPWavefront, write-once replay: only the final buffer is
    kept) walks the rows in reverse, replays each row under
    torch.autograd.grad, and does the three segment sums of the JAX
@@ -40,8 +44,9 @@ D times the single-device gradient; Adam's update does not see a
 constant scale, the gradient norm does.)
 
 Every rank issues the same collectives in the same order: the static
-flags (EPStatic.has_urgent, has_deferred) and block widths come from the
-whole plan, which every rank builds from the same batch. The padding
+flags (EPStatic.has_urgent, has_deferred), the rows that wait before
+their gather and the block widths come from the whole plan, which every
+rank builds from the same batch. The padding
 entries of a halo write all land on the garbage row with zero values, so
 an index write that repeats an index stays deterministic.
 """
@@ -50,6 +55,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from contextlib import nullcontext
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -229,8 +235,10 @@ class EPSchedule(NamedTuple):
     side is position j on the receive side. `u_*` covers URGENT entries
     (first read exactly one row after their source row — exchanged
     synchronously), `d_*` covers DEFERRED entries (first read >= 2 rows
-    later — exchanged one scan step after their source row through the
-    carry, so the collective can overlap the next row's compute). The
+    later — staged at a row between their source row and the one before
+    their first reader, delivered one row after it; the collective runs
+    under the delivery row's compute unless that row reads the entry,
+    deferred_reads). The
     full plan `x_*` (urgent + deferred) drives the backward's mirrored
     grad return. `d_recv_*` arrays are PRE-SHIFTED by one row (row r holds
     row r-1's plan) so the scan consumes them with its own row index.
@@ -523,11 +531,29 @@ def ep_local(eps: EPSchedule, d: int) -> EPSchedule:
     return EPSchedule(*[np.asarray(a)[d] for a in eps])
 
 
+def deferred_reads(eps: EPSchedule) -> np.ndarray:
+    """[D, R, Dp, Bd] bool: deferred entry (d, r, p, j), delivered to rank
+    d at row r, is read by row r's own gather there: its buffer index
+    R*w + d_recv_hidx is among e_src_lslot[d, r]. The planner may stage an
+    entry at any row up to the one before its first reader
+    (partition_schedule_sharded), so such an entry arrives at the row that
+    reads it. The rows where any rank has one (.any(axis=(0, 2, 3))) wait
+    for the deferred exchange before their gather; every other row lets it
+    run under its compute. Host arrays only."""
+    D, R, w = eps.node_ids.shape
+    slot = R * w + eps.d_recv_hidx.astype(np.int64)                  # [D, R, Dp, Bd]
+    n = int(max(slot.max(initial=0), eps.e_src_lslot.max(initial=0))) + 1
+    row = np.arange(D * R, dtype=np.int64).reshape(D, R)
+    reads = (row[..., None] * n + eps.e_src_lslot).ravel()
+    got = np.isin((row[..., None, None] * n + slot).ravel(), reads)
+    return got.reshape(slot.shape) & eps.d_recv_mask
+
+
 def _ep_streams(cfg: DAGNNConfig, x, edge_attr, eps: EPSchedule):
     """This rank's per-row streams from its shard, on x's device: the
     inputs in the compute dtype, the gather indices as int64, K5's
     segment ids (tlcol, tblk, xsc) as int32 and its masks as float32, the
-    exchange masks in the compute dtype."""
+    exchange send masks as bool."""
     dev, dt = x.device, _DTYPES[cfg.compute_dtype]
     t = lambda a: torch.as_tensor(a, device=dev)
     R, dp, bf = eps.x_send_col.shape[:3]
@@ -538,9 +564,9 @@ def _ep_streams(cfg: DAGNNConfig, x, edge_attr, eps: EPSchedule):
            "eslot": t(eps.e_src_lslot).long(),
            "edst": t(eps.e_dst).to(torch.int32),
            "emask": t(eps.e_mask).to(torch.float32),
-           "usc": t(eps.u_send_col).long(), "usm": t(eps.u_send_mask).to(dt),
+           "usc": t(eps.u_send_col).long(), "usm": t(eps.u_send_mask),
            "urh": t(eps.u_recv_hidx).long().reshape(R, -1),
-           "dsc": t(eps.d_send_col).long(), "dsm": t(eps.d_send_mask).to(dt),
+           "dsc": t(eps.d_send_col).long(), "dsm": t(eps.d_send_mask),
            "drh": t(eps.d_recv_hidx).long().reshape(R, -1),
            "xsc": t(eps.x_send_col).to(torch.int32).reshape(R, dp * bf),
            "xsm": t(eps.x_send_mask).to(torch.float32).reshape(R, dp * bf),
@@ -553,11 +579,22 @@ def _ep_streams(cfg: DAGNNConfig, x, edge_attr, eps: EPSchedule):
 
 class _EPPlan:
     """One direction's sharded-state wavefront on this rank: R rows of w
-    own slots, halo Hs, exchange blocks [nl, Dp, B, H] over `group`."""
+    own slots, halo Hs, exchange blocks [nl, Dp, B, H] over `group`.
+    read_rows [R] (deferred_reads of the whole plan): the rows that read a
+    deferred entry at its delivery. With overlap, only those rows wait for
+    the deferred exchange before their gather, and every other row after
+    its outputs; with overlap=False every row waits before its gather (the
+    synchronous order). Both write the same buffer bit for bit. The
+    forward marks each row's compute and each exchange's issue and wait
+    (torch.profiler.record_function, "ep{tag}.{row|urgent|issue|wait}.{r}",
+    r the row the exchange delivers to) when a profiler is on."""
 
-    def __init__(self, cfg, fxs, ixs, st: EPStatic, group, fns: AggImpl, keys):
+    def __init__(self, cfg, fxs, ixs, st: EPStatic, group, fns: AggImpl, keys,
+                 read_rows, overlap: bool = True, tag: int = 0):
         self.cfg, self.ixs, self.st, self.group = cfg, ixs, st, group
-        self.fns, self.keys = fns, keys
+        self.fns, self.keys, self.tag = fns, keys, tag
+        self.wait_first = (np.asarray(read_rows, bool) if overlap
+                           else np.ones(st.rows, bool))
         self.side = {k: fxs[k] for k in ("ea",) if k in fxs}
         self.dt = _DTYPES[cfg.compute_dtype]
         self.specs = [cfg.aggregator_spec(l) for l in range(cfg.num_layers)]
@@ -577,28 +614,53 @@ class _EPPlan:
         base = self.st.rows * self.st.own_w
         buf[:, base + hidx] = recv.reshape(buf.shape[0], -1, buf.shape[2])
 
+    @staticmethod
+    def _block(src, col, mask):
+        """The per-peer block [nl, Dp, B, H] gathered from src at col; the
+        padding entries are +0.0 (selected, not multiplied: a product
+        keeps a negative value's sign), so the garbage row every padding
+        entry lands on holds the same bits whichever write comes last."""
+        return torch.where(mask[None, ..., None], src[:, col], 0.0)
+
+    def _mark(self, what, r):
+        if not torch._C._autograd._profiler_enabled():
+            return nullcontext()
+        return torch.profiler.record_function(f"ep{self.tag}.{what}.{r}")
+
+    def _deliver(self, buf, r, pend):
+        """Wait for the deferred exchange and write its entries (the recv
+        plan of row r: the block staged at row r-1)."""
+        with self._mark("wait", r):
+            self._halo_write(buf, self.ixs["drh"][r], pend.wait())
+
     def forward(self, xs, wparams):
         cfg, st, ix = self.cfg, self.st, self.ixs
         R, w = st.rows, st.own_w
         pdir = _params_dir(self.keys, wparams, self.dt)
         buf = torch.zeros((cfg.num_layers, R * w + st.halo + 1, cfg.hidden_dim),
                           dtype=self.dt, device=xs.device)
-        pend = None
+        pend = None          # the deferred exchange issued at the previous row
         for r in range(R):
-            # the DEFERRED entries staged at the previous row (row 0's recv
-            # plan is empty by the one-row shift)
-            if st.has_deferred and r > 0:
-                self._halo_write(buf, ix["drh"][r], comm.exchange(pend, self.group))
-            outs = self._level(r, xs[r], buf[:, ix["eslot"][r]], pdir)  # [nl, w, H]
-            buf[:, r * w:(r + 1) * w] = outs
+            if pend is not None and self.wait_first[r]:
+                self._deliver(buf, r, pend)
+                pend = None
+            with self._mark("row", r):
+                outs = self._level(r, xs[r], buf[:, ix["eslot"][r]], pdir)  # [nl, w, H]
+                buf[:, r * w:(r + 1) * w] = outs
             # URGENT entries (first read at the next row), exchanged now
             if st.has_urgent:
-                blk = outs[:, ix["usc"][r]] * ix["usm"][r][None, ..., None]
-                self._halo_write(buf, ix["urh"][r], comm.exchange(blk, self.group))
+                with self._mark("urgent", r + 1):
+                    blk = self._block(outs, ix["usc"][r], ix["usm"][r])
+                    self._halo_write(buf, ix["urh"][r], comm.exchange(blk, self.group))
+            if pend is not None:
+                self._deliver(buf, r, pend)
             # the next deferred block, staged from the buffer by flat own
-            # index (the last row stages nothing: no later row reads it)
+            # index and issued (the last row stages nothing: no later row
+            # reads it)
             if st.has_deferred and r < R - 1:
-                pend = buf[:, ix["dsc"][r]] * ix["dsm"][r][None, ..., None]
+                with self._mark("issue", r + 1):
+                    pend = comm.exchange_async(
+                        self._block(buf, ix["dsc"][r], ix["dsm"][r]), self.group)
         return buf
 
     def backward(self, xs, buf, wparams, g):
@@ -621,8 +683,9 @@ class _EPPlan:
             mine = merge(side(g[:, r * w:(r + 1) * w]), tg, ix["tlcol"][r],
                          ix["tmask"][r])
             blk = merge(zero_blk, tg, ix["tblk"][r], ix["tmask"][r])
-            recv = comm.exchange(blk.view(dp, bf, nl, H).permute(2, 0, 1, 3),
-                                 self.group)                     # grads for MY cols
+            with self._mark("grad", r):
+                recv = comm.exchange(blk.view(dp, bf, nl, H).permute(2, 0, 1, 3),
+                                     self.group)                 # grads for MY cols
             mine = merge(mine, side(recv.reshape(nl, dp * bf, H)), ix["xsc"][r],
                          ix["xsm"][r])
             g_out = mine.view(w, nl, H).movedim(1, 0)
@@ -663,27 +726,38 @@ class _EPWavefront(torch.autograd.Function):
         return (None, dxs, *dws)
 
 
-def ep_node_states(params, cfg: DAGNNConfig, x, edge_attr, eps_dirs, statics,
-                   group, fns: AggImpl = SEG_KERNELS):
-    """Every direction pass, sharded-state scheme, on this rank: eps_dirs
-    are its shards (ep_local) of each direction's plan. Returns (h_own per
-    direction [nl, R*w, H], x_own per direction [R*w, emb])."""
+def _ep_plans(params, cfg: DAGNNConfig, x, edge_attr, eps_dirs, statics, read_rows,
+              group, fns: AggImpl, overlap: bool):
+    """Each direction's (_EPPlan, x stream [R, w, emb], parameter keys)."""
     if cfg.agg_x or cfg.vid_dim > 0:
         raise ValueError("the sharded-state scheme takes no agg_x or vid_dim "
                          "(as in the JAX package: its streams carry x and ea)")
-    h_dirs, x_dirs = [], []
+    out = []
     for di, d in enumerate(cfg.dirs):
-        eps, st = eps_dirs[di], statics[di]
-        fxs, ixs = _ep_streams(cfg, x, edge_attr, eps)
+        fxs, ixs = _ep_streams(cfg, x, edge_attr, eps_dirs[di])
         if d == 1 and cfg.reverse_agg_noop:
             # shared-AggConv quirk (DAGNNConfig.ref_shared_agg_quirk): the
             # reverse pass aggregates nothing upstream
             ixs["emask"] = torch.zeros_like(ixs["emask"])
             ixs["tmask"] = torch.zeros_like(ixs["tmask"])
         keys = _dir_keys(params, d)
-        plan = _EPPlan(cfg, fxs, ixs, st, group, fns, keys)
-        h_dirs.append(_EPWavefront.apply(plan, fxs["x"], *[params[k] for k in keys]))
-        x_dirs.append(fxs["x"].reshape(st.rows * st.own_w, -1))
+        out.append((_EPPlan(cfg, fxs, ixs, statics[di], group, fns, keys, read_rows[di],
+                            overlap, di), fxs["x"], keys))
+    return out
+
+
+def ep_node_states(params, cfg: DAGNNConfig, x, edge_attr, eps_dirs, statics,
+                   read_rows, group, fns: AggImpl = SEG_KERNELS, overlap: bool = True):
+    """Every direction pass, sharded-state scheme, on this rank: eps_dirs
+    are its shards (ep_local) of each direction's plan, read_rows each
+    whole plan's rows that wait before their gather (deferred_reads; with
+    overlap=False every row does). Returns (h_own per direction [nl, R*w,
+    H], x_own per direction [R*w, emb])."""
+    h_dirs, x_dirs = [], []
+    for plan, xs, keys in _ep_plans(params, cfg, x, edge_attr, eps_dirs, statics,
+                                    read_rows, group, fns, overlap):
+        h_dirs.append(_EPWavefront.apply(plan, xs, *[params[k] for k in keys]))
+        x_dirs.append(xs.reshape(plan.st.rows * plan.st.own_w, -1))
     return h_dirs, x_dirs
 
 
@@ -721,6 +795,7 @@ class EPInputs(NamedTuple):
     node_depth: Optional[torch.Tensor]
     eps_dirs: tuple
     statics: tuple
+    read_rows: tuple             # per direction [R] bool (deferred_reads)
     gid: torch.Tensor            # [nd, R*w] graph id of each own slot
     mask: torch.Tensor           # [nd, R*w] pool mask of each own slot
     y: dict
@@ -748,8 +823,9 @@ class EPStep:
 
     def __init__(self, cfg: DAGNNConfig, mesh, loss_head, optimizer,
                  axis: str = "ep", dp_axis: Optional[str] = None,
-                 fns: AggImpl = SEG_KERNELS):
+                 fns: AggImpl = SEG_KERNELS, overlap: bool = True):
         self.cfg, self.loss_head, self.optimizer, self.fns = cfg, loss_head, optimizer, fns
+        self.overlap = overlap
         self.group = mesh.groups[axis]
         self.dp_group = None if dp_axis is None else mesh.groups[dp_axis]
         self.rank, self.size = comm.rank(self.group), comm.size(self.group)
@@ -764,18 +840,33 @@ class EPStep:
             node_depth=t(batch.extras.get("node_depth")),
             eps_dirs=tuple(ep_local(e, d) for e, _ in plans),
             statics=tuple(s for _, s in plans),
+            read_rows=tuple(deferred_reads(e).any(axis=(0, 2, 3)) for e, _ in plans),
             gid=t(aux["gid"][d]).long(), mask=t(aux["mask"][d]).bool(),
             y={k: t(v) for k, v in batch.y.items()}, graph_mask=t(batch.graph_mask).bool())
+
+    def _encode(self, params, inp: EPInputs):
+        enc = {k[len("encoder."):]: v for k, v in params.items()
+               if k.startswith("encoder.")}
+        x = encode(enc, self.cfg.encoder, inp.x, inp.node_depth)
+        return torch.where(inp.node_mask[:, None], x, 0.0)
+
+    def forward_buffers(self, params, inp: EPInputs):
+        """Each direction's whole forward state buffer [nl, R*w + Hs + 1,
+        H] (own slots, halo, garbage row) on this rank, without gradients:
+        what the overlapped and synchronous orders must write alike."""
+        with torch.no_grad():
+            return [plan.forward(xs, [params[k] for k in keys])
+                    for plan, xs, keys in _ep_plans(
+                        params, self.cfg, self._encode(params, inp), inp.edge_attr,
+                        inp.eps_dirs, inp.statics, inp.read_rows, self.group,
+                        self.fns, self.overlap)]
 
     def loss(self, params, inp: EPInputs):
         """The loss of this rank's ep group's batch (replicated over ep)."""
         cfg, group = self.cfg, self.group
-        enc = {k[len("encoder."):]: v for k, v in params.items()
-               if k.startswith("encoder.")}
-        x = encode(enc, cfg.encoder, inp.x, inp.node_depth)
-        x = torch.where(inp.node_mask[:, None], x, 0.0)
-        h_dirs, x_dirs = ep_node_states(params, cfg, x, inp.edge_attr, inp.eps_dirs,
-                                        inp.statics, group, self.fns)
+        h_dirs, x_dirs = ep_node_states(params, cfg, self._encode(params, inp),
+                                        inp.edge_attr, inp.eps_dirs, inp.statics,
+                                        inp.read_rows, group, self.fns, self.overlap)
         G = inp.graph_mask.shape[0]
         kind = "add" if cfg.out_pool in ("add", "sum", "mean", "attn") else cfg.out_pool
 
@@ -834,7 +925,7 @@ class EPStep:
 
 def make_ep_train_step(cfg: DAGNNConfig, mesh, loss_head, optimizer,
                        axis: str = "ep", dp_axis: Optional[str] = None,
-                       fns: AggImpl = SEG_KERNELS) -> EPStep:
+                       fns: AggImpl = SEG_KERNELS, overlap: bool = True) -> EPStep:
     """The sharded-state EP train step on this rank (the JAX package's
     make_ep_train_step). loss_head(logits, y, graph_mask) -> scalar, given
     the head's outputs over the pooled readout. Every out_pool: add, sum,
@@ -846,5 +937,9 @@ def make_ep_train_step(cfg: DAGNNConfig, mesh, loss_head, optimizer,
     gradients are averaged over dp_axis as well: the reference's
     DataParallel composed with the intra-batch sharding it never had.
     Unlike JAX's, the statics travel with each batch's plans (step.shard):
-    there is no trace to pin them to."""
-    return EPStep(cfg, mesh, loss_head, optimizer, axis, dp_axis, fns)
+    there is no trace to pin them to. The deferred exchange runs under
+    the next row's compute except where that row reads it (deferred_reads);
+    overlap=False keeps every exchange synchronous before the row that may
+    read it, the same result bit for bit (tests and timings hold the two
+    orders together)."""
+    return EPStep(cfg, mesh, loss_head, optimizer, axis, dp_axis, fns, overlap)

@@ -24,6 +24,7 @@ import torch
 from dagnn_tpu_torch.ops import read_launch_counts as read_counts
 from dagnn_tpu_torch.ops import reset_launch_counts as reset_counts
 from dagnn_tpu_torch.parallel import comm
+from dagnn_tpu_torch.parallel.dp import apply_updates
 from dagnn_tpu_torch.parallel.mesh import make_hybrid_mesh, make_mesh
 
 
@@ -61,6 +62,63 @@ def loss_of(task: str):
 def _sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def timed_turns(fns, turns: int, dev) -> tuple:
+    """Two functions called in turns a b b a, `turns` times: (each one's
+    seconds, each one's first result). CUDA events on a card, the host
+    clock on the CPU."""
+    secs, firsts = [[], []], [None, None]
+    for _ in range(turns):
+        for i in (0, 1, 1, 0):
+            if dev.type == "cuda":
+                t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                t0.record()
+                res = fns[i]()
+                t1.record()
+                t1.synchronize()
+                secs[i].append(t0.elapsed_time(t1) / 1e3)
+            else:
+                t0 = time.perf_counter()
+                res = fns[i]()
+                secs[i].append(time.perf_counter() - t0)
+            if firsts[i] is None:
+                firsts[i] = res
+    return secs, firsts
+
+
+def ep_orders(step, sync_step, params, opt, inputs, turns: int, dev, first=None,
+              buffers: bool = True) -> dict:
+    """The overlapped EP step against the synchronous order on the same
+    inputs: per order the loss, gradient digest and comm.issued counts of
+    one train step (the step's gradient pass and its optimizer update,
+    whose result is dropped), the seconds of each step in `turns` turns
+    a b b a (step_s; the first step of each order gives the digests), and
+    with buffers the digest of the forward buffers. With no turns, one
+    step of each order, or for the overlapped order `first`, a (loss,
+    grads, issued) the caller already has."""
+    state = opt.init(params)
+
+    def run(s):
+        comm.reset_issued()
+        loss, grads = s.grads(params, inputs)
+        apply_updates(opt, params, grads, state)
+        return float(loss), grads, dict(comm.issued)
+
+    fns = [lambda s=s: run(s) for s in (step, sync_step)]
+    if turns:
+        secs, firsts = timed_turns(fns, turns, dev)
+    else:
+        secs, firsts = [[], []], [first or fns[0](), fns[1]()]
+    res = {}
+    for name, s, sec, (loss, grads, issued) in zip(("overlap", "sync"), (step, sync_step),
+                                                     secs, firsts):
+        res[name] = {"loss": loss, "grads_digest": digest(grads), "issued": issued,
+                     "step_s": sec}
+        if buffers:
+            bufs = s.forward_buffers(params, inputs)
+            res[name]["buffers_digest"] = digest({str(i): b for i, b in enumerate(bufs)})
+    return res
 
 
 def _run_steps(step, params, opt, inputs, steps, dev):
@@ -123,16 +181,19 @@ def ep_plans(batch, n_ep: int):
 
 
 def ep_job(dev, cfg, params_np, batches, mesh_shape, dp_axis: bool = False,
-           steps: int = 0, probe: bool = False):
+           steps: int = 0, probe: bool = False, orders: bool = False, turns: int = 0):
     """make_ep_train_step on the (dp, ep) mesh `mesh_shape`: dp group i
     trains batches[i] (one host batch for every group when dp_axis is
     False: then each dp group is an independent copy of one ep run and
     nothing is averaged over dp), edge-partitioned over ep. Returns the
     (loss, grads) of the step's reduction (the TOK loss, the drivers'
     Adam), the launches of that pass, the plan's seconds and wire
-    accounting. With probe, one more pass through a checks.KernelProbe
-    holds every K6 / K5 call of the rank against its plain version
-    (after the launches are read); then `steps` steps."""
+    accounting, the collectives it issued by route and each direction's
+    rows that wait for the deferred exchange before their gather. With
+    probe, one more pass through a checks.KernelProbe holds every K6 / K5
+    call of the rank against its plain version (after the launches are
+    read); with orders, the synchronous order against the overlapped one
+    (ep_orders, `turns` timed turns); then `steps` steps."""
     from dagnn_tpu_torch.checks import KernelProbe
     from dagnn_tpu_torch.parallel import edge_partition as ep
     from dagnn_tpu_torch.train.optim import make_optimizer
@@ -147,6 +208,7 @@ def ep_job(dev, cfg, params_np, batches, mesh_shape, dp_axis: bool = False,
     inputs = step.shard(batch, plans, aux, dev)
     params = _params(params_np, dev)
     reset_counts()
+    comm.reset_issued()
     loss, grads = step.grads(params, inputs)
     _sync(dev)
     eps_f, st_f = plans[0]
@@ -157,6 +219,8 @@ def ep_job(dev, cfg, params_np, batches, mesh_shape, dp_axis: bool = False,
            "wire": ep.ep_wire_stats(eps_f, cfg.hidden_dim,
                                     2 if cfg.compute_dtype == "bfloat16" else 4),
            "statics": [dict(vars(st)) for _, st in plans],
+           "issued": dict(comm.issued),
+           "read_rows": [int(r.sum()) for r in inputs.read_rows],
            "route": comm.route(mesh.groups["ep"]), "rank": rank}
     if probe:
         kp = KernelProbe()
@@ -164,6 +228,11 @@ def ep_job(dev, cfg, params_np, batches, mesh_shape, dp_axis: bool = False,
                                       "dp" if dp_axis else None,
                                       kp.impl()).grads(params, inputs)
         out["probe"] = {**kp.report(), "grads_digest": digest(pg)}
+    if orders:
+        sync_step = ep.make_ep_train_step(cfg, mesh, loss_of("tok"), opt, "ep",
+                                          "dp" if dp_axis else None, overlap=False)
+        out["orders"] = ep_orders(step, sync_step, params, opt, inputs, turns, dev,
+                                  first=(out["loss"], grads, out["issued"]))
     if steps:
         params, out["losses"], out["step_s"] = _run_steps(
             step, params, opt, inputs, steps, dev)

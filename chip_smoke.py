@@ -198,15 +198,18 @@ split form), the merged and unidirectional wavefronts on near/far batches
       averaged loss, norm and leaves against one process's mean of the two
       shards' (the same kernels; phase 5's gates), parameters bitwise
       equal across the ranks after 3 steps, each rank's K1/K2 launches the
-      rows of its shard's pass and no other kernel; the same step at
-      world size 1 over NCCL bitwise equal to the single-process step
+      rows of its shard's pass and no other kernel, the score linears'
+      bias measured with its weight (checks.score_linears) as in phases 9
+      and 19b; the same step at world size 1 over NCCL (captured, its
+      default there) bitwise equal to the single-process step
   23c. edge partitioned, 2 and 4 ranks, segment_impl="pallas" (K6, K5),
       scan rows 64 x D wide: one f32 step against the single-rank f32
       generic step (loss and norm 1e-5, leaves rtol 5e-4 / atol 5e-5,
       exact zeros to the noise bound), one bf16 step at phase 5's gates,
       every rank's K6 forward / backward and K5 launches as the plan
       derives them (per row of each direction: K6f 2 x layers, K6b
-      layers, K5 3); the plan's seconds (and its greedy stage-row loop's),
+      layers, K5 3); the bf16 leaves with the score linears' bias grouped
+      with its weight (checks.score_linears); the plan's seconds (and its greedy stage-row loop's),
       the wire accounting; the bf16 step in the overlapped order (the default: the deferred exchange waited
       on after the row's outputs, before the gather only in the rows that
       read it at its delivery) against the synchronous order: forward
@@ -218,7 +221,17 @@ split form), the merged and unidirectional wavefronts on near/far batches
       b b a (CUDA events), one profiled forward pass each, every deferred
       exchange's wait where its order puts it
   23d. cli.bench_scaling --devices 2 --iters 1 (its defaults' workload,
-      1 timed step), its JSON line
+      1 timed step), its JSON line; the ranks of 23b-23d that share the
+      card run gloo, so their steps are eager, which their lines say
+  23e. on the in-process world-size-1 NCCL group, at the flagship's widths
+      on bench_scaling's workload: the DP step (merged) and the EP step
+      (D = 1, scan rows 64, the generic branch) captured, their default
+      over NCCL, against their eager forms: 3 steps of each bit for bit
+      (loss, every leaf, the collectives, the launches a replay counts);
+      the graph's own nodes (graphs.graph_nodes): K1's attn_fwd / gru_fwd
+      and K2's kernels at the shard's rows, sa_fwd / sa_bwd / seg_merge at
+      the plan's rows, NCCL's kernels (none at one rank); eager against
+      captured in turns a b b a (CUDA events), a replay's busy share
   the bench and the tools (dagnn_tpu_torch/bench.py, dagnn_tpu_torch/
   scripts/), in process; launch counts set to 0 before each bench run and
   read after it:
@@ -2833,12 +2846,16 @@ def phase_baselines(dev, card, argv):
 SHARED = "ranks share one card"
 
 
-def _leaf_gate(label, got, want, truth, tol, what):
+def _leaf_gate(label, got, want, truth, tol, what, group=None):
     """got / want gradient dicts of numpy arrays: each leaf within `tol`
     (STEP_TOL's relative leaf gate, or CROSS_TOL's rtol / atol), the
     elements that are zero in exact arithmetic (|truth| <= checks.ZERO x
-    the tree's max) within NOISE_TOL of want's noise. Returns the worst."""
+    the tree's max) within NOISE_TOL of want's noise; after `group`, if
+    given, as phase_step applies it (checks.score_linears: each attention
+    score's bias measured with its weight). Returns the worst."""
     from dagnn_tpu_torch import checks
+    if group is not None:
+        got, want, truth = group(got), group(want), group(truth)
     tmax = checks.tree_max(truth)
     rows = []
     for k in want:
@@ -2880,17 +2897,19 @@ def _np_grads(g):
     return {k: v.detach().float().cpu().numpy() for k, v in g.items()}
 
 
-def nccl_world_one(label, dev, cfg, params, graphs):
+def nccl_world_one(label, dev, card, cfg, params, graphs):
     """The DP step at world size 1 over NCCL (gloo for a CPU rehearsal) in
-    this process: one step bitwise equal to the single-process step
-    (loss_and_grads, the optimizer's update, params + updates)."""
+    this process: one step (make_dp_train_step's default form: captured
+    over NCCL) bitwise equal to the single-process step (loss_and_grads,
+    the optimizer's update, params + updates); then, on the same group,
+    23e (parallel_graphs)."""
     import tempfile
     import torch.distributed as dist
     from dagnn_tpu_torch import flagship
     from dagnn_tpu_torch.parallel import comm
     from dagnn_tpu_torch.parallel.dp import collate_sharded, make_dp_train_step
     from dagnn_tpu_torch.parallel.jobs import loss_of
-    from dagnn_tpu_torch.parallel.mesh import make_mesh
+    from dagnn_tpu_torch.parallel.mesh import make_mesh, release_graphs
     from dagnn_tpu_torch.nn.dagnn import KERNELS, dagnn_forward
     from dagnn_tpu_torch.train.optim import make_optimizer
     store = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
@@ -2913,8 +2932,8 @@ def nccl_world_one(label, dev, cfg, params, graphs):
         comm.reset_issued()
         p1, _, loss1 = step(params, opt.init(params), batch)
         issued = dict(comm.issued)
-        print(f"{label} {backend}, world size 1: the step's collectives by route "
-              f"{issued} (its one all-reduce of the flat gradient buffer)")
+        print(f"{label} {backend}, world size 1: the step ({step.form}): its collectives "
+              f"by route {issued} (its one all-reduce of the flat gradient buffer)")
         check(issued == {**{k: 0 for k in issued}, route: 1},
               f"the world-size-1 step issued {issued}, not one {route} collective")
         l0, g0, _ = loss_and_grads(params, cfg, batch, KERNELS)
@@ -2931,9 +2950,134 @@ def nccl_world_one(label, dev, cfg, params, graphs):
               f"single-process step: {same}")
         check(same and float(loss1) == l0, "the NCCL world-size-1 step differs "
               "from the single-process step")
+        del step, p1
+        out = {"route": route, "bitwise": same, "issued": issued}
+        print(f"[23e] the DP and EP steps at world size 1 over {backend}, captured "
+              f"against eager")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_23e_") as tmp:
+            out["graphs"] = parallel_graphs(dev, card, cfg, params, tmp)
     finally:
+        release_graphs()
         dist.destroy_process_group()
-    return {"route": route, "bitwise": same, "issued": issued}
+    return out
+
+
+# 23e: steps each form runs from the same weights (held bit for bit), and
+# steps a turn of its timed steps (in turns a b b a) by kind
+FORM_STEPS, PAR_TURN_STEPS = 3, {"dp": 3, "ep": 1}
+# K2's kernels other than seg_merge: each launched once a layer a row
+K2_PER_LAYER = ("rebuild_kernel", "gru_bwd_elem_kernel", "gemm_nn_kernel",
+                "attn_bwd_kernel", "wgrad_kernel", "small_reduce_kernel")
+
+
+def parallel_graphs(dev, card, cfg, params, out_dir):
+    """23e, on the caller's world-size-1 group (NCCL on the card): the DP
+    step (merged, K1/K2) and the EP step (D = 1, scan rows 64, the generic
+    branch: K6, K5) at cfg's widths from `params` on cli.bench_scaling's
+    workload (64 synthetic ASTs of mean 80 nodes; its dp_setup /
+    ep_setup), each in
+    make_*_train_step's default form (captured over NCCL: one CUDA graph,
+    recorded in debug mode) against its eager form (capture=False):
+    FORM_STEPS steps each from the same weights bit for bit (the loss,
+    every parameter and optimizer leaf, comm.issued, the wrappers' launch
+    counts with a replay counted as its capture), one capture and a replay
+    a step; what a replay launches read from the graph itself
+    (graphs.graph_nodes): DP K1's attn_fwd / gru_fwd a layer a row of the
+    shard, K2's seg_merge a row and its other kernels a layer a row; EP
+    sa_fwd / sa_bwd / seg_merge at _ep_counts of the plan's rows; the
+    graph's NCCL kernels (none at one rank, where NCCL reduces in place
+    without a kernel: the collectives are held by comm.issued); then
+    eager against captured in turns a b b a (CUDA events) and a replay's
+    busy share. On the CPU (a rehearsal) the captured form stages and
+    nothing is captured or timed."""
+    from dagnn_tpu_torch.cli import bench_scaling
+    from dagnn_tpu_torch.data.synthetic import synthetic_ast_batch
+    from dagnn_tpu_torch.parallel import jobs
+    from dagnn_tpu_torch.train import graphs as tg
+    from dagnn_tpu_torch.train.optim import make_optimizer
+    t_all = time.perf_counter()
+    graphs = synthetic_ast_batch(0, 64, mean_nodes=80)
+    n_edges = sum(g.num_edges for g in graphs)
+    nl = cfg.num_layers
+    opt = make_optimizer()
+    out = {}
+    for kind, setup in (("dp", bench_scaling.dp_setup), ("ep", bench_scaling.ep_setup)):
+        t0 = time.perf_counter()
+        label = f"[23e {kind.upper()} x1]"
+        make, inputs, _ = setup(dev, cfg, graphs, opt)
+        steps = {"captured": make(), "eager": make(False)}
+        cap = steps["captured"]
+        if dev.type == "cuda":
+            check(cap.form == "captured", f"{label} the default step over NCCL is {cap.form}")
+        cap.captured.debug = True
+        runs, counts, parts = {}, {}, {"set-up": time.perf_counter() - t0}
+        for f, st in steps.items():
+            t1 = time.perf_counter()
+            reset_counts()
+            runs.update(jobs.run_forms({f: st}, params, opt, inputs, FORM_STEPS))
+            counts[f] = {k: v for k, v in read_counts().items() if v}
+            parts[f] = time.perf_counter() - t1
+        same = all(runs["captured"][k] == runs["eager"][k]
+                   for k in ("losses", "params", "state", "issued"))
+        print(f"{label} {cap.form}, {FORM_STEPS} steps against {FORM_STEPS} eager from "
+              f"the same weights, losses {runs['captured']['losses']} / "
+              f"{runs['eager']['losses']}; the loss, every parameter and Adam leaf and "
+              f"the collectives ({runs['captured']['issued']}) bit for bit: {same}; "
+              f"captures {cap.captured.captures}, replays {cap.captured.replays}")
+        check(same, f"{label}: the captured step differs from the eager one")
+        print(f"{label} launches over the {FORM_STEPS} steps, eager {counts['eager']}, "
+              f"replays {counts['captured']}")
+        check(counts["captured"] == counts["eager"]
+              and (cap.captured.captures, cap.captured.replays) == (1, FORM_STEPS),
+              f"{label}: the replays' counted launches or captures differ")
+        if kind == "dp":
+            L = int(inputs.fwd.node_ids.shape[0])
+            launches = {"row_forward": L, "row_backward": L}
+            want = {"attn_fwd_kernel": nl * L, "gru_fwd_kernel": nl * L,
+                    "seg_merge_kernel": L, **{k: nl * L for k in K2_PER_LAYER}}
+        else:
+            launches = _ep_counts([st.rows for st in inputs.statics], nl)
+            want = {ONE_KERNEL[k]: v for k, v in launches.items()}
+        one = {k: v // FORM_STEPS for k, v in counts["eager"].items()}
+        if dev.type == "cuda":        # a CPU rehearsal launches no kernel
+            check(one == launches, f"{label}: an eager step launched {one}, not "
+                  f"the rows' {launches}")
+        res = {"bitwise": same, "losses": runs["captured"]["losses"],
+               "issued": runs["captured"]["issued"], "launches": counts["captured"],
+               "form": cap.form}
+        if dev.type == "cuda":
+            t1 = time.perf_counter()
+            nodes = node_kinds(tg.graph_nodes(cap.captured.last_graph()))
+            parts["nodes"] = time.perf_counter() - t1
+            got = {k: nodes.get(k, 0) for k in want}
+            nccl = {k: v for k, v in nodes.items() if "nccl" in k.lower()}
+            print(f"{label} the graph's nodes: {sum(v for k, v in nodes.items() if not _is_copy(k))} "
+                  f"kernels, {sum(v for k, v in nodes.items() if _is_copy(k))} copies and sets; "
+                  f"the port's kernels among them {got}, from the plan's rows {want}; NCCL's "
+                  f"kernels {nccl or 'none (one rank: an in-place sum runs no kernel)'}")
+            check(got == want, f"{label}: the graph's kernel nodes differ from the rows'")
+            chained = {f: bench_scaling._chained(st, params, opt, inputs)
+                       for f, st in steps.items()}
+            t1 = time.perf_counter()
+            # the replay's state copied in outside the turns (the eager
+            # step ran its FORM_STEPS steps already)
+            chained["captured"]()
+            turns = timed_turns(label, chained, PAR_TURN_STEPS[kind])
+            parts["turns"] = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            busy = replay_busy(label, chained["captured"], out_dir)
+            parts["busy"] = time.perf_counter() - t1
+            res.update(nodes=dict(nodes), nccl_nodes=nccl, turns=turns,
+                       busy_share=busy["share"], replay_events=busy["events"],
+                       edges_per_s={f: n_edges / (sum(t["ms"] for t in turns[f]) / 2e3)
+                                    for f in steps})
+        res["wall_s"] = time.perf_counter() - t0
+        print(f"{label} took {res['wall_s']:.1f} s ("
+              + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + ")")
+        out[kind] = res
+    out["wall_s"] = time.perf_counter() - t_all
+    print(f"[23e] {card}: 23e took {out['wall_s']:.1f} s")
+    return out
 
 
 def _ep_counts(rows, nl):
@@ -2989,7 +3133,7 @@ def phase_parallel(dev, card, graphs, params, cfg, bench_argv=()):
     `graphs` (phase 4's batch), D ranks on this one card (gloo: the host
     route). On a CPU device it rehearses the same calls with gloo ranks on
     the CPU (`bench_argv`: bench_scaling's size flags for it)."""
-    from dagnn_tpu_torch import flagship
+    from dagnn_tpu_torch import checks, flagship
     from dagnn_tpu_torch.cli import bench_scaling
     from dagnn_tpu_torch.convert import batch_to_torch
     from dagnn_tpu_torch.dag.batch import collate
@@ -3057,7 +3201,8 @@ def phase_parallel(dev, card, graphs, params, cfg, bench_argv=()):
 
     # 23b: data parallel, 2 ranks, bf16, the merged path
     dp = [r[0] for r in res2]
-    print(f"[23b] DP, 2 ranks ({dp[0]['route']} route, {SHARED}), bf16 merged path, "
+    print(f"[23b] DP, 2 ranks ({dp[0]['route']} route, {SHARED}; the step "
+          f"{dp[0]['form']}), bf16 merged path, "
           f"split_by_nodes of phase 4's batch: rows {dp[0]['rows']} a shard; step "
           f"s {' / '.join(f'{s:.4f}' for s in dp[0]['step_s'])} (rank 0), losses "
           f"{dp[0]['losses']}")
@@ -3077,7 +3222,7 @@ def phase_parallel(dev, card, graphs, params, cfg, bench_argv=()):
     _scalar_gate("[23b]", "averaged grad norm vs the mean's", _norm(dp[0]["grads"]),
                  _norm(_np_grads(ref_g)))
     _leaf_gate("[23b]", dp[0]["grads"], _np_grads(ref_g), truth_g, STEP_TOL,
-               "averaged grads vs one process's mean")
+               "averaged grads vs one process's mean", group=checks.score_linears)
     # the kernels at the shards' shapes against their plain versions: the
     # same mean computed with the plain step (phase 5's gates)
     sh = shards[0].fwd
@@ -3088,7 +3233,8 @@ def phase_parallel(dev, card, graphs, params, cfg, bench_argv=()):
     _scalar_gate("[23b]", "averaged grad norm vs the plain mean's",
                  _norm(dp[0]["grads"]), _norm(_np_grads(plain_g)))
     dp_leaf = _leaf_gate("[23b]", dp[0]["grads"], _np_grads(plain_g), truth_g, STEP_TOL,
-                         "averaged grads (K1/K2) vs the plain step's mean")
+                         "averaged grads (K1/K2) vs the plain step's mean",
+                         group=checks.score_linears)
     same = dp[0]["params_digest"] == dp[1]["params_digest"]
     print(f"[23b] parameters after 3 steps bitwise equal across the ranks: {same}")
     check(same and dp[0]["losses"] == dp[1]["losses"], "the DP ranks diverged")
@@ -3118,7 +3264,8 @@ def phase_parallel(dev, card, graphs, params, cfg, bench_argv=()):
                                     for k, v in params.items()}, cfg_p32, b, SEG_PLAIN)
         g32, g16, t16 = _np_grads(g32), _np_grads(g16), _np_grads(t16)
         st = f32["statics"][0]
-        print(f"[23c] EP, {D} ranks ({f32['route']} route, {SHARED}), chunk {64 * D}: "
+        print(f"[23c] EP, {D} ranks ({f32['route']} route, {SHARED}; the step "
+              f"{f32['form']}), chunk {64 * D}: "
               f"rows {f32['rows']}, w {st['own_w']}, halo {st['halo']}, urgent "
               f"{st['has_urgent']}, deferred {st['has_deferred']} ({f32['deferred']} "
               f"deferred entries, direction 0); plan {bf['plan_s']:.3f} s, of it the "
@@ -3132,7 +3279,8 @@ def phase_parallel(dev, card, graphs, params, cfg, bench_argv=()):
                      bf["loss"], l16)
         _scalar_gate("[23c]", f"D={D} bf16 grad norm", _norm(bf["grads"]), _norm(g16))
         leaf16 = _leaf_gate("[23c]", bf["grads"], g16, t16, STEP_TOL,
-                            f"D={D} bf16 grads vs the single-rank plain step")
+                            f"D={D} bf16 grads vs the single-rank plain step",
+                            group=checks.score_linears)
         probe = _ep_probe(D, res, counted)
         for r in res:
             for j in (-2, -1):
@@ -3194,7 +3342,8 @@ def phase_parallel(dev, card, graphs, params, cfg, bench_argv=()):
     out["bench_scaling"] = bench_scaling.main(["--devices", "2", "--iters", "1", *cpu,
                                                *bench_argv])
     print(f"[23d] took {time.perf_counter() - t0:.1f} s")
-    out["dp"]["nccl"] = nccl_world_one("[23b]", dev, cfg, params, graphs)
+    out["dp"]["nccl"] = nccl_world_one("[23b]", dev, card, cfg, params, graphs)
+    out["graphs"] = out["dp"]["nccl"].pop("graphs")
     out["wall_s"] = time.perf_counter() - t_all
     print(f"[23] {card}: phase 23 took {out['wall_s']:.1f} s")
     return out
@@ -4639,6 +4788,8 @@ def main(argv):
                                                  ("merged", "pair", "pallas", "lp")},
                                               **{f"graph baseline {t}": v for t, v in
                                                  others["baselines"].items()},
+                                              **{f"graph {k}_x1": parallel["graphs"][k]
+                                                 for k in ("dp", "ep")},
                                               "ep_decompose_dp1": {"launches": tools[
                                                   "ep_decompose"]["dp1_launches"]},
                                               "ep_decompose_ep1": {"launches": tools[

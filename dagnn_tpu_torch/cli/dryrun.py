@@ -13,7 +13,12 @@ the bf16 production dtype), each with the JAX dry run's assertion:
      single-rank states;
   3. at N >= 4 (even), the (dp 2, ep N/2) sharded-state train step, each
      dp group on its own batch: its loss within 1e-3 of the mean of the
-     two batches' single-rank losses.
+     two batches' single-rank losses, and one step of it with the same
+     loss on every rank.
+
+The train steps of 1 and 3 run in their default form, which the lines
+name: captured over NCCL (one CUDA graph per key), eager over gloo
+("eager (gloo: staged on the host)").
 
     python -m dagnn_tpu_torch.cli.dryrun --ranks 4          # on the card
     python -m dagnn_tpu_torch.cli.dryrun --ranks 4 --cpu    # gloo on the CPU
@@ -88,7 +93,7 @@ def main(argv=None) -> dict:
                                           max_levels=pad.max_levels + 4)
             groups.append(collate(g, pad))
         todo.append((jobs.ep_job, dict(cfg=cfg, params_np=pnp, batches=groups,
-                                       mesh_shape=(2, n_ep), dp_axis=True)))
+                                       mesh_shape=(2, n_ep), dp_axis=True, steps=1)))
     res = spawn(jobs.run_jobs, n, backend, device, timeout=args.timeout,
                 args=(todo,))
     out = {"ranks": n, "backend": backend, "route": res[0][0]["route"]}
@@ -97,7 +102,9 @@ def main(argv=None) -> dict:
     loss = losses[0]
     assert np.isfinite(loss), f"dryrun loss not finite: {loss}"
     assert all(l == loss for l in losses), f"ranks disagree on the loss: {losses}"
-    print(f"dryrun({n}, {backend}): one DP train step ok, loss={loss:.4f}")
+    print(f"dryrun({n}, {backend}): one DP train step ok ({res[0][0]['form']}), "
+          f"loss={loss:.4f}")
+    out["dp_form"] = res[0][0]["form"]
     out["dp_loss"] = loss
 
     with torch.no_grad():
@@ -119,9 +126,13 @@ def main(argv=None) -> dict:
         got = res[0][2]["loss"]
         err = abs(got - ref)
         assert err < 1e-3, f"dp-ep loss mismatch: {got} vs {ref}"
-        print(f"dryrun: (dp=2, ep={n // 2}) sharded-state EP train step ok, "
+        stepped = [r[2]["losses"][0] for r in res]
+        assert all(l == got for l in stepped), \
+            f"the (dp, ep) step's loss {stepped} differs from its gradient pass's {got}"
+        form = res[0][2]["form"]
+        print(f"dryrun: (dp=2, ep={n // 2}) sharded-state EP train step ok ({form}), "
               f"loss={got:.4f} (ref dev {err:.1e})")
-        out["dp_ep_loss"], out["dp_ep_err"] = got, err
+        out["dp_ep_loss"], out["dp_ep_err"], out["dp_ep_form"] = got, err, form
     return out
 
 

@@ -22,7 +22,19 @@ type (float32 on every path that sums).
 exchange (and exchange_async, the same all_to_all issued now and waited
 on later) and all_gather_stack are the identity at group size 1 and issue
 none there; all_reduce_sum issues its collective at every size, so a
-one-rank NCCL group still runs the device route.
+one-rank NCCL group still runs the device route. A CUDA graph replay
+issues nothing from Python: `issued` is counted with the kernel wrappers'
+launches (ops.count_issued, as "collective.device" and
+"collective.host"), so a captured step (train/graphs.py) records the
+collectives its capture issued and adds them at each replay, and `issued`
+reads as if each replay had been an eager step.
+
+Which form a train step over these groups takes (capture_rule): the
+device route can be captured into a CUDA graph, and the parallel steps are
+captured there by default, as the JAX package compiles every step; the
+host route's copies through host memory cannot be, so a step over a gloo
+group runs eager and says so (EAGER_ON_HOST), and asking for its capture
+raises.
 """
 
 from __future__ import annotations
@@ -30,8 +42,9 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from dagnn_tpu_torch import ops
 
-issued = {"device": 0, "host": 0}
+issued = ops.count_issued("collective", {"device": 0, "host": 0})
 
 
 def reset_issued():
@@ -50,6 +63,34 @@ def rank(group) -> int:
 def route(group) -> str:
     """"device" (NCCL: device tensors) or "host" (gloo: staged on the host)."""
     return "host" if dist.get_backend(group) == "gloo" else "device"
+
+
+EAGER_ON_HOST = "eager (gloo: staged on the host)"
+
+
+def capture_rule(groups, capture=None) -> bool:
+    """Whether a train step over `groups` (None entries skipped) is
+    captured: by default when every group runs the device route (NCCL);
+    capture=False asks for the eager step; capture=True over a group that
+    stages its collectives on the host (gloo) raises ValueError, as no
+    CUDA graph can hold a copy through host memory. Nothing falls back
+    from one form to the other."""
+    on_device = all(route(g) == "device" for g in groups if g is not None)
+    if capture and not on_device:
+        raise ValueError("capture asked for over a gloo group: its collectives "
+                         "are staged on the host, which a CUDA graph cannot "
+                         "hold; the step runs " + EAGER_ON_HOST)
+    return on_device if capture is None else bool(capture)
+
+
+def form_of(groups, captured: bool) -> str:
+    """A step's form as the entry points print it: "captured", "eager"
+    (asked for on NCCL) or EAGER_ON_HOST."""
+    if captured:
+        return "captured"
+    if any(route(g) == "host" for g in groups if g is not None):
+        return EAGER_ON_HOST
+    return "eager"
 
 
 def _to_wire(t: torch.Tensor, group) -> torch.Tensor:

@@ -16,18 +16,25 @@ parameters are a dict of tensors.
 The loss averaged is the mean of the per-shard mean losses, as in JAX:
 split_by_nodes gives shards unequal graph counts, so it is not the
 single-device batch mean.
+
+JAX jits the step; over NCCL the port captures it (train/graphs.py
+CapturedStep: one CUDA graph per batch shape, the all-reduce inside it),
+and over gloo, whose collectives go through host memory, it runs eager
+(parallel/comm.py capture_rule). Dropout draws from one generator a rank,
+reseeded from (seed, rank) each call and registered with the graph.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from dagnn_tpu_torch.convert import batch_to_torch, tree_map
+from dagnn_tpu_torch.convert import batch_key, batch_to_torch, tree_map
 from dagnn_tpu_torch.dag.batch import DAGBatch, DAGGraph, PadConfig, collate
 from dagnn_tpu_torch.parallel import comm
+from dagnn_tpu_torch.train import graphs
 
 
 def split_by_nodes(graphs: Sequence[DAGGraph], n_shards: int) -> List[List[DAGGraph]]:
@@ -65,10 +72,10 @@ def collate_sharded(graphs: Sequence[DAGGraph], n_shards: int,
     return stack_batches([collate(s, pad) for s in shards])
 
 
-def dropout_generator(seed: int, rank: int, device) -> torch.Generator:
-    """This rank's dropout draws, from (seed, rank): the counterpart of
+def dropout_seed(seed: int, rank: int) -> int:
+    """This rank's dropout seed, from (seed, rank): the counterpart of
     jax.random.fold_in(rng, axis_index)."""
-    return torch.Generator(device=device).manual_seed(int(seed) * 1_000_003 + int(rank))
+    return int(seed) * 1_000_003 + int(rank)
 
 
 def reduce_flat(loss: torch.Tensor, grads: dict, reduce):
@@ -97,20 +104,34 @@ def apply_updates(optimizer, params, grads, opt_state):
 
 
 class DPStep:
-    """The data-parallel train step of make_dp_train_step."""
+    """The data-parallel train step of make_dp_train_step. With capture,
+    a call replays one CUDA graph per key (train/graphs.CapturedStep):
+    the state (params, opt_state) is written in place into buffers the
+    step owns and returned (a later call overwrites what an earlier one
+    returned); on CPU tensors the step stages its inputs the same way and
+    runs directly. `form` says which form it runs."""
 
-    def __init__(self, loss_fn: Callable, optimizer, group):
+    def __init__(self, loss_fn: Callable, optimizer, group, capture: bool = False):
         self.loss_fn, self.optimizer, self.group = loss_fn, optimizer, group
         self.rank = comm.rank(group)
+        self.rng = None          # this rank's dropout generator, reseeded a call
+        self.captured = graphs.CapturedStep(self._fn) if capture else None
+        self.form = comm.form_of([group], capture)
 
     def shard(self, stacked: DAGBatch, device) -> DAGBatch:
         """This rank's shard of a stacked host batch, on `device`."""
         return batch_to_torch(shard_of(stacked, self.rank), device)
 
-    def grads(self, params, batch, seed: int = 0):
-        """(loss, grads) of this rank's shard, averaged over the group."""
+    def _generator(self, seed, device) -> torch.Generator:
+        """The one generator of this rank and step, reseeded from (seed,
+        rank): the draws a new generator from that seed gives, and one
+        object for a captured step's key and graph."""
+        if self.rng is None:
+            self.rng = torch.Generator(device=device)
+        return self.rng.manual_seed(dropout_seed(seed, self.rank))
+
+    def _grads(self, params, batch, rng):
         p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-        rng = dropout_generator(seed, self.rank, next(iter(params.values())).device)
         loss = self.loss_fn(p, batch, rng)
         gs = torch.autograd.grad(loss, list(p.values()), allow_unused=True)
         grads = {k: torch.zeros_like(v) if g is None else g
@@ -118,17 +139,38 @@ class DPStep:
         return reduce_flat(loss, grads,
                            lambda flat: comm.all_reduce_mean(flat, self.group))
 
+    def grads(self, params, batch, seed: int = 0):
+        """(loss, grads) of this rank's shard, averaged over the group
+        (eager)."""
+        return self._grads(params, batch,
+                           self._generator(seed, next(iter(params.values())).device))
+
+    def _fn(self, state, batch):
+        params, opt_state = state
+        loss, grads = self._grads(params, batch, self.rng)
+        return apply_updates(self.optimizer, params, grads, opt_state), loss
+
     def __call__(self, params, opt_state, batch, seed: int = 0):
-        """(params, opt_state, loss) after one step on every rank's shard."""
-        loss, grads = self.grads(params, batch, seed)
-        params, opt_state = apply_updates(self.optimizer, params, grads, opt_state)
+        """(params, opt_state, loss) after one step on every rank's shard,
+        its dropout drawn from (seed, rank)."""
+        rng = self._generator(seed, next(iter(params.values())).device)
+        if self.captured is None:
+            (params, opt_state), loss = self._fn((params, opt_state), batch)
+            return params, opt_state, loss
+        (params, opt_state), loss = self.captured(
+            ("dp", batch_key(batch)), (params, opt_state), batch, (rng,))
         return params, opt_state, loss
 
 
-def make_dp_train_step(loss_fn: Callable, optimizer, group) -> DPStep:
+def make_dp_train_step(loss_fn: Callable, optimizer, group,
+                       capture: Optional[bool] = None) -> DPStep:
     """The SPMD train step over `group` (the JAX package's
-    make_dp_train_step). loss_fn(params, batch, rng) -> scalar loss sees
-    this rank's shard (step.shard of the stacked host batch); rng is a
-    torch.Generator seeded from (seed, rank), for dropout. Loss and
-    gradients are averaged over the group before the optimizer's update."""
-    return DPStep(loss_fn, optimizer, group)
+    make_dp_train_step, which it jits). loss_fn(params, batch, rng) ->
+    scalar loss sees this rank's shard (step.shard of the stacked host
+    batch); rng is a torch.Generator seeded from (seed, rank), for
+    dropout. Loss and gradients are averaged over the group before the
+    optimizer's update. On an NCCL group the step is captured, one CUDA
+    graph per key (capture=False asks for the eager step); on gloo it runs
+    eager (comm.EAGER_ON_HOST), and capture=True raises there
+    (comm.capture_rule)."""
+    return DPStep(loss_fn, optimizer, group, comm.capture_rule([group], capture))

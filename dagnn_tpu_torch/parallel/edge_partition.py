@@ -43,6 +43,14 @@ the whole loss on top of shard_map's transposes, which makes every leaf
 D times the single-device gradient; Adam's update does not see a
 constant scale, the gradient norm does.)
 
+The train step's inputs (EPInputs) are its device arrays (EPArrays: the
+batch's, its plan shard's and its readout indices, which a captured step
+stages into its buffers) and the host values the row loop bakes into its
+launches and collectives (each direction's EPStatic and the rows that
+wait first), which with the order key the step's CUDA graph over NCCL
+(EPStep.key; JAX jits the step for its statics). Over gloo the step runs
+eager (parallel/comm.py capture_rule).
+
 Every rank issues the same collectives in the same order: the static
 flags (EPStatic.has_urgent, has_deferred), the rows that wait before
 their gather and the block widths come from the whole plan, which every
@@ -61,6 +69,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from dagnn_tpu_torch import convert
 from dagnn_tpu_torch.convert import unflatten_tree
 from dagnn_tpu_torch.dag.batch import DAGBatch
 from dagnn_tpu_torch.dag.schedule import LevelSchedule
@@ -72,6 +81,7 @@ from dagnn_tpu_torch.nn.readout import pool_nodes
 from dagnn_tpu_torch.ops import segment
 from dagnn_tpu_torch.parallel import comm
 from dagnn_tpu_torch.parallel.dp import apply_updates, reduce_flat
+from dagnn_tpu_torch.train import graphs
 
 
 # ======================================================================
@@ -550,10 +560,10 @@ def deferred_reads(eps: EPSchedule) -> np.ndarray:
 
 
 def _ep_streams(cfg: DAGNNConfig, x, edge_attr, eps: EPSchedule):
-    """This rank's per-row streams from its shard, on x's device: the
-    inputs in the compute dtype, the gather indices as int64, K5's
-    segment ids (tlcol, tblk, xsc) as int32 and its masks as float32, the
-    exchange send masks as bool."""
+    """This rank's per-row streams from its shard (tensors on x's device:
+    EPStep.shard), on x's device: the inputs in the compute dtype, the
+    gather indices as int64, K5's segment ids (tlcol, tblk, xsc) as int32
+    and its masks as float32, the exchange send masks as bool."""
     dev, dt = x.device, _DTYPES[cfg.compute_dtype]
     t = lambda a: torch.as_tensor(a, device=dev)
     R, dp, bf = eps.x_send_col.shape[:3]
@@ -580,11 +590,11 @@ def _ep_streams(cfg: DAGNNConfig, x, edge_attr, eps: EPSchedule):
 class _EPPlan:
     """One direction's sharded-state wavefront on this rank: R rows of w
     own slots, halo Hs, exchange blocks [nl, Dp, B, H] over `group`.
-    read_rows [R] (deferred_reads of the whole plan): the rows that read a
-    deferred entry at its delivery. With overlap, only those rows wait for
-    the deferred exchange before their gather, and every other row after
-    its outputs; with overlap=False every row waits before its gather (the
-    synchronous order). Both write the same buffer bit for bit. The
+    read_rows ([R] bool as bytes: deferred_reads of the whole plan): the
+    rows that read a deferred entry at its delivery. With overlap, only
+    those rows wait for the deferred exchange before their gather, and
+    every other row after its outputs; with overlap=False every row waits
+    before its gather (the synchronous order). Both write the same buffer bit for bit. The
     forward marks each row's compute and each exchange's issue and wait
     (torch.profiler.record_function, "ep{tag}.{row|urgent|issue|wait}.{r}",
     r the row the exchange delivers to) when a profiler is on."""
@@ -593,7 +603,7 @@ class _EPPlan:
                  read_rows, overlap: bool = True, tag: int = 0):
         self.cfg, self.ixs, self.st, self.group = cfg, ixs, st, group
         self.fns, self.keys, self.tag = fns, keys, tag
-        self.wait_first = (np.asarray(read_rows, bool) if overlap
+        self.wait_first = (np.frombuffer(read_rows, bool) if overlap
                            else np.ones(st.rows, bool))
         self.side = {k: fxs[k] for k in ("ea",) if k in fxs}
         self.dt = _DTYPES[cfg.compute_dtype]
@@ -750,9 +760,9 @@ def ep_node_states(params, cfg: DAGNNConfig, x, edge_attr, eps_dirs, statics,
                    read_rows, group, fns: AggImpl = SEG_KERNELS, overlap: bool = True):
     """Every direction pass, sharded-state scheme, on this rank: eps_dirs
     are its shards (ep_local) of each direction's plan, read_rows each
-    whole plan's rows that wait before their gather (deferred_reads; with
-    overlap=False every row does). Returns (h_own per direction [nl, R*w,
-    H], x_own per direction [R*w, emb])."""
+    whole plan's rows that wait before their gather (deferred_reads, [R]
+    bool as bytes; with overlap=False every row does). Returns (h_own per
+    direction [nl, R*w, H], x_own per direction [R*w, emb])."""
     h_dirs, x_dirs = [], []
     for plan, xs, keys in _ep_plans(params, cfg, x, edge_attr, eps_dirs, statics,
                                     read_rows, group, fns, overlap):
@@ -784,22 +794,38 @@ def ep_readout_aux(batch: DAGBatch, eps_dirs, cfg: DAGNNConfig):
     return aux
 
 
-class EPInputs(NamedTuple):
-    """One rank's inputs to an edge-partitioned step, on its device: the
-    replicated batch arrays and its shard of each direction's plan and
-    readout indices."""
+class EPArrays(NamedTuple):
+    """One rank's device arrays of an edge-partitioned step: the replicated
+    batch arrays and its shard of each direction's plan (EPSchedule of
+    tensors) and readout indices. A captured step stages them into its
+    static buffers (convert.batch_to_torch(out=))."""
 
     x: torch.Tensor
     edge_attr: Optional[torch.Tensor]
     node_mask: torch.Tensor
     node_depth: Optional[torch.Tensor]
     eps_dirs: tuple
-    statics: tuple
-    read_rows: tuple             # per direction [R] bool (deferred_reads)
     gid: torch.Tensor            # [nd, R*w] graph id of each own slot
     mask: torch.Tensor           # [nd, R*w] pool mask of each own slot
     y: dict
     graph_mask: torch.Tensor
+
+
+class EPInputs(NamedTuple):
+    """One rank's inputs to an edge-partitioned step: its device arrays
+    and the host values the step's loop bakes into its launches and
+    collectives (each direction's EPStatic: rows, own width, halo, whether
+    it exchanges urgent and deferred entries; and the rows that wait for
+    the deferred exchange before their gather), which key a captured
+    step."""
+
+    arrays: EPArrays
+    statics: tuple
+    read_rows: tuple             # per direction [R] bool (deferred_reads), as bytes
+
+    def wait_rows(self):
+        """Each direction's read_rows as a [R] bool array."""
+        return [np.frombuffer(r, bool) for r in self.read_rows]
 
 
 def _max_over_ranks(h, gid, m, G, group):
@@ -823,55 +849,72 @@ class EPStep:
 
     def __init__(self, cfg: DAGNNConfig, mesh, loss_head, optimizer,
                  axis: str = "ep", dp_axis: Optional[str] = None,
-                 fns: AggImpl = SEG_KERNELS, overlap: bool = True):
+                 fns: AggImpl = SEG_KERNELS, overlap: bool = True,
+                 capture: bool = False):
         self.cfg, self.loss_head, self.optimizer, self.fns = cfg, loss_head, optimizer, fns
         self.overlap = overlap
         self.group = mesh.groups[axis]
         self.dp_group = None if dp_axis is None else mesh.groups[dp_axis]
         self.rank, self.size = comm.rank(self.group), comm.size(self.group)
+        self.captured = (graphs.CapturedStep(self._fn)
+                         if capture else None)
+        self.form = comm.form_of([self.group, self.dp_group], capture)
 
     def shard(self, batch: DAGBatch, plans, aux, device) -> EPInputs:
         """This rank's inputs from one host batch, its plans ((EPSchedule,
-        EPStatic) per direction, every rank's shards) and ep_readout_aux."""
+        EPStatic) per direction, every rank's shards) and ep_readout_aux:
+        its arrays on `device`, the plans' host values beside them."""
         t = lambda a: None if a is None else torch.as_tensor(a, device=device)
         d = self.rank
         return EPInputs(
-            x=t(batch.x), edge_attr=t(batch.edge_attr), node_mask=t(batch.node_mask).bool(),
-            node_depth=t(batch.extras.get("node_depth")),
-            eps_dirs=tuple(ep_local(e, d) for e, _ in plans),
+            EPArrays(
+                x=t(batch.x), edge_attr=t(batch.edge_attr),
+                node_mask=t(batch.node_mask).bool(),
+                node_depth=t(batch.extras.get("node_depth")),
+                eps_dirs=tuple(EPSchedule(*[t(a) for a in ep_local(e, d)]) for e, _ in plans),
+                gid=t(aux["gid"][d]).long(), mask=t(aux["mask"][d]).bool(),
+                y={k: t(v) for k, v in batch.y.items()},
+                graph_mask=t(batch.graph_mask).bool()),
             statics=tuple(s for _, s in plans),
-            read_rows=tuple(deferred_reads(e).any(axis=(0, 2, 3)) for e, _ in plans),
-            gid=t(aux["gid"][d]).long(), mask=t(aux["mask"][d]).bool(),
-            y={k: t(v) for k, v in batch.y.items()}, graph_mask=t(batch.graph_mask).bool())
+            read_rows=tuple(deferred_reads(e).any(axis=(0, 2, 3)).tobytes()
+                            for e, _ in plans))
 
-    def _encode(self, params, inp: EPInputs):
+    def key(self, inp: EPInputs):
+        """The captured step's key: the order, the route, each direction's
+        EPStatic and read_rows, and the arrays' shapes: a batch whose plan
+        waits in other rows gets a graph of its own."""
+        return ("ep", self.overlap, comm.route(self.group), inp.statics, inp.read_rows,
+                convert.batch_key(inp.arrays))
+
+    def _encode(self, params, a: EPArrays):
         enc = {k[len("encoder."):]: v for k, v in params.items()
                if k.startswith("encoder.")}
-        x = encode(enc, self.cfg.encoder, inp.x, inp.node_depth)
-        return torch.where(inp.node_mask[:, None], x, 0.0)
+        x = encode(enc, self.cfg.encoder, a.x, a.node_depth)
+        return torch.where(a.node_mask[:, None], x, 0.0)
 
     def forward_buffers(self, params, inp: EPInputs):
         """Each direction's whole forward state buffer [nl, R*w + Hs + 1,
         H] (own slots, halo, garbage row) on this rank, without gradients:
         what the overlapped and synchronous orders must write alike."""
+        a = inp.arrays
         with torch.no_grad():
             return [plan.forward(xs, [params[k] for k in keys])
                     for plan, xs, keys in _ep_plans(
-                        params, self.cfg, self._encode(params, inp), inp.edge_attr,
-                        inp.eps_dirs, inp.statics, inp.read_rows, self.group,
+                        params, self.cfg, self._encode(params, a), a.edge_attr,
+                        a.eps_dirs, inp.statics, inp.read_rows, self.group,
                         self.fns, self.overlap)]
 
     def loss(self, params, inp: EPInputs):
         """The loss of this rank's ep group's batch (replicated over ep)."""
-        cfg, group = self.cfg, self.group
-        h_dirs, x_dirs = ep_node_states(params, cfg, self._encode(params, inp),
-                                        inp.edge_attr, inp.eps_dirs, inp.statics,
+        cfg, group, a = self.cfg, self.group, inp.arrays
+        h_dirs, x_dirs = ep_node_states(params, cfg, self._encode(params, a),
+                                        a.edge_attr, a.eps_dirs, inp.statics,
                                         inp.read_rows, group, self.fns, self.overlap)
-        G = inp.graph_mask.shape[0]
+        G = a.graph_mask.shape[0]
         kind = "add" if cfg.out_pool in ("add", "sum", "mean", "attn") else cfg.out_pool
 
         def pool(h, di):
-            gid, m = inp.gid[di], inp.mask[di]
+            gid, m = a.gid[di], a.mask[di]
             if cfg.out_pool == "max":
                 return _max_over_ranks(h, gid, m, G, group)
             pooled = pool_nodes(h, gid, G, kind, m, self.fns.merge)
@@ -897,7 +940,7 @@ class EPStep:
                 parts.append(pool(torch.cat(sub, dim=-1), di))
         out = torch.cat(parts, dim=-1)
         logits = _apply_head(params, cfg, out.float(), None, False)
-        return self.loss_head(logits, inp.y, inp.graph_mask)
+        return self.loss_head(logits, a.y, a.graph_mask)
 
     def grads(self, params, inp: EPInputs):
         """(loss, grads): the gradient of this ep group's loss, equal to the
@@ -916,16 +959,25 @@ class EPStep:
 
         return reduce_flat(share, grads, reduce)
 
-    def __call__(self, params, opt_state, inp: EPInputs):
-        """(params, opt_state, loss) after one step."""
+    def _fn(self, state, inp: EPInputs):
+        params, opt_state = state
         loss, grads = self.grads(params, inp)
-        params, opt_state = apply_updates(self.optimizer, params, grads, opt_state)
+        return apply_updates(self.optimizer, params, grads, opt_state), loss
+
+    def __call__(self, params, opt_state, inp: EPInputs):
+        """(params, opt_state, loss) after one step. Captured (DPStep's
+        rules): the state is written in place into buffers the step owns."""
+        if self.captured is None:
+            (params, opt_state), loss = self._fn((params, opt_state), inp)
+            return params, opt_state, loss
+        (params, opt_state), loss = self.captured(self.key(inp), (params, opt_state), inp)
         return params, opt_state, loss
 
 
 def make_ep_train_step(cfg: DAGNNConfig, mesh, loss_head, optimizer,
                        axis: str = "ep", dp_axis: Optional[str] = None,
-                       fns: AggImpl = SEG_KERNELS, overlap: bool = True) -> EPStep:
+                       fns: AggImpl = SEG_KERNELS, overlap: bool = True,
+                       capture: Optional[bool] = None) -> EPStep:
     """The sharded-state EP train step on this rank (the JAX package's
     make_ep_train_step). loss_head(logits, y, graph_mask) -> scalar, given
     the head's outputs over the pooled readout. Every out_pool: add, sum,
@@ -941,5 +993,15 @@ def make_ep_train_step(cfg: DAGNNConfig, mesh, loss_head, optimizer,
     the next row's compute except where that row reads it (deferred_reads);
     overlap=False keeps every exchange synchronous before the row that may
     read it, the same result bit for bit (tests and timings hold the two
-    orders together)."""
-    return EPStep(cfg, mesh, loss_head, optimizer, axis, dp_axis, fns, overlap)
+    orders together). When every group is NCCL the step is captured, one
+    CUDA graph per key (EPStep.key: the plan's statics and read_rows, the
+    order; capture=False asks for the eager step); on gloo it runs eager
+    (comm.EAGER_ON_HOST), and capture=True raises there (comm.capture_rule),
+    as make_dp_train_step does. Within the graph a deferred exchange
+    issued at row r-1 and waited on at row r is an edge from the NCCL
+    stream back to the capture stream; every one is waited on before the
+    forward ends."""
+    group = mesh.groups[axis]
+    dp_group = None if dp_axis is None else mesh.groups[dp_axis]
+    return EPStep(cfg, mesh, loss_head, optimizer, axis, dp_axis, fns, overlap,
+                  comm.capture_rule([group, dp_group], capture))

@@ -9,7 +9,9 @@ returns a dict of numpy arrays and numbers: the loss and the raw
 gradients of the step's averaged or summed reduction (rank 0's; every
 rank's digest of them), the kernel launch counts of the gradient pass,
 and, when asked for steps, the losses, the step times and a digest of the
-parameters after them. cli/dryrun.py,
+parameters after them. The steps are the train steps' default form (a
+CUDA graph per key over NCCL, eager over gloo: `form` in the result);
+forms_job runs the captured form against the eager one. cli/dryrun.py,
 cli/bench_scaling.py, chip_smoke.py and the CPU tests run them.
 """
 
@@ -21,6 +23,7 @@ import time
 import numpy as np
 import torch
 
+from dagnn_tpu_torch.convert import flatten_tree
 from dagnn_tpu_torch.ops import read_launch_counts as read_counts
 from dagnn_tpu_torch.ops import reset_launch_counts as reset_counts
 from dagnn_tpu_torch.parallel import comm
@@ -42,13 +45,26 @@ def digest(tree: dict) -> str:
     h = hashlib.sha256()
     for k, v in tree.items():
         h.update(k.encode())
-        h.update(v.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes())
+        h.update(v.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
     return h.hexdigest()
 
 
 def _grads_out(grads: dict, rank: int) -> dict:
     """Rank 0's gradients as numpy; every rank's digest of them."""
     return {"grads": _np(grads) if rank == 0 else None, "grads_digest": digest(grads)}
+
+
+def grads_optimizer():
+    """An optimizer that leaves the parameters as they are and returns
+    the gradients it was given as its state: a train step's raw gradients
+    (the JAX tests read theirs through such an optax transformation)."""
+    from dagnn_tpu_torch.train.optim import Optimizer
+
+    def update(grads, state):
+        return {k: torch.zeros_like(g) for k, g in grads.items()}, dict(grads)
+
+    return Optimizer(lambda params: {k: torch.zeros_like(v) for k, v in params.items()},
+                     update)
 
 
 def loss_of(task: str):
@@ -121,6 +137,117 @@ def ep_orders(step, sync_step, params, opt, inputs, turns: int, dev, first=None,
     return res
 
 
+def dp_loss(cfg):
+    """loss_fn(params, shard, rng) of the DP step: the TOK loss of
+    dagnn_forward (dropout drawn from rng when cfg.dropout is set)."""
+    from dagnn_tpu_torch.nn.dagnn import dagnn_forward
+    head = loss_of("tok")
+
+    def loss_fn(p, b, rng):
+        logits = dagnn_forward(p, cfg, b, rng=rng, train=cfg.dropout > 0)
+        dv = logits.device
+        return head(logits, {k: torch.as_tensor(v, device=dv) for k, v in b.y.items()},
+                    torch.as_tensor(b.graph_mask, device=dv))
+
+    return loss_fn
+
+
+def ep_step(cfg, mesh, opt, dp_axis: bool = False, **kw):
+    """make_ep_train_step with the TOK loss over the mesh's 'ep' axis (and
+    its 'dp' axis with dp_axis); kw: fns, overlap, capture."""
+    from dagnn_tpu_torch.parallel import edge_partition as ep
+    return ep.make_ep_train_step(cfg, mesh, loss_of("tok"), opt, "ep",
+                                 "dp" if dp_axis else None, **kw)
+
+
+def run_forms(steps: dict, params, opt, inputs, n: int, first: bool = False,
+              seeded: bool = False) -> dict:
+    """`n` steps of each step of `steps` (name -> step) from the same
+    weights on the same inputs, one step after the other (with seeded,
+    step i draws its dropout from seed i, DPStep's seed): per name the
+    loss of each step, a digest of the parameters and of the optimizer
+    state after each, and the collectives its n steps issued
+    (comm.issued); with first, the state after the first step as numpy.
+    A captured step's state is its own buffers, so each is read before
+    the next step overwrites it."""
+    out = {}
+    for name, step in steps.items():
+        p, s = params, opt.init(params)
+        comm.reset_issued()
+        res = {"losses": [], "params": [], "state": []}
+        for i in range(n):
+            p, s, loss = step(p, s, inputs, **({"seed": i} if seeded else {}))
+            res["losses"].append(float(loss))
+            res["params"].append(digest(p))
+            res["state"].append(digest(flatten_tree(s)))
+            if first and i == 0:
+                res["first_state"] = _np(flatten_tree(s))
+        res["issued"] = dict(comm.issued)
+        out[name] = res
+    return out
+
+
+def forms_job(dev, kind: str, cfg, params_np, batch, mesh_shape=None, steps: int = 3,
+              optimizer: str = "adam"):
+    """A train step's captured form against its eager form on this rank:
+    run_forms over `steps` steps from the same weights. kind "dp":
+    make_dp_train_step's DPStep over every rank on its shard of the
+    stacked host batch `batch`; kind "ep": make_ep_train_step's EPStep on
+    the (1, D) mesh `mesh_shape` over one host batch, in both orders
+    ("captured" / "eager" overlapped, "captured sync" / "eager sync"),
+    then the captured step once more on the same arrays with every row
+    waiting before its gather (other read_rows: a key of its own). The
+    captured form is the step built with capture=True: over NCCL a CUDA
+    graph per key; on CPU ranks over gloo the staging alone (CapturedStep
+    on CPU tensors captures nothing), the CPU tests' view of it.
+    optimizer "grads" (grads_optimizer): each step's state is its raw
+    gradients, and rank 0's of the first captured step come back."""
+    from dagnn_tpu_torch.nn.aggregators import SEG_KERNELS
+    from dagnn_tpu_torch.parallel import edge_partition as ep
+    from dagnn_tpu_torch.parallel.dp import DPStep
+    from dagnn_tpu_torch.train.optim import make_optimizer
+    opt = grads_optimizer() if optimizer == "grads" else make_optimizer()
+    params = _params(params_np, dev)
+    if kind == "dp":
+        mesh = make_mesh(None, ("dp",))
+        group = mesh.groups["dp"]
+        todo = {f: DPStep(dp_loss(cfg), opt, group, capture=f == "captured")
+                for f in ("captured", "eager")}
+        inputs = todo["eager"].shard(batch, dev)
+    else:
+        mesh = make_hybrid_mesh(*mesh_shape)
+        group = mesh.groups["ep"]
+        todo = {f"{f}{'' if o else ' sync'}": ep.EPStep(
+                    cfg, mesh, loss_of("tok"), opt, "ep", None, SEG_KERNELS, o,
+                    capture=f == "captured")
+                for o in (True, False) for f in ("captured", "eager")}
+        plans, _, _ = ep_plans(batch, mesh_shape[1])
+        inputs = todo["eager"].shard(batch, plans,
+                                     ep.ep_readout_aux(batch, [e for e, _ in plans], cfg),
+                                     dev)
+    rank = comm.rank(mesh.group)
+    runs = run_forms(todo, params, opt, inputs, steps, first=optimizer == "grads",
+                     seeded=kind == "dp")
+    cap = todo["captured"]
+    out = {"forms": runs, "form": cap.form, "eager_form": todo["eager"].form,
+           "route": comm.route(group), "rank": rank}
+    if kind == "ep":
+        out["read_rows"] = [int(r.sum()) for r in inputs.wait_rows()]
+        out["rows"] = [st.rows for st in inputs.statics]
+        every = inputs._replace(read_rows=tuple(np.ones(st.rows, bool).tobytes()
+                                                for st in inputs.statics))
+        before = cap.captured.captures
+        cap(params, opt.init(params), every)
+        out["new_rows_captures"] = cap.captured.captures - before
+        out["keys_differ"] = cap.key(every) != cap.key(inputs)
+    out.update(captures=cap.captured.captures, replays=cap.captured.replays)
+    for name, r in runs.items():
+        first = r.pop("first_state", None)
+        if first is not None and name == "captured" and rank == 0:
+            out["raw"] = {"loss": r["losses"][0], "grads": first}
+    return out
+
+
 def _run_steps(step, params, opt, inputs, steps, dev):
     """`steps` optimizer steps; (params, losses, seconds of each step)."""
     state, losses, secs = opt.init(params), [], []
@@ -137,21 +264,13 @@ def _run_steps(step, params, opt, inputs, steps, dev):
 def dp_job(dev, cfg, params_np, stacked, steps: int = 0):
     """make_dp_train_step (the TOK loss, the drivers' Adam) over every
     rank, on this rank's shard of the stacked host batch: the averaged
-    (loss, grads) and the launches of that pass; then `steps` steps."""
-    from dagnn_tpu_torch.nn.dagnn import dagnn_forward
+    (loss, grads) and the launches of that pass (eager); then `steps`
+    steps of the step's default form."""
     from dagnn_tpu_torch.parallel.dp import make_dp_train_step
     from dagnn_tpu_torch.train.optim import make_optimizer
     mesh = make_mesh(None, ("dp",))
-    head = loss_of("tok")
-
-    def loss_fn(p, b, rng):
-        logits = dagnn_forward(p, cfg, b, rng=rng, train=cfg.dropout > 0)
-        dv = logits.device
-        return head(logits, {k: torch.as_tensor(v, device=dv) for k, v in b.y.items()},
-                    torch.as_tensor(b.graph_mask, device=dv))
-
     opt = make_optimizer()
-    step = make_dp_train_step(loss_fn, opt, mesh.groups["dp"])
+    step = make_dp_train_step(dp_loss(cfg), opt, mesh.groups["dp"])
     batch = step.shard(stacked, dev)
     params = _params(params_np, dev)
     reset_counts()
@@ -160,7 +279,7 @@ def dp_job(dev, cfg, params_np, stacked, steps: int = 0):
     rank = comm.rank(mesh.group)
     out = {"loss": float(loss), **_grads_out(grads, rank), "counts": read_counts(),
            "rows": int(batch.fwd.node_ids.shape[0]), "rank": rank,
-           "route": comm.route(mesh.groups["dp"])}
+           "route": comm.route(mesh.groups["dp"]), "form": step.form}
     if steps:
         params, out["losses"], out["step_s"] = _run_steps(
             step, params, opt, batch, steps, dev)
@@ -203,8 +322,7 @@ def ep_job(dev, cfg, params_np, batches, mesh_shape, dp_axis: bool = False,
     plans, plan_s, greedy_s = ep_plans(batch, n_ep)
     aux = ep.ep_readout_aux(batch, [e for e, _ in plans], cfg)
     opt = make_optimizer()
-    step = ep.make_ep_train_step(cfg, mesh, loss_of("tok"), opt, "ep",
-                                 "dp" if dp_axis else None)
+    step = ep_step(cfg, mesh, opt, dp_axis)
     inputs = step.shard(batch, plans, aux, dev)
     params = _params(params_np, dev)
     reset_counts()
@@ -220,17 +338,14 @@ def ep_job(dev, cfg, params_np, batches, mesh_shape, dp_axis: bool = False,
                                     2 if cfg.compute_dtype == "bfloat16" else 4),
            "statics": [dict(vars(st)) for _, st in plans],
            "issued": dict(comm.issued),
-           "read_rows": [int(r.sum()) for r in inputs.read_rows],
-           "route": comm.route(mesh.groups["ep"]), "rank": rank}
+           "read_rows": [int(r.sum()) for r in inputs.wait_rows()],
+           "route": comm.route(mesh.groups["ep"]), "rank": rank, "form": step.form}
     if probe:
         kp = KernelProbe()
-        _, pg = ep.make_ep_train_step(cfg, mesh, loss_of("tok"), opt, "ep",
-                                      "dp" if dp_axis else None,
-                                      kp.impl()).grads(params, inputs)
+        _, pg = ep_step(cfg, mesh, opt, dp_axis, fns=kp.impl()).grads(params, inputs)
         out["probe"] = {**kp.report(), "grads_digest": digest(pg)}
     if orders:
-        sync_step = ep.make_ep_train_step(cfg, mesh, loss_of("tok"), opt, "ep",
-                                          "dp" if dp_axis else None, overlap=False)
+        sync_step = ep_step(cfg, mesh, opt, dp_axis, overlap=False)
         out["orders"] = ep_orders(step, sync_step, params, opt, inputs, turns, dev,
                                   first=(out["loss"], grads, out["issued"]))
     if steps:

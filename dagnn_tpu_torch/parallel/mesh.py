@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import gc
 import os
 import queue
 import shutil
@@ -129,6 +130,17 @@ def make_hybrid_mesh(dp: int, ep: int,
     return make_mesh((dp, ep), axis_names)
 
 
+def release_graphs():
+    """Free the CUDA graphs of captured steps that are no longer
+    referenced (a step and its CapturedStep refer to each other, so only
+    the cycle collector frees them), and wait for the device, before the
+    process group's communicators are destroyed: a graph holds the NCCL
+    work it captured."""
+    gc.collect()
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
 def _worker(fn, rank, world, backend, device, store, timeout, args, results):
     try:
         if device == "cpu":
@@ -140,6 +152,7 @@ def _worker(fn, rank, world, backend, device, store, timeout, args, results):
         try:
             out = fn(dev, *args)
         finally:
+            release_graphs()
             dist.destroy_process_group()
         results.put((rank, True, out))
     except BaseException:      # reported to the parent, which raises it

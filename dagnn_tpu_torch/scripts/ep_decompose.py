@@ -10,7 +10,9 @@ Counterpart of scripts/ep_decompose.py, on the port's planners and steps.
    full, deferred and urgent exchange blocks. These are the inputs of a
    scaling model: the own slice shrinks about 1/D while the plan's widths
    stay roughly constant a device.
-2. Otherwise also DP x1 and EP x1 at cli/bench_scaling's workload (64
+2. Otherwise also the eager DP x1 and EP x1 steps (make(False): the
+   launches issued one by one that a capture folds into one replay) at
+   cli/bench_scaling's workload (64
    synthetic ASTs of mean 80 nodes, emb/hidden 128; one rank, a
    world-size-1 process group in this process: NCCL on the card, gloo with
    --cpu): 5 steps each on the host clock after a warm-up, the kernel
@@ -160,11 +162,13 @@ def measure(dev, graphs, cfg) -> dict:
                                 world_size=1)
         try:
             opt = make_optimizer()
-            step, batch, out["dp_route"] = dp_setup(dev, cfg, graphs, opt)
-            _measure("dp1", step, params, opt, batch, n_edges, dev, out)
-            estep, inputs, info = ep_setup(dev, cfg, graphs, opt)
+            # the eager steps: their launches and host time are what
+            # this decomposes
+            make, batch, out["dp_route"] = dp_setup(dev, cfg, graphs, opt)
+            _measure("dp1", make(False), params, opt, batch, n_edges, dev, out)
+            make, inputs, info = ep_setup(dev, cfg, graphs, opt)
             out["ep1_rows"] = info["rows"]
-            _measure("ep1", estep, params, opt, inputs, n_edges, dev, out)
+            _measure("ep1", make(False), params, opt, inputs, n_edges, dev, out)
         finally:
             dist.destroy_process_group()
     return out

@@ -209,12 +209,14 @@ def trace_job(dev, cfg, params_np, batch, mesh_shape, turns: int = 1,
     plans, _, _ = jobs.ep_plans(batch, mesh_shape[1])
     aux = ep.ep_readout_aux(batch, [e for e, _ in plans], cfg)
     opt = make_optimizer()
-    steps = {o: ep.make_ep_train_step(cfg, mesh, jobs.loss_of("tok"), opt, "ep",
-                                      overlap=o == "overlap") for o in ("overlap", "sync")}
+    # the eager steps: the profiler marks are issued from Python, which a
+    # replay of a captured step does not run
+    steps = {o: jobs.ep_step(cfg, mesh, opt, overlap=o == "overlap", capture=False)
+             for o in ("overlap", "sync")}
     inputs = steps["overlap"].shard(batch, plans, aux, dev)
     params = jobs._params(params_np, dev)
     out = {"rank": comm.rank(mesh.group), "route": comm.route(mesh.groups["ep"]),
-           "wait_rows": [np.flatnonzero(r).tolist() for r in inputs.read_rows]}
+           "wait_rows": [np.flatnonzero(r).tolist() for r in inputs.wait_rows()]}
     for s in steps.values() if warmup else ():
         s(params, opt.init(params), inputs)
     orders = jobs.ep_orders(steps["overlap"], steps["sync"], params, opt, inputs, turns,
@@ -230,7 +232,7 @@ def trace_job(dev, cfg, params_np, batch, mesh_shape, turns: int = 1,
             pass_s = time.perf_counter() - t0
             path = os.path.join(tmp, f"{name}.json")
             prof.export_chrome_trace(path)
-            out[name] = {**read_trace(path, inputs.read_rows), **orders[name],
+            out[name] = {**read_trace(path, inputs.wait_rows()), **orders[name],
                          "profiled_pass_s": pass_s}
             if not backward:
                 out[name]["buffers_digest"] = jobs.digest(

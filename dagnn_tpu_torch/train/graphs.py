@@ -39,9 +39,24 @@ made while the graph was captured are recorded, the set-up's own counts
 (warm-up and capture) taken back, and each replay adds the recorded counts
 (ops.count_replay): ops.read_launch_counts reads as if each replay had
 been an eager step. The warm-up's launches are set-up, as a capture is,
-and are not counted. What a replay really launches is read from the graph
-itself: with `debug` set before a capture, graph_nodes lists the graph's
-kernel, copy and set nodes by name (CUDAGraph.debug_dump).
+and are not counted. The collectives of a parallel step (parallel/comm.py
+`issued`) are counted in the same registry (ops.count_issued), and so
+recorded and added the same way.
+
+Collectives: an NCCL collective is captured like a kernel (its kernel,
+and the edges between the NCCL stream and the capture stream, are nodes
+of the graph). The warm-up's eager collectives create the communicators
+and are synchronised before the capture. Every step is captured with
+capture_error_mode="thread_local", so that CUDA calls from other threads
+(NCCL's watchdog, where a step holds collectives) during the capture
+cannot invalidate it; the capturing thread is held to the same rules as
+under "global".
+
+What a replay really launches is read from the graph itself: with
+`debug` set before a capture, graph_nodes lists the graph's kernel, copy
+and set nodes by name (CUDAGraph.debug_dump). Not for a graph that holds
+NCCL kernels: on four H100s such a graph kept in debug mode kept the
+process group's destroy from returning.
 
 On CPU tensors nothing is captured: each call stages its inputs into the
 static buffers the same way and calls the step on them directly.
@@ -174,6 +189,8 @@ class CapturedStep:
             for _ in range(WARMUP):
                 self.fn(state, static)
         main.wait_stream(side)
+        # the warm-up's collectives done before the capture begins
+        torch.cuda.synchronize(dev)
         for gen, s in zip(gens, rng):
             gen.set_state(s)
         # debug: the cudaGraph_t is kept beside its instantiation, for
@@ -185,7 +202,8 @@ class CapturedStep:
             graph.register_generator_state(gen)
         before = ops.wrapper_counts()
         try:
-            with torch.cuda.graph(graph, stream=side):
+            with torch.cuda.graph(graph, stream=side,
+                                  capture_error_mode="thread_local"):
                 outputs = self._body(state, static)
         except RuntimeError as e:
             raise RuntimeError(f"CapturedStep: the capture of {key[0]!r} "

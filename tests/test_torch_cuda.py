@@ -1200,3 +1200,49 @@ def test_captured_svae_step_equals_eager_step(dev):
     assert (captured.captures, captured.replays) == (1, 3)
     names = {graphs.kernel_name(k) for k in graphs.graph_nodes(captured.last_graph())}
     assert not names & {"seg_merge_kernel", "sa_fwd_kernel", "sa_bwd_kernel"}
+
+
+@pytest.mark.parametrize("kind,dropout", [("dp", 0.0), ("dp", 0.25), ("ep", 0.0)],
+                         ids=["dp", "dp_dropout", "ep"])
+def test_captured_parallel_steps_equal_eager_steps(dev, kind, dropout, tmp_path):
+    """A world-size-1 NCCL group in this process (jobs.forms_job): the DP
+    step (merged, K1/K2; also with dropout, step i drawing from seed i
+    through the generator registered with the graph) and the EP step
+    (D = 1, scan rows 64; K6, K5, in both orders) captured, one CUDA graph
+    per key, against the eager steps over three Adam steps from the same
+    weights: the loss, every parameter and optimizer leaf (digests) and
+    the collectives bit for bit (each replay counts its capture's); the
+    same arrays with other read_rows a new key."""
+    import dataclasses
+    import torch.distributed as dist
+    from dagnn_tpu_torch import flagship
+    from dagnn_tpu_torch.dag.batch import collate
+    from dagnn_tpu_torch.data.synthetic import synthetic_ast_batch
+    from dagnn_tpu_torch.nn.dagnn import dagnn_init
+    from dagnn_tpu_torch.parallel import jobs
+    from dagnn_tpu_torch.parallel.dp import collate_sharded
+    from dagnn_tpu_torch.parallel.mesh import release_graphs
+    cfg = dataclasses.replace(flagship.flagship_cfg(emb=32, hidden=32), dropout=dropout)
+    graphs = synthetic_ast_batch(0, 12, mean_nodes=20)
+    if kind == "dp":
+        batch = collate_sharded(graphs, 1, flagship.pad_for(graphs))
+    else:
+        batch = collate(graphs, dataclasses.replace(flagship.pad_for(graphs, chunk=64),
+                                                    nodes_per_level=64))
+    pnp = {k: v.numpy() for k, v in dagnn_init(0, cfg, device="cpu").items()}
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        r = jobs.forms_job(dev, kind, cfg, pnp, batch, mesh_shape=(1, 1), steps=3)
+    finally:
+        release_graphs()
+        dist.destroy_process_group()
+    f = r["forms"]
+    pairs = [("captured", "eager")] + ([("captured sync", "eager sync"),
+                                        ("captured", "captured sync")] if kind == "ep" else [])
+    for a, b in pairs:
+        for k in ("losses", "params", "state", "issued"):
+            assert f[a][k] == f[b][k], (a, b, k)
+    assert f["captured"]["issued"]["device"] > 0 and f["captured"]["issued"]["host"] == 0
+    assert r["form"] == "captured" and r["route"] == "device"
+    assert (r["captures"], r["replays"]) == ((2, 4) if kind == "ep" else (1, 3))

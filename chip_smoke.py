@@ -138,8 +138,10 @@ split form), the merged and unidirectional wavefronts on near/far batches
       step gated as 20a
   20c. DVAE and DVAE_BN, two short epochs each: no kernel of the port
       launched, finite falling losses
-  latent scoring and BO (no kernel of the port on this path), on phase
-  20's latents and checkpoints:
+  latent scoring and BO (no kernel of the port on this path; on the card
+  each program the JAX package compiles replays a CUDA graph: the GP
+  fit's Adam steps, each greedy-EI candidate, the decode, the ENAS
+  surrogate's step and MLP), on phase 20's latents and checkpoints:
   21a. run_bo.main GP only (2 seeds, M 500, 100 iterations) on run C's
       latents [900, 56] / [100, 56]: two finite Test_RMSE_ll.txt lines;
       the seed-0 fit on the card against the same fit on the CPU (mean
@@ -150,7 +152,18 @@ split form), the merged and unidirectional wavefronts on near/far batches
       corpus), BN on 20b's DAGNN_BN checkpoint (1 round, BIC):
       best_arc_scores.txt written, each round's valid count, best score
       and seconds (GP fit, greedy EI, decode, scoring); summarize.main on
-      each result directory
+      each result directory; each run's captures and replays by program,
+      at most one capture a key (its graphs freed before it)
+  21e. each captured program against its eager form (capture=False) at
+      run_bo's defaults on run C's files, bit for bit from the same inputs
+      and generator seed: the fit's 100 Adam steps (parameters and last
+      loss; float32 and float64; one step a graph), 8 greedy-EI
+      candidates of a float64 round (4 timed in turns), the decode of 50
+      latents x 100 attempts (types, adj, nv), the surrogate's 400 steps
+      and its validation predictions (against its eager build's);
+      captures and replays counted; eager
+      against captured in turns a b b a (CUDA events); a captured float64
+      fit and EI round profiled (busy share, the top device ops)
   21c. run C's encoder over the whole ENAS corpus (17,118 / 1,902
       graphs), then the GP at M 500 on those latents: finite; the load,
       the encode, the fit and the predict timed
@@ -188,11 +201,13 @@ split form), the merged and unidirectional wavefronts on near/far batches
   one card with the spawn start method, gloo with every collective staged
   on the host, since NCCL takes one rank a card; its numbers measure the
   code path, not scaling):
-  23a. cli.dryrun at 2 and 4 ranks (two processes at once): the JAX dry
-      run's checks (a finite DP loss; the replicated-state EP forward
-      within 1e-3 of the single-rank states; at 4 ranks the (dp 2, ep 2)
-      step's loss within 1e-3 of the mean of the two batches' single-rank
-      losses)
+  the two spawns (2 and 4 ranks) run at once, and carry 23a's and 23d's
+  ranks too:
+  23a. cli.dryrun at 2 and 4 ranks, its jobs (dryrun.plan) in the spawn of
+      that size: the JAX dry run's checks (dryrun.check: a finite DP
+      loss; the replicated-state EP forward within 1e-3 of the single-rank
+      states; at 4 ranks the (dp 2, ep 2) step's loss within 1e-3 of the
+      mean of the two batches' single-rank losses)
   23b. data parallel, 2 ranks, bf16, the merged path (K1/K2) on phase 4's
       batch split by node count (flagship.pad_for(n_shards=2)): the
       averaged loss, norm and leaves against one process's mean of the two
@@ -221,8 +236,11 @@ split form), the merged and unidirectional wavefronts on near/far batches
       b b a (CUDA events), one profiled forward pass each, every deferred
       exchange's wait where its order puts it
   23d. cli.bench_scaling --devices 2 --iters 1 (its defaults' workload,
-      1 timed step), its JSON line; the ranks of 23b-23d that share the
-      card run gloo, so their steps are eager, which their lines say
+      1 timed step), its lines and JSON line (bench_scaling.report): its
+      2-rank bench_job in the 2-rank spawn, its 1-rank job in this
+      process's world-size-1 group after 23e; the ranks of 23b-23d that
+      share the card run gloo, so their steps are eager, which their
+      lines say
   23e. on the in-process world-size-1 NCCL group, at the flagship's widths
       on bench_scaling's workload: the DP step (merged) and the EP step
       (D = 1, scan rows 64, the generic branch) captured, their default
@@ -2334,6 +2352,7 @@ def phase_bo_rounds(card, root):
                     "BN", "--model", "DAGNN", "--bidirectional", "--BO_rounds", "1"]
              + _widths(BN_FLAGS))):
         res = f"{root}/bo_{tag}"
+        run_bo.release_graphs()          # this run captures every program it runs
         t0 = time.perf_counter()
         r = run_bo.main(flags + ["--bo", "--seeds", "1", *GP_FLAGS, "--res_dir", res])
         wall = time.perf_counter() - t0
@@ -2348,8 +2367,201 @@ def phase_bo_rounds(card, root):
               f"run_bo {tag}: a round without a best score")
         print(f"[21b] summarize {tag}:")
         summarize.main(["--res_dir", res])
-        out[tag] = dict(rounds=r["rounds"], gp=r["gp"], wall_s=wall,
+        g = r["graphs"]
+        # keys: the fit unpadded and padded, each in float32 and float64;
+        # the EI's posterior in float32 or float64; one decode batch; the
+        # surrogate's step and its MLP at the validation rows and one row
+        most = {"GP fit": 4, "greedy EI": 2, "decode": 1, "surrogate fit": 1,
+                "surrogate predict": 2}
+        print(f"[21b] {tag}: captures / replays by program {g}, at most {most} "
+              f"captures")
+        check(all(g[k][0] <= n for k, n in most.items())
+              and g["decode"][1] == len(r["rounds"])
+              and g["greedy EI"][1] == 50 * len(r["rounds"]) and g["GP fit"][1] > 0,
+              f"run_bo {tag}: a program captured more than once a key, or not replayed")
+        out[tag] = dict(rounds=r["rounds"], gp=r["gp"], wall_s=wall, graphs=g,
                         scorer_quality=r["scorer_quality"])
+    return out
+
+
+# 21e: run_bo's defaults (M 500, 100 Adam steps at lr 5e-4, a 10,000-point
+# grid refined 50 steps, 100 decode attempts of 50 latents) on run C's
+# files; EI_Q of the round's 50 candidates held, EI_TURN_Q timed in turns
+GP_ITERS, GP_LR, EI_Q, EI_TURN_Q = 100, 5e-4, 8, 4
+
+
+def _bits(t):
+    """A float tensor's bits as integers: NaN equal to itself."""
+    return t.contiguous().view({torch.float32: torch.int32,
+                                torch.float64: torch.int64}.get(t.dtype, t.dtype))
+
+
+def _same_bits(a, b):
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_bits(a[k], b[k]) for k in a)
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(_bits(a), _bits(b))
+
+
+def _form_turns(label, dev, run, n=1):
+    """run(capture) -> a call of the program; the eager and captured calls
+    timed in turns (a b b a) on the card, nothing on the CPU."""
+    if dev.type != "cuda":
+        return None
+    return timed_turns(label, {"eager": run(False), "captured": run(True)}, n)
+
+
+def _profile_top(label, fn, top=5):
+    """One call of fn profiled on the card: its device busy share and the
+    `top` device operations by summed time (utils/profiling); None on the
+    CPU."""
+    import tempfile
+    from dagnn_tpu_torch.utils import profiling
+    if not torch.cuda.is_available():
+        return None
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_21e_") as tmp:
+        path = profiling.profile_step(fn, iters=1, logdir=tmp, name="replay.json")
+        busy = profiling.device_busy(profiling.device_events(path))
+        rows = profiling.summarize_trace(path, top=top)
+    check(busy is not None, f"{label}: the profiler saw no device events")
+    print(f"{label} one captured call profiled: {busy['events']} device events, busy "
+          f"{100 * busy['share']:.1f}% of {busy['span_us'] / 1e3:.2f} ms; the top device "
+          f"ops: " + "; ".join(f"{r['name'][:60]} {r['total_us'] / 1e3:.2f} ms x{r['count']}"
+                              for r in rows))
+    return {"busy_share": busy["share"], "span_ms": busy["span_us"] / 1e3,
+            "events": busy["events"], "top": [(r["name"][:80], r["total_us"], r["count"])
+                                              for r in rows]}
+
+
+def phase_bo_graphs(dev, card, mat, model_flags, corpus=None, pad_rounds=2):
+    """21e: each program run_bo captures (train/graphs.CapturedStep)
+    against its eager form (capture=False) at run_bo's defaults, from the
+    same inputs and generator seed, bit for bit; then eager against
+    captured in turns a b b a (CUDA events), with the captures and
+    replays each made. On the latents of `mat` (their rows padded by
+    pad_rounds rounds of 50, as 21b's fits), the checkpoint of
+    `model_flags` (run_bo's flags) and the ENAS corpus (run_bo's default
+    when None):
+      the GP fit's 100 Adam steps (sparse_gp._adam_fit, FIT) in float32 and
+      float64, the parameters and last loss, one step a graph replayed 100
+      times;
+      EI_Q greedy-EI candidates from the float64 fit (EI), EI_TURN_Q in
+      the turns;
+      the decode of 50 latents x 100 attempts (DECODE, the generator
+      registered), types, adj and nv;
+      the surrogate's 400 train steps (enas_eval FIT) and its predictions
+      on the validation rows (PREDICT), against its eager build's.
+    On the CPU (a rehearsal) the captured forms call the step functions
+    directly and nothing is timed."""
+    from dagnn_tpu_torch.cli import run_bo
+    from dagnn_tpu_torch.vae import dvae, enas_eval, sparse_gp as T
+    from dagnn_tpu_torch.vae.dagnn_vae import dagnn_vae_decode
+    t_all = time.perf_counter()
+    X_tr, y_tr, *_ = run_bo.load_latents(mat)
+    Xh = np.asarray(X_tr, np.float64)
+    yh = np.asarray(y_tr, np.float64).reshape(-1)
+    pad = len(Xh) + pad_rounds * 50
+    out = {}
+
+    def counted(prog, fn):
+        c0, r0 = prog.captures, prog.replays
+        t0 = time.perf_counter()
+        res = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        return res, s, (prog.captures - c0, prog.replays - r0)
+
+    fits = {}
+    for dt in (torch.float32, torch.float64):
+        label = f"[21e fit {short(dt)}]"
+        fit = lambda capture: T._adam_fit(
+            *T._fit_problem(Xh, yh, 500, 0, pad, dt, dev), GP_ITERS, GP_LR, capture)
+        (pe, le), eager_s, _ = counted(T.FIT, lambda: fit(False))
+        res = {"eager_s": eager_s, "loss": float(le)}
+        (pc, lc), first_s, (c1, r1) = counted(T.FIT, lambda: fit(True))
+        _, again_s, (c2, r2) = counted(T.FIT, lambda: fit(True))
+        same = _same_bits(pc, pe) and _same_bits(lc, le)
+        print(f"{label} one Adam step a graph: the parameters and last loss "
+              f"({float(lc):.6g}) bit for bit eager's: {same}; first fit {first_s:.3f} s "
+              f"({c1} capture, {r1} replays), next {again_s:.3f} s ({c2} captures, "
+              f"{r2} replays); eager {eager_s:.3f} s")
+        check(same and c2 == 0 and r2 == GP_ITERS,
+              f"{label}: the captured fit differs from eager's or recaptured")
+        res["step"] = {"first_s": first_s, "next_s": again_s, "captures": c1 + c2,
+                       "replays": r1 + r2}
+        res["turns"] = _form_turns(label, dev, lambda c: lambda: fit(c))
+        fits[short(dt)] = res
+    # every fit at M 500 ends in float64 (the float32 one went NaN in each
+    # card run): its captured fit profiled, and the EI from its parameters
+    fits["float64"]["profile"] = _profile_top(label, lambda: fit(True))
+    gp64 = T.SparseGP(pc, torch.as_tensor(Xh, device=dev), torch.as_tensor(yh, device=dev))
+    out["fit"] = fits
+
+    label = "[21e EI]"
+    ei = lambda capture, q=EI_Q: T.batched_greedy_ei(
+        gp64, q, Xh.min(0), Xh.max(0), Xh.mean(0), Xh.std(0), seed=0, capture=capture)
+    ce, eager_s, _ = counted(T.EI, lambda: ei(False))
+    cc, first_s, (c1, r1) = counted(T.EI, lambda: ei(True))
+    same = _same_bits(cc, ce)
+    print(f"{label} {EI_Q} candidates of a float64 round (grid 10,000, 50 refinement "
+          f"steps) bit for bit eager's: {same}; eager {eager_s:.3f} s, captured "
+          f"{first_s:.3f} s with its capture ({c1} capture, {r1} replays)")
+    check(same and r1 == EI_Q, f"{label}: the captured candidates differ from eager's")
+    out["ei"] = {"eager_s": eager_s, "first_s": first_s, "captures": c1, "replays": r1,
+                 "turns": _form_turns(label, dev, lambda c: lambda: ei(c, EI_TURN_Q)),
+                 "profile": _profile_top(label, lambda: ei(True))}
+
+    label = "[21e decode]"
+    cfg, params = run_bo.load_model(run_bo.parse_args(["--latent", mat, *model_flags]), dev)
+    z = torch.as_tensor(X_tr[:50], dtype=torch.float32, device=dev).repeat(100, 1)
+    gen = torch.Generator(device=dev)
+
+    def decode(capture):
+        def call():
+            gen.manual_seed(0)
+            return dagnn_vae_decode(params, cfg, z, gen, capture=capture)
+        return call
+
+    de, eager_s, _ = counted(dvae.DECODE, decode(False))
+    dc, first_s, (c1, r1) = counted(dvae.DECODE, decode(True))
+    same = all(np.array_equal(a, b) for a, b in zip(dc, de))
+    print(f"{label} {z.shape[0]} latents (50 x 100 attempts): types, adj and nv equal "
+          f"to eager's from one generator seed: {same} ({int(dc[2].sum())} vertices); "
+          f"eager {eager_s:.3f} s, captured {first_s:.3f} s with its capture ({c1} "
+          f"capture, {r1} replay)")
+    check(same and (c1, r1) == (1, 1), f"{label}: the captured decode differs from eager's")
+    out["decode"] = {"eager_s": eager_s, "first_s": first_s,
+                     "turns": _form_turns(label, dev, decode)}
+
+    label = "[21e surrogate]"
+    t0 = time.perf_counter()
+    # built eagerly: its 400 epochs from init_params(seed 0) are the eager
+    # reference
+    ev = enas_eval.EvalENAS(corpus or run_bo.parse_args(["--latent", mat]).enas_corpus,
+                            device=dev, capture=False)
+    pe, ye = ev._params, ev.predict(ev.split[2])
+    build_s = time.perf_counter() - t0
+    d = ev.split[0].shape[1]
+
+    def surrogate(capture):
+        def call():
+            ev.capture = capture
+            ev._fit(*ev.split, ev.init_params(d, 256, 0), 400)
+            return ev._params, ev.predict(ev.split[2])
+        return call
+
+    (pc, yc), first_s, (c1, r1) = counted(enas_eval.FIT, surrogate(True))
+    same = _same_bits(pc, pe) and np.array_equal(yc, ye)
+    print(f"{label} 400 epochs on {ev.split[0].shape[0]} rows: the parameters and the "
+          f"{len(ye)} validation predictions bit for bit the eager build's ({build_s:.3f} "
+          f"s with the corpus): {same}; captured {first_s:.3f} s with its capture ({c1} "
+          f"capture, {r1} replays)")
+    check(same and r1 == 400, f"{label}: the captured surrogate differs from eager's")
+    out["surrogate"] = {"first_s": first_s, "build_s": build_s,
+                        "turns": _form_turns(label, dev, surrogate)}
+    out["wall_s"] = time.perf_counter() - t_all
+    print(f"[21e] {card}: 21e took {out['wall_s']:.1f} s")
     return out
 
 
@@ -2511,13 +2723,21 @@ def phase_other_vaes(dev, card, root):
 
 
 def phase_latent_scoring(dev, card, root):
-    """Phase 21, on phase 20's files in `root`: 21a-21d. K1-K7 launch in
-    none of it but 21c's encoder (the DAGNN's K6 inference passes)."""
-    gp = phase_gp(dev, card, root, f"{root}/C/final_structures6_latent_epoch3.mat")
+    """Phase 21, on phase 20's files in `root`: 21a, 21b, 21e, 21c, 21d.
+    K1-K7 launch in none of it but 21c's encoder (the DAGNN's K6 inference
+    passes). run_bo's graphs are freed after it."""
+    from dagnn_tpu_torch.cli import run_bo
+    mat = f"{root}/C/final_structures6_latent_epoch3.mat"
+    gp = phase_gp(dev, card, root, mat)
     bo = phase_bo_rounds(card, root)
+    print("[21e] run_bo's captured programs against their eager forms at its "
+          "defaults on run C's files")
+    bo_graphs = phase_bo_graphs(dev, card, mat, ["--checkpoint", f"{root}/C/DAGNN_0_3.ckpt",
+                                                 *_widths(NA_FLAGS)])
     corpus = phase_gp_corpus(dev, card, root)
     others = phase_other_vaes(dev, card, root)
-    return dict(gp=gp, bo=bo, corpus=corpus, other_vaes=others)
+    run_bo.release_graphs()
+    return dict(gp=gp, bo=bo, bo_graphs=bo_graphs, corpus=corpus, other_vaes=others)
 
 
 # ------------------------------------------------------------ the baselines
@@ -2897,12 +3117,13 @@ def _np_grads(g):
     return {k: v.detach().float().cpu().numpy() for k, v in g.items()}
 
 
-def nccl_world_one(label, dev, card, cfg, params, graphs):
+def nccl_world_one(label, dev, card, cfg, params, graphs, bench):
     """The DP step at world size 1 over NCCL (gloo for a CPU rehearsal) in
     this process: one step (make_dp_train_step's default form: captured
     over NCCL) bitwise equal to the single-process step (loss_and_grads,
     the optimizer's update, params + updates); then, on the same group,
-    23e (parallel_graphs)."""
+    23e (parallel_graphs) and `bench` ((fn, kwargs): bench_scaling's
+    1-rank job, its result under "bench")."""
     import tempfile
     import torch.distributed as dist
     from dagnn_tpu_torch import flagship
@@ -2956,6 +3177,9 @@ def nccl_world_one(label, dev, card, cfg, params, graphs):
               f"against eager")
         with tempfile.TemporaryDirectory(prefix="chip_smoke_23e_") as tmp:
             out["graphs"] = parallel_graphs(dev, card, cfg, params, tmp)
+        t0 = time.perf_counter()
+        out["bench"] = bench[0](dev, **bench[1])
+        out["bench_s"] = time.perf_counter() - t0
     finally:
         release_graphs()
         dist.destroy_process_group()
@@ -3128,18 +3352,51 @@ def _ep_probe(D, res, counted):
             for (dt, name), p in worst.items()}
 
 
+def parallel_refs(dev, cfg, params, stacked, ep_batches):
+    """Phase 23's single-rank references, in this process: {"dp": 23b's
+    (the mean of the two shards' loss and grads through the kernels, the
+    same through the plain step, the f32 truth of the bf16 weights' grads,
+    a shard's merged rows), "ep": {D: 23c's (the single-rank generic step
+    through the plain K6 / K5: f32 loss and grads, bf16 loss and grads, the
+    f32 truth of the bf16 weights' grads)}}, the grads as numpy."""
+    from dagnn_tpu_torch.convert import batch_to_torch
+    from dagnn_tpu_torch.nn.dagnn import KERNELS, PLAIN, SEG_PLAIN
+    from dagnn_tpu_torch.parallel.dp import shard_of
+    shards = [batch_to_torch(shard_of(stacked, i), dev) for i in range(2)]
+    ref = [loss_and_grads(params, cfg, b, KERNELS) for b in shards]
+    ref_l = (ref[0][0] + ref[1][0]) / 2
+    ref_g = {k: (ref[0][1][k].float() + ref[1][1][k].float()) / 2 for k in ref[0][1]}
+    plain = [loss_and_grads(params, cfg, b, PLAIN) for b in shards]
+    plain_l = (plain[0][0] + plain[1][0]) / 2
+    plain_g = {k: (plain[0][1][k].float() + plain[1][1][k].float()) / 2 for k in ref_g}
+    as_bf16 = {k: v.to(torch.bfloat16).float() for k, v in params.items()}
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    truth = [loss_and_grads(as_bf16, cfg32, b, PLAIN) for b in shards]
+    truth_g = _np_grads({k: (truth[0][1][k] + truth[1][1][k]) / 2 for k in ref_g})
+    out = {"dp": (ref_l, ref_g, plain_l, plain_g, truth_g, shards[0].fwd), "ep": {}}
+    cfg_p = dataclasses.replace(cfg, segment_impl="pallas")
+    cfg_p32 = dataclasses.replace(cfg_p, compute_dtype="float32")
+    for D, batch in ep_batches.items():
+        b = batch_to_torch(batch, dev)
+        # the single-rank step through the plain versions of K6 and K5
+        l32, g32, _ = loss_and_grads(params, cfg_p32, b, SEG_PLAIN)
+        l16, g16, _ = loss_and_grads(params, cfg_p, b, SEG_PLAIN)
+        _, t16, _ = loss_and_grads(as_bf16, cfg_p32, b, SEG_PLAIN)
+        out["ep"][D] = (l32, _np_grads(g32), l16, _np_grads(g16), _np_grads(t16))
+    return out
+
+
 def phase_parallel(dev, card, graphs, params, cfg, bench_argv=()):
     """Phase 23: the parallel layer at cfg's widths (the flagship's) on
     `graphs` (phase 4's batch), D ranks on this one card (gloo: the host
     route). On a CPU device it rehearses the same calls with gloo ranks on
     the CPU (`bench_argv`: bench_scaling's size flags for it)."""
+    from concurrent.futures import ThreadPoolExecutor
     from dagnn_tpu_torch import checks, flagship
-    from dagnn_tpu_torch.cli import bench_scaling
-    from dagnn_tpu_torch.convert import batch_to_torch
+    from dagnn_tpu_torch.cli import bench_scaling, dryrun
     from dagnn_tpu_torch.dag.batch import collate
-    from dagnn_tpu_torch.nn.dagnn import KERNELS, PLAIN, SEG_PLAIN
     from dagnn_tpu_torch.parallel import jobs
-    from dagnn_tpu_torch.parallel.dp import collate_sharded, shard_of
+    from dagnn_tpu_torch.parallel.dp import collate_sharded
     from dagnn_tpu_torch.parallel.mesh import default_backend, spawn
     from dagnn_tpu_torch.scripts import ep_overlap_report as overlap
     out, device = {}, dev.type
@@ -3147,32 +3404,6 @@ def phase_parallel(dev, card, graphs, params, cfg, bench_argv=()):
     if device == "cuda":
         torch.cuda.empty_cache()
     t_all = time.perf_counter()
-    # both dry runs at once, as a user starts them (python -m ...), each
-    # its own ranks and store; every process ended before this returns
-    runs = {n: subprocess.Popen(
-        [sys.executable, "-m", "dagnn_tpu_torch.cli.dryrun", "--ranks", str(n),
-         "--timeout", "300", *cpu], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True, cwd=os.path.dirname(os.path.abspath(__file__))) for n in (2, 4)}
-    try:
-        logs = {n: p.communicate(timeout=600)[0] for n, p in runs.items()}
-    finally:
-        for p in runs.values():
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for n, log in logs.items():
-        backend = default_backend(n, device)
-        print(f"[23a] cli.dryrun --ranks {n} ({backend}: {SHARED}), exit "
-              f"{runs[n].returncode}:")
-        print("\n".join("    " + ln for ln in log.strip().splitlines()[-12:]))
-        passes = sum(ln.startswith("dryrun") and " ok" in ln for ln in log.splitlines())
-        check(runs[n].returncode == 0 and passes == (3 if n >= 4 else 2)
-              and f"dryrun({n}, {backend})" in log,
-              f"cli.dryrun --ranks {n}: {passes} checks passed")
-        print(f"[23a] {passes} of the JAX dry run's checks passed at {n} ranks")
-        out[f"dryrun_{n}"] = passes
-    print(f"[23a] both dry runs took {time.perf_counter() - t_all:.1f} s")
-
     cfg_p = dataclasses.replace(cfg, segment_impl="pallas")
     cfg_p32 = dataclasses.replace(cfg_p, compute_dtype="float32")
     nl = cfg.num_layers
@@ -3188,16 +3419,51 @@ def phase_parallel(dev, card, graphs, params, cfg, bench_argv=()):
                            mesh_shape=(1, D), probe=True)),
         (jobs.ep_job, dict(cfg=cfg_p, params_np=pnp, batches=[ep_batches[D]],
                            mesh_shape=(1, D), probe=True, orders=D == 4))]
-    t0 = time.perf_counter()
-    res2 = spawn(jobs.run_jobs, 2, "gloo", device, timeout=900, args=(
-        [(jobs.dp_job, dict(cfg=cfg, params_np=pnp, stacked=stacked, steps=3))]
-        + ep_jobs(2) + [(overlap.trace_job, dict(
-            cfg=cfg_p, params_np=pnp, batch=ep_batches[2], mesh_shape=(1, 2),
-            warmup=False, backward=False))],))
-    t_spawn2 = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    res4 = spawn(jobs.run_jobs, 4, "gloo", device, timeout=900, args=(ep_jobs(4),))
-    t_spawn4 = time.perf_counter() - t0
+    # 23a's dry runs and 23d's 2-rank bench_scaling run, as their CLIs plan
+    # them, ride in the two spawns (one process start a rank in all)
+    dry = {n: dryrun.plan(n, device) for n in (2, 4)}
+    bargs = bench_scaling.parse_args(["--devices", "2", "--iters", "1", *cpu, *bench_argv])
+    bcfg, bgraphs, b_edges, bpnp = bench_scaling.workload(bargs)
+    todo = {2: [(jobs.dp_job, dict(cfg=cfg, params_np=pnp, stacked=stacked, steps=3))]
+            + ep_jobs(2) + [(overlap.trace_job, dict(
+                cfg=cfg_p, params_np=pnp, batch=ep_batches[2], mesh_shape=(1, 2),
+                warmup=False, backward=False))],
+            4: ep_jobs(4)}
+    own = {n: len(todo[n]) for n in todo}
+    todo[2] += dry[2][0] + [(bench_scaling.bench_job, dict(
+        cfg=bcfg, params_np=bpnp, graphs=bgraphs, iters=bargs.iters))]
+    todo[4] += dry[4][0]
+
+    def timed_spawn(n):
+        t0 = time.perf_counter()
+        return spawn(jobs.run_jobs, n, "gloo", device, timeout=900,
+                     args=(todo[n],)), time.perf_counter() - t0
+
+    # both worlds at once (their gloo ranks wait on the host most of a
+    # step), while this process computes the single-rank references
+    with ThreadPoolExecutor(2) as pool:
+        runs = {n: pool.submit(timed_spawn, n) for n in (2, 4)}
+        t0 = time.perf_counter()
+        refs = parallel_refs(dev, cfg, params, stacked, ep_batches)
+        t_refs = time.perf_counter() - t0
+        (res2, t_spawn2), (res4, t_spawn4) = (runs[n].result() for n in (2, 4))
+    t_spawns = time.perf_counter() - t_all
+    bench2 = [r[-1] for r in res2]
+    for n, res in ((2, res2), (4, res4)):
+        backend = default_backend(n, device)
+        print(f"[23a] the dry run at {n} ranks ({backend}: {SHARED}), its jobs in the "
+              f"{n}-rank spawn:")
+        try:
+            got = dryrun.check(dry[n][1], backend, [r[own[n]:own[n] + len(dry[n][0])]
+                                                    for r in res])
+        except AssertionError as e:
+            check(False, f"the dry run at {n} ranks: {e}")
+        passes = 2 + ("dp_ep_loss" in got)
+        check(passes == (3 if n >= 4 else 2), f"the dry run at {n} ranks: {passes} checks")
+        print(f"[23a] {passes} of the JAX dry run's checks passed at {n} ranks")
+        out[f"dryrun_{n}"] = passes
+    res2 = [r[:own[2]] for r in res2]
+    res4 = [r[:own[4]] for r in res4]
 
     # 23b: data parallel, 2 ranks, bf16, the merged path
     dp = [r[0] for r in res2]
@@ -3206,17 +3472,7 @@ def phase_parallel(dev, card, graphs, params, cfg, bench_argv=()):
           f"split_by_nodes of phase 4's batch: rows {dp[0]['rows']} a shard; step "
           f"s {' / '.join(f'{s:.4f}' for s in dp[0]['step_s'])} (rank 0), losses "
           f"{dp[0]['losses']}")
-    shards = [batch_to_torch(shard_of(stacked, i), dev) for i in range(2)]
-    ref = [loss_and_grads(params, cfg, b, KERNELS) for b in shards]
-    ref_l = (ref[0][0] + ref[1][0]) / 2
-    ref_g = {k: (ref[0][1][k].float() + ref[1][1][k].float()) / 2 for k in ref[0][1]}
-    plain = [loss_and_grads(params, cfg, b, PLAIN) for b in shards]
-    plain_l = (plain[0][0] + plain[1][0]) / 2
-    plain_g = {k: (plain[0][1][k].float() + plain[1][1][k].float()) / 2 for k in ref_g}
-    truth = [loss_and_grads({k: v.to(torch.bfloat16).float() for k, v in params.items()},
-                            dataclasses.replace(cfg, compute_dtype="float32"), b, PLAIN)
-             for b in shards]
-    truth_g = _np_grads({k: (truth[0][1][k] + truth[1][1][k]) / 2 for k in ref_g})
+    ref_l, ref_g, plain_l, plain_g, truth_g, sh = refs["dp"]
     _scalar_gate("[23b]", "averaged loss vs one process's mean of the two shards",
                  dp[0]["loss"], ref_l)
     _scalar_gate("[23b]", "averaged grad norm vs the mean's", _norm(dp[0]["grads"]),
@@ -3225,7 +3481,6 @@ def phase_parallel(dev, card, graphs, params, cfg, bench_argv=()):
                "averaged grads vs one process's mean", group=checks.score_linears)
     # the kernels at the shards' shapes against their plain versions: the
     # same mean computed with the plain step (phase 5's gates)
-    sh = shards[0].fwd
     print(f"[23b] a shard's merged rows: Kn {sh.node_ids.shape[1]}, Ke "
           f"{sh.edge_dst.shape[1]}, Kt {sh.tgrad_dst.shape[1]}")
     _scalar_gate("[23b]", "averaged loss vs the plain step's mean of the two shards",
@@ -3256,13 +3511,7 @@ def phase_parallel(dev, card, graphs, params, cfg, bench_argv=()):
     traces = [r[-1] for r in res2]
     for D, res in ((2, [r[:-1] for r in res2]), (4, res4)):
         f32, bf = res[0][-2], res[0][-1]
-        b = batch_to_torch(ep_batches[D], dev)
-        # the single-rank step through the plain versions of K6 and K5
-        l32, g32, _ = loss_and_grads(params, cfg_p32, b, SEG_PLAIN)
-        l16, g16, _ = loss_and_grads(params, cfg_p, b, SEG_PLAIN)
-        _, t16, _ = loss_and_grads({k: v.to(torch.bfloat16).float()
-                                    for k, v in params.items()}, cfg_p32, b, SEG_PLAIN)
-        g32, g16, t16 = _np_grads(g32), _np_grads(g16), _np_grads(t16)
+        l32, g32, l16, g16, t16 = refs["ep"][D]
         st = f32["statics"][0]
         print(f"[23c] EP, {D} ranks ({f32['route']} route, {SHARED}; the step "
               f"{f32['form']}), chunk {64 * D}: "
@@ -3335,15 +3584,19 @@ def phase_parallel(dev, card, graphs, params, cfg, bench_argv=()):
           f"{' / '.join(f'{x:.4f}' for x in o['step_s'])}, synchronous "
           f"{' / '.join(f'{x:.4f}' for x in sy['step_s'])} ({SHARED})")
     out["ep"]["trace"] = summ
-    print(f"[23b/c] spawns: 2 ranks {t_spawn2:.1f} s, 4 ranks {t_spawn4:.1f} s")
+    print(f"[23] spawns, at once: 2 ranks {t_spawn2:.1f} s, 4 ranks {t_spawn4:.1f} s, "
+          f"{t_spawns:.1f} s from the phase's start; the single-rank references beside "
+          f"them {t_refs:.1f} s")
 
-    t0 = time.perf_counter()
-    print(f"[23d] cli.bench_scaling --devices 2 --iters 1 ({SHARED}):")
-    out["bench_scaling"] = bench_scaling.main(["--devices", "2", "--iters", "1", *cpu,
-                                               *bench_argv])
-    print(f"[23d] took {time.perf_counter() - t0:.1f} s")
-    out["dp"]["nccl"] = nccl_world_one("[23b]", dev, card, cfg, params, graphs)
+    bench1 = (bench_scaling.bench_job, dict(cfg=bcfg, params_np=bpnp, graphs=bgraphs,
+                                            iters=bargs.iters))
+    out["dp"]["nccl"] = nccl_world_one("[23b]", dev, card, cfg, params, graphs, bench1)
     out["graphs"] = out["dp"]["nccl"].pop("graphs")
+    print(f"[23d] cli.bench_scaling --devices 2 --iters 1 ({SHARED}): its 2-rank run in "
+          f"the 2-rank spawn, its 1-rank run in this process's world-size-1 group "
+          f"({out['dp']['nccl']['bench_s']:.1f} s)")
+    out["bench_scaling"] = bench_scaling.report(
+        {1: [out["dp"]["nccl"].pop("bench")], 2: bench2}, b_edges, 2, device)
     out["wall_s"] = time.perf_counter() - t_all
     print(f"[23] {card}: phase 23 took {out['wall_s']:.1f} s")
     return out
@@ -4210,8 +4463,8 @@ def baseline_graph_vs_eager(label, cfg, hosts, dev, out_dir, census):
                replays=cap.replays, turns=turns,
                graph_kernels=sum(v for k, v in nodes.items() if not _is_copy(k)))
     if census:
-        out["census"] = census_pair(label, lambda: cap.fn(cap.state, staged.inputs),
-                                    nodes, len(graphs._leaves(cap.state)), out_dir)
+        out["census"] = census_pair(label, lambda: cap.fn(staged.state, staged.inputs),
+                                    nodes, len(graphs._leaves(staged.state)), out_dir)
         out["replay_busy"] = replay_busy(label, lambda: gr(pg, sg, b0, gen), out_dir)
     out["wall_s"] = time.perf_counter() - t0
     return out
@@ -4266,8 +4519,8 @@ def vae_captured_step(label, model_name, dev, root, census):
                                               if not _is_copy(k)))
     if census:
         out["census"] = census_pair(
-            label, lambda: captured.fn(captured.state, staged.inputs), nodes,
-            len(graphs._leaves(captured.state)), root)
+            label, lambda: captured.fn(staged.state, staged.inputs), nodes,
+            len(graphs._leaves(staged.state)), root)
         out["replay_busy"] = replay_busy(label, replay, root)
     return out
 

@@ -187,30 +187,26 @@ def bench_job(dev, cfg, params_np, graphs, iters, eager=False):
     return out
 
 
-def main(argv=None) -> dict:
-    args = parse_args(argv)
-    from dagnn_tpu_torch import flagship, resolve_device
+def workload(args):
+    """(cfg, the graphs, their raw edges, the initial parameters as numpy)
+    of the flags' workload."""
+    from dagnn_tpu_torch import flagship
     from dagnn_tpu_torch.data.synthetic import synthetic_ast_batch
     from dagnn_tpu_torch.nn.dagnn import dagnn_init
-    from dagnn_tpu_torch.parallel.mesh import default_backend, spawn
-
-    device = "cpu" if args.cpu else "cuda"
-    dev = resolve_device(device)
-    n_dev = args.devices or (8 if args.cpu else torch.cuda.device_count())
-    if dev.type == "cuda":
-        from dagnn_tpu_torch.ops import build
-        build.build_all(["wavefront", "segment_attn"])   # once, before the ranks
     cfg = flagship.flagship_cfg(emb=args.emb, hidden=args.emb)
     graphs = synthetic_ast_batch(0, args.graphs, mean_nodes=args.mean_nodes)
-    n_edges = sum(g.num_edges for g in graphs)
     pnp = {k: v.numpy() for k, v in dagnn_init(0, cfg, device="cpu").items()}
-    shared = lambda d: d > 1 and (args.cpu or d > torch.cuda.device_count())
+    return cfg, graphs, sum(g.num_edges for g in graphs), pnp
+
+
+def report(runs, n_edges: int, n_dev: int, device: str) -> dict:
+    """The lines and the JSON line of the runs {ranks: every rank's
+    bench_job result}, at 1 rank and n_dev; returns the JSON's numbers."""
+    from dagnn_tpu_torch.parallel.mesh import default_backend
+    cpu = device == "cpu"
+    shared = lambda d: d > 1 and (cpu or d > torch.cuda.device_count())
     note = lambda d: " (ranks share one device)" if shared(d) else ""
-    results, runs = {}, {}
-    for d in sorted({1, n_dev}):
-        backend = default_backend(d, device)
-        runs[d] = spawn(bench_job, d, backend, device, timeout=3600.0,
-                        args=(cfg, pnp, graphs, args.iters, args.eager))
+    results = {}
     for kind in ("dp", "ep"):
         for d in sorted({1, n_dev}):
             r = runs[d][0]
@@ -258,6 +254,24 @@ def main(argv=None) -> dict:
 
     print(json.dumps({k: round(v, 1) for k, v in results.items()}))
     return results
+
+
+def main(argv=None) -> dict:
+    args = parse_args(argv)
+    from dagnn_tpu_torch import resolve_device
+    from dagnn_tpu_torch.parallel.mesh import default_backend, spawn
+
+    device = "cpu" if args.cpu else "cuda"
+    dev = resolve_device(device)
+    n_dev = args.devices or (8 if args.cpu else torch.cuda.device_count())
+    if dev.type == "cuda":
+        from dagnn_tpu_torch.ops import build
+        build.build_all(["wavefront", "segment_attn"])   # once, before the ranks
+    cfg, graphs, n_edges, pnp = workload(args)
+    runs = {d: spawn(bench_job, d, default_backend(d, device), device, timeout=3600.0,
+                     args=(cfg, pnp, graphs, args.iters, args.eager))
+            for d in sorted({1, n_dev})}
+    return report(runs, n_edges, n_dev, device)
 
 
 if __name__ == "__main__":

@@ -50,23 +50,17 @@ def _cfg():
     return flagship.flagship_cfg(emb=16, hidden=16, compute_dtype="float32")
 
 
-def main(argv=None) -> dict:
-    args = parse_args(argv)
+def plan(n: int, device: str):
+    """The dry run at n ranks: (the jobs every rank runs, jobs.run_jobs's
+    list, and what check() needs), so that a caller can run them in a
+    spawn of its own beside other jobs."""
     from dagnn_tpu_torch import flagship, resolve_device
     from dagnn_tpu_torch.dag.batch import collate
     from dagnn_tpu_torch.data.synthetic import synthetic_ast_batch
-    from dagnn_tpu_torch.nn.dagnn import dagnn_forward, dagnn_init, dagnn_node_states
+    from dagnn_tpu_torch.nn.dagnn import dagnn_init
     from dagnn_tpu_torch.parallel import jobs
     from dagnn_tpu_torch.parallel.dp import collate_sharded
-    from dagnn_tpu_torch.parallel.mesh import default_backend, spawn
-
-    device = "cpu" if args.cpu else "cuda"
     dev = resolve_device(device)
-    n = args.ranks or torch.cuda.device_count()
-    if dev.type == "cuda":
-        from dagnn_tpu_torch.ops import build
-        build.build_all(["wavefront", "segment_attn"])   # once, before the ranks
-    backend = default_backend(n, device)
     cfg = _cfg()
     params = dagnn_init(0, cfg, device=dev)
     pnp = {k: v.cpu().numpy() for k, v in params.items()}
@@ -75,10 +69,9 @@ def main(argv=None) -> dict:
     stacked = collate_sharded(graphs, n, flagship.pad_for(graphs, n_shards=n))
     pad1 = dataclasses.replace(flagship.pad_for(graphs, chunk=8 * n),
                                nodes_per_level=8 * n)
-    ebatch = collate(graphs, pad1)
     todo = [(jobs.dp_job, dict(cfg=cfg, params_np=pnp, stacked=stacked, steps=1)),
-            (jobs.ep_forward_job, dict(cfg=cfg, params_np=pnp, batch=ebatch,
-                                       mesh_shape=(1, n)))]
+            (jobs.ep_forward_job, dict(cfg=cfg, params_np=pnp,
+                                       batch=collate(graphs, pad1), mesh_shape=(1, n)))]
     groups = []
     if n >= 4 and n % 2 == 0:
         n_ep = n // 2
@@ -94,8 +87,17 @@ def main(argv=None) -> dict:
             groups.append(collate(g, pad))
         todo.append((jobs.ep_job, dict(cfg=cfg, params_np=pnp, batches=groups,
                                        mesh_shape=(2, n_ep), dp_axis=True, steps=1)))
-    res = spawn(jobs.run_jobs, n, backend, device, timeout=args.timeout,
-                args=(todo,))
+    return todo, dict(n=n, cfg=cfg, params=params, graphs=graphs, pad1=pad1,
+                      groups=groups, dev=dev)
+
+
+def check(ctx, backend: str, res) -> dict:
+    """The JAX dry run's assertions on the ranks' results of plan()'s jobs
+    (res[rank] = that rank's results of those jobs, in order); prints a
+    line a check and returns the numbers."""
+    from dagnn_tpu_torch.dag.batch import collate
+    from dagnn_tpu_torch.nn.dagnn import dagnn_forward, dagnn_node_states
+    n, cfg, params, dev = ctx["n"], ctx["cfg"], ctx["params"], ctx["dev"]
     out = {"ranks": n, "backend": backend, "route": res[0][0]["route"]}
 
     losses = [r[0]["losses"][0] for r in res]
@@ -108,13 +110,13 @@ def main(argv=None) -> dict:
     out["dp_loss"] = loss
 
     with torch.no_grad():
-        _, h_ref = dagnn_node_states(params, cfg, collate(graphs, pad1))
+        _, h_ref = dagnn_node_states(params, cfg, collate(ctx["graphs"], ctx["pad1"]))
     err = float(np.max(np.abs(res[0][1]["states"] - h_ref[0].float().cpu().numpy())))
     assert err < 1e-3, f"edge-partitioned mismatch: {err}"
     print(f"dryrun({n}, {backend}): edge-partitioned pass ok (max dev {err:.2e})")
     out["ep_forward_err"] = err
 
-    if groups:
+    if ctx["groups"]:
         from dagnn_tpu_torch.parallel.jobs import loss_of
         head = loss_of("tok")
         with torch.no_grad():
@@ -122,7 +124,7 @@ def main(argv=None) -> dict:
                 float(head(dagnn_forward(params, cfg, b),
                            {k: torch.as_tensor(v, device=dev) for k, v in b.y.items()},
                            torch.as_tensor(b.graph_mask, device=dev)))
-                for b in groups]))
+                for b in ctx["groups"]]))
         got = res[0][2]["loss"]
         err = abs(got - ref)
         assert err < 1e-3, f"dp-ep loss mismatch: {got} vs {ref}"
@@ -134,6 +136,24 @@ def main(argv=None) -> dict:
               f"loss={got:.4f} (ref dev {err:.1e})")
         out["dp_ep_loss"], out["dp_ep_err"], out["dp_ep_form"] = got, err, form
     return out
+
+
+def main(argv=None) -> dict:
+    args = parse_args(argv)
+    from dagnn_tpu_torch import resolve_device
+    from dagnn_tpu_torch.parallel import jobs
+    from dagnn_tpu_torch.parallel.mesh import default_backend, spawn
+
+    device = "cpu" if args.cpu else "cuda"
+    n = args.ranks or torch.cuda.device_count()
+    if resolve_device(device).type == "cuda":
+        from dagnn_tpu_torch.ops import build
+        build.build_all(["wavefront", "segment_attn"])   # once, before the ranks
+    todo, ctx = plan(n, device)
+    backend = default_backend(n, device)
+    res = spawn(jobs.run_jobs, n, backend, device, timeout=args.timeout,
+                args=(todo,))
+    return check(ctx, backend, res)
 
 
 if __name__ == "__main__":

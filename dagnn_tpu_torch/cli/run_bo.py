@@ -21,6 +21,12 @@ bo-batch` latents of a round decode in one batch. Checkpoints are the
 port's own (train/checkpoint.py, as the port's train_vae writes them).
 Each BO round's line ends with its seconds: GP fit, greedy EI, decode
 (with the vote) and scoring.
+
+On the card each program the JAX package compiles replays a CUDA graph
+(CAPTURED: the GP fit's Adam steps, each greedy-EI candidate, the decode,
+the surrogate's train step and its MLP), captured once a key and
+replayed by every later fit, round and seed; the run's last line counts
+the captures and replays. main(capture=False) runs them eagerly.
 """
 
 from __future__ import annotations
@@ -40,9 +46,26 @@ from dagnn_tpu_torch import resolve_device
 from dagnn_tpu_torch.data.na import (NAGraph, graph_to_bn_adj_str,
                                      graph_to_enas_row, is_valid_bn,
                                      is_valid_enas, load_enas)
+from dagnn_tpu_torch.vae import dvae, enas_eval, sparse_gp
 from dagnn_tpu_torch.vae.bn_score import EvalBN
 from dagnn_tpu_torch.vae.sparse_gp import (batched_greedy_ei, fit_sparse_gp,
                                            predict)
+
+# the programs a BO run captures (train/graphs.CapturedStep)
+CAPTURED = {"GP fit": sparse_gp.FIT, "greedy EI": sparse_gp.EI,
+            "decode": dvae.DECODE, "surrogate fit": enas_eval.FIT,
+            "surrogate predict": enas_eval.PREDICT}
+
+
+def graph_counts():
+    """{program: (captures, replays)} so far in this process."""
+    return {k: (c.captures, c.replays) for k, c in CAPTURED.items()}
+
+
+def release_graphs():
+    """Free every graph and buffer of CAPTURED."""
+    for c in CAPTURED.values():
+        c.graphs.clear()
 
 
 def parse_args(argv=None):
@@ -116,11 +139,11 @@ def majority_vote(types, adj, nv, n: int, attempts: int, data_type: str,
     return [v.most_common(1)[0][0] if v else None for v in votes]
 
 
-def decode_from_latent(model_bundle, z, attempts, data_type, gen):
+def decode_from_latent(model_bundle, z, attempts, data_type, gen, capture=True):
     """Majority-vote decoding (dvae/util.py:408-466): decode each latent
     `attempts` times in one batch (z tiled to [attempts * n] rows on the
     model's device), keep valid graphs, return the most common encoding.
-    gen: a torch.Generator on that device."""
+    gen: a torch.Generator on that device; capture: dvae_decode's."""
     from dagnn_tpu_torch.vae.dagnn_vae import DAGNNVAEConfig, dagnn_vae_decode
     from dagnn_tpu_torch.vae.dvae import dvae_decode, sub_params
     cfg, params = model_bundle
@@ -128,9 +151,10 @@ def decode_from_latent(model_bundle, z, attempts, data_type, gen):
     z = torch.as_tensor(z, dtype=torch.float32).to(dev)
     z_tiled = z.repeat(attempts, 1)
     if isinstance(cfg, DAGNNVAEConfig):
-        types, adj, nv = dagnn_vae_decode(params, cfg, z_tiled, gen)
+        types, adj, nv = dagnn_vae_decode(params, cfg, z_tiled, gen, capture=capture)
     else:  # base D-VAE bundle (gated_sum decoder, no attention params)
-        types, adj, nv = dvae_decode(sub_params(params, "dec."), cfg, z_tiled, gen)
+        types, adj, nv = dvae_decode(sub_params(params, "dec."), cfg, z_tiled, gen,
+                                     capture=capture)
     return majority_vote(types, adj, nv, len(z), attempts, data_type,
                          cfg.max_n, cfg.nvt)
 
@@ -199,11 +223,14 @@ def score_gp(gp, X_test, y_test):
     return err, testll, float(sps.pearsonr(pred, y)[0])
 
 
-def main(argv=None):
+def main(argv=None, capture: bool = True):
     """Returns {"gp": [(rmse, ll, pearson, refit_f64) per seed], "rounds":
     [{"seed", "round", "valid", "n", "best", "fit_s", "ei_s", "decode_s",
-    "score_s"}], "scorer_quality": str or None}."""
+    "score_s"}], "scorer_quality": str or None, "graphs": {program:
+    (captures, replays)} of this run}. capture=False: every program
+    eager."""
     args = parse_args(argv)
+    before = graph_counts()
     dev = resolve_device("cpu" if args.cpu else "cuda")
     os.makedirs(args.res_dir, exist_ok=True)
     X_train, y_train, X_test, y_test, mean_y, std_y = load_latents(args.latent)
@@ -219,7 +246,7 @@ def main(argv=None):
     if args.data_type == "ENAS":
         if args.scorer == "surrogate" and args.bo:
             from dagnn_tpu_torch.vae.enas_eval import EvalENAS
-            eva_enas = EvalENAS(args.enas_corpus, device=dev)
+            eva_enas = EvalENAS(args.enas_corpus, device=dev, capture=capture)
             quality = eva_enas.quality()
             print("ENAS scorer:", quality)
             with open(os.path.join(args.res_dir, "scorer_quality.txt"), "w") as f:
@@ -230,9 +257,11 @@ def main(argv=None):
     eva = EvalBN() if args.data_type == "BN" else None
 
     out = {"gp": [], "rounds": [], "scorer_quality": quality}
+    # one generator reseeded each seed: a decode graph draws from it
+    gen = torch.Generator(device=dev)
     for seed in range(args.seeds):
         gp = fit_sparse_gp(X_train, y_train, M=args.M, iters=args.gp_iters,
-                           lr=args.gp_lr, seed=seed, device=dev)
+                           lr=args.gp_lr, seed=seed, device=dev, capture=capture)
         err, testll, pearson = score_gp(gp, X_test, y_test)
         out["gp"].append((err, testll, pearson, gp.refit_f64))
         print(f"seed {seed}: Test RMSE {err:.4f}, ll {testll:.4f}, "
@@ -248,24 +277,24 @@ def main(argv=None):
         Xa = np.asarray(X_train, np.float64).copy()
         ya = np.asarray(y_train, np.float64).reshape(-1, 1).copy()
         best_score, best_arc = 1e15, None
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen.manual_seed(seed)
         # one padded shape for every refit of the growing set
         pad_rows = len(Xa) + args.BO_rounds * args.bo_batch
         for it in range(args.BO_rounds):
             t0 = time.perf_counter()
             gp_it = fit_sparse_gp(Xa, ya, M=args.M, iters=args.gp_iters,
                                   lr=args.gp_lr, seed=seed * 100 + it,
-                                  pad_to=pad_rows, device=dev)
+                                  pad_to=pad_rows, device=dev, capture=capture)
             t1 = time.perf_counter()
             cand = batched_greedy_ei(
                 gp_it, args.bo_batch,
                 Xa.min(0), Xa.max(0), Xa.mean(0), Xa.std(0),
                 sample=args.sample_dist, seed=seed * 100 + it,
-                refine_iters=args.refine_iters)
+                refine_iters=args.refine_iters, capture=capture)
             cand_np = cand.cpu().double().numpy()
             t2 = time.perf_counter()
-            arcs = decode_from_latent(model_bundle, cand,
-                                      args.decode_attempts, args.data_type, gen)
+            arcs = decode_from_latent(model_bundle, cand, args.decode_attempts,
+                                      args.data_type, gen, capture)
             t3 = time.perf_counter()
             scores = []
             for arc in arcs:
@@ -296,6 +325,10 @@ def main(argv=None):
                 seed=seed, round=it, valid=n_valid, n=len(arcs),
                 best=(-best_score * std_y - mean_y) if best_arc else None,
                 fit_s=t1 - t0, ei_s=t2 - t1, decode_s=t3 - t2, score_s=t4 - t3))
+    now = graph_counts()
+    out["graphs"] = {k: tuple(a - b for a, b in zip(now[k], before[k])) for k in now}
+    print("captured programs (captures / replays) this run: " + ", ".join(
+        f"{k} {c} / {r}" for k, (c, r) in out["graphs"].items()))
     return out
 
 

@@ -14,18 +14,25 @@ of tensors. CapturedStep holds:
   * static input buffers (convert.static_buffers), into which each call
     first copies its batch (convert.batch_to_torch(..., out=)): the learning
     rate too, as a 0-d tensor, so that a plateau drop reaches the replay;
-  * with writes_state (a train step), the state: parameters and optimizer
-    state, cloned from the first call's and written in place inside the
-    graph, so that a replay never hands back memory of the graph's pool
-    that the next replay overwrites. A call with other state tensors
-    copies them in (a checkpoint loaded, a new fold). Without
-    writes_state (predict) the state is read where it lies, and its
-    tensors are part of the key;
+  * with writes_state (a train step), the state of each key: parameters
+    and optimizer state, cloned from the state of the key's first call
+    and written in place inside its graph, so that a replay never hands
+    back memory of the graph's pool that the next replay overwrites. A
+    call with other state tensors copies them in (a checkpoint loaded, a
+    new fold). A new key called with the buffers another key handed back
+    takes them as its own (the keys then share them: a train step moves
+    to another batch shape and trains on). Keys may hold states of
+    different shapes or dtypes (a GP fit in float32 and in float64), as
+    jax.jit keeps one compiled program a signature. Without writes_state
+    (predict) the state is read where it lies, and its tensors are part
+    of the key;
   * one graph per key, at most `keep` of them (the least recently used
-    is freed, and with it its private memory pool). The key is the
-    caller's (route, impl, convert.batch_key of the batch: every shape,
-    dtype and host value the step bakes into a launch) and the
-    generators the step draws from.
+    is freed, and with it its private memory pool and its state). The
+    key is the caller's (route, impl, convert.batch_key of the batch:
+    every shape, dtype and host value the step bakes into a launch) and
+    the generators the step draws from. A host value the step reads (a
+    learning rate, a loop count, a generator) may travel in the inputs:
+    their static buffers keep it as it is.
 
 Before a capture the step runs WARMUP times on a side stream, with its
 results dropped (the kernel libraries build and load there, the cuBLAS
@@ -97,15 +104,16 @@ class _Graph(NamedTuple):
     graph: Optional[object]   # torch.cuda.CUDAGraph; None on the CPU
     outputs: object           # the captured step's outputs (graph pool)
     counts: dict              # the launches one replay stands for
-    state: object             # the state it reads (keeps it alive)
+    state: object             # the state it reads: with writes_state its
+    #                           own buffers, written in place
 
 
 class CapturedStep:
     """fn(state, inputs) -> (new_state, outputs) replayed from one CUDA
     graph per key. Call it as step(key, state, inputs, generators) ->
-    (state, outputs): `state` the step's state (with writes_state its
-    persistent buffers, returned updated in place), `outputs` copies of
-    the step's outputs."""
+    (state, outputs): `state` the step's state (with writes_state the
+    key's persistent buffers, returned updated in place), `outputs`
+    copies of the step's outputs."""
 
     def __init__(self, fn: Callable, *, writes_state: bool = True,
                  keep: int = 1, debug: bool = False):
@@ -113,54 +121,58 @@ class CapturedStep:
         self.writes_state = writes_state
         self.keep = keep
         self.debug = debug         # keep each graph's nodes (graph_nodes)
-        self.state = None
         self.graphs: "OrderedDict[tuple, _Graph]" = OrderedDict()
         self.captures = 0          # graphs captured (staged sets on the CPU)
         self.replays = 0           # calls served by a graph (by a direct
         #                            call of the staged step on the CPU)
 
     def __call__(self, key, state, inputs, generators=()):
-        state = self._bind(state)
         gens = tuple(generators)
         full = (key, gens)
         if not self.writes_state:
             full += (tuple(id(t) for t in _leaves(state)),)
         g = self.graphs.get(full)
         if g is None:
-            g = self._capture(full, state, inputs, gens)
+            # another key's buffers stay the state (a train step moving to
+            # another batch shape trains on), anything else is cloned
+            mine = next((h.state for h in self.graphs.values() if h.state is state),
+                        None)
+            g = self._capture(full, self._bind(state, mine), inputs, gens)
         else:
             self.graphs.move_to_end(full)
+            self._bind(state, g.state)
             convert.batch_to_torch(inputs, out=g.inputs)
         if g.graph is None:
-            outputs = self._body(state, g.inputs)
+            outputs = self._body(g.state, g.inputs)
         else:
             g.graph.replay()
             ops.count_replay(g.counts)
             outputs = g.outputs
         self.replays += 1
-        return state, convert.tree_map(torch.clone, outputs)
+        return g.state, convert.tree_map(torch.clone, outputs)
 
-    def _bind(self, state):
-        """The state the graph reads: with writes_state the persistent
-        buffers, cloned from the first call's state; a state whose tensors
-        are not those buffers is copied into them."""
+    def _bind(self, state, mine=None):
+        """The state a key's graph reads: with writes_state its persistent
+        buffers `mine` (cloned from `state` where the key has none yet),
+        into which a state whose tensors are not those buffers is
+        copied."""
         if not self.writes_state:
             return state
-        if self.state is None:
-            self.state = convert.tree_map(lambda t: t.detach().clone(), state)
-        elif state is not self.state:
-            mine, theirs = _leaves(self.state), _leaves(state)
-            if len(mine) != len(theirs) or any(m is not t for m, t in
-                                               zip(mine, theirs)):
-                if convert.batch_key(state) != convert.batch_key(self.state):
+        if mine is None:
+            return convert.tree_map(lambda t: t.detach().clone(), state)
+        if state is not mine:
+            ours, theirs = _leaves(mine), _leaves(state)
+            if len(ours) != len(theirs) or any(m is not t for m, t in
+                                               zip(ours, theirs)):
+                if convert.batch_key(state) != convert.batch_key(mine):
                     raise ValueError("CapturedStep: the state's structure, "
                                      "shapes or dtypes differ from the "
                                      "captured state's")
                 with torch.no_grad():
-                    for m, t in zip(mine, theirs):
+                    for m, t in zip(ours, theirs):
                         if m is not t:
                             m.copy_(t)
-        return self.state
+        return mine
 
     def _body(self, state, inputs):
         new_state, outputs = self.fn(state, inputs)

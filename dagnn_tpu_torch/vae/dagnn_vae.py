@@ -228,9 +228,10 @@ def dagnn_vae_loss(params, cfg: DAGNNVAEConfig, batch: DAGBatch, types, adj,
     return recon + cfg.beta * k, recon, k
 
 
-def dagnn_vae_decode(params, cfg: DAGNNVAEConfig, z, gen=None, stochastic=True):
+def dagnn_vae_decode(params, cfg: DAGNNVAEConfig, z, gen=None, stochastic=True,
+                     capture=True):
     return dvae_decode(sub_params(params, "dec."), cfg.dvae, z, gen, stochastic,
-                       attn_params=_decoder_attn_params(params, cfg))
+                       attn_params=_decoder_attn_params(params, cfg), capture=capture)
 
 
 # --- host-side helpers -----------------------------------------------------

@@ -35,7 +35,7 @@ queues its launches without a sync.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +45,7 @@ from dagnn_tpu_torch import resolve_device
 from dagnn_tpu_torch.convert import flatten_tree, unflatten_tree
 from dagnn_tpu_torch.ops.gru import gru_cell, gru_init
 from dagnn_tpu_torch.ops.linear import linear, linear_init
+from dagnn_tpu_torch.train.graphs import CapturedStep
 
 
 @dataclasses.dataclass(frozen=True)
@@ -411,22 +412,20 @@ def dvae_encode_sequential(params, cfg: DVAEConfig, types, adj, nv):
     return linear(p["fc1"], hg), linear(p["fc2"], hg)
 
 
-@torch.no_grad()
-def dvae_decode(dec, cfg: DVAEConfig, z, gen: Optional[torch.Generator] = None,
-                stochastic: bool = True, attn_params=None):
-    """Stochastic or greedy decoding (models_pyg.py:338-396) of a batch of
-    latents z [B, nz], every conditional update a mask, on z's device.
-    Stochastic draws come from `gen` (a torch.Generator on z's device;
-    seeded 0 when None): a vertex type from the softmax of its logits, an
-    edge where a uniform draw is below its probability. Greedy: argmax,
-    and an edge where its probability is above 0.5. Returns numpy
-    (types [B, max_n], adj [B, max_n, max_n], nv [B]); finished graphs get
-    their loose ends wired to the END vertex."""
-    d, ap = _trees(dec, attn_params)
-    z = torch.as_tensor(z)
+def _draw_types(probs, gen):
+    """One vertex type a row of probs [B, nvt], drawn as ATen's
+    torch.multinomial(probs, 1, generator=gen) draws it (its single-sample
+    path: the argmax of probs over Exp(1) noise from gen), the same numbers,
+    without that path's host read of the probabilities' range, which a
+    CUDA graph cannot hold."""
+    q = torch.empty_like(probs).exponential_(1.0, generator=gen)
+    return torch.argmax(probs / q, -1)
+
+
+def _decode(d, ap, cfg: DVAEConfig, z, gen, stochastic: bool):
+    """The decode of dvae_decode on trees d / ap (unflattened): (types,
+    adj, nv) tensors on z's device."""
     dev = z.device
-    if stochastic and gen is None:
-        gen = torch.Generator(device=dev).manual_seed(0)
     B = z.shape[0]
     H0 = torch.tanh(linear(d["fc3"], z))
     types = torch.full((B, cfg.max_n), cfg.start_type, dtype=torch.long, device=dev)
@@ -445,8 +444,7 @@ def dvae_decode(dec, cfg: DVAEConfig, z, gen: Optional[torch.Generator] = None,
         else:
             logits = _mlp2(d["add_vertex"], _graph_state(cfg, state, nv))
             if stochastic:
-                new_types = torch.multinomial(torch.softmax(logits, -1), 1,
-                                              generator=gen)[:, 0]
+                new_types = _draw_types(torch.softmax(logits, -1), gen)
             else:
                 new_types = torch.argmax(logits, -1)
         grow = ~finished
@@ -476,5 +474,55 @@ def dvae_decode(dec, cfg: DVAEConfig, z, gen: Optional[torch.Generator] = None,
             adj[:, vi, idx] = torch.where(add, 1.0, adj[:, vi, idx])
             state = decoder_update_v(d, cfg, state, types_oh, adj, nv, idx,
                                      attn_params=ap)
-    return (types.cpu().numpy().astype(np.int32), adj.cpu().numpy(),
-            nv.cpu().numpy().astype(np.int32))
+    return types, adj, nv
+
+
+def _decode_step(state, inputs):
+    """The decode as DECODE's step: ((dec, attn_params), (z, cfg,
+    stochastic, gen)) -> (the same state, (types, adj, nv)), drawing from
+    gen."""
+    z, cfg, stochastic, gen = inputs
+    return state, _decode(*_trees(*state), cfg, z, gen, stochastic)
+
+
+class _DecodeKey(NamedTuple):
+    device: str
+    z: Tuple[int, int]          # [B, nz]
+    dtype: torch.dtype
+    cfg: DVAEConfig
+    stochastic: bool
+    attention: bool             # attention parameters given
+
+
+# the decode's captured program, one graph a _DecodeKey and generator (one
+# in a BO run); the parameters are read where they lie (their tensors are
+# part of the key)
+DECODE = CapturedStep(_decode_step, writes_state=False)
+
+
+@torch.no_grad()
+def dvae_decode(dec, cfg: DVAEConfig, z, gen: Optional[torch.Generator] = None,
+                stochastic: bool = True, attn_params=None, capture: bool = True):
+    """Stochastic or greedy decoding (models_pyg.py:338-396) of a batch of
+    latents z [B, nz], every conditional update a mask, on z's device.
+    Stochastic draws come from `gen` (a torch.Generator on z's device;
+    seeded 0 when None): a vertex type from the softmax of its logits (as
+    torch.multinomial draws one, _draw_types), an edge where a uniform draw
+    is below its probability. Greedy: argmax, and an edge where its
+    probability is above 0.5. Returns numpy (types [B, max_n], adj
+    [B, max_n, max_n], nv [B]), read on the host once; finished graphs get
+    their loose ends wired to the END vertex. capture: one replay of
+    DECODE's graph, `gen` registered with it (False: eager)."""
+    z = torch.as_tensor(z)
+    dev = z.device
+    if stochastic and gen is None:
+        gen = torch.Generator(device=dev).manual_seed(0)
+    if capture:
+        key = _DecodeKey(str(dev), tuple(z.shape), z.dtype, cfg, stochastic,
+                         attn_params is not None)
+        _, out = DECODE(key, (dec, attn_params), (z, cfg, stochastic, gen),
+                        (gen,) if stochastic else ())
+    else:
+        out = _decode(*_trees(dec, attn_params), cfg, z, gen, stochastic)
+    types, adj, nv = (t.cpu().numpy() for t in out)
+    return types.astype(np.int32), adj, nv.astype(np.int32)

@@ -17,18 +17,24 @@ offline here:
 full-batch with Adam 1e-3 (optax's formula, no clip) for 400 epochs on the
 device it is given (the card by default); `init_params` is separate from
 `_fit`, so a caller can hand it other initial weights.
+
+As the JAX package jits them, on a CUDA device the train step replays one
+CUDA graph an epoch (FIT) and the MLP one graph a row count (PREDICT),
+train/graphs.py; capture=False keeps them eager. A replay launches what
+the eager step launches: the same bits.
 """
 
 from __future__ import annotations
 
 import ast
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from dagnn_tpu_torch import resolve_device
 from dagnn_tpu_torch.data.na import graph_to_enas_row, load_enas
+from dagnn_tpu_torch.train.graphs import CapturedStep
 from dagnn_tpu_torch.train.optim import make_optimizer
 
 
@@ -53,6 +59,39 @@ def _mlp(p, x):
     return h @ p["w3"] + p["b3"]
 
 
+def _train_step(lr: float):
+    """One full-batch Adam step (no clip) on the mean squared error, as
+    fn((params, Adam state), (X, y)) -> ((params, Adam state), None)."""
+    opt = make_optimizer(lr, clip=0.0)
+
+    def fn(carry, data):
+        params, state = carry
+        X, y = data
+        q = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        with torch.enable_grad():
+            loss = torch.mean((_mlp(q, X) - y) ** 2)
+            gs = torch.autograd.grad(loss, list(q.values()))
+        with torch.no_grad():
+            updates, state = opt.update(dict(zip(q, gs)), state)
+            params = {k: params[k] + updates[k] for k in params}
+        return (params, state), None
+
+    return fn
+
+
+class _Key(NamedTuple):
+    device: str
+    X: Tuple[int, int]           # the rows' [B, F]
+    hidden: int
+
+
+# the captured programs: a train step (one graph a key, replayed an
+# epoch) and the MLP (its parameters read where they lie: one graph a
+# key and parameters, the validation rows' and a round's)
+FIT = CapturedStep(_train_step(1e-3))
+PREDICT = CapturedStep(lambda p, x: (p, _mlp(p, x)), writes_state=False, keep=2)
+
+
 class EvalENAS:
     """Corpus-lookup + surrogate ENAS scorer (Eval_NN stand-in).
 
@@ -63,8 +102,9 @@ class EvalENAS:
 
     def __init__(self, corpus_path: str, hidden: int = 256,
                  epochs: int = 400, seed: int = 0, val_frac: float = 0.1,
-                 device="cuda"):
+                 device="cuda", capture: bool = True):
         self.device = resolve_device(device)
+        self.capture = capture
         train, test, _ = load_enas(corpus_path, burn_in=0)
         rows, ys = [], []
         self.table = {}
@@ -79,8 +119,9 @@ class EvalENAS:
         perm = rng.permutation(len(X))
         n_val = max(1, int(len(X) * val_frac))
         vi, ti = perm[:n_val], perm[n_val:]
-        params = self.init_params(X.shape[1], hidden, seed)
-        self._fit(X[ti], y[ti], X[vi], y[vi], params, epochs)
+        # the train and validation rows and targets
+        self.split = (X[ti], y[ti], X[vi], y[vi])
+        self._fit(*self.split, self.init_params(X.shape[1], hidden, seed), epochs)
 
     def init_params(self, d: int, hidden: int, seed: int) -> Dict[str, torch.Tensor]:
         """He-normal weights, zero biases (the JAX scales), from a
@@ -96,17 +137,18 @@ class EvalENAS:
     def _fit(self, Xt, yt, Xv, yv, params, epochs):
         self.mu, self.sd = float(yt.mean()), float(yt.std()) or 1.0
         dev = lambda a: torch.as_tensor(a, device=self.device)
-        Xt_d, yt_d = dev(Xt), dev((yt - self.mu) / self.sd)
-        opt = make_optimizer(1e-3, clip=0.0)
-        state = opt.init(params)
+        data = (dev(Xt), dev((yt - self.mu) / self.sd))
+        carry = (params, make_optimizer(1e-3, clip=0.0).init(params))
+        if self.capture:
+            key = _Key(str(self.device), tuple(Xt.shape), params["w1"].shape[1])
+            step = lambda c: FIT(key, c, data)[0]
+        else:
+            eager = _train_step(1e-3)
+            step = lambda c: eager(c, data)[0]
         for _ in range(epochs):
-            q = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-            loss = torch.mean((_mlp(q, Xt_d) - yt_d) ** 2)
-            gs = torch.autograd.grad(loss, list(q.values()))
-            with torch.no_grad():
-                updates, state = opt.update(dict(zip(q, gs)), state)
-                params = {k: params[k] + updates[k] for k in params}
-        self._params = params
+            carry = step(carry)
+        # the fit's own tensors, not the graph's buffers
+        self._params = {k: v.clone() for k, v in carry[0].items()}
         pv = self.predict(Xv) * self.sd + self.mu
         self.val_rmse = float(np.sqrt(np.mean((pv - yv.ravel()) ** 2)))
         self.val_pearson = float(np.corrcoef(pv, yv.ravel())[0, 1])
@@ -115,7 +157,12 @@ class EvalENAS:
     def predict(self, X: np.ndarray) -> np.ndarray:
         """The surrogate's normalized outputs for feature rows X [B, F]."""
         x = torch.as_tensor(np.asarray(X, np.float32), device=self.device)
-        return _mlp(self._params, x).cpu().numpy().ravel()
+        if self.capture:
+            key = _Key(str(self.device), tuple(x.shape), self._params["w1"].shape[1])
+            out = PREDICT(key, self._params, x)[1]
+        else:
+            out = _mlp(self._params, x)
+        return out.cpu().numpy().ravel()
 
     def quality(self) -> str:
         return (f"surrogate val RMSE {self.val_rmse:.4f}, "

@@ -26,6 +26,17 @@ grid) keep their numpy seeds, so the same seed gives the same points as
 in the JAX package. Nothing inside the Adam loops or the greedy EI loop
 reads a value on the host: each entry point syncs once, at its end.
 
+One dispatch, as the JAX package compiles them (train/graphs.py): on a
+CUDA device each of the fit's Adam steps replays one CUDA graph (FIT: one
+step a graph, replayed `iters` times; keyed on the rows, D, M, lr, dtype
+and whether rows are masked), and each greedy-EI
+candidate replays one graph (EI: the grid's log EI, the top 8, their
+clipped Adam refinement, the best, the believer's update of B and A y,
+the new cache and incumbent; keyed on the grid size, D, M, refine_iters
+and dtype). A replay launches what the eager form launches, in the same
+order: the two give the same bits. capture=False keeps the eager form; on
+CPU tensors the captured form calls the same step functions directly.
+
 The EI's normal CDF is written from erf / erfc as JAX's ndtr is (see
 _ndtr). Where the JAX package writes log(max(ei, 1e-300)), the floor is a
 constant of the operands' dtype: 0 in float32, so log EI is -inf wherever
@@ -37,12 +48,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from dagnn_tpu_torch import resolve_device
+from dagnn_tpu_torch.train.graphs import CapturedStep
 from dagnn_tpu_torch.train.optim import make_optimizer
 
 _SQRT_2PI = math.sqrt(2.0 * math.pi)
@@ -145,43 +157,62 @@ def _titsias_bound(p, X, y, mask=None):
     return bound - 0.5 / sn2 * (kdiag - sn2 * torch.sum(A ** 2))
 
 
-def _adam_fit(p, X, y, mask, iters: int, lr: float):
-    """`iters` Adam steps (optax.adam: eps outside the square root, no
-    clip) on the negative bound; (params, the last step's loss)."""
-    opt = make_optimizer(lr, clip=0.0)
-    state = opt.init(p)
+_ADAM = make_optimizer(clip=0.0)
+
+
+def _adam_step(carry, data):
+    """One Adam step (optax.adam: eps outside the square root, no clip) on
+    the negative bound, as fn((params, Adam state), (X, y, mask, lr)) ->
+    ((params, Adam state), its loss): the eager loop's step and the
+    captured program (FIT) both."""
+    p, state = carry
+    X, y, mask, lr = data
+    q = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+    with torch.enable_grad():
+        loss = -_titsias_bound(q, X, y, mask)
+        gs = torch.autograd.grad(loss, list(q.values()))
+    with torch.no_grad():
+        updates, state = _ADAM.update(dict(zip(q, gs)), state, lr)
+        p = {k: p[k] + updates[k] for k in p}
+    return (p, state), loss.detach()
+
+
+class _FitKey(NamedTuple):
+    device: str
+    rows: Tuple[int, int]        # X's [n (padded), D]
+    M: int
+    lr: float
+    dtype: torch.dtype
+    masked: bool
+
+
+# the fit's captured program, one graph a _FitKey: {unpadded, padded} x
+# {float32, float64} in a BO run
+FIT = CapturedStep(_adam_step, keep=4)
+
+
+def _adam_fit(p, X, y, mask, iters: int, lr: float, capture: bool = False):
+    """`iters` Adam steps on the negative bound; (params, the last step's
+    loss). capture: each step a replay of FIT's graph; the parameters
+    returned are the fit's own, not the graph's buffers."""
+    carry = (p, _ADAM.init(p))
+    data = (X, y, mask, lr)
     loss = torch.full((), torch.nan, dtype=X.dtype, device=X.device)
+    key = _FitKey(str(X.device), tuple(X.shape), p["Z"].shape[0], lr, X.dtype,
+                  mask is not None)
+    step = FIT if capture else lambda _, c, d: _adam_step(c, d)
     for _ in range(iters):
-        q = {k: v.detach().requires_grad_(True) for k, v in p.items()}
-        with torch.enable_grad():
-            loss = -_titsias_bound(q, X, y, mask)
-            gs = torch.autograd.grad(loss, list(q.values()))
-        with torch.no_grad():
-            updates, state = opt.update(dict(zip(q, gs)), state)
-            p = {k: p[k] + updates[k] for k in p}
-    return p, loss.detach()
+        carry, loss = step(key, carry, data)
+    params = carry[0]
+    # captured: the fit's own tensors, not the graph's buffers
+    return ({k: v.clone() for k, v in params.items()} if capture else params), loss
 
 
-def fit_sparse_gp(X, y, M: int = 500, iters: int = 200, lr: float = 5e-3,
-                  seed: int = 0, pad_to: Optional[int] = None,
-                  device="cuda") -> SparseGP:
-    """Fit by maximizing the collapsed bound with Adam (the reference trains
-    its SGP with Adam too, bo.py:256-260).
-
-    X [n, D], y [n] or [n, 1]: numpy arrays (run on `device` in float32)
-    or tensors (run on their device, in their dtype when it is float64,
-    else float32). pad_to: pad the train set to this row count with masked
-    zeros (the BO rounds' growing set keeps one shape). A float32 fit
-    whose last loss or any parameter is non-finite is redone in float64 on
-    the same device."""
-    if isinstance(X, torch.Tensor):
-        dev = X.device
-        dtype = torch.float64 if X.dtype == torch.float64 else torch.float32
-    else:
-        dev, dtype = resolve_device(device), torch.float32
-    _check_precision(dev)
-    Xh = _host64(X)
-    yh = _host64(y).reshape(-1)
+def _fit_problem(Xh, yh, M: int, seed: int, pad_to: Optional[int], dt, dev):
+    """A fit's start on `dev` in `dt` from the float64 host rows Xh [n, D]
+    and targets yh [n]: (initial parameters, the rows and targets padded
+    to pad_to with zeros, the padding mask or None). The inducing points
+    are M rows drawn by a numpy generator seeded `seed`."""
     n, d = Xh.shape
     mask = None
     Xp, yp = Xh, yh
@@ -196,15 +227,39 @@ def fit_sparse_gp(X, y, M: int = 500, iters: int = 200, lr: float = 5e-3,
     # break exact duplicates (undertrained encoders emit near-identical
     # latents; duplicated inducing points make Kmm singular beyond jitter)
     Z0 = Z0 + 1e-4 * (Xh.std(0) + 1e-6) * rng.standard_normal(Z0.shape)
+    t = lambda a: torch.as_tensor(a, dtype=dt, device=dev)
+    p = {"Z": t(Z0),
+         "log_ls": torch.log(t(Xh.std(0) + 1e-3) * float(np.sqrt(d))),
+         "log_sf2": t(np.log(yh.var() + 1e-3)),
+         "log_sn2": t(np.log(yh.var() * 0.1 + 1e-3))}
+    return p, t(Xp), t(yp), None if mask is None else t(mask)
+
+
+def fit_sparse_gp(X, y, M: int = 500, iters: int = 200, lr: float = 5e-3,
+                  seed: int = 0, pad_to: Optional[int] = None,
+                  device="cuda", capture: bool = True) -> SparseGP:
+    """Fit by maximizing the collapsed bound with Adam (the reference trains
+    its SGP with Adam too, bo.py:256-260).
+
+    X [n, D], y [n] or [n, 1]: numpy arrays (run on `device` in float32)
+    or tensors (run on their device, in their dtype when it is float64,
+    else float32). pad_to: pad the train set to this row count with masked
+    zeros (the BO rounds' growing set keeps one shape). A float32 fit
+    whose last loss or any parameter is non-finite is redone in float64 on
+    the same device. capture: the Adam steps replayed from FIT's graphs
+    (False: eager); the finiteness test after them, one host sync."""
+    if isinstance(X, torch.Tensor):
+        dev = X.device
+        dtype = torch.float64 if X.dtype == torch.float64 else torch.float32
+    else:
+        dev, dtype = resolve_device(device), torch.float32
+    _check_precision(dev)
+    Xh = _host64(X)
+    yh = _host64(y).reshape(-1)
 
     def fit(dt):
-        t = lambda a: torch.as_tensor(a, dtype=dt, device=dev)
-        p = {"Z": t(Z0),
-             "log_ls": torch.log(t(Xh.std(0) + 1e-3) * float(np.sqrt(d))),
-             "log_sf2": t(np.log(yh.var() + 1e-3)),
-             "log_sn2": t(np.log(yh.var() * 0.1 + 1e-3))}
-        m = None if mask is None else t(mask)
-        p, last = _adam_fit(p, t(Xp), t(yp), m, iters, lr)
+        p, last = _adam_fit(*_fit_problem(Xh, yh, M, seed, pad_to, dt, dev), iters,
+                            lr, capture)
         finite = torch.isfinite(last) & torch.stack(
             [torch.isfinite(v).all() for v in p.values()]).all()
         return p, bool(finite)
@@ -248,14 +303,14 @@ def _stable(gp: SparseGP) -> SparseGP:
                     gp.y.double(), gp.refit_f64)
 
 
-def _cache(gp: SparseGP, Lm, Bmat, Ay, sn2):
+def _cache(p, Lm, Bmat, Ay, sn2):
     Lb = _cholesky(Bmat)
-    return gp.params, Lm, Lb, _solve(Lb, Ay) / torch.sqrt(sn2)
+    return p, Lm, Lb, _solve(Lb, Ay) / torch.sqrt(sn2)
 
 
 def _posterior_cache(gp: SparseGP):
     Lm, A, sn2, eye = _posterior_terms(gp)
-    return _cache(gp, Lm, eye + A @ A.T, A @ gp.y, sn2)
+    return _cache(gp.params, Lm, eye + A @ A.T, A @ gp.y, sn2)
 
 
 def _mean_var(cache, x):
@@ -292,7 +347,7 @@ def _log_ei_from(mean, var, incumbent):
     gamma = (incumbent - mean) / sd
     ei = sd * (gamma * _ndtr(gamma)
                + torch.exp(-0.5 * gamma ** 2) / _SQRT_2PI)
-    floor = torch.tensor(1e-300, dtype=ei.dtype, device=ei.device)  # 0 in f32
+    floor = ei.new_full((), 1e-300)                   # 0 in f32; no H2D copy
     return torch.log(torch.maximum(ei, floor))
 
 
@@ -301,10 +356,64 @@ def log_ei(gp_cache, x, incumbent):
     return _log_ei_from(*_mean_var(gp_cache, x), incumbent)
 
 
+_REFINE_ADAM = make_optimizer(0.05, clip=0.0)
+
+
+def _candidate_step(state, refine_iters: int):
+    """One greedy-EI candidate: (state, best [1, D]) from state = (round,
+    (Bmat, Ay, Lb, c, incumbent)), the round's
+    constants (params, Lm, sn2, the grid, its t1 through Lm and sum of
+    squares, the box) and the believer's running system. The grid's log
+    EI, the top 8 by argsort, their refine_iters clipped Adam steps (lr
+    0.05), the best by log EI; then the believer's rank-1 update of B = I
+    + A A^T and of A y with the best point's predicted mean, the new cache
+    and the incumbent. The eager loop's step and the captured program (EI)
+    both."""
+    (p, Lm, sn2, grid, t1_grid, t1_sq, lower, upper), run = state
+    Bmat, Ay, Lb, c, incumbent = run
+    cache = (p, Lm, Lb, c)
+    t2 = _solve(Lb, t1_grid)
+    lei = _log_ei_from(t2.T @ c, torch.exp(p["log_sf2"]) - t1_sq
+                       + torch.sum(t2 ** 2, 0), incumbent)
+    x = grid[torch.argsort(-lei)[:8]]          # refine the top grid points
+    adam = _REFINE_ADAM.init({"x": x})
+    for _ in range(refine_iters):
+        xg = x.detach().requires_grad_(True)
+        with torch.enable_grad():
+            g, = torch.autograd.grad(-torch.sum(log_ei(cache, xg, incumbent)), xg)
+        upd, adam = _REFINE_ADAM.update({"x": g}, adam)
+        x = torch.clamp(x + upd["x"], lower, upper)
+    # a 1-d index: a 0-d one reads its value on the host
+    best = x[torch.argmax(log_ei(cache, x, incumbent))[None]]
+    # Kriging believer: pretend we observed the predicted mean
+    mb = _mean_var(cache, best)[0]
+    a = _solve(Lm, _kernel(p, p["Z"], best)) / torch.sqrt(sn2)      # [M, 1]
+    Bmat = Bmat + a @ a.T
+    Ay = Ay + a[:, 0] * mb[0]
+    _, _, Lb, c = _cache(p, Lm, Bmat, Ay, sn2)
+    incumbent = torch.minimum(incumbent, mb[0])
+    return (state[0], (Bmat, Ay, Lb, c, incumbent)), best
+
+
+class _EIKey(NamedTuple):
+    device: str
+    grid_size: int
+    D: int
+    M: int
+    refine_iters: int
+    dtype: torch.dtype
+
+
+# a greedy-EI candidate's captured program, one graph a _EIKey (float32 and
+# float64)
+EI = CapturedStep(_candidate_step, keep=2)
+
+
 @torch.no_grad()
 def batched_greedy_ei(gp: SparseGP, q: int, lower, upper, mean, std,
                       sample: str = "normal", grid_size: int = 10000,
-                      refine_iters: int = 50, seed: int = 0) -> torch.Tensor:
+                      refine_iters: int = 50, seed: int = 0,
+                      capture: bool = True) -> torch.Tensor:
     """Select q candidate latents [q, D] by greedy EI (sparse_gp.py:
     296-340): sample a grid (numpy, seeded), find the incumbent (min
     predicted mean), then repeatedly pick the 8 best-EI grid points, refine
@@ -312,7 +421,9 @@ def batched_greedy_ei(gp: SparseGP, q: int, lower, upper, mean, std,
     a selected point joins the train set with its predicted mean (Kriging
     believer) so the batch spreads out. The [M, N] part of the posterior
     is built once; each believer point is a rank-1 update of B = I + A A^T
-    and of A y. Runs in float64 where _stable says so."""
+    and of A y. Runs in float64 where _stable says so. The round's set-up
+    is eager; capture: each candidate a replay of EI's graph (False:
+    _candidate_step eagerly)."""
     dev = gp.X.device
     _check_precision(dev)
     gp = _stable(gp)
@@ -328,43 +439,17 @@ def batched_greedy_ei(gp: SparseGP, q: int, lower, upper, mean, std,
     Lm, A0, sn2, eye = _posterior_terms(gp)
     Bmat = eye + A0 @ A0.T
     Ay = A0 @ gp.y
-    cache = _cache(gp, Lm, Bmat, Ay, sn2)
-
+    cache = _cache(p, Lm, Bmat, Ay, sn2)
     # grid quantities through Lm are iteration-invariant: computed once
     t1_grid = _solve(Lm, _kernel(p, Z, grid_t))
-    sf2 = torch.exp(p["log_sf2"])
     t1_sq = torch.sum(t1_grid ** 2, 0)
-
-    def grid_log_ei(cache, incumbent):
-        t2 = _solve(cache[2], t1_grid)
-        return _log_ei_from(t2.T @ cache[3], sf2 - t1_sq + torch.sum(t2 ** 2, 0),
-                            incumbent)
-
     incumbent = torch.minimum(_mean_var(cache, grid_t)[0].min(), gp.y.min())
-    opt = make_optimizer(0.05, clip=0.0)
-
-    def refine(x, cache, incumbent):
-        state = opt.init({"x": x})
-        for _ in range(refine_iters):
-            xg = x.detach().requires_grad_(True)
-            with torch.enable_grad():
-                g, = torch.autograd.grad(-torch.sum(log_ei(cache, xg, incumbent)), xg)
-            upd, state = opt.update({"x": g}, state)
-            x = torch.clamp(x + upd["x"], lower_t, upper_t)
-        return x
-
+    state = ((p, Lm, sn2, grid_t, t1_grid, t1_sq, lower_t, upper_t),
+             (Bmat, Ay, cache[2], cache[3], incumbent))
+    key = _EIKey(str(dev), grid_size, d, Z.shape[0], refine_iters, gp.X.dtype)
+    step = EI if capture else lambda _, s, n: _candidate_step(s, n)
     chosen = []
     for _ in range(q):
-        lei = grid_log_ei(cache, incumbent)
-        x0 = grid_t[torch.argsort(-lei)[:8]]       # refine the top grid points
-        xr = refine(x0, cache, incumbent)
-        best = xr[torch.argmax(log_ei(cache, xr, incumbent))][None]
+        state, best = step(key, state, refine_iters)
         chosen.append(best)
-        # Kriging believer: pretend we observed the predicted mean
-        mb = _mean_var(cache, best)[0]
-        a = _solve(Lm, _kernel(p, Z, best)) / torch.sqrt(sn2)      # [M, 1]
-        Bmat = Bmat + a @ a.T
-        Ay = Ay + a[:, 0] * mb[0]
-        cache = _cache(gp, Lm, Bmat, Ay, sn2)
-        incumbent = torch.minimum(incumbent, mb[0])
     return torch.cat(chosen, 0)

@@ -16,7 +16,8 @@ cores in bf16; the attention with empty and single-slot lists, huge
 masked scores and routed reads), the segment merge in each of its
 forms, and the NA VAE's shapes (K6 and K5 in f32 at widths 501 and 509 on
 a level of 32 live slots in 256, and one NA train step, kernels against
-plain); with
+plain); the captured steps against the eager ones, the BO loop's programs
+(the GP fit, greedy EI, the decode, the ENAS surrogate) included; with
 and without edge
 attributes, widths that are not multiples of the kernels' 32-wide tiles,
 float32 and bfloat16.
@@ -1246,3 +1247,84 @@ def test_captured_parallel_steps_equal_eager_steps(dev, kind, dropout, tmp_path)
     assert f["captured"]["issued"]["device"] > 0 and f["captured"]["issued"]["host"] == 0
     assert r["form"] == "captured" and r["route"] == "device"
     assert (r["captures"], r["replays"]) == ((2, 4) if kind == "ep" else (1, 3))
+
+
+# --------------------------------------- the BO loop's captured programs
+
+def _gp_data(n=160, d=5, seed=3):
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((n, d))
+    return X, np.sin(X[:, 0]) + 0.5 * np.cos(X[:, 1]) + 0.1 * rng.standard_normal(n)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_bo_fit_and_ei_captured_equal_eager(dev, dtype):
+    """The GP fit through sparse_gp.FIT (one Adam step a graph, replayed 8
+    times), on masked padding rows, and a round of 3 greedy-EI candidates
+    through sparse_gp.EI, on the card in float32 and float64: bit for bit
+    their eager forms; a second fit of the key replays without a
+    capture."""
+    from dagnn_tpu_torch.vae import sparse_gp as T
+    X, y = _gp_data()
+    Xd, yd = (torch.as_tensor(a, dtype=dtype, device=dev) for a in (X, y))
+    kw = dict(M=24, iters=8, lr=1e-2, pad_to=190)
+    fits, c = {}, None
+    for seed in (0, 1):
+        c = T.FIT.captures if seed else c
+        for capture in (False, True):
+            fits[seed, capture] = T.fit_sparse_gp(Xd, yd, seed=seed, capture=capture, **kw)
+    for seed in (0, 1):
+        a, b = fits[seed, True], fits[seed, False]
+        assert a.refit_f64 == b.refit_f64
+        assert all(torch.equal(a.params[k], b.params[k]) for k in a.params), seed
+    assert T.FIT.captures == c
+    gp = fits[0, True]
+    args = (3, X.min(0), X.max(0), X.mean(0), X.std(0))
+    ei = dict(grid_size=500, refine_iters=10, seed=1)
+    cand = [T.batched_greedy_ei(gp, *args, capture=c, **ei) for c in (False, True)]
+    assert cand[1].dtype == gp.X.dtype and torch.equal(cand[0], cand[1])
+
+
+@pytest.mark.parametrize("dec_agg", ["gated_sum", "attn"])
+def test_bo_decode_captured_equals_eager(dev, dec_agg):
+    """dvae.DECODE's graph (the generator registered) against the eager
+    decode from a generator of the same seed on the card: the same types,
+    adjacency and vertex counts, stochastic and greedy; two replays of one
+    key draw on from where the generator stands, as the eager decodes do."""
+    from dagnn_tpu_torch.vae import dvae as td
+    cfg = td.DVAEConfig(max_n=8, nvt=8, hs=45, nz=6, vid=True, dec_agg=dec_agg)
+    g = torch.Generator().manual_seed(3)
+    dec = td.dvae_decoder_init(g, cfg, device=dev)
+    attn = None
+    if dec_agg == "attn":
+        attn = {"attn_lin.w": (torch.rand(1, cfg.nvt + cfg.vs, generator=g) - 0.5).to(dev),
+                "attn_lin.b": torch.zeros(1, device=dev)}
+    z = 2.0 * torch.randn(37, 6, generator=g).to(dev)
+    for stochastic in (True, False):
+        gens = [torch.Generator(device=dev).manual_seed(7) for _ in range(2)]
+        for _ in range(2):
+            a, b = (td.dvae_decode(dec, cfg, z, gen, stochastic, attn, capture=c)
+                    for gen, c in zip(gens, (True, False)))
+            for x, y in zip(a, b):
+                np.testing.assert_array_equal(x, y)
+
+
+def test_bo_surrogate_captured_equals_eager(dev, tmp_path):
+    """enas_eval.FIT's step replayed 40 epochs on the corpus's first 300
+    rows leaves the parameters the eager epochs leave, bit for bit, and
+    PREDICT's graph predicts what the eager MLP does."""
+    import gzip
+    import os
+    from dagnn_tpu_torch.vae import enas_eval as tev
+    src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                       "data", "final_structures6.txt.gz")
+    path = tmp_path / "enas300.txt"
+    with gzip.open(src, "rt") as f, open(path, "w") as out:
+        for _, line in zip(range(300), f):
+            out.write(line)
+    got, want = (tev.EvalENAS(str(path), epochs=40, device=dev, capture=c)
+                 for c in (True, False))
+    assert all(torch.equal(got._params[k], want._params[k]) for k in got._params)
+    X = np.stack([tev.featurize_row(r) for r in list(got.table)[:33]])
+    np.testing.assert_array_equal(got.predict(X), want.predict(X))
+    assert tev.FIT.captures >= 1 and tev.PREDICT.captures >= 2

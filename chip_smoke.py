@@ -202,9 +202,11 @@ split form), the merged and unidirectional wavefronts on near/far batches
   on the host, since NCCL takes one rank a card; its numbers measure the
   code path, not scaling):
   the two spawns (2 and 4 ranks) run at once, and carry 23a's and 23d's
-  ranks too:
-  23a. cli.dryrun at 2 and 4 ranks, its jobs (dryrun.plan) in the spawn of
-      that size: the JAX dry run's checks (dryrun.check: a finite DP
+  ranks too: the CLIs' own mains run in threads, given the phase's spawn
+  (SharedWorlds), which adds their jobs to the world of their size:
+  23a. dryrun.main(["--ranks", N, "--timeout", "900"]) at 2 and 4 ranks
+      (its plan, build_all, spawn and check): the JAX dry run's checks (a
+      finite DP
       loss; the replicated-state EP forward within 1e-3 of the single-rank
       states; at 4 ranks the (dp 2, ep 2) step's loss within 1e-3 of the
       mean of the two batches' single-rank losses)
@@ -235,9 +237,9 @@ split form), the merged and unidirectional wavefronts on near/far batches
       2-rank spawn, its trace section: both orders' bf16 steps in turns a
       b b a (CUDA events), one profiled forward pass each, every deferred
       exchange's wait where its order puts it
-  23d. cli.bench_scaling --devices 2 --iters 1 (its defaults' workload,
-      1 timed step), its lines and JSON line (bench_scaling.report): its
-      2-rank bench_job in the 2-rank spawn, its 1-rank job in this
+  23d. bench_scaling.main(["--devices", "2", "--iters", "1"]) (its
+      defaults' workload, 1 timed step), its lines and JSON line: its
+      2-rank bench_job in the 2-rank spawn, its 1-rank job served in this
       process's world-size-1 group after 23e; the ranks of 23b-23d that
       share the card run gloo, so their steps are eager, which their
       lines say
@@ -300,8 +302,9 @@ split form), the merged and unidirectional wavefronts on near/far batches
       drops events of traces this long)
   25c. train_vae.main at phase 20's NA flags, 2 epochs, the plateau drop
       forced after epoch 1, captured against all eager: the loss file and
-      the parameters bit for bit, one capture; epoch 1 equal to phase 20's
-      run C's, epoch 2 not (the new learning rate reached the replays);
+      the parameters bit for bit, one capture a batch size (the tail's
+      its own); epoch 1 equal to phase 20's run C's, epoch 2 not (the new
+      learning rate reached the replays);
       at 20b's BN flags one epoch the same; each VAE's train step eager
       against captured in turns, its graph's K5 and K6 nodes against the
       eager step's wrapper counts
@@ -325,12 +328,24 @@ split form), the merged and unidirectional wavefronts on near/far batches
       DVAE_fast and DVAE_DeepGMG: train_vae.main at 21d's flags, 21d's
       captured first epoch against one epoch all eager
       (train_vae.CAPTURED emptied): the loss sums and the parameters bit
-      for bit, one capture; epoch seconds each way; the step on batch 0
+      for bit, one capture a batch size; epoch seconds each way; the step
+      on batch 0
       eager against captured in turns, no kernel of the port in the graph
   26c. on gin-virtual, ggnn-etype, asap, SVAE_GraphRNN and DVAE_DeepGMG:
       the graph's kernels against the profiler's trace of the step run
       eagerly on the graph's buffers, name for name (census_pair, padded
       with spin kernels), and a replay's busy share
+  the launchers of dagnn_tpu_torch/scripts/ as a user starts them:
+  27. each protocol script run with bash in a process of its own on the
+      card, at full width and small depth, four chains at once:
+      na_train.sh (EPOCHS=1, --max-count 1000) then na_eval.sh on its
+      latents (CKPT, SEEDS=1, ROUNDS=1, then summarize); ogb_tok.sh and
+      ogb_lp.sh (EPOCHS=1 FOLDS=1, --synthetic 400); bn_train.sh (one
+      epoch on 512 synthetic rows) then bn_eval.sh (one seed, one round).
+      Gates: exit code 0, the files each protocol writes, finite numbers,
+      each CLI's line saying it ran on cuda; the VAE epochs' steps all
+      replays (captures 2: the full batches' key and the tail's), K6 and
+      K5 launched as the replays' passes predict
 
 The second-to-last line is the kernel table as JSON, the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero.
@@ -3117,13 +3132,13 @@ def _np_grads(g):
     return {k: v.detach().float().cpu().numpy() for k, v in g.items()}
 
 
-def nccl_world_one(label, dev, card, cfg, params, graphs, bench):
+def nccl_world_one(label, dev, card, cfg, params, graphs, serve_one):
     """The DP step at world size 1 over NCCL (gloo for a CPU rehearsal) in
     this process: one step (make_dp_train_step's default form: captured
     over NCCL) bitwise equal to the single-process step (loss_and_grads,
     the optimizer's update, params + updates); then, on the same group,
-    23e (parallel_graphs) and `bench` ((fn, kwargs): bench_scaling's
-    1-rank job, its result under "bench")."""
+    23e (parallel_graphs) and `serve_one` (SharedWorlds.serve_one:
+    bench_scaling's 1-rank run, served on this group)."""
     import tempfile
     import torch.distributed as dist
     from dagnn_tpu_torch import flagship
@@ -3178,7 +3193,7 @@ def nccl_world_one(label, dev, card, cfg, params, graphs, bench):
         with tempfile.TemporaryDirectory(prefix="chip_smoke_23e_") as tmp:
             out["graphs"] = parallel_graphs(dev, card, cfg, params, tmp)
         t0 = time.perf_counter()
-        out["bench"] = bench[0](dev, **bench[1])
+        serve_one(dev)
         out["bench_s"] = time.perf_counter() - t0
     finally:
         release_graphs()
@@ -3386,6 +3401,97 @@ def parallel_refs(dev, cfg, params, stacked, ep_batches):
     return out
 
 
+class SharedWorlds:
+    """A spawn with parallel.mesh.spawn's signature, for the CLIs' own
+    mains (cli.dryrun, cli.bench_scaling) inside phase 23: each call's
+    jobs join the phase's jobs of its world size, and a world of gloo
+    ranks starts once every call it waits for (`joiners`, by world size)
+    has joined, with the least timeout they ask for: one process start a
+    rank in all. A one-rank call is served on the caller's own
+    world-size-1 group instead (serve_one), where no process starts."""
+
+    def __init__(self, todo, joiners, device):
+        import queue
+        import threading
+        self.todo = {n: list(j) for n, j in todo.items()}
+        self.left, self.device = dict(joiners), device
+        self.timeout = {n: 900.0 for n in todo}
+        self.lock = threading.Lock()
+        self.done = {n: threading.Event() for n in todo}
+        self.results, self.errors, self.seconds = {}, {}, {}
+        self.one, self.closed = queue.Queue(), False
+
+    def __call__(self, fn, world, backend=None, device="cuda", store_dir=None,
+                 timeout=300.0, args=()):
+        import inspect
+        from concurrent.futures import Future
+        from dagnn_tpu_torch.parallel import jobs
+        names = list(inspect.signature(fn).parameters)[1:]
+        mine = (list(args[0]) if fn is jobs.run_jobs
+                else [(fn, dict(zip(names, args)))])
+        if world == 1:
+            fut = Future()
+            with self.lock:
+                check(not self.closed, "a one-rank run asked for after phase 23")
+                self.one.put((mine[0], fut))
+            return [fut.result(timeout=timeout)]
+        check(backend in (None, "gloo"), f"a {world}-rank world on {backend}")
+        with self.lock:
+            start = len(self.todo[world])
+            self.todo[world] += mine
+            self.timeout[world] = min(self.timeout[world], timeout)
+            self.left[world] -= 1
+            go = self.left[world] == 0
+        if go:
+            self._start(world)
+        res = self.wait(world)
+        part = [r[start:start + len(mine)] for r in res]
+        return part if fn is jobs.run_jobs else [p[0] for p in part]
+
+    def _start(self, world):
+        from dagnn_tpu_torch.parallel import jobs
+        from dagnn_tpu_torch.parallel.mesh import spawn
+        t0 = time.perf_counter()
+        try:
+            self.results[world] = spawn(jobs.run_jobs, world, "gloo", self.device,
+                                        timeout=self.timeout[world],
+                                        args=(self.todo[world],))
+        except Exception as e:
+            self.errors[world] = e
+        finally:
+            self.seconds[world] = time.perf_counter() - t0
+            self.done[world].set()
+
+    def wait(self, world, callers=()):
+        """The world's results, every rank's job results in order; raises
+        what a call of `callers` (futures) raised before its world began."""
+        while not self.done[world].wait(1.0):
+            for f in callers:
+                if f.done() and f.exception() is not None:
+                    raise f.exception()
+        if world in self.errors:
+            raise self.errors[world]
+        return self.results[world]
+
+    def serve_one(self, dev, timeout=600.0):
+        """Run the one-rank call waiting (its job, on this process's
+        world-size-1 group); its result."""
+        (fn, kw), fut = self.one.get(timeout=timeout)
+        try:
+            fut.set_result(fn(dev, **kw))
+        except BaseException as e:
+            fut.set_exception(e)
+            raise
+        return fut.result()
+
+    def close(self):
+        """Fail a one-rank call still waiting (the phase ended first)."""
+        with self.lock:
+            self.closed = True
+            while not self.one.empty():
+                self.one.get()[1].set_exception(SmokeFailure("phase 23 ended"))
+
+
 def phase_parallel(dev, card, graphs, params, cfg, bench_argv=()):
     """Phase 23: the parallel layer at cfg's widths (the flagship's) on
     `graphs` (phase 4's batch), D ranks on this one card (gloo: the host
@@ -3419,52 +3525,72 @@ def phase_parallel(dev, card, graphs, params, cfg, bench_argv=()):
                            mesh_shape=(1, D), probe=True)),
         (jobs.ep_job, dict(cfg=cfg_p, params_np=pnp, batches=[ep_batches[D]],
                            mesh_shape=(1, D), probe=True, orders=D == 4))]
-    # 23a's dry runs and 23d's 2-rank bench_scaling run, as their CLIs plan
-    # them, ride in the two spawns (one process start a rank in all)
-    dry = {n: dryrun.plan(n, device) for n in (2, 4)}
-    bargs = bench_scaling.parse_args(["--devices", "2", "--iters", "1", *cpu, *bench_argv])
-    bcfg, bgraphs, b_edges, bpnp = bench_scaling.workload(bargs)
     todo = {2: [(jobs.dp_job, dict(cfg=cfg, params_np=pnp, stacked=stacked, steps=3))]
             + ep_jobs(2) + [(overlap.trace_job, dict(
                 cfg=cfg_p, params_np=pnp, batch=ep_batches[2], mesh_shape=(1, 2),
                 warmup=False, backward=False))],
             4: ep_jobs(4)}
     own = {n: len(todo[n]) for n in todo}
-    todo[2] += dry[2][0] + [(bench_scaling.bench_job, dict(
-        cfg=bcfg, params_np=bpnp, graphs=bgraphs, iters=bargs.iters))]
-    todo[4] += dry[4][0]
-
-    def timed_spawn(n):
-        t0 = time.perf_counter()
-        return spawn(jobs.run_jobs, n, "gloo", device, timeout=900,
-                     args=(todo[n],)), time.perf_counter() - t0
-
-    # both worlds at once (their gloo ranks wait on the host most of a
-    # step), while this process computes the single-rank references
-    with ThreadPoolExecutor(2) as pool:
-        runs = {n: pool.submit(timed_spawn, n) for n in (2, 4)}
+    # 23a's dry runs and 23d's bench_scaling are their CLIs' mains: their
+    # multi-rank jobs join these two worlds (the 2-rank world waits for
+    # cli.dryrun --ranks 2 and bench_scaling's 2-rank run, the 4-rank one
+    # for cli.dryrun --ranks 4), bench_scaling's 1-rank run waits for the
+    # world-size-1 group of 23e
+    worlds = SharedWorlds(todo, {2: 2, 4: 1}, device)
+    pool = ThreadPoolExecutor(3)
+    try:
+        dry = {n: pool.submit(dryrun.main, ["--ranks", str(n), "--timeout", "900",
+                                            *cpu], worlds) for n in (2, 4)}
+        bench = pool.submit(bench_scaling.main, ["--devices", "2", "--iters", "1",
+                                                 *cpu, *bench_argv], worlds)
+        # both worlds run at once (their gloo ranks wait on the host most of
+        # a step), while this process computes the single-rank references
         t0 = time.perf_counter()
         refs = parallel_refs(dev, cfg, params, stacked, ep_batches)
         t_refs = time.perf_counter() - t0
-        (res2, t_spawn2), (res4, t_spawn4) = (runs[n].result() for n in (2, 4))
-    t_spawns = time.perf_counter() - t_all
-    bench2 = [r[-1] for r in res2]
-    for n, res in ((2, res2), (4, res4)):
-        backend = default_backend(n, device)
-        print(f"[23a] the dry run at {n} ranks ({backend}: {SHARED}), its jobs in the "
-              f"{n}-rank spawn:")
-        try:
-            got = dryrun.check(dry[n][1], backend, [r[own[n]:own[n] + len(dry[n][0])]
-                                                    for r in res])
-        except AssertionError as e:
-            check(False, f"the dry run at {n} ranks: {e}")
-        passes = 2 + ("dp_ep_loss" in got)
-        check(passes == (3 if n >= 4 else 2), f"the dry run at {n} ranks: {passes} checks")
-        print(f"[23a] {passes} of the JAX dry run's checks passed at {n} ranks")
-        out[f"dryrun_{n}"] = passes
-    res2 = [r[:own[2]] for r in res2]
-    res4 = [r[:own[4]] for r in res4]
+        res2, res4 = ([r[:own[n]] for r in worlds.wait(n, [*dry.values(), bench])]
+                      for n in (2, 4))
+        t_spawns = time.perf_counter() - t_all
+        t_spawn2, t_spawn4 = worlds.seconds[2], worlds.seconds[4]
+        for n in (2, 4):
+            backend = default_backend(n, device)
+            print(f"[23a] the dry run at {n} ranks ({backend}: {SHARED}), "
+                  f"dryrun.main with its jobs in the {n}-rank spawn:")
+            try:
+                got = dry[n].result()
+            except AssertionError as e:
+                check(False, f"the dry run at {n} ranks: {e}")
+            passes = 2 + ("dp_ep_loss" in got)
+            check(passes == (3 if n >= 4 else 2),
+                  f"the dry run at {n} ranks: {passes} checks")
+            print(f"[23a] {passes} of the JAX dry run's checks passed at {n} ranks")
+            out[f"dryrun_{n}"] = passes
+        parallel_checks(out, res2, res4, refs, ep_batches, cfg, device, card)
+        print(f"[23] spawns, at once: 2 ranks {t_spawn2:.1f} s, 4 ranks "
+              f"{t_spawn4:.1f} s, {t_spawns:.1f} s from the phase's start; the "
+              f"single-rank references beside them {t_refs:.1f} s")
+        out["dp"]["nccl"] = nccl_world_one("[23b]", dev, card, cfg, params, graphs,
+                                           worlds.serve_one)
+        out["graphs"] = out["dp"]["nccl"].pop("graphs")
+        print(f"[23d] cli.bench_scaling.main --devices 2 --iters 1 ({SHARED}): its "
+              f"2-rank run in the 2-rank spawn, its 1-rank run in this process's "
+              f"world-size-1 group ({out['dp']['nccl']['bench_s']:.1f} s)")
+        out["bench_scaling"] = bench.result(timeout=600)
+    finally:
+        worlds.close()
+        pool.shutdown(wait=False, cancel_futures=True)
+    out["wall_s"] = time.perf_counter() - t_all
+    print(f"[23] {card}: phase 23 took {out['wall_s']:.1f} s")
+    return out
 
+
+def parallel_checks(out, res2, res4, refs, ep_batches, cfg, device, card):
+    """23b and 23c: the phase's own jobs of the two worlds against the
+    single-rank references."""
+    from dagnn_tpu_torch import checks
+    from dagnn_tpu_torch.parallel import jobs
+    from dagnn_tpu_torch.scripts import ep_overlap_report as overlap
+    nl = cfg.num_layers
     # 23b: data parallel, 2 ranks, bf16, the merged path
     dp = [r[0] for r in res2]
     print(f"[23b] DP, 2 ranks ({dp[0]['route']} route, {SHARED}; the step "
@@ -3584,22 +3710,6 @@ def phase_parallel(dev, card, graphs, params, cfg, bench_argv=()):
           f"{' / '.join(f'{x:.4f}' for x in o['step_s'])}, synchronous "
           f"{' / '.join(f'{x:.4f}' for x in sy['step_s'])} ({SHARED})")
     out["ep"]["trace"] = summ
-    print(f"[23] spawns, at once: 2 ranks {t_spawn2:.1f} s, 4 ranks {t_spawn4:.1f} s, "
-          f"{t_spawns:.1f} s from the phase's start; the single-rank references beside "
-          f"them {t_refs:.1f} s")
-
-    bench1 = (bench_scaling.bench_job, dict(cfg=bcfg, params_np=bpnp, graphs=bgraphs,
-                                            iters=bargs.iters))
-    out["dp"]["nccl"] = nccl_world_one("[23b]", dev, card, cfg, params, graphs, bench1)
-    out["graphs"] = out["dp"]["nccl"].pop("graphs")
-    print(f"[23d] cli.bench_scaling --devices 2 --iters 1 ({SHARED}): its 2-rank run in "
-          f"the 2-rank spawn, its 1-rank run in this process's world-size-1 group "
-          f"({out['dp']['nccl']['bench_s']:.1f} s)")
-    out["bench_scaling"] = bench_scaling.report(
-        {1: [out["dp"]["nccl"].pop("bench")], 2: bench2}, b_edges, 2, device)
-    out["wall_s"] = time.perf_counter() - t_all
-    print(f"[23] {card}: phase 23 took {out['wall_s']:.1f} s")
-    return out
 
 
 # ----------------------------------------- the bench and the tools (phase 24)
@@ -4205,7 +4315,10 @@ def vae_graph_vs_eager(label, flags, root, epochs, drop=False, graph=None):
             with vae_probes() as seen:
                 tv.main(flags + ["--epochs", str(epochs), "--no-test",
                                  "--save-interval", "100", "--res_dir", d])
-            model = tv.parse_args(flags).model
+            args = tv.parse_args(flags + ["--res_dir", d])
+            model = args.model
+            # one key a batch size: the full batches' and the tail's
+            keys = 1 + bool(len(tv.load_data(args)[0]) % args.batch_size)
             out[tag] = dict(rows=_vae_rows(d), epoch_s=seen["epochs"],
                             params=torch.load(f"{d}/{model}_0_{epochs}.ckpt",
                                               weights_only=True)["params"])
@@ -4224,7 +4337,8 @@ def vae_graph_vs_eager(label, flags, root, epochs, drop=False, graph=None):
           "from the eager epochs'")
     check(_same(g["params"], e["params"]), f"{label}: the captured run's parameters "
           "differ from the eager run's")
-    check(g["captures"] == 1, f"{label}: not one capture for the run's one bucket")
+    check(g["captures"] == keys, f"{label}: {g['captures']} captures for {keys} "
+          f"batch sizes (one capture a key: the full batches' and the tail's)")
     return dict(rows=g["rows"], epoch_s=g["epoch_s"], eager_epoch_s=e["epoch_s"],
                 captures=g["captures"], replays=g["replays"])
 
@@ -4730,6 +4844,147 @@ def phase_captured_models(dev, card, argv, first_epochs):
     return out
 
 
+# ---------------------- the launchers as a user starts them (phase 27)
+
+LAUNCHERS = os.path.join("dagnn_tpu_torch", "scripts")
+# what the launchers read from the environment, cleared before each run
+LAUNCHER_VARS = ("DATA_ROOT", "TRAIN_IDX", "BS", "LR", "CLIP", "FOLDS", "PATIENCE",
+                 "EMB", "LAYERS", "AGG", "BIDIR", "POOL", "EPOCHS", "HS", "NZ",
+                 "SAVE_INTERVAL", "RES", "DATA", "CKPT", "SEEDS", "ROUNDS")
+
+
+def launch(label, script, env, args):
+    """bash dagnn_tpu_torch/scripts/<script> `args` from the checkout's
+    root, in a process of its own, with `env` as a user sets it; exit code
+    0, its output on cuda (the CLI's own line). Returns (seconds,
+    output)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    base = {k: v for k, v in os.environ.items() if k not in LAUNCHER_VARS}
+    t0 = time.perf_counter()
+    r = subprocess.run(["bash", os.path.join(LAUNCHERS, script), *args], cwd=root,
+                       env={**base, **env}, capture_output=True, text=True,
+                       timeout=600)
+    secs = time.perf_counter() - t0
+    print(f"{label} {' '.join(f'{k}={v}' for k, v in env.items())} bash "
+          f"{LAUNCHERS}/{script} {' '.join(args)}: exit {r.returncode} in {secs:.1f} s")
+    check(r.returncode == 0, f"{script} exited {r.returncode}:\n{r.stdout[-2000:]}"
+          f"\n{r.stderr[-3000:]}")
+    check(re.search(r", on cuda(:\d+)?$", r.stdout, re.M) is not None,
+          f"{script}: no line of its CLI saying it ran on cuda")
+    return secs, r.stdout
+
+
+def _finite_csv(label, path):
+    check(os.path.exists(path), f"{label}: {path} was not written")
+    rows = _csv_rows(path)
+    check(rows and all(math.isfinite(v) for r in rows for v in r),
+          f"{label}: {path} holds no rows or a non-finite number")
+    return rows
+
+
+def _vae_launch_gates(label, out, res, files, layers=2, dirs=1, bs=32):
+    """train_vae's output run by a launcher, one epoch: the loss finite,
+    every step a replay of the captured train step (one capture for the
+    full batches, one for the tail), K6 forward / backward and K5
+    launched as many times as those replays' passes make them (per level,
+    layer and direction: 2, 1, 1), and its files."""
+    m = re.search(r"^(\d+) train / (\d+) test, nvt=\d+ max_n=(\d+), on cuda", out, re.M)
+    cap = re.search(r"captured train step \(captures / replays\) this run: "
+                    r"(\d+) / (\d+)", out)
+    got = re.search(r"kernel launches this epoch: (.*)$", out, re.M)
+    check(m and cap and got, f"{label}: the driver printed no corpus, captures or "
+          f"launches line")
+    n_train, max_n = int(m[1]), int(m[3])
+    steps = -(-n_train // bs)
+    launches = {k: int(v) for k, v in (kv.rsplit(" ", 1) for kv in got[1].split(", "))}
+    n = max_n * layers * dirs * steps
+    want = {"segment_attn_backward": n, "segment_attn_forward": 2 * n,
+            "tg_accumulate": n}
+    print(f"{label} {n_train} train graphs, {steps} steps of {bs} (the tail "
+          f"{n_train - (steps - 1) * bs}): captures / replays {cap[1]} / {cap[2]}; "
+          f"launches {launches}, from the replays {want}")
+    check((int(cap[1]), int(cap[2])) == (2, steps),
+          f"{label}: the epoch's steps were not each one replay, tail included")
+    check(launches == want, f"{label}: K6 / K5 launches differ from the replays'")
+    rows = _finite_csv(label, os.path.join(res, "train_loss.txt"))
+    for name in files:
+        check(os.path.exists(os.path.join(res, name)), f"{label}: no {name}")
+    return {"n_train": n_train, "steps": steps, "loss": rows[-1][1],
+            "launches": launches}
+
+
+def _bo_launch_gates(label, out, res):
+    """run_bo + summarize run by a launcher: one seed's scores finite, its
+    BO round's best architecture written, the summary printed."""
+    with open(os.path.join(res, "Test_RMSE_ll.txt")) as f:
+        rows = re.findall(r"Test RMSE: (\S+), ll: (\S+), Pearson r: (\S+)", f.read())
+    check(len(rows) == 1 and all(math.isfinite(float(v)) for v in rows[0]),
+          f"{label}: Test_RMSE_ll.txt holds {rows}")
+    arcs = os.path.join(res, "best_arc_scores.txt")
+    check(os.path.exists(arcs), f"{label}: no best_arc_scores.txt (no valid arc)")
+    with open(arcs) as f:
+        best = [float(ln.rsplit(",", 1)[1]) for ln in f if ln.strip()]
+    check(len(best) == 1 and math.isfinite(best[0]), f"{label}: best scores {best}")
+    check("1 seeds" in out and "best architecture scores:" in out,
+          f"{label}: summarize printed no summary")
+    rmse, ll, r = (float(v) for v in rows[0])
+    print(f"{label} seed 0: RMSE {rmse:.4f}, ll {ll:.4f}, Pearson r {r:.4f}; "
+          f"round 0 best {best[0]}")
+    return {"rmse": rmse, "ll": ll, "pearson_r": r, "best": best[0]}
+
+
+def phase_launchers():
+    """Phase 27: the six protocol launchers, four chains at once (each
+    step a process of its own, as a user starts it)."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_launchers_")
+    d = lambda tag: os.path.join(tmp, tag)
+
+    def na():
+        s1, out = launch("[27 na]", "na_train.sh", {
+            "EPOCHS": "1", "SAVE_INTERVAL": "1", "RES": d("na")},
+            ["DAGNN", "--max-count", "1000"])
+        r = {"train_s": s1, **_vae_launch_gates(
+            "[27 na]", out, d("na"), ("DAGNN_0_1.ckpt", "test_results.txt",
+                                      "final_structures6_latent_epoch1.mat"))}
+        s2, out = launch("[27 na]", "na_eval.sh", {
+            "CKPT": os.path.join(d("na"), "DAGNN_0_1.ckpt"), "SEEDS": "1",
+            "ROUNDS": "1", "RES": d("bo")},
+            [os.path.join(d("na"), "final_structures6_latent_epoch1.mat")])
+        return {**r, "eval_s": s2, **_bo_launch_gates("[27 na]", out, d("bo"))}
+
+    def ogb(script, task):
+        secs, _ = launch(f"[27 {task}]", script, {"EPOCHS": "1", "FOLDS": "1"}, [
+            "--synthetic", "400", "--dir_results", d(task), "--dir_save",
+            d(task + "_saved")])
+        rows = _finite_csv(f"[27 {task}]", os.path.join(d(task), f"dagnn_{task}.csv"))
+        _finite_csv(f"[27 {task}]", os.path.join(d(task), f"dagnn_{task}_train.csv"))
+        return {"seconds": secs, "row": rows[-1]}
+
+    def bn():
+        s1, out = launch("[27 bn]", "bn_train.sh", {"EPOCHS": "1", "RES": d("bn")},
+                         ["DAGNN_BN", "--max-count", "512"])
+        r = {"train_s": s1, **_vae_launch_gates(
+            "[27 bn]", out, d("bn"), ("DAGNN_BN_0_1.ckpt", "asia_200k_latent_epoch1.mat"),
+            dirs=2, bs=128)}
+        s2, out = launch("[27 bn]", "bn_eval.sh", {
+            "CKPT": os.path.join(d("bn"), "DAGNN_BN_0_1.ckpt"), "SEEDS": "1",
+            "ROUNDS": "1", "RES": d("bo_bn")},
+            [os.path.join(d("bn"), "asia_200k_latent_epoch1.mat")])
+        return {**r, "eval_s": s2, **_bo_launch_gates("[27 bn]", out, d("bo_bn"))}
+
+    try:
+        with ThreadPoolExecutor(4) as pool:
+            runs = {"na": pool.submit(na), "tok": pool.submit(ogb, "ogb_tok.sh", "tok"),
+                    "lp": pool.submit(ogb, "ogb_lp.sh", "lp"), "bn": pool.submit(bn)}
+            out = {k: f.result() for k, f in runs.items()}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4989,6 +5244,13 @@ def main(argv):
     others = phase_captured_models(dev, card, argv, first_epochs)
     others["wall_s"] = time.perf_counter() - t0
     print(f"[26] {card}: phase 26 took {others['wall_s']:.1f} s")
+    t0 = time.perf_counter()
+    print("[27] the launchers of dagnn_tpu_torch/scripts/ as a user starts them, "
+          "bash on the card, four chains at once: na_train.sh -> na_eval.sh, "
+          "ogb_tok.sh, ogb_lp.sh, bn_train.sh -> bn_eval.sh")
+    launchers = phase_launchers()
+    launchers["wall_s"] = time.perf_counter() - t0
+    print(f"[27] {card}: phase 27 took {launchers['wall_s']:.1f} s")
     runs = {"merged": merged, "pair": paired, "pallas": pallas,
             "unidirectional": uni, "nearfar_rt": nf_rt, "nearfar_r": nf_r,
             "nearfar_unidirectional": nf_u, "merged_k2r": k2r}
@@ -5046,7 +5308,9 @@ def main(argv):
                                               "ep_decompose_dp1": {"launches": tools[
                                                   "ep_decompose"]["dp1_launches"]},
                                               "ep_decompose_ep1": {"launches": tools[
-                                                  "ep_decompose"]["ep1_launches"]}}.items()
+                                                  "ep_decompose"]["ep1_launches"]},
+                                              **{f"launcher {t}_train": launchers[t]
+                                                 for t in ("na", "bn")}}.items()
                                              if v["launches"].get(name)}})
         ep_err = [parallel["ep"][D]["probe"].get(f"bfloat16 {name}") for D in (2, 4)]
         if ep_err[0]:
@@ -5069,6 +5333,7 @@ def main(argv):
                       "node_space": node_space, "vae": vae, "latent_scoring": scoring,
                       "baselines": baselines, "parallel": parallel, "tools": tools,
                       "captured_steps": captured, "captured_models": others,
+                      "launchers": launchers,
                       "split_checks": split, "cross_route": cross,
                       "nearfar_cross_route": nf_cross, "ab_steps": ab,
                       "split_row": {short(k): v for k, v in split_row.items()},

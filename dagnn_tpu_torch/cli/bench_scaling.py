@@ -256,11 +256,17 @@ def report(runs, n_edges: int, n_dev: int, device: str) -> dict:
     return results
 
 
-def main(argv=None) -> dict:
+def main(argv=None, spawn=None) -> dict:
+    """The scaling runs as the command line asks for them, the most ranks
+    first. `spawn` starts each run's ranks: parallel.mesh.spawn, or a
+    function with its signature (a caller that runs these jobs beside its
+    own in one world of ranks)."""
     args = parse_args(argv)
     from dagnn_tpu_torch import resolve_device
-    from dagnn_tpu_torch.parallel.mesh import default_backend, spawn
+    from dagnn_tpu_torch.parallel import mesh
+    from dagnn_tpu_torch.parallel.mesh import default_backend
 
+    spawn = spawn or mesh.spawn
     device = "cpu" if args.cpu else "cuda"
     dev = resolve_device(device)
     n_dev = args.devices or (8 if args.cpu else torch.cuda.device_count())
@@ -270,7 +276,7 @@ def main(argv=None) -> dict:
     cfg, graphs, n_edges, pnp = workload(args)
     runs = {d: spawn(bench_job, d, default_backend(d, device), device, timeout=3600.0,
                      args=(cfg, pnp, graphs, args.iters, args.eager))
-            for d in sorted({1, n_dev})}
+            for d in sorted({1, n_dev}, reverse=True)}
     return report(runs, n_edges, n_dev, device)
 
 

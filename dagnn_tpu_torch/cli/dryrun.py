@@ -138,12 +138,16 @@ def check(ctx, backend: str, res) -> dict:
     return out
 
 
-def main(argv=None) -> dict:
+def main(argv=None, spawn=None) -> dict:
+    """The dry run as the command line asks for it. `spawn` starts the
+    ranks: parallel.mesh.spawn, or a function with its signature (a caller
+    that runs these jobs beside its own in one world of ranks)."""
     args = parse_args(argv)
     from dagnn_tpu_torch import resolve_device
-    from dagnn_tpu_torch.parallel import jobs
-    from dagnn_tpu_torch.parallel.mesh import default_backend, spawn
+    from dagnn_tpu_torch.parallel import jobs, mesh
+    from dagnn_tpu_torch.parallel.mesh import default_backend
 
+    spawn = spawn or mesh.spawn
     device = "cpu" if args.cpu else "cuda"
     n = args.ranks or torch.cuda.device_count()
     if resolve_device(device).type == "cuda":

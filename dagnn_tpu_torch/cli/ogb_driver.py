@@ -401,7 +401,8 @@ def run(args, task: str):
     device = resolve_device("cpu" if args.cpu else "cuda")
     name = args.name or f"{args.gnn}_{task}"
     train, valid, test, idx2vocab = load_dataset(args, task)
-    print(f"dataset: {len(train)} train / {len(valid)} valid / {len(test)} test")
+    print(f"dataset: {len(train)} train / {len(valid)} valid / {len(test)} test, "
+          f"on {device}")
     # head size = actual vocab incl. UNK/EOS (reference main_pyg.py:396
     # passes len(vocab2idx); smaller corpora yield < num_vocab words)
     args.num_vocab = len(idx2vocab) - 2

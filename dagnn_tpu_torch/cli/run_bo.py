@@ -234,6 +234,7 @@ def main(argv=None, capture: bool = True):
     dev = resolve_device("cpu" if args.cpu else "cuda")
     os.makedirs(args.res_dir, exist_ok=True)
     X_train, y_train, X_test, y_test, mean_y, std_y = load_latents(args.latent)
+    print(f"latents: {len(X_train)} train / {len(X_test)} test, on {dev}")
 
     rmse_file = os.path.join(args.res_dir, "Test_RMSE_ll.txt")
     arcs_file = os.path.join(args.res_dir, "best_arc_scores.txt")

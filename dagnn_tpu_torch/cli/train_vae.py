@@ -25,9 +25,10 @@ chunks of --scan-chunk, each chunk's batches prepared on the host, then
 run as one replay of the captured train step each (train/graphs.py: one
 CUDA graph, its inputs copied in from pinned memory, the loss sums kept on
 the device inside the graph), the host reading the sums once a chunk;
-the short tail batch runs the eager step, as JAX's single-step path.
-Every --model's step is captured (CAPTURED), as JAX's step_scan runs
-every model.
+the short tail batch, prepared the same way, replays the same captured
+step under its own key (JAX's single jitted step): its shape is the same
+every epoch, so a run captures it once. Every --model's step is captured
+(CAPTURED), as JAX's step_scan runs every model.
 
 Where it differs from the JAX driver, on purpose (ROADMAP queue 3):
   * the plateau schedule lowers the learning rate (lr * scale into Adam,
@@ -61,7 +62,7 @@ import scipy.io
 import torch
 
 from dagnn_tpu_torch import resolve_device
-from dagnn_tpu_torch import convert
+from dagnn_tpu_torch import convert, ops
 from dagnn_tpu_torch.data.na import (GraphArgs, NAGraph, load_bn, load_enas,
                                      synthetic_bn_corpus)
 from dagnn_tpu_torch.train import checkpoint as ckpt, graphs
@@ -327,7 +328,8 @@ def make_captured_step(train_step):
     """train_step as a captured step: its state (params, opt_state, the
     epoch's [total, recon, kld] sums, which the graph adds each step's
     into), its inputs (prepare_host's arrays, lr as a 0-d float32 array,
-    the noise generator)."""
+    the noise generator). It keeps two graphs, the full batches' and the
+    tail's, so that neither evicts the other each epoch."""
 
     def fn(state, inputs):
         params, opt_state, sums = state
@@ -335,7 +337,7 @@ def make_captured_step(train_step):
         params, opt_state, stats = train_step(params, opt_state, prepared, gen, lr)
         return (params, opt_state, sums + stats), None
 
-    return graphs.CapturedStep(fn)
+    return graphs.CapturedStep(fn, keep=2)
 
 
 def train_epoch(args, model, train_step, params, opt_state, data, order,
@@ -343,11 +345,11 @@ def train_epoch(args, model, train_step, params, opt_state, data, order,
     """One epoch's batches in `order` (the reference's exact batches,
     dvae/train.py:228-235, the tail one short), as the JAX driver runs
     them: the full batches in chunks of --scan-chunk, each chunk's batches
-    prepared on the host and then stepped (one replay of `captured` each,
-    or the eager train_step without it), the loss sums read once a chunk
-    for the progress line; the tail batch by the eager train_step. The
-    sums stay on the device. Returns (params, opt_state, [total, recon,
-    kld] sums)."""
+    prepared on the host and then stepped, the loss sums read once a chunk
+    for the progress line; then the tail batch. Each step is one replay of
+    `captured` (the tail under a key of its own), or the eager train_step
+    without it. The sums stay on the device. Returns (params, opt_state,
+    [total, recon, kld] sums)."""
     bs = args.batch_size
     starts = range(0, len(order), bs)
     full = [i for i in starts if i + bs <= len(order)]
@@ -356,27 +358,29 @@ def train_epoch(args, model, train_step, params, opt_state, data, order,
     sums = torch.zeros(3, device=model.device)
     rate = np.asarray(lr, np.float32)
     batch_of = lambda i: [data[j] for j in order[i:i + bs]]
+
+    def step(host, state):
+        params, opt_state, sums = state
+        if captured is None:
+            params, opt_state, stats = train_step(
+                params, opt_state, convert.batch_to_torch(host, model.device),
+                gen, lr)
+            return params, opt_state, sums + stats
+        inputs = (host, rate, gen)
+        return captured(("vae", model.kind, convert.batch_key(inputs)),
+                        state, inputs, (gen,))[0]
+
+    state = (params, opt_state, sums)
     for c in range(0, len(full), K):
         chunk = [model.prepare_host(batch_of(i)) for i in full[c:c + K]]
         for host in chunk:
-            if captured is None:
-                params, opt_state, stats = train_step(
-                    params, opt_state, convert.batch_to_torch(host, model.device),
-                    gen, lr)
-                sums = sums + stats
-            else:
-                inputs = (host, rate, gen)
-                (params, opt_state, sums), _ = captured(
-                    ("vae", model.kind, convert.batch_key(inputs)),
-                    (params, opt_state, sums), inputs, (gen,))
+            state = step(host, state)
         print(f"  epoch {epoch} step {c + len(chunk)}/{len(starts)} "
-              f"[{time.time() - t0:.0f}s] loss sum {float(sums[0]):.4f}",
+              f"[{time.time() - t0:.0f}s] loss sum {float(state[2][0]):.4f}",
               flush=True)
     for i in tail:
-        params, opt_state, stats = train_step(
-            params, opt_state, model.prepare(batch_of(i)), gen, lr)
-        sums = sums + stats
-    return params, opt_state, sums
+        state = step(model.prepare_host(batch_of(i)), state)
+    return state
 
 
 def main(argv=None):
@@ -426,6 +430,7 @@ def main(argv=None):
         order = rnd.permutation(len(train_data))
         gen.manual_seed(args.seed * 100003 + epoch)
         model.seed_host(args.seed, epoch)
+        before = ops.read_launch_counts()
         params, opt_state, sums = train_epoch(
             args, model, train_step, params, opt_state, train_data, order, gen,
             args.lr * sched.scale, epoch, t0, captured)
@@ -433,6 +438,11 @@ def main(argv=None):
         n = len(train_data)
         print(f"====> Epoch: {epoch} Average loss: {tot / n:.4f} "
               f"(recon {rec / n:.4f}, kld {kl / n:.4f}) [{time.time() - t0:.1f}s]")
+        launched = {k: v - before[k] for k, v in ops.read_launch_counts().items()
+                    if v != before[k]}
+        if launched:
+            print("  kernel launches this epoch: " + ", ".join(
+                f"{k} {v}" for k, v in sorted(launched.items())))
         loss_log.append([epoch, tot / n, rec / n, kl / n])
         sched.step(tot / n)
 
@@ -443,6 +453,9 @@ def main(argv=None):
             save_latent_representations(args, model, params, train_data,
                                         test_data, epoch)
 
+    if captured is not None:
+        print(f"captured train step (captures / replays) this run: "
+              f"{captured.captures} / {captured.replays}")
     if not args.no_test:
         nll = test_nll(args, model, params, test_data)
         with open(os.path.join(args.res_dir, "test_results.txt"), "a") as f:
@@ -469,6 +482,7 @@ def extract_latent(args, model, params, data):
 def save_latent_representations(args, model, params, train_data, test_data,
                                 epoch):
     """.pkl + .mat latent dumps (dvae/train.py:338-355)."""
+    t0 = time.time()
     Z_train, Y_train = extract_latent(args, model, params, train_data)
     Z_test, Y_test = extract_latent(args, model, params, test_data)
     base = os.path.join(args.res_dir, f"{args.data_name}_latent_epoch{epoch}")
@@ -478,20 +492,22 @@ def save_latent_representations(args, model, params, train_data, test_data,
         "Z_train": Z_train, "Z_test": Z_test,
         "Y_train": Y_train, "Y_test": Y_test,
     })
-    print(f"saved latent representations to {base}.pkl/.mat")
+    print(f"saved latent representations to {base}.pkl/.mat "
+          f"[{time.time() - t0:.1f}s]")
 
 
 @torch.no_grad()
 def test_nll(args, model, params, test_data):
     """Held-out teacher-forced reconstruction NLL (dvae/train.py:276-311),
     without noise."""
+    t0 = time.time()
     nll = 0.0
     for chunk in _batched(test_data, args.infer_batch_size):
         _, recon, _ = model.loss(params, model.prepare(chunk), None,
                                  training=False)
         nll += float(recon)
     nll /= len(test_data)
-    print(f"Test average recon loss: {nll}")
+    print(f"Test average recon loss: {nll} [{time.time() - t0:.1f}s]")
     return nll
 
 

@@ -34,6 +34,8 @@ inputs) hold rounding noise: the kernel's may be at most 8 times the plain
 version's.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -1101,6 +1103,43 @@ def test_captured_vae_step_equals_eager_step(dev):
         assert all(torch.equal(st[0][k], pe[k]) for k in pe), lr
         assert torch.equal(st[2], sums)
     assert (captured.captures, captured.replays) == (1, 3)
+
+
+def test_captured_vae_epochs_replay_the_tail(dev):
+    """Two NA VAE epochs (hs 45, nz 6; 43 graphs in batches of 8 and
+    chunks of 2: five full batches and a tail of 3) through train_epoch,
+    captured against eager from the same weights, permutations and noise
+    seeds: bit for bit, parameters, Adam's state and each epoch's loss
+    sums; one capture a key (the full batches' and the tail's), one replay
+    a batch."""
+    from dagnn_tpu_torch.cli import train_vae
+    from dagnn_tpu_torch.train.optim import make_optimizer
+    args, graphs, ga = _na_batch(43)
+    args.hs, args.nz, args.batch_size, args.scan_chunk = 45, 6, 8, 2
+    model = train_vae.VAEModel(args, ga, dev)
+    params = model.init(0)
+    opt = make_optimizer(1e-3, 0.25)
+    step = train_vae.make_train_step(model, opt)
+    captured = train_vae.make_captured_step(step)
+    runs = {}
+    for tag, cap in (("captured", captured), ("eager", None)):
+        rnd, gen = np.random.default_rng(1), torch.Generator(device=dev)
+        state, sums = (params, opt.init(params)), []
+        for epoch in (1, 2):
+            gen.manual_seed(100 + epoch)
+            p, s, total = train_vae.train_epoch(
+                args, model, step, *state, graphs, rnd.permutation(len(graphs)),
+                gen, 1e-3, epoch, time.time(), cap)
+            state = (p, s)
+            sums.append(total.clone())
+        runs[tag] = ({k: v.clone() for k, v in state[0].items()},
+                     {k: {n: t.clone() for n, t in v.items()} if isinstance(v, dict)
+                      else v.clone() for k, v in state[1].items()}, sums)
+    (pc, sc, uc), (pe, se, ue) = runs["captured"], runs["eager"]
+    assert all(torch.equal(pc[k], pe[k]) for k in pe)
+    assert all(torch.equal(sc[k][n], se[k][n]) for k in ("mu", "nu") for n in se[k])
+    assert all(torch.equal(a, b) for a, b in zip(uc, ue))
+    assert (captured.captures, captured.replays) == (2, 12)
 
 
 # ------------------------ captured steps of the other models on the card

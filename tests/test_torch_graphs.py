@@ -15,6 +15,9 @@ buffers and runs the step on them, writing the state back in place:
 - graph_nodes reads a graph's kernel and copy nodes from a debug dump in
   the format the CUDA runtime writes, and kernel_name reads a mangled
   symbol and the profiler's demangled signature alike;
+- train_vae's epoch with a short tail: every step one replay, the tail
+  under a key of its own, one capture a key over two epochs, bit for bit
+  the eager epochs (parameters, Adam's state, the loss sums);
 - train_vae with --scan-chunk 3 and a short tail against the JAX driver's
   step_scan epochs (f32 tolerances, rtol 5e-4 / atol 5e-5, as
   test_torch_vae_driver.py); with a plateau drop forced after epoch 1,
@@ -321,11 +324,43 @@ class _DropAfterEpoch1(optim.PlateauScheduler):
         return self.scale
 
 
+def test_captured_epochs_replay_the_tail(tmp_path):
+    """Two epochs of 43 graphs in batches of 8 and chunks of 2 (five full
+    batches and a tail of 3) through train_epoch, staged against eager
+    from the same weights, permutations and noise seeds."""
+    args = tdriver.parse_args(["--cpu", "--max-count", "48", "--hs", "8", "--nz",
+                               "4", "--batch-size", "8", "--scan-chunk", "2",
+                               "--res_dir", str(tmp_path)])
+    train, _, ga = tdriver.load_data(args)
+    assert len(train) == 43
+    model = tdriver.VAEModel(args, ga, torch.device("cpu"))
+    params = model.init(0)
+    opt = optim.make_optimizer(1e-3, 0.25)
+    step = tdriver.make_train_step(model, opt)
+    captured = tdriver.make_captured_step(step)
+    runs = {}
+    for tag, cap in (("captured", captured), ("eager", None)):
+        rnd, gen = np.random.default_rng(1), torch.Generator()
+        state, sums = (params, opt.init(params)), []
+        for epoch in (1, 2):
+            gen.manual_seed(100 + epoch)
+            *state, total = tdriver.train_epoch(
+                args, model, step, *state, train, rnd.permutation(len(train)), gen,
+                1e-3, epoch, 0.0, cap)
+            sums.append(total.clone())
+        runs[tag] = (convert.tree_map(torch.clone, tuple(state)), sums)
+    (sc, uc), (se, ue) = runs["captured"], runs["eager"]
+    _equal(sc, se, "parameters and Adam's state after two epochs")
+    assert all(torch.equal(a, b) for a, b in zip(uc, ue))
+    assert (captured.captures, captured.replays) == (2, 12)
+    assert len(captured.graphs) == 2
+
+
 def test_scan_chunk_epochs_match_jax_and_a_plateau_drop_reaches_the_replay(
         tmp_path, no_noise, jax_weights, monkeypatch):
     """27 train graphs in batches of 8: one chunk of 3 full batches (three
-    replays) and a tail of 3 (the eager step), as JAX's step_scan of 3 and
-    its single step."""
+    replays) and a tail of 3 (a replay under its own key), as JAX's
+    step_scan of 3 and its single step."""
     d = lambda tag: ["--res_dir", str(tmp_path / tag)]
     jdriver.main(FLAGS + d("jax"))
     tdriver.main(FLAGS + d("port"))

@@ -218,3 +218,27 @@ def test_dryrun_four_ranks_cpu():
     assert out["backend"] == "gloo" and out["route"] == "host"
     assert np.isfinite(out["dp_loss"])
     assert out["ep_forward_err"] < 1e-3 and out["dp_ep_err"] < 1e-3
+
+
+def test_clis_start_their_ranks_with_the_given_spawn():
+    """dryrun.main and bench_scaling.main start their ranks with the spawn
+    they are given (parallel.mesh.spawn by default), with their world
+    sizes, backend, device and timeouts, and check what it returns;
+    bench_scaling runs the most ranks first."""
+    from dagnn_tpu_torch.parallel import mesh
+    calls = []
+
+    def recording(fn, world, backend=None, device="cuda", timeout=300.0, args=()):
+        calls.append((fn.__name__, world, backend, device, timeout))
+        return mesh.spawn(fn, world, backend, device, timeout=timeout, args=args)
+
+    out = dryrun.main(["--ranks", "2", "--cpu", "--timeout", "120"], spawn=recording)
+    assert calls == [("run_jobs", 2, "gloo", "cpu", 120.0)]
+    assert np.isfinite(out["dp_loss"]) and out["ep_forward_err"] < 1e-3
+    calls.clear()
+    res = bench_scaling.main(["--devices", "2", "--cpu", "--graphs", "4",
+                              "--mean-nodes", "12", "--emb", "16", "--iters", "1"],
+                             spawn=recording)
+    assert [c[:4] for c in calls] == [("bench_job", 2, "gloo", "cpu"),
+                                      ("bench_job", 1, "gloo", "cpu")]
+    assert all(np.isfinite(res[k]) and res[k] > 0 for k in ("dp_1", "dp_2", "ep_1", "ep_2"))

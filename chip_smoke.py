@@ -153,7 +153,11 @@ split form), the merged and unidirectional wavefronts on near/far batches
       best_arc_scores.txt written, each round's valid count, best score
       and seconds (GP fit, greedy EI, decode, scoring); summarize.main on
       each result directory; each run's captures and replays by program,
-      at most one capture a key (its graphs freed before it)
+      at most one capture a key (its graphs freed before it); in the ENAS
+      run scripts.bo_diagnose's stages: each round's candidates (their
+      distance to the training latents, the box's bounds) and GP, and 50
+      training latents decoded by the run's model; each ENAS round and
+      the training latents' votes at least 45 of 50 valid
   21e. each captured program against its eager form (capture=False) at
       run_bo's defaults on run C's files, bit for bit from the same inputs
       and generator seed: the fit's 100 Adam steps (parameters and last
@@ -201,8 +205,9 @@ split form), the merged and unidirectional wavefronts on near/far batches
   one card with the spawn start method, gloo with every collective staged
   on the host, since NCCL takes one rank a card; its numbers measure the
   code path, not scaling):
-  the two spawns (2 and 4 ranks) run at once, and carry 23a's and 23d's
-  ranks too: the CLIs' own mains run in threads, given the phase's spawn
+  the two spawns (2 and 4 ranks) run at once, started after phase 20
+  (start_parallel) so that their processes run beside phases 21 and 22,
+  their results read here; they carry 23a's and 23d's ranks too: the CLIs' own mains run in threads, given the phase's spawn
   (SharedWorlds), which adds their jobs to the world of their size:
   23a. dryrun.main(["--ranks", N, "--timeout", "900"]) at 2 and 4 ranks
       (its plan, build_all, spawn and check): the JAX dry run's checks (a
@@ -272,7 +277,8 @@ split form), the merged and unidirectional wavefronts on near/far batches
       K6 / K5 launches as its plan's rows derive them, DP x1's K1/K2 only,
       each profile's categories within 2% of its device time
   24e. scripts.rehearse_preprocess --graphs 20000 (host work, its own
-      process, run beside 24b-24d): every stage reported
+      process, started after phase 20 beside phases 21 and 22, ended
+      before phase 23): every stage reported
   24f. scripts.bn_ceiling --seeds 1 on the synthetic BN rows: finite RMSE,
       ll and Pearson r
 
@@ -303,8 +309,8 @@ split form), the merged and unidirectional wavefronts on near/far batches
   25c. train_vae.main at phase 20's NA flags, 2 epochs, the plateau drop
       forced after epoch 1, captured against all eager: the loss file and
       the parameters bit for bit, one capture a batch size (the tail's
-      its own); epoch 1 equal to phase 20's run C's, epoch 2 not (the new
-      learning rate reached the replays);
+      its own); epoch 1 equal to phase 20's run C's, epoch 2 not (the
+      staged plateau scale, dropped to 0, reached the replays);
       at 20b's BN flags one epoch the same; each VAE's train step eager
       against captured in turns, its graph's K5 and K6 nodes against the
       eager step's wrapper counts
@@ -337,7 +343,9 @@ split form), the merged and unidirectional wavefronts on near/far batches
       with spin kernels), and a replay's busy share
   the launchers of dagnn_tpu_torch/scripts/ as a user starts them:
   27. each protocol script run with bash in a process of its own on the
-      card, at full width and small depth, four chains at once:
+      card, at full width and small depth, four chains at once, started
+      after phase 20 beside phases 21 and 22 and ended before phase 23
+      (their lines printed here):
       na_train.sh (EPOCHS=1, --max-count 1000) then na_eval.sh on its
       latents (CKPT, SEEDS=1, ROUNDS=1, then summarize); ogb_tok.sh and
       ogb_lp.sh (EPOCHS=1 FOLDS=1, --synthetic 400); bn_train.sh (one
@@ -360,6 +368,7 @@ The second-to-last line is the kernel table as JSON, the last line
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -2193,13 +2202,13 @@ def phase_vae(dev, card, argv, root):
     step = tv.make_train_step(model, opt)
     gen = torch.Generator(device="cuda").manual_seed(0)
     state = opt.init(params)
-    p, s, _ = step(params, state, prepared, gen, args.lr)      # warm-up
+    p, s, _ = step(params, state, prepared, gen, 1.0)      # warm-up
     torch.cuda.synchronize()
     ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     h0 = time.perf_counter()
     ev0.record()
     for _ in range(5):
-        p, s, stats = step(p, s, prepared, gen, args.lr)
+        p, s, stats = step(p, s, prepared, gen, 1.0)
     ev1.record()
     torch.cuda.synchronize()
     step_host = (time.perf_counter() - h0) / 5 * 1e3
@@ -2209,7 +2218,7 @@ def phase_vae(dev, card, argv, root):
           f"last loss {float(stats[0]):.4f}")
     prof = None
     if "--profile" in argv:
-        prof = profile_step("vae_na", lambda a, b, c: step(a, b, c, gen, args.lr),
+        prof = profile_step("vae_na", lambda a, b, c: step(a, b, c, gen, 1.0),
                             p, s, prepared, card, trace_dir(argv))
     print("[20a] K6 forward / backward at the busiest level of the NA batch, H 501")
     segs = phase_segment_attn(dev, host, "busiest", H=501)
@@ -2348,19 +2357,46 @@ def phase_gp(dev, card, root, mat, label="[21a]"):
                 mean_rel=rel, rmse=rmse, rmse_cpu=rmse_cpu, refit_f64=gp.refit_f64)
 
 
+# 21b's gate on the ENAS rounds and on the training latents' votes: at
+# least 45 of 50 valid (the JAX package's record decoded 50 of 50 a round)
+BO_VALID_SHARE = 0.9
+
+
 def phase_bo_rounds(card, root):
     """21b: run_bo --bo on the card. ENAS: run C's DAGNN checkpoint and
     latents, 1 seed, 2 rounds of 50 candidates, 100 decode attempts each
     (5,000 latents decoded a round in one batch), the surrogate scorer
-    trained on the whole corpus. BN: phase 20b's DAGNN_BN checkpoint, 1
-    round, the BIC scorer. Gates: best_arc_scores.txt written, each
-    round's valid count and best score; then summarize.main on each
-    result directory (no --plot)."""
+    trained on the whole corpus, with scripts.bo_diagnose's stages read
+    in the run (its observe hook): b. each round's candidates (valid
+    share, distance to the nearest training latent in median
+    nearest-neighbour distances, share on the box's bounds, non-finite)
+    and c. its GP; then a. 50 training latents decoded 100 times each by
+    the run's model (the vote's valid share and reconstruction share).
+    BN: phase 20b's DAGNN_BN checkpoint, 1 round, the BIC scorer. Gates:
+    best_arc_scores.txt written, each round's best score; each ENAS round
+    and a.'s votes at least BO_VALID_SHARE valid, no candidate
+    non-finite; then summarize.main on each result directory (no
+    --plot). a.'s reconstruction share is printed: at run C's depth (3
+    epochs on 900 graphs) the model reconstructs none of its graphs (0 of
+    50 on the CPU), so a bound on it would hold nothing here; the NA
+    protocol's run reads it (PERF.md)."""
+    import numpy as np
+    import scipy.io
     from dagnn_tpu_torch.cli import run_bo, summarize
+    from dagnn_tpu_torch.scripts import bo_diagnose as bd
     out = {}
+    mat_c, ckpt_c = f"{root}/C/final_structures6_latent_epoch3.mat", f"{root}/C/DAGNN_0_3.ckpt"
+    Z_c = scipy.io.loadmat(mat_c)
+    X_c = torch.as_tensor(np.asarray(Z_c["Z_train"], np.float64), device="cuda")
+    scale = bd.nn_scale(X_c)
+    stages, model = [], []
+    record = bd.recorder(stages, X_c, scale)
+
+    def observe(r):
+        model[:] = [r["model"]]
+        record(r)
     for tag, flags in (
-            ("enas", ["--latent", f"{root}/C/final_structures6_latent_epoch3.mat",
-                      "--checkpoint", f"{root}/C/DAGNN_0_3.ckpt", "--BO_rounds", "2"]
+            ("enas", ["--latent", mat_c, "--checkpoint", ckpt_c, "--BO_rounds", "2"]
              + _widths(NA_FLAGS)),
             ("bn", ["--latent", f"{root}/BN/asia_200k_latent_epoch1.mat",
                     "--checkpoint", f"{root}/BN/DAGNN_BN_0_1.ckpt", "--data-type",
@@ -2369,13 +2405,16 @@ def phase_bo_rounds(card, root):
         res = f"{root}/bo_{tag}"
         run_bo.release_graphs()          # this run captures every program it runs
         t0 = time.perf_counter()
-        r = run_bo.main(flags + ["--bo", "--seeds", "1", *GP_FLAGS, "--res_dir", res])
+        r = run_bo.main(flags + ["--bo", "--seeds", "1", *GP_FLAGS, "--res_dir", res],
+                        observe=observe if tag == "enas" else None)
         wall = time.perf_counter() - t0
         for rd in r["rounds"]:
             print(f"[21b] {tag} round {rd['round']} on {card}: {rd['valid']}/"
                   f"{rd['n']} valid, best {rd['best']}; seconds: GP fit "
                   f"{rd['fit_s']:.3f}, greedy EI {rd['ei_s']:.3f}, decode and vote "
                   f"{rd['decode_s']:.3f}, scoring {rd['score_s']:.3f}")
+        if tag == "enas":
+            out["stages"] = bo_stages(card, r, stages, model[0], mat_c, ckpt_c, Z_c, scale)
         check(os.path.exists(f"{res}/best_arc_scores.txt"),
               f"run_bo {tag}: no best_arc_scores.txt (no valid arc decoded)")
         check(all(rd["best"] is not None for rd in r["rounds"]),
@@ -2397,6 +2436,34 @@ def phase_bo_rounds(card, root):
         out[tag] = dict(rounds=r["rounds"], gp=r["gp"], wall_s=wall, graphs=g,
                         scorer_quality=r["scorer_quality"])
     return out
+
+
+def bo_stages(card, r, stages, model, mat, ckpt, Z, scale):
+    """21b's stages of the ENAS run `r` (scripts.bo_diagnose): b. and c. of
+    each round from `stages` (its observe hook's records), then a. on 50
+    training latents (numpy seed 0) decoded 100 times each by the run's
+    `model`. Gates each round and a.'s votes at BO_VALID_SHARE valid and
+    every candidate finite."""
+    import numpy as np
+    from dagnn_tpu_torch.scripts import bo_diagnose as bd
+    for st, rd in zip(stages, r["rounds"]):
+        print(f"[21b] enas round {st['round']}: b. candidates {bd.describe_b(st)} (median "
+              f"NN {scale:.4g}); c. {bd.describe_c(st['gp'])}")
+        check(rd["valid"] >= BO_VALID_SHARE * rd["n"] and st["nonfinite"] == 0,
+              f"21b: ENAS round {rd['round']} decoded {rd['valid']} of {rd['n']} "
+              f"(at least {BO_VALID_SHARE:.0%} valid), {st['nonfinite']} non-finite "
+              f"candidates")
+    args = bd.parse_args(["--latent", mat, "--checkpoint", ckpt, "--max-count", "1000"])
+    graphs = bd.train_graphs(args, Z["Y_train"].reshape(-1))
+    rows = np.random.default_rng(0).choice(len(graphs), 50, replace=False)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a, a_s = _timed(lambda: bd.latent_stats(model, Z["Z_train"][rows],
+                                            [graphs[i] for i in rows], 100, gen))
+    print(f"[21b] enas a. on {card}: {bd.describe_a(a)} (100 attempts each; {a_s:.2f} s)")
+    check(a["valid"] >= BO_VALID_SHARE,
+          f"21b: {a['valid']:.2f} of the training latents' votes valid (at least "
+          f"{BO_VALID_SHARE:.0%})")
+    return dict(train=a, rounds=stages, scale=scale)
 
 
 # 21e: run_bo's defaults (M 500, 100 Adam steps at lr 5e-4, a 10,000-point
@@ -3408,7 +3475,11 @@ class SharedWorlds:
     ranks starts once every call it waits for (`joiners`, by world size)
     has joined, with the least timeout they ask for: one process start a
     rank in all. A one-rank call is served on the caller's own
-    world-size-1 group instead (serve_one), where no process starts."""
+    world-size-1 group instead (serve_one), where no process starts. A
+    call's multi-rank results reach it only after release(): the worlds
+    may run beside other phases, and the calls' own checks (the dry run's
+    references) launch kernels in this process, which those phases
+    count."""
 
     def __init__(self, todo, joiners, device):
         import queue
@@ -3417,7 +3488,9 @@ class SharedWorlds:
         self.left, self.device = dict(joiners), device
         self.timeout = {n: 900.0 for n in todo}
         self.lock = threading.Lock()
+        self.started = {n: threading.Event() for n in todo}
         self.done = {n: threading.Event() for n in todo}
+        self.released = threading.Event()
         self.results, self.errors, self.seconds = {}, {}, {}
         self.one, self.closed = queue.Queue(), False
 
@@ -3445,6 +3518,9 @@ class SharedWorlds:
         if go:
             self._start(world)
         res = self.wait(world)
+        self.released.wait()
+        check(not self.closed, f"the {world}-rank world's results asked for after "
+              f"phase 23")
         part = [r[start:start + len(mine)] for r in res]
         return part if fn is jobs.run_jobs else [p[0] for p in part]
 
@@ -3452,6 +3528,7 @@ class SharedWorlds:
         from dagnn_tpu_torch.parallel import jobs
         from dagnn_tpu_torch.parallel.mesh import spawn
         t0 = time.perf_counter()
+        self.started[world].set()
         try:
             self.results[world] = spawn(jobs.run_jobs, world, "gloo", self.device,
                                         timeout=self.timeout[world],
@@ -3484,35 +3561,42 @@ class SharedWorlds:
             raise
         return fut.result()
 
+    def release(self):
+        """Hand the worlds' results to the calls waiting for them."""
+        self.released.set()
+
     def close(self):
-        """Fail a one-rank call still waiting (the phase ended first)."""
+        """Fail a one-rank call still waiting (the phase ended first), and
+        a call still waiting for its world's results."""
         with self.lock:
             self.closed = True
             while not self.one.empty():
                 self.one.get()[1].set_exception(SmokeFailure("phase 23 ended"))
+        self.released.set()
 
 
-def phase_parallel(dev, card, graphs, params, cfg, bench_argv=()):
-    """Phase 23: the parallel layer at cfg's widths (the flagship's) on
-    `graphs` (phase 4's batch), D ranks on this one card (gloo: the host
-    route). On a CPU device it rehearses the same calls with gloo ranks on
-    the CPU (`bench_argv`: bench_scaling's size flags for it)."""
+def start_parallel(dev, graphs, params, cfg, bench_argv=()):
+    """Phase 23's two gloo spawns (2 and 4 ranks), started: its own jobs
+    and those of 23a's dry runs and 23d's bench_scaling (their CLIs' mains
+    in threads, given a SharedWorlds). Returns once both worlds have
+    started, so that no thread of this process is left doing device work;
+    the worlds then run in their own processes, and their results wait
+    for phase_parallel (SharedWorlds.release). On a CPU device the ranks
+    run on the CPU (`bench_argv`: bench_scaling's size flags for it)."""
     from concurrent.futures import ThreadPoolExecutor
-    from dagnn_tpu_torch import checks, flagship
+    from dagnn_tpu_torch import flagship
     from dagnn_tpu_torch.cli import bench_scaling, dryrun
     from dagnn_tpu_torch.dag.batch import collate
     from dagnn_tpu_torch.parallel import jobs
     from dagnn_tpu_torch.parallel.dp import collate_sharded
-    from dagnn_tpu_torch.parallel.mesh import default_backend, spawn
     from dagnn_tpu_torch.scripts import ep_overlap_report as overlap
-    out, device = {}, dev.type
+    device = dev.type
     cpu = ["--cpu"] if device == "cpu" else []
     if device == "cuda":
         torch.cuda.empty_cache()
     t_all = time.perf_counter()
     cfg_p = dataclasses.replace(cfg, segment_impl="pallas")
     cfg_p32 = dataclasses.replace(cfg_p, compute_dtype="float32")
-    nl = cfg.num_layers
     pnp = {k: v.detach().cpu().numpy() for k, v in params.items()}
     stacked = collate_sharded(graphs, 2, flagship.pad_for(graphs, n_shards=2))
     ep_batches = {}
@@ -3538,19 +3622,50 @@ def phase_parallel(dev, card, graphs, params, cfg, bench_argv=()):
     # world-size-1 group of 23e
     worlds = SharedWorlds(todo, {2: 2, 4: 1}, device)
     pool = ThreadPoolExecutor(3)
+    dry = {n: pool.submit(dryrun.main, ["--ranks", str(n), "--timeout", "900",
+                                        *cpu], worlds) for n in (2, 4)}
+    bench = pool.submit(bench_scaling.main, ["--devices", "2", "--iters", "1",
+                                             *cpu, *bench_argv], worlds)
+    callers = [*dry.values(), bench]
     try:
-        dry = {n: pool.submit(dryrun.main, ["--ranks", str(n), "--timeout", "900",
-                                            *cpu], worlds) for n in (2, 4)}
-        bench = pool.submit(bench_scaling.main, ["--devices", "2", "--iters", "1",
-                                                 *cpu, *bench_argv], worlds)
-        # both worlds run at once (their gloo ranks wait on the host most of
-        # a step), while this process computes the single-rank references
+        while not all(e.is_set() for e in worlds.started.values()):
+            for f in callers:
+                if f.done() and f.exception() is not None:
+                    raise f.exception()
+            time.sleep(0.05)
+    except BaseException:
+        worlds.close()
+        pool.shutdown(wait=False, cancel_futures=True)
+        raise
+    return dict(worlds=worlds, pool=pool, dry=dry, bench=bench, own=own,
+                stacked=stacked, ep_batches=ep_batches, t0=t_all)
+
+
+def phase_parallel(dev, card, graphs, params, cfg, bench_argv=(), started=None):
+    """Phase 23: the parallel layer at cfg's widths (the flagship's) on
+    `graphs` (phase 4's batch), D ranks on this one card (gloo: the host
+    route). `started`: start_parallel's worlds, started beside earlier
+    phases; else they start here. On a CPU device it rehearses the same
+    calls with gloo ranks on the CPU (`bench_argv`: bench_scaling's size
+    flags for it)."""
+    from dagnn_tpu_torch.parallel.mesh import default_backend
+    out, device = {}, dev.type
+    t_all = time.perf_counter()
+    st = started or start_parallel(dev, graphs, params, cfg, bench_argv)
+    worlds, pool, dry, bench, own = (st[k] for k in ("worlds", "pool", "dry", "bench",
+                                                    "own"))
+    stacked, ep_batches = st["stacked"], st["ep_batches"]
+    try:
+        # the dry runs' checks run in their threads once released, beside
+        # this process's single-rank references
+        worlds.release()
         t0 = time.perf_counter()
         refs = parallel_refs(dev, cfg, params, stacked, ep_batches)
         t_refs = time.perf_counter() - t0
+        t0 = time.perf_counter()
         res2, res4 = ([r[:own[n]] for r in worlds.wait(n, [*dry.values(), bench])]
                       for n in (2, 4))
-        t_spawns = time.perf_counter() - t_all
+        t_wait = time.perf_counter() - t0
         t_spawn2, t_spawn4 = worlds.seconds[2], worlds.seconds[4]
         for n in (2, 4):
             backend = default_backend(n, device)
@@ -3567,8 +3682,10 @@ def phase_parallel(dev, card, graphs, params, cfg, bench_argv=()):
             out[f"dryrun_{n}"] = passes
         parallel_checks(out, res2, res4, refs, ep_batches, cfg, device, card)
         print(f"[23] spawns, at once: 2 ranks {t_spawn2:.1f} s, 4 ranks "
-              f"{t_spawn4:.1f} s, {t_spawns:.1f} s from the phase's start; the "
-              f"single-rank references beside them {t_refs:.1f} s")
+              f"{t_spawn4:.1f} s, started {t_all - st['t0']:.1f} s before this "
+              f"phase; the single-rank references {t_refs:.1f} s, then "
+              f"{t_wait:.1f} s waiting for the spawns")
+        out["spawn_s"] = {2: t_spawn2, 4: t_spawn4}
         out["dp"]["nccl"] = nccl_world_one("[23b]", dev, card, cfg, params, graphs,
                                            worlds.serve_one)
         out["graphs"] = out["dp"]["nccl"].pop("graphs")
@@ -3859,7 +3976,14 @@ def phase_ep_decompose(dev, card):
     from dagnn_tpu_torch.data.synthetic import synthetic_ast_batch
     from dagnn_tpu_torch.parallel.edge_partition import partition_schedule_sharded
     from dagnn_tpu_torch.scripts import ep_decompose as ed
-    out = ed.main(["--cpu"] if dev.type == "cpu" else [])
+    # the tool's depth cut to 2 timed steps and 1 profiled (its defaults 5
+    # and 3) to pay for 21b's stages; every check below stands
+    depth = ed.STEPS, ed.PROFILE_STEPS
+    ed.STEPS, ed.PROFILE_STEPS = 2, 1
+    try:
+        out = ed.main(["--cpu"] if dev.type == "cpu" else [])
+    finally:
+        ed.STEPS, ed.PROFILE_STEPS = depth
     graphs = synthetic_ast_batch(0, ed.GRAPHS, mean_nodes=ed.MEAN_NODES)
     for d in ed.DEVICES:
         chunk = max(64, 64 * d)
@@ -3874,13 +3998,13 @@ def phase_ep_decompose(dev, card):
     if dev.type != "cuda":
         return out
     nl = flagship.flagship_cfg().num_layers
-    want = {k: v * ed.STEPS for k, v in _ep_counts(out["ep1_rows"], nl).items()}
-    print(f"[24d] EP x1 launches over {ed.STEPS} steps {out['ep1_launches']}, from the "
+    want = {k: v * out["steps"] for k, v in _ep_counts(out["ep1_rows"], nl).items()}
+    print(f"[24d] EP x1 launches over {out['steps']} steps {out['ep1_launches']}, from the "
           f"plan's rows {out['ep1_rows']}: {want}")
     check(out["ep1_launches"] == want, "EP x1's K6 / K5 launches differ from the plan")
     dl = out["dp1_launches"]
     check(set(dl) == {"row_forward", "row_backward"} and dl["row_forward"] == dl[
-        "row_backward"] and dl["row_forward"] % ed.STEPS == 0,
+        "row_backward"] and dl["row_forward"] % out["steps"] == 0,
           f"DP x1 launched {dl}, not K1/K2 once a row")
     for tag in ("dp1", "ep1"):
         p = out[f"{tag}_profile"]
@@ -3898,43 +4022,63 @@ def phase_ep_decompose(dev, card):
     return out
 
 
-def phase_tools(dev, card, eps_events=None, rehearsal_graphs=20000):
+def start_rehearsal(graphs=20000):
+    """24e's scripts.rehearse_preprocess --graphs `graphs` (host work),
+    started in a process of its own, its output to a file. Returns
+    (process, its directory, REPORT.md's path, the log's path, the
+    start's clock)."""
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    report, log = os.path.join(tmp, "REPORT.md"), os.path.join(tmp, "rehearsal.log")
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "dagnn_tpu_torch.scripts.rehearse_preprocess",
+             "--graphs", str(graphs), "--root", tmp, "--out", report],
+            stdout=f, stderr=subprocess.STDOUT, text=True, start_new_session=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+    return proc, tmp, report, log, time.perf_counter()
+
+
+def wait_rehearsal(reh, timeout=900):
+    """Wait for start_rehearsal's process; returns the seconds waited.
+    Killed if it outlives `timeout`."""
+    t0 = time.perf_counter()
+    try:
+        reh[0].wait(timeout=timeout)
+    finally:
+        if reh[0].poll() is None:
+            reh[0].kill()
+            reh[0].wait()
+    return time.perf_counter() - t0
+
+
+def phase_tools(dev, card, eps_events=None, rehearsal=None, rehearsal_graphs=20000):
     """Phase 24: the bench (24a), the two microbenches (24b, 24c),
     ep_decompose (24d), the preprocessing rehearsal at rehearsal_graphs
-    (24e; host work, in a process of its own started before 24b and read
-    after 24d) and bn_ceiling (24f). On a CPU device it rehearses the same
-    calls with --cpu (the tools' module sizes set small by the caller)."""
-    import tempfile
+    (24e; host work in a process of its own: `rehearsal`, start_rehearsal's
+    process started beside earlier phases, else started here; ended
+    before 24a, whose host-bound steps it would slow) and bn_ceiling (24f).
+    On a CPU device it rehearses the same calls with --cpu (the tools'
+    module sizes set small by the caller)."""
     from dagnn_tpu_torch.scripts import bn_ceiling
     t_all = time.perf_counter()
+    reh = rehearsal or start_rehearsal(rehearsal_graphs)
+    proc, tmp, report, log, t_reh = reh
+    waited = wait_rehearsal(reh)
+    print(f"[24e] waited {waited:.1f} s for the rehearsal (started "
+          f"{t_all - t_reh:.1f} s before this phase)")
     out = {"bench": phase_bench(dev, card, eps_events)}
-    # the rehearsal (host work) runs beside everything after the timed
-    # bench runs, whose host-bound steps it would slow
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_tools_")
-    report = os.path.join(tmp, "REPORT.md")
-    reh = subprocess.Popen(
-        [sys.executable, "-m", "dagnn_tpu_torch.scripts.rehearse_preprocess",
-         "--graphs", str(rehearsal_graphs), "--root", tmp, "--out", report],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        cwd=os.path.dirname(os.path.abspath(__file__)))
-    try:
-        out["bench"]["steps17"] = phase_bench_17(dev)
-        for tag, run in (("microbench", phase_microbenches),
-                         ("ep_decompose", lambda dev: phase_ep_decompose(dev, card))):
-            t0 = time.perf_counter()
-            out[tag] = run(dev)
-            out[tag]["seconds"] = time.perf_counter() - t0
-            print(f"[24] {tag} took {out[tag]['seconds']:.1f} s")
+    out["bench"]["steps17"] = phase_bench_17(dev)
+    for tag, run in (("microbench", phase_microbenches),
+                     ("ep_decompose", lambda dev: phase_ep_decompose(dev, card))):
         t0 = time.perf_counter()
-        log = reh.communicate(timeout=900)[0]
-        print(f"[24e] waited {time.perf_counter() - t0:.1f} s for the rehearsal")
-    finally:
-        if reh.poll() is None:
-            reh.kill()
-            reh.wait()
-    print("\n".join("[24e] " + ln for ln in log.strip().splitlines()))
-    check(reh.returncode == 0 and os.path.exists(report),
-          f"rehearse_preprocess --graphs {rehearsal_graphs} exited {reh.returncode}")
+        out[tag] = run(dev)
+        out[tag]["seconds"] = time.perf_counter() - t0
+        print(f"[24] {tag} took {out[tag]['seconds']:.1f} s")
+    with open(log) as f:
+        print("\n".join("[24e] " + ln for ln in f.read().strip().splitlines()))
+    check(proc.returncode == 0 and os.path.exists(report),
+          f"rehearse_preprocess --graphs {rehearsal_graphs} exited {proc.returncode}")
     with open(report) as f:
         out["rehearsal"] = [ln for ln in f.read().splitlines() if ln.startswith("| ")]
     check(len(out["rehearsal"]) == 8, "the rehearsal's report lacks a stage")
@@ -4270,8 +4414,10 @@ def graph_vs_eager(label, cfg, params, hosts, task, kernels, card, out_dir,
 
 
 class _DropAfterEpoch1:
-    """A plateau scheduler whose learning rate drops to 0.1x after epoch 1,
-    whatever the loss (25c)."""
+    """A plateau scheduler whose scale drops to 0 after epoch 1, whatever
+    the loss (25c): the driver's gradients then reach the clip and Adam as
+    zeros, so that the drop shows in epoch 2 (Adam all but undoes a drop
+    to 0.1, as in the JAX driver)."""
 
     def __init__(self, factor=0.1, patience=10):
         from dagnn_tpu_torch.train.optim import PlateauScheduler
@@ -4281,7 +4427,7 @@ class _DropAfterEpoch1:
         return getattr(self._s, k)
 
     def step(self, metric):
-        self._s.scale = self._s.factor
+        self._s.scale = 0.0
         return self._s.scale
 
 
@@ -4363,8 +4509,8 @@ def vae_step_turns(label, flags, dev):
     host = model.prepare_host(train[:args.batch_size])
     prepared = convert.batch_to_torch(host, dev)
     gen = torch.Generator(device=dev).manual_seed(0)
-    rate = np.asarray(args.lr, np.float32)
-    inputs = (host, rate, gen)
+    scale = np.asarray(1.0, np.float32)          # the plateau scale, staged
+    inputs = (host, scale, gen)
     key = ("vae", model.kind, convert.batch_key(inputs))
     state = [(params, opt.init(params), torch.zeros(3, device=dev))]
 
@@ -4373,14 +4519,14 @@ def vae_step_turns(label, flags, dev):
 
     replay()
     reset_counts()
-    step(params, opt.init(params), prepared, gen, args.lr)
+    step(params, opt.init(params), prepared, gen, 1.0)
     k_e = {k: v for k, v in read_counts().items() if v}
     print(f"{label} the wrappers' launches of an eager step {k_e}")
     from_graph = wrapper_nodes(label, k_e, node_kinds(
         graphs.graph_nodes(captured.last_graph())))
     pe, se = params, opt.init(params)
     turns = timed_turns(f"{label} train step, eager against captured:",
-                        {"eager": lambda: step(pe, se, prepared, gen, args.lr),
+                        {"eager": lambda: step(pe, se, prepared, gen, 1.0),
                          "graph": replay}, n=3)
     return dict(turns=turns, eager_step_launches=k_e, k5_k6_from_graph=from_graph)
 
@@ -4608,7 +4754,7 @@ def vae_captured_step(label, model_name, dev, root, census):
     host = model.prepare_host(train[:args.batch_size])
     prepared = convert.batch_to_torch(host, dev)
     gen = torch.Generator(device=dev).manual_seed(0)
-    inputs = (host, np.asarray(args.lr, np.float32), gen)
+    inputs = (host, np.asarray(1.0, np.float32), gen)
     key = ("vae", model.kind, convert.batch_key(inputs))
     state = [(params, opt.init(params), torch.zeros(3, device=dev))]
 
@@ -4627,7 +4773,7 @@ def vae_captured_step(label, model_name, dev, root, census):
           "of the port")
     pe, se = params, opt.init(params)
     turns = timed_turns(f"{label} train step on batch 0, eager against captured:",
-                        {"eager": lambda: step(pe, se, prepared, gen, args.lr),
+                        {"eager": lambda: step(pe, se, prepared, gen, 1.0),
                          "graph": replay}, n=VAE_TURN_STEPS)
     out = dict(turns=turns, graph_kernels=sum(v for k, v in nodes.items()
                                               if not _is_copy(k)))
@@ -4853,25 +4999,43 @@ LAUNCHER_VARS = ("DATA_ROOT", "TRAIN_IDX", "BS", "LR", "CLIP", "FOLDS", "PATIENC
                  "SAVE_INTERVAL", "RES", "DATA", "CKPT", "SEEDS", "ROUNDS")
 
 
-def launch(label, script, env, args):
+def run_launcher(label, script, env, args, say=print, procs=None):
     """bash dagnn_tpu_torch/scripts/<script> `args` from the checkout's
-    root, in a process of its own, with `env` as a user sets it; exit code
-    0, its output on cuda (the CLI's own line). Returns (seconds,
+    root, in a process group of its own (appended to `procs`, so that a
+    caller can end it), with `env` as a user sets it; exit code 0 within
+    600 s, its output on cuda (the CLI's own line). Returns (seconds,
     output)."""
     root = os.path.dirname(os.path.abspath(__file__))
     base = {k: v for k, v in os.environ.items() if k not in LAUNCHER_VARS}
     t0 = time.perf_counter()
-    r = subprocess.run(["bash", os.path.join(LAUNCHERS, script), *args], cwd=root,
-                       env={**base, **env}, capture_output=True, text=True,
-                       timeout=600)
+    p = subprocess.Popen(["bash", os.path.join(LAUNCHERS, script), *args], cwd=root,
+                         env={**base, **env}, stdout=subprocess.PIPE,
+                         stderr=subprocess.PIPE, text=True, start_new_session=True)
+    if procs is not None:
+        procs.append(p)
+    try:
+        stdout, stderr = p.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        end_group(p)
+        stdout, stderr = p.communicate()
     secs = time.perf_counter() - t0
-    print(f"{label} {' '.join(f'{k}={v}' for k, v in env.items())} bash "
-          f"{LAUNCHERS}/{script} {' '.join(args)}: exit {r.returncode} in {secs:.1f} s")
-    check(r.returncode == 0, f"{script} exited {r.returncode}:\n{r.stdout[-2000:]}"
-          f"\n{r.stderr[-3000:]}")
-    check(re.search(r", on cuda(:\d+)?$", r.stdout, re.M) is not None,
+    say(f"{label} {' '.join(f'{k}={v}' for k, v in env.items())} bash "
+        f"{LAUNCHERS}/{script} {' '.join(args)}: exit {p.returncode} in {secs:.1f} s")
+    check(p.returncode == 0, f"{script} exited {p.returncode}:\n{stdout[-2000:]}"
+          f"\n{stderr[-3000:]}")
+    check(re.search(r", on cuda(:\d+)?$", stdout, re.M) is not None,
           f"{script}: no line of its CLI saying it ran on cuda")
-    return secs, r.stdout
+    return secs, stdout
+
+
+def end_group(p):
+    """Kill the process group a Popen started with start_new_session leads
+    (bash and the python it runs), if it is still running."""
+    import signal
+    if p.poll() is None:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(p.pid, signal.SIGKILL)
+        p.wait()
 
 
 def _finite_csv(label, path):
@@ -4882,7 +5046,7 @@ def _finite_csv(label, path):
     return rows
 
 
-def _vae_launch_gates(label, out, res, files, layers=2, dirs=1, bs=32):
+def _vae_launch_gates(label, out, res, files, layers=2, dirs=1, bs=32, say=print):
     """train_vae's output run by a launcher, one epoch: the loss finite,
     every step a replay of the captured train step (one capture for the
     full batches, one for the tail), K6 forward / backward and K5
@@ -4900,7 +5064,7 @@ def _vae_launch_gates(label, out, res, files, layers=2, dirs=1, bs=32):
     n = max_n * layers * dirs * steps
     want = {"segment_attn_backward": n, "segment_attn_forward": 2 * n,
             "tg_accumulate": n}
-    print(f"{label} {n_train} train graphs, {steps} steps of {bs} (the tail "
+    say(f"{label} {n_train} train graphs, {steps} steps of {bs} (the tail "
           f"{n_train - (steps - 1) * bs}): captures / replays {cap[1]} / {cap[2]}; "
           f"launches {launches}, from the replays {want}")
     check((int(cap[1]), int(cap[2])) == (2, steps),
@@ -4913,7 +5077,7 @@ def _vae_launch_gates(label, out, res, files, layers=2, dirs=1, bs=32):
             "launches": launches}
 
 
-def _bo_launch_gates(label, out, res):
+def _bo_launch_gates(label, out, res, say=print):
     """run_bo + summarize run by a launcher: one seed's scores finite, its
     BO round's best architecture written, the summary printed."""
     with open(os.path.join(res, "Test_RMSE_ll.txt")) as f:
@@ -4928,19 +5092,23 @@ def _bo_launch_gates(label, out, res):
     check("1 seeds" in out and "best architecture scores:" in out,
           f"{label}: summarize printed no summary")
     rmse, ll, r = (float(v) for v in rows[0])
-    print(f"{label} seed 0: RMSE {rmse:.4f}, ll {ll:.4f}, Pearson r {r:.4f}; "
+    say(f"{label} seed 0: RMSE {rmse:.4f}, ll {ll:.4f}, Pearson r {r:.4f}; "
           f"round 0 best {best[0]}")
     return {"rmse": rmse, "ll": ll, "pearson_r": r, "best": best[0]}
 
 
-def phase_launchers():
+def phase_launchers(say=print, procs=None):
     """Phase 27: the six protocol launchers, four chains at once (each
-    step a process of its own, as a user starts it)."""
+    step a process of its own, as a user starts it). Its lines go to
+    `say`; each launcher's process to `procs` (see run_launcher)."""
     import shutil
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
+    t0 = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_launchers_")
     d = lambda tag: os.path.join(tmp, tag)
+
+    launch = functools.partial(run_launcher, say=say, procs=procs)
 
     def na():
         s1, out = launch("[27 na]", "na_train.sh", {
@@ -4948,12 +5116,12 @@ def phase_launchers():
             ["DAGNN", "--max-count", "1000"])
         r = {"train_s": s1, **_vae_launch_gates(
             "[27 na]", out, d("na"), ("DAGNN_0_1.ckpt", "test_results.txt",
-                                      "final_structures6_latent_epoch1.mat"))}
+                                      "final_structures6_latent_epoch1.mat"), say=say)}
         s2, out = launch("[27 na]", "na_eval.sh", {
             "CKPT": os.path.join(d("na"), "DAGNN_0_1.ckpt"), "SEEDS": "1",
             "ROUNDS": "1", "RES": d("bo")},
             [os.path.join(d("na"), "final_structures6_latent_epoch1.mat")])
-        return {**r, "eval_s": s2, **_bo_launch_gates("[27 na]", out, d("bo"))}
+        return {**r, "eval_s": s2, **_bo_launch_gates("[27 na]", out, d("bo"), say=say)}
 
     def ogb(script, task):
         secs, _ = launch(f"[27 {task}]", script, {"EPOCHS": "1", "FOLDS": "1"}, [
@@ -4968,12 +5136,12 @@ def phase_launchers():
                          ["DAGNN_BN", "--max-count", "512"])
         r = {"train_s": s1, **_vae_launch_gates(
             "[27 bn]", out, d("bn"), ("DAGNN_BN_0_1.ckpt", "asia_200k_latent_epoch1.mat"),
-            dirs=2, bs=128)}
+            dirs=2, bs=128, say=say)}
         s2, out = launch("[27 bn]", "bn_eval.sh", {
             "CKPT": os.path.join(d("bn"), "DAGNN_BN_0_1.ckpt"), "SEEDS": "1",
             "ROUNDS": "1", "RES": d("bo_bn")},
             [os.path.join(d("bn"), "asia_200k_latent_epoch1.mat")])
-        return {**r, "eval_s": s2, **_bo_launch_gates("[27 bn]", out, d("bo_bn"))}
+        return {**r, "eval_s": s2, **_bo_launch_gates("[27 bn]", out, d("bo_bn"), say=say)}
 
     try:
         with ThreadPoolExecutor(4) as pool:
@@ -4982,7 +5150,55 @@ def phase_launchers():
             out = {k: f.result() for k, f in runs.items()}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t0
     return out
+
+
+class Beside:
+    """The work that runs in processes of its own, started together to
+    run beside the phases that follow (each in-process phase counts only
+    this process's launches): phase 23's two gloo spawns
+    (start_parallel), 24e's rehearsal (start_rehearsal) and phase 27's
+    launcher chains (phase_launchers in a thread, its lines kept for phase
+    27). wait() ends the rehearsal and the launchers; stop() kills
+    whatever still runs (a failed check)."""
+
+    def __init__(self, dev, graphs, params, cfg):
+        from concurrent.futures import ThreadPoolExecutor
+        self.t0 = time.perf_counter()
+        self.procs, self.lines = [], []
+        self.parallel = self.rehearsal = None
+        self.pool = ThreadPoolExecutor(1)
+        self.launchers = self.pool.submit(phase_launchers, self.lines.append,
+                                          self.procs)
+        try:
+            self.rehearsal = start_rehearsal()
+            self.parallel = start_parallel(dev, graphs, params, cfg)
+        except BaseException:
+            self.stop()
+            raise
+
+    def wait(self):
+        """The launchers' results and the seconds waited for them and for
+        the rehearsal."""
+        t0 = time.perf_counter()
+        wait_rehearsal(self.rehearsal)
+        out = self.launchers.result(timeout=1200)
+        return out, time.perf_counter() - t0
+
+    def stop(self):
+        import multiprocessing
+        for p in self.procs:
+            end_group(p)
+        if self.rehearsal and self.rehearsal[0].poll() is None:
+            self.rehearsal[0].kill()
+            self.rehearsal[0].wait()
+        for c in multiprocessing.active_children():
+            c.kill()
+        if self.parallel:
+            self.parallel["worlds"].close()
+            self.parallel["pool"].shutdown(wait=False, cancel_futures=True)
+        self.pool.shutdown(wait=False, cancel_futures=True)
 
 
 def main(argv):
@@ -4998,6 +5214,10 @@ def main(argv):
     from dagnn_tpu_torch.ops import build, row_step, segment_attn
 
     t_start = time.perf_counter()
+
+    def at(label):
+        print(f"{label} {time.perf_counter() - t_start:.1f} s into the script")
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -5035,6 +5255,7 @@ def main(argv):
             flagship.pad_for(graphs), nearfar=mode))
         print(f"    near/far {mode}: collation {time.perf_counter() - t0:.2f} s")
 
+    at("[3]")
     print("[3] K1/K2 against their plain versions, one row at the flagship "
           "shapes " + json.dumps(FLAGSHIP))
     rows = phase_kernels(row_spec(dev))
@@ -5067,6 +5288,7 @@ def main(argv):
           "with a torch.matmul yardstick beside gru_fwd")
     k1_launches = phase_k1_launches(dev)
 
+    at("[4]")
     batch = convert.batch_to_torch(host0, dev)
     L = batch.fwd.node_ids.shape[0]
     n_edges = int(batch.n_edge)
@@ -5108,6 +5330,7 @@ def main(argv):
 
     # the per-direction wavefront, generic branch: K6 per level, layer and
     # direction, replayed in the backward; K5 merges the transpose grads
+    at("[9a]")
     cfg_p = flagship.flagship_cfg(segment_impl="pallas")
     n6 = cfg_p.num_layers * L * len(cfg_p.dirs)
     torch.cuda.reset_peak_memory_stats()
@@ -5139,6 +5362,7 @@ def main(argv):
 
     # the near/far layouts (K7): the merged path on both layouts, the
     # unidirectional one on "regions"; each row one K7 forward and backward
+    at("[12a]")
     nfb = {t: convert.batch_to_torch(h, dev) for t, h in nf_hosts.items()}
     for t, b in nfb.items():
         print(f"[4c] near/far workload {t}: nf {nf_layout(nf_hosts[t])} (mode, Ke, "
@@ -5186,71 +5410,98 @@ def main(argv):
     check_counts("[15]", "near/far and K2r cross-route checks", {
         "row_forward_nf": 3 * L, "row_backward_nf": 3 * L, "row_forward": 5 * L,
         "row_backward": 4 * L, "row_backward_recompute": L})
+    at("[17]")
     ab = {f"{a}/{b}": phase_ab("[17]", a, b, steppers) for a, b in (
         ("merged", "nearfar_rt"), ("merged", "nearfar_r"),
         ("unidirectional", "nearfar_unidirectional"), ("merged", "merged_k2r"))}
+    at("[18]")
     print("[18] the TOK driver (main_tok.main), runs A (2 epochs), B (resumed "
           "to 3), C (3 afresh): " + " ".join(DRIVER_FLAGS))
     driver = phase_driver(card)
+    at("[19]")
     print("[19] the LP driver (main_lp.main) at its defaults (gated_sum, "
           "unidirectional), runs A, B, C as in 18: " + " ".join(DRIVER_FLAGS))
     lp = phase_lp_driver(card)
+    at("[19b]")
     print("[19b] every aggregator kind at the flagship's widths on phase 4's "
           "batch, one bf16 train pass each, kernels against plain")
     kinds = phase_kinds(dev, batch, card)
     node_space = phase_node_space(dev, batch, card)
+    at("[20]")
     print("[20] the VAE driver (train_vae.main): NA runs A (2 epochs), B (resumed "
           "to 3), C (3 afresh): " + " ".join(NA_FLAGS))
     import shutil
     import tempfile
     root = tempfile.mkdtemp(prefix="chip_smoke_vae_")
+    beside = None
     try:
-        vae = phase_vae(dev, card, argv, root)
+        try:
+            vae = phase_vae(dev, card, argv, root)
+            # every phase whose kernels the kernel table times has run: the
+            # work in processes of its own starts here, beside 21 and 22
+            at("[21]")
+            beside = Beside(dev, graphs, params, cfg)
+            print(f"[21] started in {time.perf_counter() - beside.t0:.1f} s, to run "
+                  "beside phases 21 and 22: phase 23's spawns (2 and 4 gloo ranks), "
+                  "24e's rehearsal, phase 27's four launcher chains")
+            t0 = time.perf_counter()
+            print("[21] latent scoring and BO (run_bo, summarize) on phase 20's "
+                  "latents and checkpoints; the other VAEs (train_vae.main)")
+            scoring = phase_latent_scoring(dev, card, root)
+            scoring["wall_s"] = time.perf_counter() - t0
+            first_epochs = {m: scoring["other_vaes"][m.lower()].pop("first_epoch")
+                            for m in OTHER_VAES}
+            print(f"[21] {card}: phase 21 took {scoring['wall_s']:.1f} s")
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        at("[22]")
         t0 = time.perf_counter()
-        print("[21] latent scoring and BO (run_bo, summarize) on phase 20's "
-              "latents and checkpoints; the other VAEs (train_vae.main)")
-        scoring = phase_latent_scoring(dev, card, root)
-        scoring["wall_s"] = time.perf_counter() - t0
-        first_epochs = {m: scoring["other_vaes"][m.lower()].pop("first_epoch")
-                        for m in OTHER_VAES}
-        print(f"[21] {card}: phase 21 took {scoring['wall_s']:.1f} s")
+        print("[22] the ogbg-code2 baselines (main_tok / main_lp --gnn ..., main_basic) "
+              "at the driver's defaults, float32, on phase 18's corpus")
+        baselines = phase_baselines(dev, card, argv)
+        baselines["wall_s"] = time.perf_counter() - t0
+        print(f"[22] {card}: phase 22 took {baselines['wall_s']:.1f} s")
+        at("[23]")
+        launchers, waited = beside.wait()
+        print(f"[23] waited {waited:.1f} s for 24e's rehearsal and phase 27's "
+              f"launchers, started {time.perf_counter() - beside.t0:.1f} s ago")
+        print("[23] the parallel layer (cli.dryrun, data-parallel and edge-partitioned "
+              "steps, cli.bench_scaling) at the flagship's widths on phase 4's batch, "
+              "ranks on this one card")
+        parallel = phase_parallel(dev, card, graphs, params, cfg, started=beside.parallel)
+        at("[24]")
+        print("[24] the bench (python -m dagnn_tpu_torch.bench) and the tools of "
+              "dagnn_tpu_torch/scripts/ in process: the row and pair microbenches, "
+              "ep_decompose, rehearse_preprocess --graphs 20000, bn_ceiling")
+        tools = phase_tools(dev, card, {"merged": merged["edges_per_s"],
+                                        "pair": paired["edges_per_s"]},
+                            rehearsal=beside.rehearsal)
+        at("[25]")
+        t0 = time.perf_counter()
+        print("[25] the captured steps (dagnn_tpu_torch/train/graphs.py) against the "
+              "eager steps: the flagship TOK step (merged, pair), LP, the NA and BN "
+              "VAEs, the bench")
+        captured = phase_graphs(dev, card, argv, vae["na"]["rows_c"],
+                                vae["na"]["epoch_s"])
+        captured["wall_s"] = time.perf_counter() - t0
+        print(f"[25] {card}: phase 25 took {captured['wall_s']:.1f} s")
+        at("[26]")
+        t0 = time.perf_counter()
+        print("[26] the captured steps of every other model of the drivers: each "
+              "baseline's train step and predict, each other VAE's train step")
+        others = phase_captured_models(dev, card, argv, first_epochs)
+        others["wall_s"] = time.perf_counter() - t0
+        print(f"[26] {card}: phase 26 took {others['wall_s']:.1f} s")
     finally:
-        shutil.rmtree(root, ignore_errors=True)
-    t0 = time.perf_counter()
-    print("[22] the ogbg-code2 baselines (main_tok / main_lp --gnn ..., main_basic) "
-          "at the driver's defaults, float32, on phase 18's corpus")
-    baselines = phase_baselines(dev, card, argv)
-    baselines["wall_s"] = time.perf_counter() - t0
-    print(f"[22] {card}: phase 22 took {baselines['wall_s']:.1f} s")
-    print("[23] the parallel layer (cli.dryrun, data-parallel and edge-partitioned "
-          "steps, cli.bench_scaling) at the flagship's widths on phase 4's batch, "
-          "ranks on this one card")
-    parallel = phase_parallel(dev, card, graphs, params, cfg)
-    print("[24] the bench (python -m dagnn_tpu_torch.bench) and the tools of "
-          "dagnn_tpu_torch/scripts/ in process: the row and pair microbenches, "
-          "ep_decompose, rehearse_preprocess --graphs 20000, bn_ceiling")
-    tools = phase_tools(dev, card, {"merged": merged["edges_per_s"],
-                                    "pair": paired["edges_per_s"]})
-    t0 = time.perf_counter()
-    print("[25] the captured steps (dagnn_tpu_torch/train/graphs.py) against the "
-          "eager steps: the flagship TOK step (merged, pair), LP, the NA and BN "
-          "VAEs, the bench")
-    captured = phase_graphs(dev, card, argv, vae["na"]["rows_c"], vae["na"]["epoch_s"])
-    captured["wall_s"] = time.perf_counter() - t0
-    print(f"[25] {card}: phase 25 took {captured['wall_s']:.1f} s")
-    t0 = time.perf_counter()
-    print("[26] the captured steps of every other model of the drivers: each "
-          "baseline's train step and predict, each other VAE's train step")
-    others = phase_captured_models(dev, card, argv, first_epochs)
-    others["wall_s"] = time.perf_counter() - t0
-    print(f"[26] {card}: phase 26 took {others['wall_s']:.1f} s")
-    t0 = time.perf_counter()
+        if beside is not None:
+            beside.stop()
+    at("[27]")
     print("[27] the launchers of dagnn_tpu_torch/scripts/ as a user starts them, "
           "bash on the card, four chains at once: na_train.sh -> na_eval.sh, "
-          "ogb_tok.sh, ogb_lp.sh, bn_train.sh -> bn_eval.sh")
-    launchers = phase_launchers()
-    launchers["wall_s"] = time.perf_counter() - t0
-    print(f"[27] {card}: phase 27 took {launchers['wall_s']:.1f} s")
+          "ogb_tok.sh, ogb_lp.sh, bn_train.sh -> bn_eval.sh; run beside phases 21 "
+          "and 22")
+    print("\n".join(beside.lines))
+    print(f"[27] {card}: the four chains took {launchers['wall_s']:.1f} s")
     runs = {"merged": merged, "pair": paired, "pallas": pallas,
             "unidirectional": uni, "nearfar_rt": nf_rt, "nearfar_r": nf_r,
             "nearfar_unidirectional": nf_u, "merged_k2r": k2r}

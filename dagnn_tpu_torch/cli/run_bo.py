@@ -223,12 +223,15 @@ def score_gp(gp, X_test, y_test):
     return err, testll, float(sps.pearsonr(pred, y)[0])
 
 
-def main(argv=None, capture: bool = True):
+def main(argv=None, capture: bool = True, observe=None):
     """Returns {"gp": [(rmse, ll, pearson, refit_f64) per seed], "rounds":
     [{"seed", "round", "valid", "n", "best", "fit_s", "ei_s", "decode_s",
     "score_s"}], "scorer_quality": str or None, "graphs": {program:
     (captures, replays)} of this run}. capture=False: every program
-    eager."""
+    eager. observe: called after each BO round's decode with {"seed",
+    "round", "gp" (the round's fit), "cand" (its candidates, a tensor),
+    "arcs" (the votes), "X" (the rows the round fitted, numpy), "model"
+    (the decoder's (cfg, params))}."""
     args = parse_args(argv)
     before = graph_counts()
     dev = resolve_device("cpu" if args.cpu else "cuda")
@@ -311,6 +314,9 @@ def main(argv=None, capture: bool = True):
                         best_score, best_arc = s, arc
                 scores.append(s)
             t4 = time.perf_counter()
+            if observe is not None:
+                observe(dict(seed=seed, round=it, gp=gp_it, cand=cand, arcs=arcs,
+                             X=Xa, model=model_bundle))
             Xa = np.concatenate([Xa, cand_np], 0)
             ya = np.concatenate([ya, np.asarray(scores)[:, None]], 0)
             if best_arc is not None:

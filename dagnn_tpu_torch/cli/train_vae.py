@@ -30,10 +30,12 @@ step under its own key (JAX's single jitted step): its shape is the same
 every epoch, so a run captures it once. Every --model's step is captured
 (CAPTURED), as JAX's step_scan runs every model.
 
+The plateau schedule is the JAX driver's (dagnn_tpu/cli/train_vae.py:
+269-273): the gradients are multiplied by the schedule's scale before the
+clip and Adam, whose learning rate stays --lr; the scale is staged into
+the captured step as a 0-d float32 array, as the JAX driver passes it.
+
 Where it differs from the JAX driver, on purpose (ROADMAP queue 3):
-  * the plateau schedule lowers the learning rate (lr * scale into Adam,
-    staged into the captured step as a tensor), where the JAX driver
-    scales the gradients, which Adam undoes;
   * a resumed run is the uninterrupted run: the permutation generator is
     fast-forwarded through the finished epochs, the reparameterization
     noise and the S-VAEs' host generator (the BFS orders of
@@ -296,20 +298,22 @@ class VAEModel:
 
 
 def make_train_step(model: VAEModel, opt):
-    """train_step(params, opt_state, prepared, gen, lr) -> (params,
+    """train_step(params, opt_state, prepared, gen, scale) -> (params,
     opt_state, [total, recon, kld] on the device): one loss and backward,
-    clip and Adam at learning rate lr. Parameters the loss does not reach
-    (the encoder's dummy head; the gate/mapper pairs an attention model
-    does not use) get zero gradients, as jax.grad gives them."""
+    the gradients multiplied by the plateau schedule's scale (a float or
+    a 0-d float32 tensor), then the clip and Adam at opt's learning rate,
+    as the JAX driver's step. Parameters the loss does not reach (the
+    encoder's dummy head; the gate/mapper pairs an attention model does
+    not use) get zero gradients, as jax.grad gives them."""
 
-    def train_step(params, opt_state, prepared, gen, lr):
+    def train_step(params, opt_state, prepared, gen, scale):
         p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
         total, recon, kl = model.loss(p, prepared, gen)
         gs = torch.autograd.grad(total, list(p.values()), allow_unused=True)
         with torch.no_grad():
-            grads = {k: torch.zeros_like(v) if g is None else g
+            grads = {k: torch.zeros_like(v) if g is None else g * scale
                      for (k, v), g in zip(p.items(), gs)}
-            updates, opt_state = opt.update(grads, opt_state, lr)
+            updates, opt_state = opt.update(grads, opt_state)
             params = {k: params[k] + updates[k] for k in params}
         return params, opt_state, torch.stack([total, recon, kl]).detach()
 
@@ -327,36 +331,38 @@ CAPTURED = ("DAGNN", "DAGNN_BN", "DVAE", "DVAE_BN", "SVAE", "SVAE_oneshot",
 def make_captured_step(train_step):
     """train_step as a captured step: its state (params, opt_state, the
     epoch's [total, recon, kld] sums, which the graph adds each step's
-    into), its inputs (prepare_host's arrays, lr as a 0-d float32 array,
-    the noise generator). It keeps two graphs, the full batches' and the
-    tail's, so that neither evicts the other each epoch."""
+    into), its inputs (prepare_host's arrays, the plateau scale as a 0-d
+    float32 array, the noise generator). It keeps two graphs, the full
+    batches' and the tail's, so that neither evicts the other each
+    epoch."""
 
     def fn(state, inputs):
         params, opt_state, sums = state
-        prepared, lr, gen = inputs
-        params, opt_state, stats = train_step(params, opt_state, prepared, gen, lr)
+        prepared, scale, gen = inputs
+        params, opt_state, stats = train_step(params, opt_state, prepared, gen, scale)
         return (params, opt_state, sums + stats), None
 
     return graphs.CapturedStep(fn, keep=2)
 
 
 def train_epoch(args, model, train_step, params, opt_state, data, order,
-                gen, lr, epoch, t0, captured=None):
+                gen, scale, epoch, t0, captured=None):
     """One epoch's batches in `order` (the reference's exact batches,
     dvae/train.py:228-235, the tail one short), as the JAX driver runs
     them: the full batches in chunks of --scan-chunk, each chunk's batches
     prepared on the host and then stepped, the loss sums read once a chunk
     for the progress line; then the tail batch. Each step is one replay of
     `captured` (the tail under a key of its own), or the eager train_step
-    without it. The sums stay on the device. Returns (params, opt_state,
-    [total, recon, kld] sums)."""
+    without it, its gradients multiplied by the plateau `scale`. The sums
+    stay on the device. Returns (params, opt_state, [total, recon, kld]
+    sums)."""
     bs = args.batch_size
     starts = range(0, len(order), bs)
     full = [i for i in starts if i + bs <= len(order)]
     tail = [i for i in starts if i + bs > len(order)]
     K = max(1, min(args.scan_chunk, len(full)))
     sums = torch.zeros(3, device=model.device)
-    rate = np.asarray(lr, np.float32)
+    rate = np.asarray(scale, np.float32)
     batch_of = lambda i: [data[j] for j in order[i:i + bs]]
 
     def step(host, state):
@@ -364,7 +370,7 @@ def train_epoch(args, model, train_step, params, opt_state, data, order,
         if captured is None:
             params, opt_state, stats = train_step(
                 params, opt_state, convert.batch_to_torch(host, model.device),
-                gen, lr)
+                gen, scale)
             return params, opt_state, sums + stats
         inputs = (host, rate, gen)
         return captured(("vae", model.kind, convert.batch_key(inputs)),
@@ -433,7 +439,7 @@ def main(argv=None):
         before = ops.read_launch_counts()
         params, opt_state, sums = train_epoch(
             args, model, train_step, params, opt_state, train_data, order, gen,
-            args.lr * sched.scale, epoch, t0, captured)
+            sched.scale, epoch, t0, captured)
         tot, rec, kl = (float(x) for x in sums.cpu())
         n = len(train_data)
         print(f"====> Epoch: {epoch} Average loss: {tot / n:.4f} "

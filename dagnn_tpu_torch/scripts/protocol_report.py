@@ -12,7 +12,13 @@ with its limit and whether the port met it:
   * the test reconstruction loss at the last epoch at most 2x JAX's;
   * the seeds' mean Pearson r at least JAX's less 0.02, the mean RMSE at
     most 1.1x JAX's;
-  * every BO round with a valid architecture, the best score beside JAX's.
+  * every BO round of every seed decoding at least 45 of its 50
+    candidates into valid architectures (the JAX record decoded 50 of 50
+    in every round, commit 711d55f), the best score beside JAX's.
+
+The card's name and power limit head the table, from `card.txt` in the
+port's training directory (what the run wrote from `nvidia-smi
+--query-gpu=name,power.limit --format=csv,noheader`).
 
 Where the port's directories also hold the launchers' output with each
 line stamped by the host clock (train_log.txt, eval_log.txt: "<unix
@@ -108,6 +114,17 @@ def times(port, port_bo):
     return lines
 
 
+VALID_SHARE = 0.9     # of a round's candidates: 45 of 50
+
+
+def card(port):
+    path = os.path.join(port, "card.txt")
+    if not os.path.exists(path):
+        return "not recorded"
+    with open(path) as f:
+        return f.read().strip()
+
+
 def report(args) -> tuple:
     """(markdown lines, {limit: met})."""
     pl, jl = losses(args.port), losses(args.jax)
@@ -123,7 +140,7 @@ def report(args) -> tuple:
     last = min(max(pl), max(jl))
     pt, jt = test_recon(args.port), test_recon(args.jax)
     met["test_recon"] = pt <= 2 * jt
-    rows.append(f"| test recon loss, epoch {last} | {jt:.4f} | {pt:.4f} | at most "
+    rows.append(f"| test recon loss, epoch {last} | {jt:.4f} | {pt:.4g} | at most "
                 f"{2 * jt:.4f} | {'yes' if met['test_recon'] else 'no'} |")
     (pr, pb), (jr, jb) = read_bo(args.port_bo), read_bo(args.jax_bo)
     for i, name, lim, ok in ((2, "Pearson r", f"at least {jr[:, 2].mean() - 0.02:.4f}",
@@ -135,13 +152,17 @@ def report(args) -> tuple:
         rows.append(f"| {name}, mean of {len(pr)} seeds (JAX {len(jr)}) | {j:.4f} ± "
                     f"{jr[:, i].std():.4f} | {p:.4f} ± {pr[:, i].std():.4f} | {lim} | "
                     f"{'yes' if met[name] else 'no'} |")
-    valid = [int(m[1]) for _, ln in stamped(os.path.join(args.port_bo, "eval_log.txt"))
-             for m in [re.search(r"BO round \d+: (\d+)/\d+ valid", ln)] if m]
+    valid = [(int(m[1]), int(m[2]))
+             for _, ln in stamped(os.path.join(args.port_bo, "eval_log.txt"))
+             for m in [re.search(r"BO round \d+: (\d+)/(\d+) valid", ln)] if m]
     if valid:
-        met["valid_rounds"] = all(valid)
-        rows.append(f"| BO rounds that decoded a valid architecture | not recorded | "
-                    f"{sum(v > 0 for v in valid)} of {len(valid)} ({sum(valid)} valid "
-                    f"of {50 * len(valid)} candidates) | every round | "
+        met["valid_rounds"] = all(v >= VALID_SHARE * n for v, n in valid)
+        least = min(v for v, _ in valid)
+        rows.append(f"| BO rounds decoding at least {VALID_SHARE:.0%} of their "
+                    f"candidates | 50 of 50 in every round (711d55f) | "
+                    f"{sum(v >= VALID_SHARE * n for v, n in valid)} of {len(valid)}, "
+                    f"the least {least} of {valid[0][1]} ({sum(v for v, _ in valid)} valid "
+                    f"of {sum(n for _, n in valid)} candidates) | every round | "
                     f"{'yes' if met['valid_rounds'] else 'no'} |")
     rows.append(f"| best BO score, {len(pb)} rounds (JAX {len(jb)}) | "
                 f"{max(jb):.4f} | {max(pb):.4f} | reported | |")
@@ -151,6 +172,7 @@ def report(args) -> tuple:
 def main(argv=None):
     args = parse_args(argv)
     rows, met = report(args)
+    print(f"the port's run: {card(args.port)}")
     print("\n".join(rows + times(args.port, args.port_bo)))
     return met
 

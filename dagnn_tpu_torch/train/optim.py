@@ -4,11 +4,11 @@ driver's plateau schedule.
 Counterpart of dagnn_tpu/train/optim.py: make_optimizer is the OGB
 drivers' Adam(lr) + grad-norm clip 0.25 (reference: main_pyg.py:63-64,
 297), as the optax chain clip_by_global_norm(clip) -> adam(lr); its update
-takes an `lr` that replaces the one it was made with, the learning rate a
-driver lowers between epochs (optax's inject_hyperparams): a float, or a
-0-d float32 tensor on the gradients' device, which a captured step
-(train/graphs.py) stages before each replay, where a float would be
-frozen into the graph at its capture. The two give the same bits.
+takes an `lr` that replaces the one it was made with (optax's
+inject_hyperparams): a float, or a 0-d float32 tensor on the gradients'
+device, which a captured step (train/graphs.py; the GP fit's) stages
+before each replay, where a float would be frozen into the graph at its
+capture. The two give the same bits.
 PlateauScheduler is ReduceLROnPlateau(factor 0.1, patience 10) of the dvae
 driver (dvae/train.py:193-194). Two details differ from torch's own tools
 and are kept on purpose:
@@ -75,9 +75,10 @@ def make_optimizer(lr: float = 1e-3, clip: float = 0.25, b1: float = 0.9,
 
 class PlateauScheduler:
     """ReduceLROnPlateau(mode='min') on the host: after more than
-    `patience` epochs without a new best metric, scale *= factor. The
-    driver's learning rate is lr * scale. state_dict() holds plain
-    numbers, so a checkpoint's results can carry it."""
+    `patience` epochs without a new best metric, scale *= factor. The VAE
+    driver multiplies its gradients by scale before the clip and Adam, as
+    the JAX driver does. state_dict() holds plain numbers, so a
+    checkpoint's results can carry it."""
 
     def __init__(self, factor: float = 0.1, patience: int = 10):
         self.factor = factor

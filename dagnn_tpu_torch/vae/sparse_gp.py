@@ -38,10 +38,18 @@ order: the two give the same bits. capture=False keeps the eager form; on
 CPU tensors the captured form calls the same step functions directly.
 
 The EI's normal CDF is written from erf / erfc as JAX's ndtr is (see
-_ndtr). Where the JAX package writes log(max(ei, 1e-300)), the floor is a
-constant of the operands' dtype: 0 in float32, so log EI is -inf wherever
-EI underflows, as in JAX's float32 arithmetic (the top-8 argsort and the
-argmax then rank the same points).
+_ndtr). The JAX package writes log(max(ei, 1e-300)); in float32, where it
+runs, 1e-300 is 0, so its log EI is -inf wherever EI underflows and its
+gradient there NaN. On a trained NA VAE's latents that happens in the
+greedy EI: a refined point whose predicted mean lies far below the data's
+drops the believer's incumbent, every grid point's EI then underflows,
+the refinement's Adam steps go NaN, and the NaN point poisons the
+believer's system, so every later candidate of the round is NaN (49 of
+50 on the card, and in JAX on the CPU from the same latents). The port's
+floor is 1e-300 where the dtype holds it (float64) and the dtype's
+smallest normal number elsewhere (1.2e-38 in float32): log EI is finite
+there, its gradient 0, and wherever EI is at least the floor the values
+are JAX's.
 """
 
 from __future__ import annotations
@@ -299,6 +307,10 @@ def _stable(gp: SparseGP) -> SparseGP:
         return gp
     print("sparse GP: the float32 posterior has no Cholesky factor; "
           f"predicting in float64 on {gp.X.device}")
+    return _float64(gp)
+
+
+def _float64(gp: SparseGP) -> SparseGP:
     return SparseGP({k: v.double() for k, v in gp.params.items()}, gp.X.double(),
                     gp.y.double(), gp.refit_f64)
 
@@ -347,7 +359,9 @@ def _log_ei_from(mean, var, incumbent):
     gamma = (incumbent - mean) / sd
     ei = sd * (gamma * _ndtr(gamma)
                + torch.exp(-0.5 * gamma ** 2) / _SQRT_2PI)
-    floor = ei.new_full((), 1e-300)                   # 0 in f32; no H2D copy
+    # JAX's 1e-300 where the dtype holds it (float64), else the dtype's
+    # smallest normal number; new_full: no H2D copy
+    floor = ei.new_full((), max(1e-300, torch.finfo(ei.dtype).tiny))
     return torch.log(torch.maximum(ei, floor))
 
 
@@ -421,7 +435,10 @@ def batched_greedy_ei(gp: SparseGP, q: int, lower, upper, mean, std,
     a selected point joins the train set with its predicted mean (Kriging
     believer) so the batch spreads out. The [M, N] part of the posterior
     is built once; each believer point is a rank-1 update of B = I + A A^T
-    and of A y. Runs in float64 where _stable says so. The round's set-up
+    and of A y. Runs in float64 where _stable says so; a float32 round
+    with a non-finite candidate (the believer's B = I + A A^T can lose its
+    float32 Cholesky factor after an update) is redone in float64 on the
+    same device, with one printed line (one host sync). The round's set-up
     is eager; capture: each candidate a replay of EI's graph (False:
     _candidate_step eagerly)."""
     dev = gp.X.device
@@ -452,4 +469,10 @@ def batched_greedy_ei(gp: SparseGP, q: int, lower, upper, mean, std,
     for _ in range(q):
         state, best = step(key, state, refine_iters)
         chosen.append(best)
-    return torch.cat(chosen, 0)
+    out = torch.cat(chosen, 0)
+    if gp.X.dtype == torch.float32 and not bool(torch.isfinite(out).all()):
+        print("greedy EI: a float32 candidate went non-finite; redoing the round "
+              f"in float64 on {dev}")
+        return batched_greedy_ei(_float64(gp), q, lower, upper, mean, std, sample,
+                                 grid_size, refine_iters, seed, capture)
+    return out

@@ -5,7 +5,8 @@ minutes).
 Both drivers train 6 epochs on the corpus's first 1,100 rows (990 train
 graphs) with the same flags, the port from the JAX init (as the test
 suite's parity tests do), so that only the two packages' noise streams
-differ. Prints each epoch's (loss, recon, kld) of both and their ratio.
+differ. Prints each epoch's (loss, recon, kld) of both and their ratio,
+and exits non-zero where an epoch's loss is not within RTOL of JAX's.
 
     JAX_PLATFORMS=cpu python tests/na_curve_check.py --hs 501
 """
@@ -27,6 +28,14 @@ from dagnn_tpu.cli import train_vae as jdriver  # noqa: E402
 from dagnn_tpu.vae import dagnn_vae as jvae  # noqa: E402
 from dagnn_tpu_torch import convert  # noqa: E402
 from dagnn_tpu_torch.cli import train_vae as tdriver  # noqa: E402
+
+# Each epoch's mean loss of the port within this of JAX's, relative, at the
+# default hs 64: the two drivers differ only in their noise streams (read
+# 4e-4 over 6 epochs on 990 graphs on the CPU). A wider model parts further
+# (1.3e-2 at hs 501), so the exit code holds the default width only.
+# tests/test_torch_bo_trained.py holds the curve across a plateau drop to
+# this bound.
+RTOL = 1e-3
 
 
 def _rows(res_dir):
@@ -51,11 +60,15 @@ def main(argv=None):
     with tempfile.TemporaryDirectory() as root:
         jdriver.main(flags + ["--res_dir", os.path.join(root, "jax")])
         tdriver.main(flags + ["--res_dir", os.path.join(root, "port")])
+        worst = 0.0
         for e, (j, t) in enumerate(zip(_rows(os.path.join(root, "jax")),
                                        _rows(os.path.join(root, "port"))), 1):
             print(f"epoch {e}: JAX {[round(v, 4) for v in j]}, port "
                   f"{[round(v, 4) for v in t]}, loss port / JAX {t[0] / j[0]:.4f}")
+            worst = max(worst, abs(t[0] / j[0] - 1))
+    print(f"largest relative difference {worst:.2e} (limit {RTOL:.0e} at hs 64)")
+    return worst <= RTOL or args.hs != "64"
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(0 if main() else 1)

@@ -1078,7 +1078,7 @@ def test_graph_nodes_hold_what_a_replay_launches(dev):
 
 def test_captured_vae_step_equals_eager_step(dev):
     """The NA VAE's captured train step (hs 45, nz 6, attn_h; K6 and K5)
-    over three batches of 8 graphs, the learning rate changed every call,
+    over three batches of 8 graphs, the plateau scale changed every call,
     against the eager step from the same weights and noise seed: bit for
     bit, parameters and loss sums."""
     from dagnn_tpu_torch import convert
@@ -1129,7 +1129,7 @@ def test_captured_vae_epochs_replay_the_tail(dev):
             gen.manual_seed(100 + epoch)
             p, s, total = train_vae.train_epoch(
                 args, model, step, *state, graphs, rnd.permutation(len(graphs)),
-                gen, 1e-3, epoch, time.time(), cap)
+                gen, 1.0, epoch, time.time(), cap)
             state = (p, s)
             sums.append(total.clone())
         runs[tag] = ({k: v.clone() for k, v in state[0].items()},

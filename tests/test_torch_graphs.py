@@ -38,6 +38,7 @@ import pytest
 import torch
 
 from dagnn_tpu.cli import train_vae as jdriver
+from dagnn_tpu.train import optim as joptim
 from dagnn_tpu.vae import dagnn_vae as jvae
 from dagnn_tpu_torch import convert, flagship
 from dagnn_tpu_torch.cli import ogb_driver
@@ -137,8 +138,9 @@ def test_state_given_again_is_copied_in():
 
 def test_vae_step_stages_the_learning_rate(tmp_path):
     """The VAE's captured step (its state the parameters, Adam's and the
-    loss sums; its inputs the host batch, lr and the noise generator)
-    with lr changed every call, against the eager step."""
+    loss sums; its inputs the host batch, the plateau scale the gradients
+    are multiplied by, and the noise generator) with the scale changed
+    every call, against the eager step."""
     args = tdriver.parse_args(["--cpu", "--max-count", "40", "--hs", "8",
                                "--nz", "4", "--res_dir", str(tmp_path)])
     train, _, ga = tdriver.load_data(args)
@@ -319,8 +321,18 @@ def _rows(res_dir):
 
 
 class _DropAfterEpoch1(optim.PlateauScheduler):
+    """A drop after epoch 1 to scale 0: the gradients then reach the clip
+    and Adam as zeros, so that the drop shows in epoch 2 (a drop to 0.1
+    is one Adam all but undoes)."""
+
     def step(self, metric):
-        self.scale = 0.1
+        self.scale = 0.0
+        return self.scale
+
+
+class _JaxDropAfterEpoch1(joptim.PlateauScheduler):
+    def step(self, metric):
+        self.scale = 0.0
         return self.scale
 
 
@@ -346,7 +358,7 @@ def test_captured_epochs_replay_the_tail(tmp_path):
             gen.manual_seed(100 + epoch)
             *state, total = tdriver.train_epoch(
                 args, model, step, *state, train, rnd.permutation(len(train)), gen,
-                1e-3, epoch, 0.0, cap)
+                1.0, epoch, 0.0, cap)
             sums.append(total.clone())
         runs[tag] = (convert.tree_map(torch.clone, tuple(state)), sums)
     (sc, uc), (se, ue) = runs["captured"], runs["eager"]
@@ -360,7 +372,10 @@ def test_scan_chunk_epochs_match_jax_and_a_plateau_drop_reaches_the_replay(
         tmp_path, no_noise, jax_weights, monkeypatch):
     """27 train graphs in batches of 8: one chunk of 3 full batches (three
     replays) and a tail of 3 (a replay under its own key), as JAX's
-    step_scan of 3 and its single step."""
+    step_scan of 3 and its single step. Then a forced plateau drop after
+    epoch 1, its scale staged into the replays: captured equals eager bit
+    for bit, epoch 2 moves, and both follow the JAX driver under the same
+    drop (the gradients scaled before the clip and Adam)."""
     d = lambda tag: ["--res_dir", str(tmp_path / tag)]
     jdriver.main(FLAGS + d("jax"))
     tdriver.main(FLAGS + d("port"))
@@ -370,12 +385,16 @@ def test_scan_chunk_epochs_match_jax_and_a_plateau_drop_reaches_the_replay(
         np.testing.assert_allclose(t, j, rtol=RTOL, atol=ATOL)
 
     monkeypatch.setattr(tdriver, "PlateauScheduler", _DropAfterEpoch1)
+    monkeypatch.setattr(jdriver, "PlateauScheduler", _JaxDropAfterEpoch1)
+    jdriver.main(FLAGS + d("jax_drop"))
     tdriver.main(FLAGS + d("drop"))
     monkeypatch.setattr(tdriver, "CAPTURED", ())
     tdriver.main(FLAGS + d("drop_eager"))
     drop, eager = _rows(tmp_path / "drop"), _rows(tmp_path / "drop_eager")
     assert drop == eager
     assert drop[0] == trows[0] and drop[1] != trows[1]
+    for j, t in zip(_rows(tmp_path / "jax_drop"), drop):
+        np.testing.assert_allclose(t, j, rtol=RTOL, atol=ATOL)
     ckpt = lambda tag: torch.load(tmp_path / tag / "DAGNN_0_2.ckpt",
                                   weights_only=True)["params"]
     _equal(ckpt("drop"), ckpt("drop_eager"), "parameters after the drop")

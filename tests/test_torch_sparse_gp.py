@@ -1,12 +1,15 @@
 """The port's sparse GP (dagnn_tpu_torch/vae/sparse_gp.py) against the JAX
 package's on the CPU, both in float32 (the JAX package runs with
 jax_enable_x64 off): the collapsed bound and its gradient, masked and
-unmasked; a 5-iteration fit from the same seed; predict; log EI, -inf
-where EI underflows in float32 as in JAX; batched greedy EI from the same
+unmasked; a 5-iteration fit from the same seed; predict; log EI, and
+where EI underflows in float32 (JAX's log(max(ei, 1e-300)) is -inf there,
+its floor being 0 in float32) the port's floor, float32's smallest normal
+number; batched greedy EI from the same
 fitted parameters and seed. Then the port's own versions of the JAX
 package's behavioural cases (tests/test_sparse_gp.py:10, 25, 61), the
 float64 refit when the float32 fit goes non-finite, the float64 posterior
-when its float32 factor fails, and the TF32 guard.
+when its float32 factor fails, the float64 greedy-EI round when a
+float32 candidate goes non-finite, and the TF32 guard.
 
 Sizes: a few hundred rows of seeded numpy data, M 20-64. Tolerances: the
 bound 1e-5 relative, its gradient rtol 5e-4 / atol 5e-5; fitted
@@ -90,13 +93,15 @@ def test_fit_predict_ei_match_jax():
         assert np.abs(got.numpy() - want).max() <= 1e-4 * np.abs(want).max()
     # log EI: finite values agree, the lower tail included (gamma to -12:
     # the normal CDF from erfc, as in JAX); where EI underflows in float32
-    # (an incumbent 30 predictive sds below the mean) both are -inf
+    # (an incumbent 30 predictive sds below the mean) JAX's is -inf and the
+    # port's is its floor, log of float32's smallest normal number
     xq = np.concatenate([Xs[:10], 25.0 + Xs[:3]]).astype(np.float32)
     cj, ct = J._posterior_cache(gj), T._posterior_cache(gp)
+    floor = np.log(np.finfo(np.float32).tiny, dtype=np.float32)
     for inc in (-0.3, -40.0):
         want = np.asarray(J.log_ei(cj, jnp.asarray(xq), inc))
         got = T.log_ei(ct, torch.tensor(xq), torch.tensor(inc)).numpy()
-        np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
+        np.testing.assert_array_equal(got[np.isneginf(want)], floor)
         fin = np.isfinite(want)
         np.testing.assert_allclose(got[fin], want[fin], rtol=1e-4, atol=1e-5)
     assert np.isneginf(want).all()   # inc -40: every EI underflows
@@ -181,6 +186,31 @@ def test_posterior_in_float64_when_its_float32_factor_fails(monkeypatch, capsys)
     cand = T.batched_greedy_ei(gp, 2, X.min(0), X.max(0), X.mean(0), X.std(0),
                                grid_size=200, refine_iters=3)
     assert cand.dtype == torch.float64 and torch.isfinite(cand).all()
+
+
+def test_greedy_ei_in_float64_when_a_float32_candidate_goes_nonfinite(monkeypatch,
+                                                                      capsys):
+    """A float32 greedy-EI round with a non-finite candidate (forced here:
+    the believer's float32 B loses its Cholesky factor after the first
+    update, as on a trained NA VAE's latents) is redone in float64, with
+    one printed line: the float64 round's candidates, all finite."""
+    X, y, _ = _data(n=120)
+    gp = T.fit_sparse_gp(X, y, M=16, iters=5, device="cpu")
+    args = (3, X.min(0), X.max(0), X.mean(0), X.std(0))
+    kw = dict(grid_size=200, refine_iters=3, seed=1, capture=False)
+    want = T.batched_greedy_ei(T._float64(gp), *args, **kw)
+    step = T._candidate_step
+
+    def broken(state, n):
+        state, best = step(state, n)
+        if best.dtype == torch.float32:
+            best = torch.full_like(best, torch.nan)
+        return state, best
+
+    monkeypatch.setattr(T, "_candidate_step", broken)
+    got = T.batched_greedy_ei(gp, *args, **kw)
+    assert "float64" in capsys.readouterr().out
+    assert got.dtype == torch.float64 and torch.equal(got, want)
 
 
 def test_tf32_is_refused_on_the_card():

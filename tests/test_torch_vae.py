@@ -323,11 +323,26 @@ def test_load_partial_state_across_architectures(tmp_path):
     assert out["enc.head.w"] is big["enc.head.w"]
 
 
-def test_plateau_lowers_the_learning_rate():
-    """After the plateau scheduler drops to 0.1, the port's Adam step is
-    0.1x its previous size; the JAX driver's (gradients scaled by 0.1
-    before clip and Adam, dagnn_tpu/cli/train_vae.py:269-273) is unchanged
-    up to Adam's eps (ROADMAP queue 3)."""
+class _LinearLoss:
+    """A stand-in for train_vae's VAEModel whose loss is sum(c * w), so
+    that its gradient is c."""
+
+    def __init__(self, c):
+        self.c = c
+
+    def loss(self, p, prepared, gen):
+        total = torch.sum(p["w"] * self.c)
+        return total, total, torch.zeros(())
+
+
+@pytest.mark.parametrize("size", [0.01, 10.0], ids=["under_clip", "over_clip"])
+def test_plateau_scales_the_gradients_as_jax(size):
+    """The plateau schedule drops to 0.1 and its state round-trips; the
+    VAE driver's train step multiplies the gradients by the schedule's
+    scale before the clip 0.25 and Adam at the unchanged lr, as the JAX
+    driver's step (dagnn_tpu/cli/train_vae.py:269-273): steps at scales 1,
+    0.1, 0.1 give the parameters of JAX's optax chain fed the scaled
+    gradients, for gradients under the clip and over it."""
     sched = toptim.PlateauScheduler(factor=0.1, patience=2)
     for m in (5.0, 4.0, 4.0, 4.0, 4.0):
         sched.step(m)
@@ -337,17 +352,19 @@ def test_plateau_lowers_the_learning_rate():
     assert state.state_dict() == sched.state_dict()
 
     rng = np.random.default_rng(0)
-    p = {"w": rng.normal(size=(4, 3)).astype(np.float32)}
-    g = {"w": 0.01 * rng.normal(size=(4, 3)).astype(np.float32)}
+    w = rng.normal(size=(4, 3)).astype(np.float32)
+    c = (size * rng.normal(size=(4, 3))).astype(np.float32)
+    from dagnn_tpu_torch.cli import train_vae as tdriver
+    step = tdriver.make_train_step(_LinearLoss(torch.as_tensor(c)),
+                                   toptim.make_optimizer(1e-2, clip=0.25))
     jopt = joptim.make_optimizer(1e-2, clip=0.25)
-    js = jopt.init(jax.tree.map(jnp.asarray, p))
-    jup = {s: np.asarray(jopt.update(jax.tree.map(lambda a: jnp.asarray(a) * s, g),
-                                     js, p)[0]["w"]) for s in (1.0, 0.1)}
-    np.testing.assert_allclose(jup[0.1], jup[1.0], rtol=1e-4)
-    topt = toptim.make_optimizer(1e-2, clip=0.25)
-    tp = {"w": torch.as_tensor(p["w"])}
-    ts = topt.init(tp)
-    tg = {"w": torch.as_tensor(g["w"])}
-    tup = {s: topt.update(tg, ts, 1e-2 * s)[0]["w"].numpy() for s in (1.0, 0.1)}
-    np.testing.assert_allclose(tup[1.0], jup[1.0], rtol=1e-5, atol=1e-9)
-    np.testing.assert_allclose(tup[0.1], 0.1 * tup[1.0], rtol=1e-6)
+    tp = {"w": torch.as_tensor(w)}
+    ts = toptim.make_optimizer(1e-2, clip=0.25).init(tp)
+    jp = {"w": jnp.asarray(w)}
+    js = jopt.init(jp)
+    for scale in (1.0, 0.1, 0.1):
+        tp, ts, _ = step(tp, ts, None, None, scale)
+        up, js = jopt.update({"w": jnp.asarray(c) * scale}, js, jp)
+        jp = {"w": jp["w"] + up["w"]}
+        np.testing.assert_allclose(tp["w"].numpy(), np.asarray(jp["w"]), rtol=1e-5,
+                                   atol=1e-6, err_msg=f"scale {scale}")
